@@ -1,0 +1,81 @@
+"""Rules of the PyTorch/CUDA port: fnssl_tpu_torch imports neither JAX
+nor fnssl_tpu, and its entry points, asked for the default device where
+there is no CUDA, raise instead of running on the CPU."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+IMPORT_ALL = """
+import json, pkgutil, importlib, sys
+import fnssl_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    fnssl_tpu_torch.__path__, "fnssl_tpu_torch.")
+    if not m.name.endswith("__main__"))
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "fnssl_tpu."))
+             or m == "fnssl_tpu")
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_fnssl_tpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    assert "fnssl_tpu_torch.kernels.lstm_cuda" in out["modules"]
+    assert "fnssl_tpu_torch.runtime.server" in out["modules"]
+    assert len(out["modules"]) >= 20
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
+    from fnssl_tpu_torch.cli.main import main
+    from fnssl_tpu_torch.eval.pred_doa import PredDOA
+    from fnssl_tpu_torch.models.fnssl import FNSSL
+    from fnssl_tpu_torch.models.lstm import LSTM
+    from fnssl_tpu_torch.runtime.streaming import StreamingLocalizer
+
+    for make in (FNSSL, lambda: LSTM(4, 32), PredDOA,
+                 lambda: StreamingLocalizer(lambda f: f, nch=2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["serve", "--port", "0", "--log-dir", str(tmp_path)])
+
+
+def test_cpu_is_taken_only_when_asked(no_cuda):
+    from fnssl_tpu_torch.utils.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError):
+        resolve_device()
+
+
+def test_kernel_sources_ship_with_the_package():
+    from fnssl_tpu_torch.kernels import cuda_build
+
+    src = cuda_build.CSRC / "lstm_fwd.cu"
+    assert src.exists()
+    text = src.read_text()
+    assert 'extern "C" int lstm_fwd(' in text
+    assert "lstm_pallas.py:_lstm_kernel" in text
+    assert "sm_90a" in " ".join(cuda_build.NVCC_FLAGS)
+    assert cuda_build.library_path("lstm_fwd").parent == cuda_build.BUILD_DIR
