@@ -5,18 +5,25 @@
 
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device  — the card's name and power limit (nvidia-smi); no CUDA, no run.
-  2. build   — nvcc builds every kernel from the sources in the checkout,
-               one nvcc per source, all started together.
-  3. kernels — each kernel against its plain PyTorch version on the card,
-               at the main path's shapes (fp32 and bf16, both directions)
-               and at edge shapes (ragged B, short T, H = 64).
+  2. build   — nvcc builds every kernel from the sources in the checkout
+               (lstm_cluster.cu, lstm_fwd.cu), one nvcc per source, all
+               started together.
+  3. kernels — each kernel against its plain PyTorch version on the card:
+               the cluster kernel through lstm_fwd (both directions) and
+               lstm_fwd_bidir at the main path's shapes and at edge cases
+               (B 1/11/13/17, T 0/1/2/7, H 32/64/128/256), fp32 and bf16,
+               nonzero h0/c0; lstm_fwd.cu at H = 512, its only use.
   4. serve   — `cli serve --model fnssl` at full width (fresh weights from
                --seed) on cuda:0 answers 3 TCP connections of 5 s of 2-channel
-               16 kHz audio; launch counts, eof counts, and agreement with
-               the same pipeline on the CPU (plain versions) are checked.
-  5. times   — each kernel at the main path's shapes (CUDA events, warm),
-               its plain version, its bound, and torch.nn.LSTM (cuDNN) as
-               the library yardstick (the port never calls it).
+               16 kHz audio; launch counts (6 a chunk step), eof counts, and
+               agreement with the same pipeline on the CPU (plain versions)
+               are checked.
+  5. times   — each kernel at the main path's shapes (CUDA events, warm):
+               the cluster kernel one direction and, at full band, both in
+               one launch; lstm_fwd.cu; the plain version; the bound; and
+               torch.nn.LSTM (cuDNN, one- and bidirectional) as the library
+               yardstick (the port never calls it). Then every cluster plan
+               (N, Bt, KS) that fits at the two serve shapes.
 The line before the last is the kernels JSON line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -24,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -51,60 +59,99 @@ SHAPES = [("serve_fullband", 256, 12, 128, 256),
           ("serve_narrowband", 12, 256, 256, 256),
           ("oneshot_fullband", 256, 298, 128, 256),
           ("oneshot_narrowband", 298, 256, 256, 256)]
-# launches of each shape in one online chunk step: 3 blocks × 2 / × 1
-PER_CHUNK = {"serve_fullband": 6, "serve_narrowband": 3}
+# recurrences of each shape in one online chunk step (3 FN blocks): a
+# BiLSTM over frequency (both directions in one launch of the cluster
+# kernel, two of lstm_fwd.cu) and a one-direction LSTM over time
+PER_CHUNK = {"serve_fullband": 3, "serve_narrowband": 3}
+LAUNCHES_PER_CHUNK = 6
+EDGE_B, EDGE_T, EDGE_H = (1, 11, 13, 17), (0, 1, 2, 7), (32, 64, 128, 256)
+V2_CASE = (5, 13, 512)                  # (T, B, H): lstm_fwd.cu serves H > 256
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def lstm_inputs(t_steps, batch, hidden, dtype, device, seed):
+def lstm_inputs(t_steps, batch, hidden, dtype, device, seed, ndir=None):
+    """Recurrence inputs; with ndir, stacked (ndir, ...) for lstm_fwd_bidir."""
+    lead = () if ndir is None else (ndir,)
     g = torch.Generator().manual_seed(seed)
-    xg = torch.randn(t_steps, batch, 4 * hidden, generator=g)
-    w = torch.randn(hidden, 4 * hidden, generator=g) / hidden ** 0.5
-    h0 = torch.randn(batch, hidden, generator=g) * 0.5
-    c0 = torch.randn(batch, hidden, generator=g) * 0.5
+    xg = torch.randn(*lead, t_steps, batch, 4 * hidden, generator=g)
+    w = torch.randn(*lead, hidden, 4 * hidden, generator=g) / hidden ** 0.5
+    h0 = torch.randn(*lead, batch, hidden, generator=g) * 0.5
+    c0 = torch.randn(*lead, batch, hidden, generator=g) * 0.5
     return (xg.to(device, dtype), w.to(device, dtype), h0.to(device),
             c0.to(device))
 
 
+def held(kernel, what, dtype, got, want, worst):
+    """Max |kernel - plain| of ys, hT, cT against TOL; folds them into
+    worst[kernel]."""
+    torch.cuda.synchronize()
+    errs = {k: (g.float() - w.float()).abs().max().item() if g.numel()
+            else 0.0 for k, g, w in zip(("ys", "hT", "cT"), got, want)}
+    for k, v in errs.items():
+        if not v <= TOL[dtype][k]:
+            raise AssertionError(f"{kernel} {what} {dtype}: {k} max|diff| "
+                                 f"{v} > {TOL[dtype][k]}")
+    w = worst[kernel]
+    if dtype == "float32":
+        w["float32"] = max(w["float32"], *errs.values())
+    else:
+        w["bfloat16_ys"] = max(w["bfloat16_ys"], errs["ys"])
+        w["bfloat16"] = max(w["bfloat16"], errs["hT"], errs["cT"])
+    return errs
+
+
+def counted(counter, n, fn, *args, **kwargs):
+    """fn(*args) and a check that it launched exactly n kernels."""
+    before = counter.value
+    out = fn(*args, **kwargs)
+    if counter.value != before + n:
+        raise AssertionError(f"{fn.__name__} launched "
+                             f"{counter.value - before} times, expected {n}")
+    return out
+
+
 def phase_kernels(device):
     """K1 against its plain version on the card. Returns the worst errors
-    by dtype."""
-    from fnssl_tpu_torch.kernels import lstm_cuda
+    by kernel and dtype, and the number of checks."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
 
+    worst = {k: {"float32": 0.0, "bfloat16": 0.0, "bfloat16_ys": 0.0}
+             for k in ("lstm_cluster", "lstm_fwd")}
     cases = [(n, t, b, h) for n, t, b, h, _ in SHAPES]
-    cases += [("ragged", t, 11, 64) for t in (1, 2, 7)]
-    cases += [("h64", 298, 37, 64), ("h32", 5, 3, 32)]
-    worst = {"float32": 0.0, "bfloat16": 0.0, "bfloat16_ys": 0.0}
-    seed = 0
+    cases += [("edge", t, b, h) for h in EDGE_H for b in EDGE_B
+              for t in EDGE_T]
+    cases += [("v2_h512", *V2_CASE)]
+    seed, checks = 0, 0
     for name, t, b, h in cases:
+        kernel = "lstm_fwd" if h > L.CLUSTER_MAX_HIDDEN else "lstm_cluster"
+        counter = L.launches_v2 if kernel == "lstm_fwd" else L.launches
         for dtype in ("float32", "bfloat16"):
+            seed += 1
+            both = lstm_inputs(t, b, h, getattr(torch, dtype), device, seed,
+                               ndir=2)
+            errs = []
             for reverse in (False, True):
-                seed += 1
-                args = lstm_inputs(t, b, h, getattr(torch, dtype), device,
-                                   seed)
-                got = lstm_cuda.lstm_fwd(*args, reverse=reverse)
-                torch.cuda.synchronize()
-                want = lstm_cuda.lstm_fwd_plain(*args, reverse=reverse)
-                errs = {k: (g.float() - w.float()).abs().max().item()
-                        for k, g, w in zip(("ys", "hT", "cT"), got, want)}
-                log(f"  K1 {name:20s} T={t:3d} B={b:3d} H={h:3d} "
-                    f"{dtype:8s} reverse={int(reverse)} max|diff| "
-                    + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
-                for k, v in errs.items():
-                    if not v <= TOL[dtype][k]:
-                        raise AssertionError(
-                            f"K1 {name} {dtype} reverse={reverse}: {k} "
-                            f"max|diff| {v} > {TOL[dtype][k]}")
-                if dtype == "float32":
-                    worst["float32"] = max(worst["float32"], *errs.values())
-                else:
-                    worst["bfloat16_ys"] = max(worst["bfloat16_ys"],
-                                               errs["ys"])
-                    worst["bfloat16"] = max(worst["bfloat16"], errs["hT"],
-                                            errs["cT"])
+                one = tuple(a[int(reverse)] for a in both)
+                got = counted(counter, 1, L.lstm_fwd, *one, reverse=reverse)
+                errs.append(held(kernel, f"{name} lstm_fwd reverse="
+                                 f"{int(reverse)}", dtype, got,
+                                 L.lstm_fwd_plain(*one, reverse=reverse),
+                                 worst))
+            got = counted(counter, 1 if kernel == "lstm_cluster" else 2,
+                          L.lstm_fwd_bidir, *both)
+            errs.append(held(kernel, f"{name} lstm_fwd_bidir", dtype, got,
+                             L.lstm_fwd_bidir_plain(*both), worst))
+            checks += 3
+            if name != "edge":
+                log(f"  {kernel} {name:18s} T={t:3d} B={b:3d} H={h:3d} "
+                    f"{dtype:8s} max|diff| fwd/rev/bidir ys "
+                    + "/".join(f"{e['ys']:.2e}" for e in errs) + " hT,cT "
+                    + "/".join(f"{max(e['hT'], e['cT']):.2e}" for e in errs))
+    log(f"  {checks} checks passed; edge cases B {EDGE_B} x T {EDGE_T} x "
+        f"H {EDGE_H}; worst {json.dumps(worst)}")
     return worst
 
 
@@ -185,10 +232,12 @@ def phase_serve(seed, device):
     conns = [(seed + 100 + k, d) for k, d in enumerate((3, -5, 0))]
     try:
         lstm_cuda.launches.reset()
+        lstm_cuda.launches_v2.reset()
         replies = [stream_client("127.0.0.1", server.port,
                                  make_audio(s, d), block=block)
                    for s, d in conns]
         launches = lstm_cuda.launches.value
+        launches_v2 = lstm_cuda.launches_v2.value
     finally:
         server.shutdown()
 
@@ -226,16 +275,22 @@ def phase_serve(seed, device):
             f"eof ok, FN-SSL max|diff| vs CPU {out_err:.3e}, DOAs equal "
             f"(ties {mismatched}), median azimuth {np.median(azis):.1f} deg")
 
-    if launches != 9 * steps:
-        raise AssertionError(f"K1 launched {launches} times for {steps} "
-                             f"chunk steps (expected {9 * steps})")
+    if launches != LAUNCHES_PER_CHUNK * steps or launches_v2 != 0:
+        raise AssertionError(
+            f"K1 launched {launches} times (lstm_cluster) and {launches_v2} "
+            f"(lstm_fwd) for {steps} chunk steps (expected "
+            f"{LAUNCHES_PER_CHUNK * steps} and 0)")
     ms = np.concatenate([rec["ms"][1:] for rec in sessions])
     rtf = [rec["loc"].rtf for rec in sessions]
-    log(f"  K1 launches {launches} = 9 x {steps} chunk steps")
+    log(f"  K1 launches {launches} = {LAUNCHES_PER_CHUNK} x {steps} chunk "
+        f"steps, all lstm_cluster")
     log(f"  model step ms (warm, synchronized): mean {ms.mean():.3f} "
         f"p90 {np.percentile(ms, 90):.3f} over {ms.size} steps; RTF per "
         f"connection {', '.join(f'{r:.4f}' for r in rtf)}")
-    return launches, steps, float(ms.mean()), float(np.percentile(ms, 90))
+    return {"lstm_cluster": launches, "lstm_fwd": launches_v2}, steps, {
+        "model_step_ms_mean": float(ms.mean()),
+        "model_step_ms_p90": float(np.percentile(ms, 90)),
+        "rtf_per_connection": rtf}
 
 
 def cuda_ms(fn, iters):
@@ -250,6 +305,19 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def enqueue_ms(fn, iters):
+    """Host time to enqueue one call (no synchronize inside the loop): a
+    kernel time near it is set by the host, not the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
 
 
 def bound_terms(t_steps, batch, hidden, itemsize):
@@ -270,36 +338,116 @@ def bound(terms):
     return terms[by], by
 
 
+def lstm_v2(args):
+    """lstm_fwd.cu at any H it takes (the wrappers reach it only above
+    H = 256), to time the earlier design at the main path's shapes."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    xg, w = args[:2]
+    outs = L._outputs(xg, args[2], (*xg.shape[:2], w.shape[0]))
+    L._launch_v2(*args, outs, False)
+    return outs
+
+
+def library_lstm(i, h, w_hh_t, bidirectional, device):
+    ref = torch.nn.LSTM(i, h, batch_first=True,
+                        bidirectional=bidirectional).to(device)
+    with torch.no_grad():
+        ref.weight_hh_l0.copy_(w_hh_t[0].T)
+        if bidirectional:
+            ref.weight_hh_l0_reverse.copy_(w_hh_t[1].T)
+    return ref
+
+
 def phase_times(device):
-    from fnssl_tpu_torch.kernels import lstm_cuda
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
 
     rows = []
     for name, t, b, h, i in SHAPES:
-        row = {"shape": name, "T": t, "B": b, "H": h}
+        full = name.endswith("fullband")
+        row = {"shape": name, "T": t, "B": b, "H": h,
+               "plan": L.cluster_plan(h, 4, b)}
         for dtype in ("float32", "bfloat16"):
-            args = lstm_inputs(t, b, h, getattr(torch, dtype), device, 7)
-            row[f"ms_{dtype}"] = cuda_ms(
-                lambda: lstm_cuda.lstm_fwd(*args), 20)
-            row[f"bound_terms_{dtype}"] = bound_terms(
-                t, b, h, 4 if dtype == "float32" else 2)
-            row[f"bound_ms_{dtype}"], row[f"bound_by_{dtype}"] = bound(
-                row[f"bound_terms_{dtype}"])
-        args = lstm_inputs(t, b, h, torch.float32, device, 7)
-        row["plain_ms"] = cuda_ms(lambda: lstm_cuda.lstm_fwd_plain(*args), 3)
-        ref = torch.nn.LSTM(i, h, batch_first=True).to(device)
-        with torch.no_grad():
-            ref.weight_hh_l0.copy_(args[1].T)
+            itemsize = 4 if dtype == "float32" else 2
+            both = lstm_inputs(t, b, h, getattr(torch, dtype), device, 7,
+                               ndir=2)
+            one = tuple(a[0] for a in both)
+            row[f"ms_{dtype}"] = cuda_ms(lambda: L.lstm_fwd(*one), 20)
+            row[f"enqueue_ms_{dtype}"] = enqueue_ms(lambda: L.lstm_fwd(*one),
+                                                    20)
+            row[f"v2_ms_{dtype}"] = cuda_ms(lambda: lstm_v2(one), 20)
+            terms = bound_terms(t, b, h, itemsize)
+            row[f"bound_terms_{dtype}"] = terms
+            row[f"bound_ms_{dtype}"], row[f"bound_by_{dtype}"] = bound(terms)
+            if full:
+                row[f"fused_ms_{dtype}"] = cuda_ms(
+                    lambda: L.lstm_fwd_bidir(*both), 20)
+                row[f"fused_bound_ms_{dtype}"], _ = bound(
+                    {k: 2 * v for k, v in terms.items()})
+        # the main path's launch (fused at full band) at T = 1: its cost
+        # apart from the steps
+        short = lstm_inputs(1, b, h, torch.float32, device, 7,
+                            ndir=2 if full else None)
+        fn = L.lstm_fwd_bidir if full else L.lstm_fwd
+        row["t1_ms_float32"] = cuda_ms(lambda: fn(*short), 20)
+        both = lstm_inputs(t, b, h, torch.float32, device, 7, ndir=2)
+        one = tuple(a[0] for a in both)
+        row["plain_ms"] = cuda_ms(lambda: L.lstm_fwd_plain(*one), 3)
         x = torch.randn(b, t, i, device=device)
-        state = (args[2][None], args[3][None])
         with torch.no_grad():
+            ref = library_lstm(i, h, both[1], False, device)
+            state = (one[2][None], one[3][None])
             row["library_ms"] = cuda_ms(lambda: ref(x, state), 20)
+            if full:
+                row["fused_plain_ms"] = cuda_ms(
+                    lambda: L.lstm_fwd_bidir_plain(*both), 3)
+                ref2 = library_lstm(i, h, both[1], True, device)
+                row["library_bidir_ms"] = cuda_ms(
+                    lambda: ref2(x, (both[2], both[3])), 20)
         rows.append(row)
-        log(f"  K1 {name:20s} T={t:3d} B={b:3d} H={h:3d}: fp32 "
-            f"{row['ms_float32']:.4f} ms (bound {row['bound_ms_float32']:.5f}"
-            f" ms, {row['bound_by_float32']}), bf16 "
-            f"{row['ms_bfloat16']:.4f} ms (bound "
-            f"{row['bound_ms_bfloat16']:.5f} ms), plain {row['plain_ms']:.3f}"
-            f" ms, nn.LSTM(cuDNN, I={i}) {row['library_ms']:.4f} ms")
+        log(f"  K1 {name:18s} T={t:3d} B={b:3d} H={h:3d} plan "
+            f"(N, Bt, KS)={row['plan']}: cluster fp32 {row['ms_float32']:.4f}"
+            f" ms (enqueue {row['enqueue_ms_float32']:.4f}, at T=1 "
+            f"{row['t1_ms_float32']:.4f}), bf16 "
+            f"{row['ms_bfloat16']:.4f} ms; lstm_fwd.cu fp32 "
+            f"{row['v2_ms_float32']:.4f} ms, bf16 {row['v2_ms_bfloat16']:.4f}"
+            f" ms; bound fp32 {row['bound_ms_float32']:.5f} ms "
+            f"({row['bound_by_float32']}); plain {row['plain_ms']:.3f} ms; "
+            f"nn.LSTM(cuDNN, I={i}) {row['library_ms']:.4f} ms")
+        if full:
+            log(f"  K1 {name:18s} both directions: fused fp32 "
+                f"{row['fused_ms_float32']:.4f} ms, bf16 "
+                f"{row['fused_ms_bfloat16']:.4f} ms; bound fp32 "
+                f"{row['fused_bound_ms_float32']:.5f} ms; plain "
+                f"{row['fused_plain_ms']:.3f} ms; nn.LSTM bidirectional "
+                f"{row['library_bidir_ms']:.4f} ms")
+    return rows
+
+
+def phase_plans(device):
+    """Every cluster plan that fits at the two serve shapes, fp32: the
+    fused full-band launch and the one-direction narrow-band launch."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    rows = []
+    for name, t, b, h, _ in SHAPES[:2]:
+        full = name.endswith("fullband")
+        args = lstm_inputs(t, b, h, torch.float32, device, 7,
+                           ndir=2 if full else None)
+        fn = L.lstm_fwd_bidir if full else L.lstm_fwd
+        default = L.cluster_plan(h, 4, b)
+        for n in L.CLUSTER_SIZES:
+            for bt in L.TILES:
+                for ks in (h // 16, h // 8):
+                    try:
+                        plan = L.cluster_plan(h, 4, b, n=n, bt=bt, ks=ks)
+                    except ValueError:
+                        continue                 # does not fit
+                    ms = cuda_ms(lambda: fn(*args, plan=plan), 20)
+                    rows.append({"shape": name, "N": n, "Bt": bt, "KS": ks,
+                                 "ms": ms, "default": plan == default})
+                    log(f"  {name:18s} N={n} Bt={bt:2d} KS={ks:2d}: "
+                        f"{ms:.4f} ms{' (default)' if plan == default else ''}")
     return rows
 
 
@@ -334,55 +482,75 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    reports = cuda_build.build(["lstm_fwd"])
+    reports = cuda_build.build(["lstm_cluster", "lstm_fwd"])
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        spills = [line.strip() for line in report.splitlines()
+                  if re.search(r"[1-9]\d* bytes spill stores", line)]
+        log(f"  {name}: {len(spills)} kernel instances spill"
+            + "".join(f"\n    {line}" for line in spills))
 
     # 3. kernels against their plain versions
-    log("[kernels] K1 lstm_fwd against lstm_fwd_plain on the card")
+    log("[kernels] K1 against its plain version on the card")
     worst = phase_kernels(device)
 
     # 4. serve
     log("[serve] cli serve --model fnssl on the card, 3 TCP connections")
-    launches, steps, step_ms, step_p90 = phase_serve(args.seed, device)
+    launches, steps, step = phase_serve(args.seed, device)
 
     # 5. times
     log("[times] K1 at the main path's shapes")
     rows = phase_times(device)
+    log("[plans] lstm_cluster plans at the serve shapes, fp32")
+    plans = phase_plans(device)
 
-    # the kernel's work in one online chunk step: 9 launches, fp32
-    serve = [(PER_CHUNK[r["shape"]], r) for r in rows
-             if r["shape"] in PER_CHUNK]
-    per_chunk = {k: sum(n * r[k] for n, r in serve)
-                 for k in ("ms_float32", "plain_ms", "library_ms")}
+    # each kernel's work in one online chunk step, fp32: 3 BiLSTMs over
+    # frequency and 3 LSTMs over time
+    serve = {r["shape"]: r for r in rows if r["shape"] in PER_CHUNK}
+    full, narrow = serve["serve_fullband"], serve["serve_narrowband"]
+    nf, nn_ = PER_CHUNK["serve_fullband"], PER_CHUNK["serve_narrowband"]
+    plain_ms = nf * full["fused_plain_ms"] + nn_ * narrow["plain_ms"]
+    library_ms = (nf * full["library_bidir_ms"]
+                  + nn_ * narrow["library_ms"])
     bound_ms, bound_by = bound(
-        {k: sum(n * r["bound_terms_float32"][k] for n, r in serve)
+        {k: 2 * nf * full["bound_terms_float32"][k]
+         + nn_ * narrow["bound_terms_float32"][k]
          for k in ("bytes", "operations")})
+    common = {"replaces": "fnssl_tpu/kernels/lstm_pallas.py:50",
+              "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": library_ms,
+              "work": "the recurrences of one online chunk step, fp32: 3 "
+                      "full-band BiLSTMs (T=256, B=12, H=128) and 3 "
+                      "narrow-band LSTMs (T=12, B=256, H=256)"}
     kernels = [{
+        "name": "lstm_cluster", "route": "cuda",
+        "source": "fnssl_tpu_torch/kernels/csrc/lstm_cluster.cu",
+        "launches": launches["lstm_cluster"],
+        "max_abs_err": worst["lstm_cluster"]["float32"],
+        "ms": nf * full["fused_ms_float32"] + nn_ * narrow["ms_float32"],
+        **common,
+        "launches_per_chunk_step": LAUNCHES_PER_CHUNK,
+        "chunk_steps": steps, **step,
+        "max_abs_err_bf16_ys": worst["lstm_cluster"]["bfloat16_ys"],
+        "per_shape": rows, "plans": plans,
+    }, {
         "name": "lstm_fwd", "route": "cuda",
         "source": "fnssl_tpu_torch/kernels/csrc/lstm_fwd.cu",
-        "replaces": "fnssl_tpu/kernels/lstm_pallas.py:50",
-        "launches": launches,
-        "max_abs_err": worst["float32"],
-        "ms": per_chunk["ms_float32"],
-        "plain_ms": per_chunk["plain_ms"],
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": per_chunk["library_ms"],
-        "work": "the 9 recurrences of one online chunk step, fp32",
-        "chunk_steps": steps, "model_step_ms_mean": step_ms,
-        "model_step_ms_p90": step_p90,
-        "max_abs_err_bf16_ys": worst["bfloat16_ys"],
-        "per_shape": rows,
+        "launches": launches["lstm_fwd"],
+        "max_abs_err": worst["lstm_fwd"]["float32"],
+        "ms": 2 * nf * full["v2_ms_float32"] + nn_ * narrow["v2_ms_float32"],
+        **common,
+        "note": "serves H > 256 only (checked at H=512); not on FN-SSL's "
+                "main path, so 0 launches there; ms is the same chunk "
+                "step's work in 9 launches of this kernel",
+        "max_abs_err_bf16_ys": worst["lstm_fwd"]["bfloat16_ys"],
     }]
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kind": kind, "kernels": kernels}, indent=1))
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": [{k: v for k, v in kern.items()
+                                  if k != "plans"} for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -30,9 +30,9 @@
 // memory; thread (ks, j) then finishes rows ks*TB/KS .. of unit j and
 // keeps their c in registers. h lives in shared memory. Two __syncthreads
 // a step. The ragged edge of B is masked here, not padded by the caller.
-// Keeping W_hh on chip across a thread-block cluster (distributed shared
-// memory), so that each SM reads only its slice, and using wgmma for the
-// step product are the next steps.
+// This file now serves H above 256 (up to 1024). lstm_cluster.cu, which
+// keeps W_hh in a thread-block cluster's shared memory, serves H up to 256:
+// every LSTM of the JAX package.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -4,10 +4,12 @@
   1. The input projection ``xg = x @ W_ihᵀ + (b_ih + b_hh)`` is one large
      ``torch.matmul`` outside the kernel (the JAX package leaves it to
      XLA); the two biases are summed first.
-  2. Only the hidden recurrence runs in ``kernels.lstm_cuda.lstm_fwd``:
-     the Hopper kernel for CUDA tensors, its plain version for CPU ones.
-  3. Bidirectional is a second single-direction pass with
-     ``reverse=True`` over the unflipped x.
+  2. Only the hidden recurrence runs in ``kernels.lstm_cuda``: a Hopper
+     kernel for CUDA tensors, its plain version for CPU ones.
+  3. Bidirectional projects both directions in one ``torch.matmul``
+     against the stacked W_ihᵀ (I, 8H) and runs both recurrences in one
+     ``lstm_fwd_bidir`` call (one launch); the backward direction walks
+     the unflipped x from T-1 to 0.
 
 Parameter names are ``nn.LSTM``'s: weight_ih_l0 (4H, I), weight_hh_l0
 (4H, H), bias_ih_l0, bias_hh_l0 [+ ``_reverse`` twins]. Gate order
@@ -21,7 +23,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from fnssl_tpu_torch.kernels.lstm_cuda import lstm_fwd
+from fnssl_tpu_torch.kernels.lstm_cuda import lstm_fwd, lstm_fwd_bidir
 from fnssl_tpu_torch.models.layers import uniform_
 from fnssl_tpu_torch.utils.device import resolve_device
 
@@ -32,14 +34,37 @@ class LSTMState(NamedTuple):
     c: torch.Tensor
 
 
-def _one_direction(x, w_ih, w_hh, b_ih, b_hh, h0, c0, reverse: bool):
-    """x (B, T, I) → ys (B, T, H), hT, cT (in h0/c0's dtype)."""
+def _forward(x, w_ih, w_hh, b_ih, b_hh, h0, c0):
+    """One direction: x (B, T, I) → ys (B, T, H), hT, cT (in h0/c0's
+    dtype)."""
     xg = torch.matmul(x, w_ih.T) + (b_ih + b_hh)          # (B, T, 4H)
     xg = xg.transpose(0, 1).contiguous()                  # (T, B, 4H)
     ys, h_t, c_t = lstm_fwd(
         xg, w_hh.T.to(xg.dtype).contiguous(),
-        h0.float().contiguous(), c0.float().contiguous(), reverse=reverse)
+        h0.float().contiguous(), c0.float().contiguous())
     return ys.transpose(0, 1), h_t.to(h0.dtype), c_t.to(c0.dtype)
+
+
+def _bidirectional(params, x, h0, c0):
+    """Both directions: x (B, T, I), h0/c0 (2, B, H) → outputs
+    (B, T, 2H) laid out as ``cat([forward, backward], -1)``, hT, cT
+    (2, B, H) in h0/c0's dtype."""
+    def both(name):
+        return params[name], params[name + "_reverse"]
+
+    b, t_steps = x.shape[:2]
+    hidden = params["weight_hh_l0"].shape[1]
+    w_ih = torch.cat(both("weight_ih_l0"))                 # (8H, I)
+    bias = torch.cat([bi + bh for bi, bh in zip(both("bias_ih_l0"),
+                                                  both("bias_hh_l0"))])
+    xg = torch.matmul(x, w_ih.T) + bias                    # (B, T, 8H)
+    xg = xg.view(b, t_steps, 2, 4 * hidden).permute(2, 1, 0, 3).contiguous()
+    w_hh_t = torch.stack([w.T for w in both("weight_hh_l0")])
+    ys, h_t, c_t = lstm_fwd_bidir(
+        xg, w_hh_t.to(xg.dtype).contiguous(), h0.float().contiguous(),
+        c0.float().contiguous())                           # ys (2, T, B, H)
+    out = ys.permute(2, 1, 0, 3).reshape(b, t_steps, 2 * hidden)
+    return out, LSTMState(h_t.to(h0.dtype), c_t.to(c0.dtype))
 
 
 def lstm(params, x: torch.Tensor, state: LSTMState | None = None,
@@ -60,20 +85,12 @@ def lstm(params, x: torch.Tensor, state: LSTMState | None = None,
     if state is None:
         zeros = x.new_zeros((ndir, b, hidden))
         state = LSTMState(zeros, zeros)
-
-    out_f, h_f, c_f = _one_direction(
+    if bidirectional:
+        return _bidirectional(params, x, state.h, state.c)
+    out, h_t, c_t = _forward(
         x, params["weight_ih_l0"], params["weight_hh_l0"],
-        params["bias_ih_l0"], params["bias_hh_l0"],
-        state.h[0], state.c[0], reverse=False)
-    if not bidirectional:
-        return out_f, LSTMState(h_f[None], c_f[None])
-
-    out_b, h_b, c_b = _one_direction(
-        x, params["weight_ih_l0_reverse"], params["weight_hh_l0_reverse"],
-        params["bias_ih_l0_reverse"], params["bias_hh_l0_reverse"],
-        state.h[1], state.c[1], reverse=True)
-    out = torch.cat([out_f, out_b], dim=-1)
-    return out, LSTMState(torch.stack([h_f, h_b]), torch.stack([c_f, c_b]))
+        params["bias_ih_l0"], params["bias_hh_l0"], state.h[0], state.c[0])
+    return out, LSTMState(h_t[None], c_t[None])
 
 
 class LSTM(nn.Module):

@@ -152,3 +152,99 @@ def test_lstm_fwd_checks_its_inputs():
         lstm_cuda.lstm_fwd(xg, w, torch.zeros(3, 8), s)
     with pytest.raises(ValueError):
         lstm_cuda.lstm_fwd(xg, w, s, s.double())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t_steps", [0, 1, 2, 7])
+def test_bidir_plain_is_two_directions(rng, dtype, t_steps):
+    """lstm_fwd_bidir (plain on the CPU) is lstm_fwd_plain forward on
+    direction 0 and backward on direction 1, exactly; no launch."""
+    b, h = 11, 8
+    tdt = getattr(torch, dtype)
+    xg = torch.as_tensor(rng.standard_normal((2, t_steps, b, 4 * h)),
+                         dtype=torch.float32).to(tdt)
+    w = torch.as_tensor(rng.standard_normal((2, h, 4 * h)) * 0.3,
+                        dtype=torch.float32).to(tdt)
+    h0 = torch.as_tensor(rng.standard_normal((2, b, h)) * 0.5,
+                         dtype=torch.float32)
+    c0 = torch.as_tensor(rng.standard_normal((2, b, h)) * 0.5,
+                         dtype=torch.float32)
+    before = (lstm_cuda.launches.value, lstm_cuda.launches_v2.value)
+    got = lstm_cuda.lstm_fwd_bidir(xg, w, h0, c0)
+    assert (lstm_cuda.launches.value, lstm_cuda.launches_v2.value) == before
+    fwd = lstm_cuda.lstm_fwd_plain(xg[0], w[0], h0[0], c0[0])
+    bwd = lstm_cuda.lstm_fwd_plain(xg[1], w[1], h0[1], c0[1], reverse=True)
+    assert got[0].shape == (2, t_steps, b, h) and got[0].dtype == tdt
+    for g, f, r in zip(got, fwd, bwd):
+        assert torch.equal(g[0], f) and torch.equal(g[1], r)
+
+
+def test_bidirectional_lstm_makes_one_recurrence_call(rng, monkeypatch):
+    """A BiLSTM runs both directions through one lstm_fwd_bidir call (one
+    launch on the card) and never through lstm_fwd; a one-direction LSTM
+    makes one lstm_fwd call."""
+    from fnssl_tpu_torch.models import lstm as lstm_mod
+
+    calls = []
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls.append((name, tuple(args[0].shape)))
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(lstm_mod, "lstm_fwd",
+                        counted("lstm_fwd", lstm_mod.lstm_fwd))
+    monkeypatch.setattr(lstm_mod, "lstm_fwd_bidir",
+                        counted("lstm_fwd_bidir", lstm_mod.lstm_fwd_bidir))
+    x = torch.as_tensor(rng.standard_normal((3, 7, 5)).astype(np.float32))
+    lstm(to_t(weights(rng, 5, 8, True)), x, bidirectional=True)
+    assert calls == [("lstm_fwd_bidir", (2, 7, 3, 32))]
+    calls.clear()
+    lstm(to_t(weights(rng, 5, 8, False)), x)
+    assert calls == [("lstm_fwd", (7, 3, 32))]
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("hidden", range(32, 257, 32))
+def test_cluster_plan_fits(hidden, itemsize):
+    """Every H the cluster kernel takes has a plan within 227 KB of shared
+    memory, <= 512 threads and a portable cluster (N <= 8), at any B."""
+    for batch in (1, 12, 256, 298):
+        n, bt, ks = lstm_cuda.cluster_plan(hidden, itemsize, batch)
+        units = hidden // n
+        assert n in (1, 2, 4, 8) and bt in (8, 16)
+        assert hidden % n == 0 and hidden % (4 * ks) == 0
+        assert ks * units <= (512 if bt == 8 else 256) and 2 * ks >= bt
+        assert lstm_cuda.cluster_smem(hidden, itemsize, n, bt,
+                                      ks) <= 227 * 1024
+
+
+def test_cluster_plan_examples_and_refusals():
+    """The two plans worked out by hand for FN-SSL's LSTMs fit as stated
+    (208 KB), and H the cluster kernel does not take is refused."""
+    assert lstm_cuda.cluster_smem(128, 4, 4, 16, 16) == 208 * 1024
+    assert lstm_cuda.cluster_smem(256, 4, 8, 8, 16) == 208 * 1024
+    for hidden in (16, 48, 288, 512):
+        with pytest.raises(ValueError):
+            lstm_cuda.cluster_plan(hidden, 4, 12)
+    with pytest.raises(ValueError):
+        lstm_cuda.cluster_plan(128, 4, 12, n=3)
+    with pytest.raises(ValueError):
+        lstm_cuda.cluster_plan(256, 4, 12, n=1)   # W_hh slice: 1 MB
+
+
+def test_lstm_fwd_bidir_checks_its_inputs():
+    xg = torch.zeros(2, 3, 2, 32)
+    w = torch.zeros(2, 8, 32)
+    s = torch.zeros(2, 2, 8)
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_fwd_bidir(xg[0], w[0], s[0], s[0])
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_fwd_bidir(torch.zeros(3, 3, 2, 32), w, s, s)
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_fwd_bidir(xg, w[:1], s, s)
+    with pytest.raises(TypeError):
+        lstm_cuda.lstm_fwd_bidir(xg, w.bfloat16(), s, s)
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_fwd_bidir(xg, w, s[:1], s)

@@ -79,3 +79,14 @@ def test_kernel_sources_ship_with_the_package():
     assert "lstm_pallas.py:_lstm_kernel" in text
     assert "sm_90a" in " ".join(cuda_build.NVCC_FLAGS)
     assert cuda_build.library_path("lstm_fwd").parent == cuda_build.BUILD_DIR
+
+
+def test_cluster_kernel_source_ships_with_the_package():
+    from fnssl_tpu_torch.kernels import cuda_build
+
+    text = (cuda_build.CSRC / "lstm_cluster.cu").read_text()
+    assert 'extern "C" int lstm_cluster(' in text
+    assert "lstm_pallas.py:_lstm_kernel" in text
+    assert "cudaLaunchAttributeClusterDimension" in text
+    assert (cuda_build.library_path("lstm_cluster").parent
+            == cuda_build.BUILD_DIR)
