@@ -24,7 +24,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
                torch.nn.LSTM (cuDNN, one- and bidirectional) as the library
                yardstick (the port never calls it). Then every cluster plan
                (N, Bt, KS) that fits at the two serve shapes.
-The line before the last is the kernels JSON line; the last line is
+  6. backward — K2 (lstm_bwd.cu) against its plain version through
+               lstm_bwd (both walks) and lstm_bwd_bidir: dgates, dh0, dc0 at
+               the two training shapes and at edge cases (B 1/11/13/17, T
+               1/2/7, H 32/64/128/256), fp32 and bf16, nonzero c0/dhT/dcT;
+               and K1 at the two training shapes, which phase 3 never
+               reaches.
+  7. train parity — one make_train_step step (fp32, dropout off, nb=2 x
+               4.79 s, full width, weights from --seed) on cuda:0 and on the
+               CPU: loss, every gradient and every parameter after the Adam
+               step; exactly 6 K1 and 6 K2 launches a step.
+  8. train   — the reference cell (nb=16 x 4.79 s, FNSSLConfig(), Adam
+               1e-3 / gamma 0.8988, dropout on from a seeded generator), fp32
+               then the bf16 policy: 1 warm and 5 timed steps each; ms per
+               step, T-F frames/s, peak memory, finite losses, launches.
+  9. train times — at the two training shapes (CUDA events, warm): K1 and
+               cuDNN forward; K2, its bound and plain version; the port's
+               whole LSTM backward and cuDNN's (forward+backward less
+               forward).
+The line before the last is the kernels JSON line (each kernel's numbers
+over one train step's work); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -66,6 +85,17 @@ PER_CHUNK = {"serve_fullband": 3, "serve_narrowband": 3}
 LAUNCHES_PER_CHUNK = 6
 EDGE_B, EDGE_T, EDGE_H = (1, 11, 13, 17), (0, 1, 2, 7), (32, 64, 128, 256)
 V2_CASE = (5, 13, 512)                  # (T, B, H): lstm_fwd.cu serves H > 256
+# training: the JAX package's reference cell (bench.py:96-135), nb scenes
+# of 4.79 s (298 frames, 256 bins); the parity step runs nb=2
+TRAIN_NB, TRAIN_T_S, PARITY_NB, TIMED_STEPS = 16, 4.79, 2, 5
+# (name, T, B, H, I, ndir): the recurrences of one train step at nb=16: a
+# BiLSTM over frequency (B = nb*nt) and an LSTM over time (B = nb*nf)
+TRAIN_SHAPES = [("train_fullband", 256, 16 * 298, 128, 256, 2),
+                ("train_narrowband", 298, 16 * 256, 256, 256, 1)]
+PER_TRAIN_STEP = 3                      # launches of each shape a step
+LAUNCHES_PER_TRAIN_STEP = 6             # K1, and K2, each
+BWD_EDGE_T = (1, 2, 7)
+BWD_TOL = 1e-4                          # K2 vs plain, fp32 and bf16
 
 
 def log(msg):
@@ -73,15 +103,18 @@ def log(msg):
 
 
 def lstm_inputs(t_steps, batch, hidden, dtype, device, seed, ndir=None):
-    """Recurrence inputs; with ndir, stacked (ndir, ...) for lstm_fwd_bidir."""
+    """Recurrence inputs (xg, w_hh_t, h0, c0), drawn on the device (the
+    training shapes hold GBs); with ndir, stacked (ndir, ...) for
+    lstm_fwd_bidir."""
     lead = () if ndir is None else (ndir,)
-    g = torch.Generator().manual_seed(seed)
-    xg = torch.randn(*lead, t_steps, batch, 4 * hidden, generator=g)
-    w = torch.randn(*lead, hidden, 4 * hidden, generator=g) / hidden ** 0.5
-    h0 = torch.randn(*lead, batch, hidden, generator=g) * 0.5
-    c0 = torch.randn(*lead, batch, hidden, generator=g) * 0.5
-    return (xg.to(device, dtype), w.to(device, dtype), h0.to(device),
-            c0.to(device))
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*lead, *shape, generator=g, device=device)
+
+    return (randn(t_steps, batch, 4 * hidden).to(dtype),
+            (randn(hidden, 4 * hidden) / hidden ** 0.5).to(dtype),
+            randn(batch, hidden) * 0.5, randn(batch, hidden) * 0.5)
 
 
 def held(kernel, what, dtype, got, want, worst):
@@ -451,6 +484,343 @@ def phase_plans(device):
     return rows
 
 
+def bwd_inputs(lead, t_steps, batch, hidden, dtype, device, seed):
+    """K2's inputs (g, w_hh, c0, dys, dhT, dcT), all nonzero, drawn on the
+    device; stacked `lead` directions in front."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dt=torch.float32):
+        return (torch.randn(*lead, *shape, generator=gen, device=device)
+                * scale).to(dt)
+
+    return (randn(t_steps, batch, 4 * hidden),
+            randn(4 * hidden, hidden, scale=hidden ** -0.5, dt=dtype),
+            randn(batch, hidden, scale=0.5),
+            randn(t_steps, batch, hidden, dt=dtype),
+            randn(batch, hidden, scale=0.5), randn(batch, hidden, scale=0.5))
+
+
+def held_bwd(what, got, want, worst, dtype):
+    """Max |kernel - plain| of dgates, dh0, dc0 against BWD_TOL."""
+    torch.cuda.synchronize()
+    errs = {k: (g - w).abs().max().item() if g.numel() else 0.0
+            for k, g, w in zip(("dgates", "dh0", "dc0"), got, want)}
+    for k, v in errs.items():
+        if not v <= BWD_TOL:
+            raise AssertionError(f"lstm_bwd {what} {dtype}: {k} max|diff| "
+                                 f"{v} > {BWD_TOL}")
+    worst[dtype] = max(worst[dtype], *errs.values())
+    return max(errs.values())
+
+
+def phase_backward(device, worst):
+    """K2 against its plain version on the card, and K1 at the training
+    shapes (folded into worst['lstm_cluster']). Returns K2's worst errors
+    by dtype."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    worst_bwd = {"float32": 0.0, "bfloat16": 0.0}
+    cases = [(n, t, b, h) for n, t, b, h, _, _ in TRAIN_SHAPES]
+    cases += [("edge", t, b, h) for h in EDGE_H for b in EDGE_B
+              for t in BWD_EDGE_T]
+    seed, checks = 1000, 0
+    for name, t, b, h in cases:
+        for dtype in ("float32", "bfloat16"):
+            seed += 1
+            both = bwd_inputs((2,), t, b, h, getattr(torch, dtype), device,
+                              seed)
+            errs = []
+            for reverse in (False, True):
+                one = tuple(a[int(reverse)] for a in both)
+                got = counted(L.launches_bwd, 1, L.lstm_bwd,
+                              one[0].clone(), *one[1:], reverse=reverse)
+                want = L.lstm_bwd_plain(one[0].clone(), *one[1:],
+                                        reverse=reverse)
+                errs.append(held_bwd(f"{name} T={t} B={b} H={h} lstm_bwd "
+                                     f"reverse={int(reverse)}", got, want,
+                                     worst_bwd, dtype))
+                del got, want
+            got = counted(L.launches_bwd, 1, L.lstm_bwd_bidir,
+                          both[0].clone(), *both[1:])
+            want = L.lstm_bwd_bidir_plain(both[0].clone(), *both[1:])
+            errs.append(held_bwd(f"{name} T={t} B={b} H={h} lstm_bwd_bidir",
+                                 got, want, worst_bwd, dtype))
+            del got, want, both
+            checks += 3
+            if name != "edge":
+                log(f"  lstm_bwd {name:16s} T={t:3d} B={b:4d} H={h:3d} "
+                    f"{dtype:8s} max|diff| dgates/dh0/dc0 fwd/rev/bidir "
+                    + "/".join(f"{e:.2e}" for e in errs))
+    log(f"  {checks} K2 checks passed; edge cases B {EDGE_B} x T "
+        f"{BWD_EDGE_T} x H {EDGE_H}; worst {json.dumps(worst_bwd)}")
+    for name, t, b, h, _, _ in TRAIN_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            seed += 1
+            both = lstm_inputs(t, b, h, getattr(torch, dtype), device, seed,
+                               ndir=2)
+            errs = []
+            for reverse in (False, True):
+                one = tuple(a[int(reverse)] for a in both)
+                got = counted(L.launches, 1, L.lstm_fwd, *one,
+                              reverse=reverse)
+                errs.append(held("lstm_cluster", f"{name} lstm_fwd reverse="
+                                 f"{int(reverse)}", dtype, got,
+                                 L.lstm_fwd_plain(*one, reverse=reverse),
+                                 worst))
+            got = counted(L.launches, 1, L.lstm_fwd_bidir, *both)
+            errs.append(held("lstm_cluster", f"{name} lstm_fwd_bidir", dtype,
+                             got, L.lstm_fwd_bidir_plain(*both), worst))
+            del got, both
+            log(f"  lstm_cluster {name:16s} T={t:3d} B={b:4d} H={h:3d} "
+                f"{dtype:8s} plan {L.cluster_plan(h, 4, b)} max|diff| "
+                "fwd/rev/bidir ys " + "/".join(f"{e['ys']:.2e}" for e in errs)
+                + " hT,cT " + "/".join(f"{max(e['hT'], e['cT']):.2e}"
+                                       for e in errs))
+    return worst_bwd
+
+
+def train_setup(seed, device, nb, precision="fp32"):
+    """(state, step, batch) of the FN-SSL reference task on `device`:
+    FNSSLConfig(), weights from `seed`, Adam 1e-3 / gamma 0.8988."""
+    from fnssl_tpu_torch.models.fnssl import FNSSL
+    from fnssl_tpu_torch.train import step as S
+    from fnssl_tpu_torch.train import tasks as TK
+
+    model = FNSSL(device=device,
+                  generator=torch.Generator().manual_seed(seed))
+    tx = S.make_optimizer("adam", 1e-3, 0.8988, 1)
+    step = S.make_train_step(TK.make_fnssl_task(precision=precision,
+                                                device=device).loss_fn, tx)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in
+             TK.synthetic_fnssl_batch(nb=nb, t_s=TRAIN_T_S,
+                                      seed=seed).items()}
+    return S.init_train_state(model, tx), step, batch
+
+
+def phase_train_parity(seed, device):
+    """One fp32 train step, dropout off, on the card and on the CPU."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        state, step, batch = train_setup(seed, dev, PARITY_NB)
+        counts = (L.launches, L.launches_v2, L.launches_bwd)
+        for c in counts:
+            c.reset()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        loss = float(loss)
+        seconds = time.perf_counter() - t0
+        named = list(state.module.named_parameters())
+        runs.append((loss, {n: p.grad.cpu() for n, p in named},
+                     {n: p.detach().cpu() for n, p in named},
+                     [c.value for c in counts], seconds))
+        del state, step, batch, named
+    (loss_c, grads_c, params_c, launched, sec_c), (
+        loss_p, grads_p, params_p, plain_launched, sec_p) = runs
+    if launched != [LAUNCHES_PER_TRAIN_STEP, 0, LAUNCHES_PER_TRAIN_STEP] \
+            or plain_launched != [0, 0, 0]:
+        raise AssertionError(f"train step launched (lstm_cluster, lstm_fwd, "
+                             f"lstm_bwd) {launched} on the card, "
+                             f"{plain_launched} on the CPU; expected "
+                             f"[6, 0, 6] and [0, 0, 0]")
+    loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+    grad_rel = {n: ((grads_c[n] - g).abs().max() / g.abs().max()).item()
+                for n, g in grads_p.items()}
+    dp = {n: (params_c[n] - p).abs() for n, p in params_p.items()}
+    dp_max = max(d.max().item() for d in dp.values())
+    dp_moved = sum(int((d > 1e-6).sum()) for d in dp.values()) / sum(
+        d.numel() for d in dp.values())
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    log(f"  loss card {loss_c:.8f} CPU {loss_p:.8f} (rel {loss_rel:.2e}); "
+        f"worst grad max|diff|/max|g| {grad_rel[worst_grad]:.2e} "
+        f"({worst_grad}); params after Adam max|diff| {dp_max:.2e}, share "
+        f"> 1e-6 {dp_moved:.2e}; launches {launched}; step {sec_c:.2f} s "
+        f"on the card (first, with set-up), {sec_p:.2f} s on the CPU")
+    # tolerances: float32 recurrences of up to 298 steps summed in another
+    # order (measured on an H100: loss 6e-8, gradients 2.3e-6); Adam's
+    # first step moves every parameter by about lr * sign(g), so only a
+    # gradient within its error of 0 can flip a parameter's step (by at
+    # most 2 lr)
+    if not (loss_rel <= 1e-6 and grad_rel[worst_grad] <= 1e-4
+            and dp_max <= 2.1e-3 and dp_moved <= 1e-4):
+        raise AssertionError("train step on the card disagrees with the "
+                             "CPU beyond the stated tolerances")
+    return {"loss_card": loss_c, "loss_cpu": loss_p, "loss_rel": loss_rel,
+            "grad_rel_max": grad_rel[worst_grad], "grad_rel": grad_rel,
+            "param_max_abs_diff": dp_max, "param_share_above_1e-6": dp_moved,
+            "launches": launched}
+
+
+def phase_train(seed, device):
+    """The reference cell, fp32 then bf16: 1 warm + TIMED_STEPS steps."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    frames = TRAIN_NB * 298 * 256
+    rows = {}
+    counts = (L.launches, L.launches_v2, L.launches_bwd)
+    for c in counts:
+        c.reset()
+    for precision in ("fp32", "bf16"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, step, batch = train_setup(seed, device, TRAIN_NB, precision)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        ms, losses = [], []
+        for k in range(1 + TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, batch, gen)
+            torch.cuda.synchronize()
+            if k:
+                ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        ms = np.array(ms)
+        row = {"ms_mean": float(ms.mean()),
+               "ms_p90": float(np.percentile(ms, 90)), "ms": ms.tolist(),
+               "frames_per_s": frames / (ms.mean() / 1e3),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "losses": losses}
+        rows[precision] = row
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{precision} training: losses {losses}")
+        log(f"  {precision}: step ms mean {row['ms_mean']:.2f} p90 "
+            f"{row['ms_p90']:.2f} over {TIMED_STEPS} steps; "
+            f"{row['frames_per_s']:.0f} T-F frames/s; peak "
+            f"{row['peak_bytes'] / 2**30:.2f} GiB; losses "
+            + ", ".join(f"{v:.6f}" for v in losses))
+        del state, step, batch
+    steps = 2 * (1 + TIMED_STEPS)
+    launched = [c.value for c in counts]
+    want = [LAUNCHES_PER_TRAIN_STEP * steps, 0,
+            LAUNCHES_PER_TRAIN_STEP * steps]
+    if launched != want:
+        raise AssertionError(f"training launched (lstm_cluster, lstm_fwd, "
+                             f"lstm_bwd) {launched} for {steps} steps, "
+                             f"expected {want}")
+    log(f"  launches (lstm_cluster, lstm_fwd, lstm_bwd) {launched} = "
+        f"{LAUNCHES_PER_TRAIN_STEP} x {steps} steps of each kernel of the "
+        "path")
+    return rows, dict(zip(("lstm_cluster", "lstm_fwd", "lstm_bwd"),
+                          launched))
+
+
+def bwd_bound_terms(t_steps, batch, hidden, itemsize):
+    """The least time (ms) K2 needs for its bytes (g read, dgates written,
+    dys and W_hh read, c0 dhT dcT dh0 dc0) and for its FLOPs (the step
+    product dgates @ W_hh), one direction."""
+    nbytes = (2 * t_steps * batch * 4 * hidden * 4
+              + t_steps * batch * hidden * itemsize
+              + 4 * hidden * hidden * itemsize
+              + 5 * batch * hidden * 4)
+    flops = 2 * batch * 4 * hidden * hidden * t_steps
+    return {"bytes": nbytes / HBM_BYTES_S * 1e3,
+            "operations": flops / FP32_FLOP_S * 1e3}
+
+
+def lstm_grad_case(t_steps, batch, hidden, in_size, ndir, device, seed):
+    """The port's LSTM with grads on, at a training shape: (params, x,
+    output cotangent)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    k = hidden ** -0.5
+    shapes = {"weight_ih_l0": (4 * hidden, in_size),
+              "weight_hh_l0": (4 * hidden, hidden),
+              "bias_ih_l0": (4 * hidden,), "bias_hh_l0": (4 * hidden,)}
+    params = {n + s: ((torch.rand(shape, generator=gen, device=device) * 2
+                       - 1) * k).requires_grad_()
+              for s in ("", "_reverse")[:ndir] for n, shape in shapes.items()}
+    x = torch.randn(batch, t_steps, in_size, generator=gen, device=device,
+                    requires_grad=True)
+    gy = torch.randn(batch, t_steps, ndir * hidden, generator=gen,
+                     device=device)
+    return params, x, gy
+
+
+def phase_train_times(device):
+    """K1, K2 and the whole LSTM backward at the two training shapes."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+    from fnssl_tpu_torch.models.lstm import lstm
+
+    rows = []
+    for name, t, b, h, i, ndir in TRAIN_SHAPES:
+        bidir = ndir == 2
+        row = {"shape": name, "T": t, "B": b, "H": h, "I": i, "ndir": ndir,
+               "plan": L.cluster_plan(h, 4, b)}
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            itemsize = tdt.itemsize
+            args = lstm_inputs(t, b, h, tdt, device, 7, ndir=ndir)
+            k1, k1_plain = ((L.lstm_fwd_bidir, L.lstm_fwd_bidir_plain)
+                            if bidir else (L.lstm_fwd, L.lstm_fwd_plain))
+            if not bidir:
+                args = tuple(a[0] for a in args)
+            row[f"k1_ms_{dtype}"] = cuda_ms(lambda: k1(*args), 5)
+            terms = {k: ndir * v for k, v in
+                     bound_terms(t, b, h, itemsize).items()}
+            row[f"k1_bound_terms_{dtype}"] = terms
+            if dtype == "float32":
+                row["k1_plain_ms"] = cuda_ms(lambda: k1_plain(*args), 1)
+                one = tuple(a[0] for a in args) if bidir else args
+                row["v2_ms"] = ndir * cuda_ms(lambda: lstm_v2(one), 3)
+            # K2 rewrites g in place: each timed launch starts from the last
+            # one's dgates, which costs the same work
+            args = bwd_inputs((ndir,), t, b, h, tdt, device, 8)
+            k2, k2_plain = ((L.lstm_bwd_bidir, L.lstm_bwd_bidir_plain)
+                            if bidir else (L.lstm_bwd, L.lstm_bwd_plain))
+            if not bidir:
+                args = tuple(a[0] for a in args)
+            row[f"k2_ms_{dtype}"] = cuda_ms(lambda: k2(*args), 5)
+            row[f"k2_bound_terms_{dtype}"] = {
+                k: ndir * v for k, v in bwd_bound_terms(t, b, h,
+                                                        itemsize).items()}
+            if dtype == "float32":
+                row["k2_plain_ms"] = cuda_ms(lambda: k2_plain(*args), 1)
+            del args
+        # the port's whole LSTM backward (G recomputed, K2, dx, dW, db)
+        params, x, gy = lstm_grad_case(t, b, h, i, ndir, device, 9)
+        out, _ = lstm(params, x, None, bidir)
+        row["port_bwd_ms"] = cuda_ms(lambda: torch.autograd.backward(
+            [out], [gy], retain_graph=True), 3)
+        row["port_fwd_ms"] = cuda_ms(lambda: lstm(params, x, None, bidir), 3)
+        del out, params
+        # cuDNN (the yardstick, never called by the port): forward alone
+        # under no_grad, and forward+backward less forward with grads
+        ref = torch.nn.LSTM(i, h, batch_first=True,
+                            bidirectional=bidir).to(device)
+        with torch.no_grad():
+            row["library_fwd_ms"] = cuda_ms(lambda: ref(x), 5)
+        fwd_grad = cuda_ms(lambda: ref(x), 3)
+        both = cuda_ms(lambda: torch.autograd.backward(ref(x)[0], gy), 3)
+        row["library_bwd_ms"] = both - fwd_grad
+        del ref, x, gy
+        torch.cuda.empty_cache()
+        rows.append(row)
+        log(f"  {name:16s} T={t} B={b} H={h} ndir={ndir}: K1 fp32 "
+            f"{row['k1_ms_float32']:.3f} ms, bf16 "
+            f"{row['k1_ms_bfloat16']:.3f} (bound "
+            f"{bound(row['k1_bound_terms_float32'])[0]:.3f}, plain "
+            f"{row['k1_plain_ms']:.1f}, lstm_fwd.cu {row['v2_ms']:.3f}, "
+            f"cuDNN fwd {row['library_fwd_ms']:.3f}); K2 fp32 "
+            f"{row['k2_ms_float32']:.3f} ms, bf16 "
+            f"{row['k2_ms_bfloat16']:.3f} (bound "
+            f"{bound(row['k2_bound_terms_float32'])[0]:.3f} "
+            f"{bound(row['k2_bound_terms_float32'])[1]}, plain "
+            f"{row['k2_plain_ms']:.1f}); whole LSTM backward "
+            f"{row['port_bwd_ms']:.3f} ms (forward {row['port_fwd_ms']:.3f}),"
+            f" cuDNN backward {row['library_bwd_ms']:.3f}")
+    return rows
+
+
+def per_train_step(rows, key):
+    """A per-shape number summed over one train step's launches."""
+    return PER_TRAIN_STEP * sum(r[key] for r in rows)
+
+
+def step_bound(rows, key):
+    return bound({k: PER_TRAIN_STEP * sum(r[key][k] for r in rows)
+                  for k in ("bytes", "operations")})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=2)
@@ -482,7 +852,7 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    reports = cuda_build.build(["lstm_cluster", "lstm_fwd"])
+    reports = cuda_build.build(["lstm_cluster", "lstm_fwd", "lstm_bwd"])
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         spills = [line.strip() for line in report.splitlines()
@@ -504,53 +874,105 @@ def main():
     log("[plans] lstm_cluster plans at the serve shapes, fp32")
     plans = phase_plans(device)
 
+    # 6-9. training
+    log("[backward] K2 against its plain version on the card; K1 at the "
+        "training shapes")
+    worst_bwd = phase_backward(device, worst)
+    log(f"[train parity] one fp32 train step, nb={PARITY_NB} x {TRAIN_T_S} s,"
+        " dropout off: the card against the CPU")
+    parity = phase_train_parity(args.seed, device)
+    log(f"[train] nb={TRAIN_NB} x {TRAIN_T_S} s, FNSSLConfig(), Adam 1e-3 / "
+        "gamma 0.8988, dropout on: fp32, then the bf16 policy")
+    train, train_launches = phase_train(args.seed, device)
+    log("[train times] K1, K2 and the LSTM backward at the training shapes")
+    train_rows = phase_train_times(device)
+
     # each kernel's work in one online chunk step, fp32: 3 BiLSTMs over
     # frequency and 3 LSTMs over time
     serve = {r["shape"]: r for r in rows if r["shape"] in PER_CHUNK}
     full, narrow = serve["serve_fullband"], serve["serve_narrowband"]
     nf, nn_ = PER_CHUNK["serve_fullband"], PER_CHUNK["serve_narrowband"]
-    plain_ms = nf * full["fused_plain_ms"] + nn_ * narrow["plain_ms"]
-    library_ms = (nf * full["library_bidir_ms"]
-                  + nn_ * narrow["library_ms"])
-    bound_ms, bound_by = bound(
+    serve_bound = bound(
         {k: 2 * nf * full["bound_terms_float32"][k]
          + nn_ * narrow["bound_terms_float32"][k]
          for k in ("bytes", "operations")})
-    common = {"replaces": "fnssl_tpu/kernels/lstm_pallas.py:50",
-              "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "library_ms": library_ms,
-              "work": "the recurrences of one online chunk step, fp32: 3 "
-                      "full-band BiLSTMs (T=256, B=12, H=128) and 3 "
-                      "narrow-band LSTMs (T=12, B=256, H=256)"}
+    serve_common = {
+        "plain_ms": nf * full["fused_plain_ms"] + nn_ * narrow["plain_ms"],
+        "bound_ms": serve_bound[0], "bound_by": serve_bound[1],
+        "library_ms": (nf * full["library_bidir_ms"]
+                       + nn_ * narrow["library_ms"]),
+        "work": "the recurrences of one online chunk step, fp32: 3 "
+                "full-band BiLSTMs (T=256, B=12, H=128) and 3 narrow-band "
+                "LSTMs (T=12, B=256, H=256)"}
+    # and in one train step at nb=16, fp32: 3 full-band BiLSTMs (one launch
+    # each) and 3 narrow-band LSTMs, forward (K1) and backward (K2)
+    (_, t_f, b_f, h_f, _, _), (_, t_n, b_n, h_n, _, _) = TRAIN_SHAPES
+    work = (f"one train step at nb={TRAIN_NB}, fp32: {PER_TRAIN_STEP} "
+            f"full-band BiLSTMs (T={t_f}, B={b_f}, H={h_f}) and "
+            f"{PER_TRAIN_STEP} narrow-band LSTMs (T={t_n}, B={b_n}, "
+            f"H={h_n})")
+    k1_bound = step_bound(train_rows, "k1_bound_terms_float32")
+    k2_bound = step_bound(train_rows, "k2_bound_terms_float32")
+    k1_common = {"replaces": "fnssl_tpu/kernels/lstm_pallas.py:50",
+                 "plain_ms": per_train_step(train_rows, "k1_plain_ms"),
+                 "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+                 "library_ms": per_train_step(train_rows, "library_fwd_ms"),
+                 "work": work}
+    paths = {"serve": launches, "train": train_launches}
     kernels = [{
         "name": "lstm_cluster", "route": "cuda",
         "source": "fnssl_tpu_torch/kernels/csrc/lstm_cluster.cu",
-        "launches": launches["lstm_cluster"],
+        "launches": launches["lstm_cluster"] + train_launches["lstm_cluster"],
+        "launches_by_path": {k: v["lstm_cluster"] for k, v in paths.items()},
         "max_abs_err": worst["lstm_cluster"]["float32"],
-        "ms": nf * full["fused_ms_float32"] + nn_ * narrow["ms_float32"],
-        **common,
-        "launches_per_chunk_step": LAUNCHES_PER_CHUNK,
-        "chunk_steps": steps, **step,
+        "ms": per_train_step(train_rows, "k1_ms_float32"), **k1_common,
+        "ms_bf16": per_train_step(train_rows, "k1_ms_bfloat16"),
         "max_abs_err_bf16_ys": worst["lstm_cluster"]["bfloat16_ys"],
-        "per_shape": rows, "plans": plans,
+        "serve_chunk_step": {
+            "ms": nf * full["fused_ms_float32"] + nn_ * narrow["ms_float32"],
+            **serve_common, "launches_per_chunk_step": LAUNCHES_PER_CHUNK,
+            "chunk_steps": steps, **step},
+        "per_shape": rows + train_rows, "plans": plans,
     }, {
         "name": "lstm_fwd", "route": "cuda",
         "source": "fnssl_tpu_torch/kernels/csrc/lstm_fwd.cu",
-        "launches": launches["lstm_fwd"],
+        "launches": launches["lstm_fwd"] + train_launches["lstm_fwd"],
+        "launches_by_path": {k: v["lstm_fwd"] for k, v in paths.items()},
         "max_abs_err": worst["lstm_fwd"]["float32"],
-        "ms": 2 * nf * full["v2_ms_float32"] + nn_ * narrow["v2_ms_float32"],
-        **common,
-        "note": "serves H > 256 only (checked at H=512); not on FN-SSL's "
-                "main path, so 0 launches there; ms is the same chunk "
-                "step's work in 9 launches of this kernel",
+        "ms": per_train_step(train_rows, "v2_ms"), **k1_common,
+        "note": "serves H > 256 only (checked at H=512); on neither main "
+                "path, so 0 launches there; ms is the same train step's "
+                "forward work in 9 launches of this kernel",
         "max_abs_err_bf16_ys": worst["lstm_fwd"]["bfloat16_ys"],
+        "serve_chunk_step": {
+            "ms": 2 * nf * full["v2_ms_float32"]
+            + nn_ * narrow["v2_ms_float32"], **serve_common},
+    }, {
+        "name": "lstm_bwd", "route": "cuda",
+        "source": "fnssl_tpu_torch/kernels/csrc/lstm_bwd.cu",
+        "replaces": "fnssl_tpu/kernels/lstm_pallas.py:269",
+        "launches": train_launches["lstm_bwd"],
+        "launches_by_path": {k: v.get("lstm_bwd", 0)
+                             for k, v in paths.items()},
+        "max_abs_err": worst_bwd["float32"],
+        "max_abs_err_bf16": worst_bwd["bfloat16"],
+        "ms": per_train_step(train_rows, "k2_ms_float32"),
+        "ms_bf16": per_train_step(train_rows, "k2_ms_bfloat16"),
+        "plain_ms": per_train_step(train_rows, "k2_plain_ms"),
+        "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+        "library_ms": per_train_step(train_rows, "library_bwd_ms"),
+        "work": work + "; library_ms is cuDNN's backward (forward+backward "
+                "less forward) of the same LSTMs, input gradients included",
+        "lstm_backward_ms": per_train_step(train_rows, "port_bwd_ms"),
     }]
+    report = {"card": card, "kind": kind, "kernels": kernels,
+              "train": train, "train_parity": parity}
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kind": kind, "kernels": kernels}, indent=1))
+    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(json.dumps({"kernels": [{k: v for k, v in kern.items()
-                                  if k != "plans"} for kern in kernels]}))
+                                  if k not in ("plans", "per_shape")}
+                                 for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,8 +1,8 @@
 """LSTM recurrence: the hand-written Hopper kernels and their plain version.
 
-Replaces ``fnssl_tpu/kernels/lstm_pallas.py:_lstm_kernel`` (launched by
-``_lstm_pallas_fwd``). Two CUDA C++ sources for ``sm_90a``, bound with
-``ctypes``, chosen by shape:
+K1, the forward, replaces ``fnssl_tpu/kernels/lstm_pallas.py:_lstm_kernel``
+(launched by ``_lstm_pallas_fwd``). Two CUDA C++ sources for ``sm_90a``,
+bound with ``ctypes``, chosen by shape:
 
 - ``csrc/lstm_cluster.cu`` for H a multiple of 32 up to 256 (every LSTM
   of the JAX package): W_hh stays in a thread-block cluster's shared
@@ -12,12 +12,18 @@ Replaces ``fnssl_tpu/kernels/lstm_pallas.py:_lstm_kernel`` (launched by
 - ``csrc/lstm_fwd.cu`` for H above 256 (up to 1024): one direction a
   launch, W_hh read through L2 on every step.
 
+K2, the backward recurrence (``csrc/lstm_bwd.cu``, H up to 256), replaces
+the sequential part of ``_lstm_backward``, K1's ``custom_vjp``: the
+replay of c and the reverse walk that turns the gate pre-activations into
+dgates, dh0 and dc0 (``lstm_bwd``, ``lstm_bwd_bidir``).
+
 Each source's header comment says what bounds it on the card and how the
-design responds. ``lstm_fwd`` and ``lstm_fwd_bidir`` run the plain version
-for tensors on the CPU and launch a kernel for CUDA tensors; they never
-swap one for the other, and a kernel that fails to build or launch raises.
-The backward of the recurrence is not ported yet, so CUDA inputs that
-require grad while grad is enabled are refused.
+design responds. Every wrapper runs the plain version for tensors on the
+CPU and launches a kernel for CUDA tensors; it never swaps one for the
+other, and a kernel that fails to build or launch raises. Gradients go
+through ``models.lstm``, whose ``torch.autograd.Function`` runs K1
+forward and K2 backward; a direct call of ``lstm_fwd`` on CUDA inputs
+that require grad, with grad enabled, is refused.
 """
 from __future__ import annotations
 
@@ -29,13 +35,16 @@ import torch
 from fnssl_tpu_torch.kernels.cuda_build import LaunchCounter, load_library
 
 # launches of each CUDA kernel (the plain version is not counted):
-# ``launches`` for lstm_cluster.cu, ``launches_v2`` for lstm_fwd.cu
+# ``launches`` for lstm_cluster.cu, ``launches_v2`` for lstm_fwd.cu,
+# ``launches_bwd`` for lstm_bwd.cu
 launches = LaunchCounter()
 launches_v2 = LaunchCounter()
+launches_bwd = LaunchCounter()
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 CLUSTER_MAX_HIDDEN = 256          # lstm_cluster.cu's H; lstm_fwd.cu above
+BWD_MAX_HIDDEN = 256              # lstm_bwd.cu's H
 # dynamic shared memory a CTA may use: 227 KB less 16 B of mbarriers
 SMEM_BYTES = 232_448 - 16
 MAX_THREADS = {8: 512, 16: 256}   # threads a CTA may have, by tile
@@ -156,8 +165,9 @@ def _check(xg, w_hh_t, h0, c0, ndir: int | None = None):
     if any(t.device != xg.device for t in tensors):
         raise ValueError("lstm_fwd: inputs on mixed devices")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("lstm_fwd: the CUDA kernel has no backward yet; "
-                           "run under torch.no_grad()")
+        raise RuntimeError("lstm_fwd: no backward through a direct call; "
+                           "take gradients through models.lstm (its "
+                           "autograd Function runs the backward kernel)")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("lstm_fwd: inputs must be contiguous")
     if hidden % 32 or hidden > 1024:
@@ -218,6 +228,157 @@ def lstm_fwd_bidir(xg: torch.Tensor, w_hh_t: torch.Tensor,
     return outs
 
 
+def lstm_bwd_plain(g: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor,
+                   dys: torch.Tensor, dh_t: torch.Tensor | None = None,
+                   dc_t: torch.Tensor | None = None, *,
+                   reverse: bool = False):
+    """Step loop of ``_lstm_backward``'s replay and reverse walk, without
+    the weight sums.
+
+    g (T, B, 4H) float32, the gate pre-activations x@W_ihᵀ + b +
+    h_prev@W_hhᵀ of the forward (h_prev = h0 at the first walk step);
+    w_hh (4H, H) in ys's dtype; c0 (B, H) float32; dys (T, B, H) in ys's
+    dtype; dh_t, dc_t (B, H) float32 or None (zeros). ``reverse`` is the
+    forward's walk (t = T-1 .. 0). Writes dgates over g and returns
+    (g, dh0, dc0), dh0 and dc0 (B, H) float32.
+    """
+    t_steps = g.shape[0]
+    w = w_hh.float()
+    order = range(t_steps - 1, -1, -1) if reverse else range(t_steps)
+    order = list(order)
+    c = c0.float()
+    cs = []
+    for t in order:                                  # replay of c
+        i, f, gg, _ = g[t].chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+        cs.append(c)
+    dh = torch.zeros_like(c) if dh_t is None else dh_t.float()
+    dc = torch.zeros_like(c) if dc_t is None else dc_t.float()
+    for s in range(t_steps - 1, -1, -1):             # the reverse walk
+        t = order[s]
+        c_prev = cs[s - 1] if s else c0.float()
+        i, f, gg, o = g[t].chunk(4, dim=-1)
+        i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+        gg = torch.tanh(gg)
+        tc = torch.tanh(cs[s])
+        dh_tot = dys[t].float() + dh
+        dct = dc + dh_tot * o * (1.0 - tc * tc)
+        g[t] = torch.cat([dct * gg * i * (1.0 - i),
+                          dct * c_prev * f * (1.0 - f),
+                          dct * i * (1.0 - gg * gg),
+                          dh_tot * tc * o * (1.0 - o)], dim=-1)
+        dh = g[t] @ w
+        dc = dct * f
+    return g, dh, dc
+
+
+def lstm_bwd_bidir_plain(g, w_hh, c0, dys, dh_t=None, dc_t=None):
+    """Both directions of a BiLSTM: ``lstm_bwd_plain`` on [0] (forward
+    walk) and [1] (t = T-1 .. 0). Shapes as ``lstm_bwd_bidir``."""
+    outs = [lstm_bwd_plain(g[d], w_hh[d], c0[d], dys[d],
+                           None if dh_t is None else dh_t[d],
+                           None if dc_t is None else dc_t[d],
+                           reverse=bool(d)) for d in range(2)]
+    return g, torch.stack([o[1] for o in outs]), torch.stack(
+        [o[2] for o in outs])
+
+
+def _check_bwd(g, w_hh, c0, dys, dh_t, dc_t, ndir: int | None = None):
+    """Checks K2's inputs; fills dh_t/dc_t None with zeros. Returns
+    (dims or None for CPU tensors, dh_t, dc_t)."""
+    lead = () if ndir is None else (ndir,)
+    nd = len(lead)
+    if (g.dim() != 3 + nd or g.shape[-1] % 4 or tuple(g.shape[:nd]) != lead
+            or g.dtype != torch.float32):
+        want = "(2, T, B, 4H)" if nd else "(T, B, 4H)"
+        raise ValueError(f"g must be float32 {want}, got {g.dtype} "
+                         f"{tuple(g.shape)}")
+    t_steps, batch, four_h = g.shape[nd:]
+    hidden = four_h // 4
+    if dys.dtype not in _DTYPES or w_hh.dtype != dys.dtype:
+        raise TypeError(f"dys and w_hh must share ys's dtype (float32 or "
+                        f"bfloat16), got {dys.dtype} and {w_hh.dtype}")
+    if tuple(dys.shape) != lead + (t_steps, batch, hidden):
+        raise ValueError(f"dys must be {lead + (t_steps, batch, hidden)}, "
+                         f"got {tuple(dys.shape)}")
+    if tuple(w_hh.shape) != lead + (four_h, hidden):
+        raise ValueError(f"w_hh must be {lead + (four_h, hidden)}, got "
+                         f"{tuple(w_hh.shape)}")
+    dh_t = torch.zeros_like(c0) if dh_t is None else dh_t
+    dc_t = torch.zeros_like(c0) if dc_t is None else dc_t
+    for name, s in (("c0", c0), ("dh_t", dh_t), ("dc_t", dc_t)):
+        if s.dtype != torch.float32 or tuple(s.shape) != lead + (batch,
+                                                                  hidden):
+            raise ValueError(f"{name} must be float32 {lead + (batch, hidden)}"
+                             f", got {s.dtype} {tuple(s.shape)}")
+    tensors = (g, w_hh, c0, dys, dh_t, dc_t)
+    if not g.is_cuda:
+        if any(t.is_cuda for t in tensors):
+            raise ValueError("lstm_bwd: inputs on mixed devices")
+        return None, dh_t, dc_t
+    if any(t.device != g.device for t in tensors):
+        raise ValueError("lstm_bwd: inputs on mixed devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("lstm_bwd: inputs must be contiguous")
+    if hidden % 32 or hidden > BWD_MAX_HIDDEN:
+        raise ValueError(f"lstm_bwd: hidden={hidden} must be a multiple of "
+                         f"32 up to {BWD_MAX_HIDDEN}: the CUDA backward "
+                         "serves every LSTM of the JAX package, H > 256 "
+                         "is not ported")
+    return (t_steps, batch, hidden), dh_t, dc_t
+
+
+def lstm_bwd(g: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor,
+             dys: torch.Tensor, dh_t: torch.Tensor | None = None,
+             dc_t: torch.Tensor | None = None, *, reverse: bool = False):
+    """One direction of K2 (contract of ``lstm_bwd_plain``): dgates
+    written over g, and dh0, dc0.
+
+    CPU tensors take the plain version; CUDA tensors launch lstm_bwd.cu
+    once. Any B; H a multiple of 32 up to 256.
+    """
+    dims, dh_t, dc_t = _check_bwd(g, w_hh, c0, dys, dh_t, dc_t)
+    if dims is None:
+        return lstm_bwd_plain(g, w_hh, c0, dys, dh_t, dc_t, reverse=reverse)
+    return _launch_bwd(g, w_hh, c0, dys, dh_t, dc_t, dims, 1, reverse)
+
+
+def lstm_bwd_bidir(g: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor,
+                   dys: torch.Tensor, dh_t: torch.Tensor | None = None,
+                   dc_t: torch.Tensor | None = None):
+    """Both directions of K2 in one launch: direction 0 walked forward,
+    direction 1 walked t = T-1 .. 0 (as ``lstm_fwd_bidir``).
+
+    g (2, T, B, 4H) float32; w_hh (2, 4H, H) and dys (2, T, B, H) in ys's
+    dtype; c0, dh_t, dc_t (2, B, H) float32 (dh_t/dc_t None: zeros).
+    Returns (g holding dgates, dh0, dc0) (contract of
+    ``lstm_bwd_bidir_plain``).
+    """
+    dims, dh_t, dc_t = _check_bwd(g, w_hh, c0, dys, dh_t, dc_t, ndir=2)
+    if dims is None:
+        return lstm_bwd_bidir_plain(g, w_hh, c0, dys, dh_t, dc_t)
+    return _launch_bwd(g, w_hh, c0, dys, dh_t, dc_t, dims, 2, False)
+
+
+def _launch_bwd(g, w_hh, c0, dys, dh_t, dc_t, dims, ndir, reverse):
+    t_steps, batch, hidden = dims
+    dh0, dc0 = torch.empty_like(c0), torch.empty_like(c0)
+    if batch == 0:
+        return g, dh0, dc0
+    cs = torch.empty(dys.shape, dtype=torch.float32, device=g.device)
+    lib = _library("lstm_bwd")
+    err = lib.lstm_bwd(
+        g.data_ptr(), cs.data_ptr(), w_hh.data_ptr(), c0.data_ptr(),
+        dys.data_ptr(), dh_t.data_ptr(), dc_t.data_ptr(), dh0.data_ptr(),
+        dc0.data_ptr(), t_steps, batch, hidden, ndir, int(reverse),
+        int(dys.dtype == torch.bfloat16), g.device.index, _stream(g))
+    if err:
+        raise RuntimeError("lstm_bwd launch failed: "
+                           + lib.lstm_bwd_error_string(err).decode())
+    launches_bwd.add()
+    return g, dh0, dc0
+
+
 def _outputs(xg, h0, ys_shape):
     return (torch.empty(ys_shape, dtype=xg.dtype, device=xg.device),
             torch.empty_like(h0), torch.empty_like(h0))
@@ -265,6 +426,9 @@ _ARGTYPES = {
     "lstm_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
     "lstm_cluster": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+    + [ctypes.c_void_p],
+    # g cs w_hh c0 dys dhT dcT dh0 dc0, then the ints, then the stream
+    "lstm_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
 }
 

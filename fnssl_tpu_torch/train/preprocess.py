@@ -1,6 +1,10 @@
-"""STFT front-end features (port of ``stft_features`` in
-``fnssl_tpu/train/preprocess.py``; the training preprocess closures are
-not ported yet)."""
+"""On-line training-step preprocessing: STFT front-end features and
+DP-IPD targets (port of ``stft_features`` and ``make_fnssl_preprocess``
+in ``fnssl_tpu/train/preprocess.py``).
+
+As in the JAX package, the STFT and the ground-truth DP-IPD are made
+inside the training step from the batch's tensors, on their device; the
+IPDnet closure waits for the IPDnet port."""
 from __future__ import annotations
 
 import torch
@@ -8,6 +12,8 @@ import torch
 from fnssl_tpu_torch.core.norm import forgetting_norm, offline_norm
 from fnssl_tpu_torch.core.pairs import pair_rebatch
 from fnssl_tpu_torch.core.stft import stft
+from fnssl_tpu_torch.physics.targets import (ipd_complex_to_ri,
+                                             vad_mask_and_sum)
 
 
 def stft_features(mic_sig: torch.Tensor, *, ch_mode: str = "MM",
@@ -39,3 +45,30 @@ def stft_features(mic_sig: torch.Tensor, *, ch_mode: str = "MM",
         denom = torch.ones((), device=pairs.device)
     feats = torch.cat([pairs.real / denom, pairs.imag / denom], dim=1)
     return feats[:, :, 1: nfft // 2 + 1, :]
+
+
+def make_fnssl_preprocess(dpipd, *, ch_mode: str = "MM",
+                          win_len: int = 512, win_shift_ratio: float = 0.5,
+                          nfft: int = 512, sample_length: int = 298):
+    """Build the FN-SSL (features, targets) preprocessing function.
+
+    ``dpipd`` is a ``physics.dpipd.DPIPD``.
+
+    Returns fn(mic_sig, doa, vad) → (features, {'ipd', 'doa',
+    'vad_sources'}) on the inputs' device:
+      mic_sig (nb, nsample, nch) float32; doa (nb, nt2, 2, ns) radians;
+      vad (nb, nt2, ns) soft VAD at the segment rate;
+      features (nb*P, 4, nfft/2, nt); ipd (nb, nt2, 2·nfft/2, P) float32.
+    """
+    fre_used = slice(1, nfft // 2 + 1)
+
+    def preprocess(mic_sig, doa, vad):
+        feats = stft_features(
+            mic_sig, ch_mode=ch_mode, win_len=win_len,
+            win_shift_ratio=win_shift_ratio, nfft=nfft,
+            sample_length=sample_length)
+        ipd = ipd_complex_to_ri(dpipd.targets(doa), fre_used)
+        return feats, {"ipd": vad_mask_and_sum(ipd, vad), "doa": doa,
+                       "vad_sources": vad}
+
+    return preprocess

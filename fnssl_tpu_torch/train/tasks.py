@@ -1,0 +1,126 @@
+"""The FN-SSL training task: preprocessing + model + loss as one function
+(port of the FN-SSL half of ``fnssl_tpu/train/tasks.py``).
+
+``make_fnssl_task`` builds ``loss_fn(module, batch, generator) -> scalar``
+for ``train.step.make_train_step``: the reference's data_preprocess →
+forward → cal_loss chain (Lightning/main.py:149-157), run on the task's
+device. The IPDnet tasks wait for the IPDnet port.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
+
+from fnssl_tpu_torch.core.stft import num_frames
+from fnssl_tpu_torch.models.fnssl import FNSSLConfig
+from fnssl_tpu_torch.physics.dpipd import DPIPD
+from fnssl_tpu_torch.train.losses import ce_doa_loss, mse_ipd_loss
+from fnssl_tpu_torch.train.precision import wrap_apply
+from fnssl_tpu_torch.train.preprocess import make_fnssl_preprocess
+from fnssl_tpu_torch.utils.device import resolve_device
+
+# 2-mic linear array at ±4 cm — the FN-SSL training array
+# (Lightning/main.py:121-123).
+DUALCH_MIC_LOCATION = np.array([[-0.04, 0.0, 0.0], [0.04, 0.0, 0.0]])
+
+
+class FNSSLTask(NamedTuple):
+    loss_fn: object
+    preprocess: object
+    cfg: FNSSLConfig
+    dpipd: DPIPD
+
+
+def _apply_module(params, x, *, module, generator=None):
+    """The module's forward with ``params`` in place of its own."""
+    return functional_call(module, params, (x,), {"generator": generator})
+
+
+def _remat(apply_base):
+    """``apply_base`` under ``torch.utils.checkpoint`` (activations
+    recomputed in the backward). The dropout generator is rewound for the
+    recomputation, so it draws the forward's masks again."""
+    def fn(params, x, *, generator=None, **kw):
+        state = None if generator is None else generator.get_state()
+
+        def run(p, x_):
+            if state is not None:
+                generator.set_state(state)
+            return apply_base(p, x_, generator=generator, **kw)
+
+        return checkpoint(run, params, x, use_reentrant=False)
+    return fn
+
+
+def make_fnssl_task(cfg: FNSSLConfig = FNSSLConfig(),
+                    mic_location: np.ndarray = DUALCH_MIC_LOCATION,
+                    ch_mode: str = "MM", nfft: int = 512,
+                    fs: int = 16000, speed: float = 340.0,
+                    res_the: int = 37, res_phi: int = 73,
+                    remat: bool = False, precision: str = "fp32",
+                    device=None) -> FNSSLTask:
+    """FN-SSL DP-IPD regression task (the flagship model), or azimuth
+    classification with ``cfg.is_doa``.
+
+    Batch contract: dict (numpy arrays or tensors) with
+      'mic_sig' (nb, nsample, nch) float32,
+      'doa' (nb, nt2, 2, ns) radians,
+      'vad' (nb, nt2, ns) soft VAD at the output frame rate;
+    moved to ``device`` (the first CUDA device unless given).
+
+    ``loss_fn(module, batch, generator)`` runs dropout when ``generator``
+    (a ``torch.Generator`` on the device) is given and not when it is
+    None, like the JAX package's ``rng``. ``remat`` recomputes the
+    model's activations in the backward (``torch.utils.checkpoint``);
+    ``precision='bf16'`` is the mixed-precision policy of
+    ``train.precision``, outermost so that recomputed activations are
+    bf16 too.
+    """
+    device = resolve_device(device)
+    dpipd = DPIPD(ndoa_candidate=[res_the, res_phi],
+                  mic_location=mic_location, nf=nfft // 2 + 1,
+                  fre_max=fs / 2, ch_mode=ch_mode, speed=speed)
+    dpipd.tables(device)
+    preprocess = make_fnssl_preprocess(dpipd, ch_mode=ch_mode, nfft=nfft)
+    apply_fn = wrap_apply(_remat(_apply_module) if remat else _apply_module,
+                          precision)
+
+    def loss_fn(module, batch, generator=None):
+        b = {k: torch.as_tensor(batch[k], device=device)
+             for k in ("mic_sig", "doa", "vad")}
+        feats, gt = preprocess(b["mic_sig"], b["doa"], b["vad"])
+        pred = apply_fn(dict(module.named_parameters()), feats,
+                        module=module, generator=generator)
+        if cfg.is_doa:
+            # CE on integer-degree azimuth classes (Learner.py:454-469;
+            # truncation toward zero, as the reference's LongTensor cast)
+            azi_deg = b["doa"][:, :, 1, 0] * (180.0 / np.pi)
+            labels = azi_deg.to(torch.int32).clamp(0, 179)
+            return ce_doa_loss(pred, labels)
+        return mse_ipd_loss(pred, gt["ipd"], nb=b["mic_sig"].shape[0])
+
+    return FNSSLTask(loss_fn, preprocess, cfg, dpipd)
+
+
+def synthetic_fnssl_batch(nb: int = 2, t_s: float = 4.79, fs: int = 16000,
+                          nch: int = 2, ns: int = 1, seed: int = 0,
+                          win_len: int = 512, win_shift_ratio: float = 0.5,
+                          pool: int = 12):
+    """Random batch matching the FN-SSL data contract (numpy), drawn as
+    the JAX package draws it, so that both see the same batch."""
+    rng = np.random.default_rng(seed)
+    nsample = int(t_s * fs)
+    nt = num_frames(nsample, win_len, win_shift_ratio, center=False)
+    nt2 = nt // pool
+    return {
+        "mic_sig": rng.standard_normal((nb, nsample, nch)).astype(np.float32),
+        "doa": np.stack([
+            np.full((nb, nt2, ns), np.pi / 2, np.float32),
+            rng.uniform(-np.pi, np.pi, (nb, nt2, ns)).astype(np.float32),
+        ], axis=2),
+        "vad": np.ones((nb, nt2, ns), np.float32),
+    }

@@ -1,5 +1,7 @@
 """The Hopper LSTM kernels (kernels/csrc/lstm_cluster.cu for H up to 256,
-kernels/csrc/lstm_fwd.cu above) against their plain version, on the card.
+kernels/csrc/lstm_fwd.cu above, and the backward kernels/csrc/lstm_bwd.cu)
+against their plain version, on the card; the autograd Function and one
+train step on the card.
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips where there is no CUDA device. The file imports only torch and the
 port, so that it runs on a machine without JAX (``--noconftest`` skips
@@ -157,3 +159,131 @@ def test_kernel_refuses_grad(cuda):
     s = torch.zeros(3, 32, device=cuda)
     with pytest.raises(RuntimeError, match="backward"):
         lstm_cuda.lstm_fwd(xg, w, s, s)
+
+
+# K2, the backward recurrence (kernels/csrc/lstm_bwd.cu). Tolerance: fp32
+# and bf16 dgates, dh0 and dc0 within 1e-4 of the plain version (the same
+# float32 arithmetic on the same bf16 values, summed in another order).
+BWD_TOL = 1e-4
+
+
+def bwd_inputs(lead, t_steps, b, h, dtype, device, seed=0):
+    """g (.., T, B, 4H) float32, w_hh (.., 4H, H) and dys (.., T, B, H) in
+    dtype, c0, dhT, dcT (.., B, H) float32, all nonzero."""
+    gen = torch.Generator().manual_seed(seed)
+    tdt = getattr(torch, dtype)
+    g = torch.randn(*lead, t_steps, b, 4 * h, generator=gen).to(device)
+    w = (torch.randn(*lead, 4 * h, h, generator=gen) / h ** 0.5).to(device,
+                                                                   tdt)
+    c0, dh_t, dc_t = (torch.randn(*lead, b, h, generator=gen).to(device)
+                      * 0.5 for _ in range(3))
+    dys = torch.randn(*lead, t_steps, b, h, generator=gen).to(device, tdt)
+    return g, w, c0, dys, dh_t, dc_t
+
+
+def check_bwd(fn, plain, args, what, **kw):
+    before = lstm_cuda.launches_bwd.value
+    got = fn(args[0].clone(), *args[1:], **kw)
+    assert lstm_cuda.launches_bwd.value == before + 1
+    want = plain(args[0].clone(), *args[1:], **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dgates", "dh0", "dc0"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        err = (g - w).abs().max().item() if g.numel() else 0.0
+        assert err <= BWD_TOL, (what, name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden", [32, 64, 128, 256])
+def test_bwd_kernel_matches_plain(cuda, dtype, hidden):
+    """Both entry points, both walk orders, ragged B, short T."""
+    seed = 0
+    for b in (1, 11, 13, 17):
+        for t_steps in (1, 2, 7):
+            seed += 1
+            args = bwd_inputs((2,), t_steps, b, hidden, dtype, cuda, seed)
+            check_bwd(lstm_cuda.lstm_bwd_bidir,
+                      lstm_cuda.lstm_bwd_bidir_plain, args, (b, t_steps))
+            for reverse in (False, True):
+                check_bwd(lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_plain,
+                          tuple(a[int(reverse)] for a in args),
+                          (b, t_steps, reverse), reverse=reverse)
+
+
+def lstm_case(device, bidirectional, seed=0, t_steps=6, b=5, i=7, h=32):
+    from fnssl_tpu_torch.models.lstm import LSTMState
+
+    gen = torch.Generator().manual_seed(seed)
+    ndir = 2 if bidirectional else 1
+    names = ["weight_ih_l0", "weight_hh_l0", "bias_ih_l0", "bias_hh_l0"]
+    shapes = [(4 * h, i), (4 * h, h), (4 * h,), (4 * h,)]
+    params = {n + s: (torch.randn(shape, generator=gen) * 0.3).to(device)
+              .requires_grad_()
+              for s in ["", "_reverse"][:ndir] for n, shape in zip(names,
+                                                                   shapes)}
+    x, h0, c0 = (torch.randn(shape, generator=gen).to(device).requires_grad_()
+                 for shape in ((b, t_steps, i), (ndir, b, h), (ndir, b, h)))
+    wy = torch.randn(b, t_steps, ndir * h, generator=gen).to(device)
+    return params, x, LSTMState(h0, c0), wy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_lstm_function_on_card_matches_cpu(cuda, bidirectional):
+    """models.lstm's autograd Function: K1 + K2 on the card against the
+    plain versions on the CPU, values and every gradient within 1e-4."""
+    from fnssl_tpu_torch.models.lstm import lstm
+
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        params, x, state, wy = lstm_case(device, bidirectional)
+        before = (lstm_cuda.launches.value, lstm_cuda.launches_bwd.value)
+        out, st = lstm(params, x, state, bidirectional)
+        ((out * wy).sum() + st.h.sum() + (st.c * 0.5).sum()).backward()
+        after = (lstm_cuda.launches.value, lstm_cuda.launches_bwd.value)
+        assert after == ((before[0] + 1, before[1] + 1) if device.type
+                         == "cuda" else before)
+        results.append([out, st.h, st.c, x.grad, state.h.grad, state.c.grad]
+                       + [p.grad for p in params.values()])
+    for got, want in zip(*results):
+        assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_train_step_launch_counts(cuda):
+    """One train step of FN-SSL (hidden 64: full-band H 32, narrow-band H
+    64) launches K1 and K2 6 times each: 3 fused full-band BiLSTMs and 3
+    narrow-band LSTMs."""
+    from fnssl_tpu_torch.models.fnssl import FNSSL, FNSSLConfig
+    from fnssl_tpu_torch.train import step, tasks
+
+    cfg = FNSSLConfig(hidden_size=64)
+    model = FNSSL(cfg, device=cuda,
+                  generator=torch.Generator().manual_seed(0))
+    tx = step.make_optimizer("adam", 1e-3, 0.8988, 1)
+    state = step.init_train_state(model, tx)
+    train = step.make_train_step(tasks.make_fnssl_task(cfg).loss_fn, tx)
+    batch = tasks.synthetic_fnssl_batch(nb=1, t_s=0.4, seed=1)
+    counters = (lstm_cuda.launches, lstm_cuda.launches_v2,
+                lstm_cuda.launches_bwd)
+    before = [c.value for c in counters]
+    state, loss = train(state, batch,
+                        torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    assert [c.value - b for c, b in zip(counters, before)] == [6, 0, 6]
+    assert state.step == 1 and torch.isfinite(loss)
+
+
+@pytest.mark.cuda
+def test_backward_above_256_is_refused(cuda):
+    """The CUDA backward serves H up to 256; a gradient through a wider
+    LSTM raises instead of running elsewhere."""
+    from fnssl_tpu_torch.models.lstm import LSTM
+
+    layer = LSTM(4, 512, device=cuda)
+    out, _ = layer(torch.randn(2, 3, 4, device=cuda))
+    before = lstm_cuda.launches_bwd.value
+    with pytest.raises(ValueError, match="up to 256"):
+        out.sum().backward()
+    assert lstm_cuda.launches_bwd.value == before
