@@ -6,8 +6,9 @@
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device  — the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build   — nvcc builds every kernel from the sources in the checkout
-               (lstm_cluster.cu, lstm_fwd.cu), one nvcc per source, all
-               started together.
+               (lstm_cluster.cu, lstm_fwd.cu, lstm_bwd.cu,
+               lstm_bwd_cluster.cu), one nvcc per source, all started
+               together.
   3. kernels — each kernel against its plain PyTorch version on the card:
                the cluster kernel through lstm_fwd (both directions) and
                lstm_fwd_bidir at the main path's shapes and at edge cases
@@ -15,7 +16,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
                nonzero h0/c0; lstm_fwd.cu at H = 512, its only use.
   4. serve   — `cli serve --model fnssl` at full width (fresh weights from
                --seed) on cuda:0 answers 3 TCP connections of 5 s of 2-channel
-               16 kHz audio; launch counts (6 a chunk step), eof counts, and
+               16 kHz audio; launch counts (6 of lstm_cluster.cu a chunk
+               step, none of the other kernels), eof counts, and
                agreement with the same pipeline on the CPU (plain versions)
                are checked.
   5. times   — each kernel at the main path's shapes (CUDA events, warm):
@@ -24,24 +26,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
                torch.nn.LSTM (cuDNN, one- and bidirectional) as the library
                yardstick (the port never calls it). Then every cluster plan
                (N, Bt, KS) that fits at the two serve shapes.
-  6. backward — K2 (lstm_bwd.cu) against its plain version through
-               lstm_bwd (both walks) and lstm_bwd_bidir: dgates, dh0, dc0 at
-               the two training shapes and at edge cases (B 1/11/13/17, T
-               1/2/7, H 32/64/128/256), fp32 and bf16, nonzero c0/dhT/dcT;
-               and K1 at the two training shapes, which phase 3 never
-               reaches.
+  6. backward — K2 (lstm_bwd_cluster.cu) against its plain version
+               through lstm_bwd (both walks) and lstm_bwd_bidir: dgates,
+               dh0, dc0 at the two training shapes and at edge cases (B
+               1/11/13/17, T 1/2/7, H 32/64/128/256), fp32 and bf16, nonzero
+               c0/dhT/dcT; the earlier lstm_bwd.cu, which phase 9 times, at
+               the two training shapes; and K1 at the two training shapes,
+               which phase 3 never reaches.
   7. train parity — one make_train_step step (fp32, dropout off, nb=2 x
                4.79 s, full width, weights from --seed) on cuda:0 and on the
                CPU: loss, every gradient and every parameter after the Adam
-               step; exactly 6 K1 and 6 K2 launches a step.
+               step; exactly 6 K1 and 6 K2 launches a step, all K2
+               launches lstm_bwd_cluster.cu.
   8. train   — the reference cell (nb=16 x 4.79 s, FNSSLConfig(), Adam
                1e-3 / gamma 0.8988, dropout on from a seeded generator), fp32
                then the bf16 policy: 1 warm and 5 timed steps each; ms per
                step, T-F frames/s, peak memory, finite losses, launches.
   9. train times — at the two training shapes (CUDA events, warm): K1 and
-               cuDNN forward; K2, its bound and plain version; the port's
-               whole LSTM backward and cuDNN's (forward+backward less
-               forward).
+               cuDNN forward; K2's two sources in turns (lstm_bwd.cu,
+               lstm_bwd_cluster.cu, lstm_bwd_cluster.cu, lstm_bwd.cu), its
+               bound and plain version; the port's whole LSTM backward and
+               cuDNN's (forward+backward less forward). Then every plan
+               (N, Bt, KS, UPT) of lstm_bwd_cluster.cu that fits, fp32 and
+               bf16.
 The line before the last is the kernels JSON line (each kernel's numbers
 over one train step's work); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -49,6 +56,7 @@ over one train step's work); the last line is
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import subprocess
@@ -225,7 +233,6 @@ def cpu_reference(seed, sig, block):
 def phase_serve(seed, device):
     """Drive `cli serve --model fnssl` on the card over TCP."""
     from fnssl_tpu_torch.cli.main import build_parser, build_server
-    from fnssl_tpu_torch.kernels import lstm_cuda
     from fnssl_tpu_torch.runtime.server import stream_client
 
     block = 1600
@@ -263,14 +270,14 @@ def phase_serve(seed, device):
     server.session_factory = timed_session
     server.start()
     conns = [(seed + 100 + k, d) for k, d in enumerate((3, -5, 0))]
+    counters = launch_counters()
     try:
-        lstm_cuda.launches.reset()
-        lstm_cuda.launches_v2.reset()
+        for c in counters:
+            c.reset()
         replies = [stream_client("127.0.0.1", server.port,
                                  make_audio(s, d), block=block)
                    for s, d in conns]
-        launches = lstm_cuda.launches.value
-        launches_v2 = lstm_cuda.launches_v2.value
+        launched = [c.value for c in counters]
     finally:
         server.shutdown()
 
@@ -308,19 +315,19 @@ def phase_serve(seed, device):
             f"eof ok, FN-SSL max|diff| vs CPU {out_err:.3e}, DOAs equal "
             f"(ties {mismatched}), median azimuth {np.median(azis):.1f} deg")
 
-    if launches != LAUNCHES_PER_CHUNK * steps or launches_v2 != 0:
-        raise AssertionError(
-            f"K1 launched {launches} times (lstm_cluster) and {launches_v2} "
-            f"(lstm_fwd) for {steps} chunk steps (expected "
-            f"{LAUNCHES_PER_CHUNK * steps} and 0)")
+    # K1 through lstm_cluster.cu only; no backward while serving
+    want = [LAUNCHES_PER_CHUNK * steps, 0, 0, 0]
+    if launched != want:
+        raise AssertionError(f"serving launched {COUNTED} {launched} for "
+                             f"{steps} chunk steps, expected {want}")
     ms = np.concatenate([rec["ms"][1:] for rec in sessions])
     rtf = [rec["loc"].rtf for rec in sessions]
-    log(f"  K1 launches {launches} = {LAUNCHES_PER_CHUNK} x {steps} chunk "
-        f"steps, all lstm_cluster")
+    log(f"  launches {COUNTED} {launched} = {steps} chunk steps x "
+        f"{LAUNCHES_PER_CHUNK} lstm_cluster")
     log(f"  model step ms (warm, synchronized): mean {ms.mean():.3f} "
         f"p90 {np.percentile(ms, 90):.3f} over {ms.size} steps; RTF per "
         f"connection {', '.join(f'{r:.4f}' for r in rtf)}")
-    return {"lstm_cluster": launches, "lstm_fwd": launches_v2}, steps, {
+    return dict(zip(COUNTED, launched)), steps, {
         "model_step_ms_mean": float(ms.mean()),
         "model_step_ms_p90": float(np.percentile(ms, 90)),
         "rtf_per_connection": rtf}
@@ -507,52 +514,83 @@ def held_bwd(what, got, want, worst, dtype):
             for k, g, w in zip(("dgates", "dh0", "dc0"), got, want)}
     for k, v in errs.items():
         if not v <= BWD_TOL:
-            raise AssertionError(f"lstm_bwd {what} {dtype}: {k} max|diff| "
-                                 f"{v} > {BWD_TOL}")
+            raise AssertionError(f"{what} {dtype}: {k} max|diff| {v} > "
+                                 f"{BWD_TOL}")
     worst[dtype] = max(worst[dtype], *errs.values())
     return max(errs.values())
 
 
-def phase_backward(device, worst):
-    """K2 against its plain version on the card, and K1 at the training
-    shapes (folded into worst['lstm_cluster']). Returns K2's worst errors
-    by dtype."""
+def k2_source(name, *args, reverse=False, plan=None):
+    """K2 through the source `name` (lstm_bwd.cu or lstm_bwd_cluster.cu):
+    lstm_bwd's inputs for one direction (g 3-D) or lstm_bwd_bidir's for
+    both (g 4-D)."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
-    worst_bwd = {"float32": 0.0, "bfloat16": 0.0}
+    ndir = 2 if args[0].dim() == 4 else None
+    dims, dh_t, dc_t = L._check_bwd(*args, ndir=ndir)
+    return L._launch_bwd(name, *args[:4], dh_t, dc_t, dims, ndir or 1,
+                         reverse, plan)
+
+
+def phase_backward(device, worst):
+    """K2 against its plain version on the card, through lstm_bwd and
+    lstm_bwd_bidir (lstm_bwd_cluster.cu) and, at the training shapes,
+    through lstm_bwd.cu; and K1 at the training shapes (folded into
+    worst['lstm_cluster']). Returns K2's worst errors by source and dtype,
+    and its checks by source."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    worst_bwd = {k: {"float32": 0.0, "bfloat16": 0.0}
+                 for k in L.BWD_COUNTERS}
+    checks = dict.fromkeys(L.BWD_COUNTERS, 0)
     cases = [(n, t, b, h) for n, t, b, h, _, _ in TRAIN_SHAPES]
     cases += [("edge", t, b, h) for h in EDGE_H for b in EDGE_B
               for t in BWD_EDGE_T]
-    seed, checks = 1000, 0
+    seed = 1000
+
+    def check(kernel, fn, plain, args, what, dtype, **kw):
+        got = counted(L.BWD_COUNTERS[kernel], 1, fn, args[0].clone(),
+                      *args[1:], **kw)
+        want = plain(args[0].clone(), *args[1:], **kw)
+        checks[kernel] += 1
+        return held_bwd(f"{kernel} {what}", got, want, worst_bwd[kernel],
+                        dtype)
+
     for name, t, b, h in cases:
         for dtype in ("float32", "bfloat16"):
             seed += 1
             both = bwd_inputs((2,), t, b, h, getattr(torch, dtype), device,
                               seed)
-            errs = []
-            for reverse in (False, True):
-                one = tuple(a[int(reverse)] for a in both)
-                got = counted(L.launches_bwd, 1, L.lstm_bwd,
-                              one[0].clone(), *one[1:], reverse=reverse)
-                want = L.lstm_bwd_plain(one[0].clone(), *one[1:],
-                                        reverse=reverse)
-                errs.append(held_bwd(f"{name} T={t} B={b} H={h} lstm_bwd "
-                                     f"reverse={int(reverse)}", got, want,
-                                     worst_bwd, dtype))
-                del got, want
-            got = counted(L.launches_bwd, 1, L.lstm_bwd_bidir,
-                          both[0].clone(), *both[1:])
-            want = L.lstm_bwd_bidir_plain(both[0].clone(), *both[1:])
-            errs.append(held_bwd(f"{name} T={t} B={b} H={h} lstm_bwd_bidir",
-                                 got, want, worst_bwd, dtype))
-            del got, want, both
-            checks += 3
+            what = f"{name} T={t} B={b} H={h}"
+            routes = [("lstm_bwd_cluster", L.lstm_bwd)]
             if name != "edge":
-                log(f"  lstm_bwd {name:16s} T={t:3d} B={b:4d} H={h:3d} "
-                    f"{dtype:8s} max|diff| dgates/dh0/dc0 fwd/rev/bidir "
-                    + "/".join(f"{e:.2e}" for e in errs))
-    log(f"  {checks} K2 checks passed; edge cases B {EDGE_B} x T "
-        f"{BWD_EDGE_T} x H {EDGE_H}; worst {json.dumps(worst_bwd)}")
+                routes.append(("lstm_bwd", functools.partial(k2_source,
+                                                             "lstm_bwd")))
+            errs = {}
+            for kernel, fn in routes:
+                for reverse in (False, True):
+                    errs.setdefault(kernel, []).append(check(
+                        kernel, fn, L.lstm_bwd_plain,
+                        tuple(a[int(reverse)] for a in both),
+                        f"{what} lstm_bwd reverse={int(reverse)}", dtype,
+                        reverse=reverse))
+            routes = [("lstm_bwd_cluster", L.lstm_bwd_bidir)]
+            if name != "edge":
+                routes.append(("lstm_bwd", functools.partial(k2_source,
+                                                             "lstm_bwd")))
+            for kernel, fn in routes:
+                errs.setdefault(kernel, []).append(check(
+                    kernel, fn, L.lstm_bwd_bidir_plain, both,
+                    f"{what} lstm_bwd_bidir", dtype))
+            del both
+            if name != "edge":
+                for kernel, e in errs.items():
+                    log(f"  {kernel:16s} {name:16s} T={t:3d} B={b:4d} "
+                        f"H={h:3d} {dtype:8s} max|diff| dgates/dh0/dc0 "
+                        "fwd/rev/bidir " + "/".join(f"{v:.2e}" for v in e))
+    log(f"  K2 checks passed by source {json.dumps(checks)}; edge cases B "
+        f"{EDGE_B} x T {BWD_EDGE_T} x H {EDGE_H}; worst "
+        f"{json.dumps(worst_bwd)}")
     for name, t, b, h, _, _ in TRAIN_SHAPES:
         for dtype in ("float32", "bfloat16"):
             seed += 1
@@ -576,7 +614,7 @@ def phase_backward(device, worst):
                 "fwd/rev/bidir ys " + "/".join(f"{e['ys']:.2e}" for e in errs)
                 + " hT,cT " + "/".join(f"{max(e['hT'], e['cT']):.2e}"
                                        for e in errs))
-    return worst_bwd
+    return worst_bwd, checks
 
 
 def train_setup(seed, device, nb, precision="fp32"):
@@ -597,14 +635,27 @@ def train_setup(seed, device, nb, precision="fp32"):
     return S.init_train_state(model, tx), step, batch
 
 
-def phase_train_parity(seed, device):
-    """One fp32 train step, dropout off, on the card and on the CPU."""
+COUNTED = ("lstm_cluster", "lstm_fwd", "lstm_bwd", "lstm_bwd_cluster")
+
+
+def launch_counters():
+    """The launch counters of every kernel, in the order of COUNTED."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
+    return (L.launches, L.launches_v2, L.launches_bwd,
+            L.launches_bwd_cluster)
+
+
+# launches of each kernel in one train step, in the order of COUNTED
+STEP_LAUNCHES = [LAUNCHES_PER_TRAIN_STEP, 0, 0, LAUNCHES_PER_TRAIN_STEP]
+
+
+def phase_train_parity(seed, device):
+    """One fp32 train step, dropout off, on the card and on the CPU."""
     runs = []
     for dev in (device, torch.device("cpu")):
         state, step, batch = train_setup(seed, dev, PARITY_NB)
-        counts = (L.launches, L.launches_v2, L.launches_bwd)
+        counts = launch_counters()
         for c in counts:
             c.reset()
         t0 = time.perf_counter()
@@ -618,12 +669,11 @@ def phase_train_parity(seed, device):
         del state, step, batch, named
     (loss_c, grads_c, params_c, launched, sec_c), (
         loss_p, grads_p, params_p, plain_launched, sec_p) = runs
-    if launched != [LAUNCHES_PER_TRAIN_STEP, 0, LAUNCHES_PER_TRAIN_STEP] \
-            or plain_launched != [0, 0, 0]:
-        raise AssertionError(f"train step launched (lstm_cluster, lstm_fwd, "
-                             f"lstm_bwd) {launched} on the card, "
-                             f"{plain_launched} on the CPU; expected "
-                             f"[6, 0, 6] and [0, 0, 0]")
+    want = STEP_LAUNCHES
+    if launched != want or plain_launched != [0] * len(COUNTED):
+        raise AssertionError(f"train step launched {COUNTED} {launched} on "
+                             f"the card, {plain_launched} on the CPU; "
+                             f"expected {want} and none")
     loss_rel = abs(loss_c - loss_p) / abs(loss_p)
     grad_rel = {n: ((grads_c[n] - g).abs().max() / g.abs().max()).item()
                 for n, g in grads_p.items()}
@@ -654,11 +704,9 @@ def phase_train_parity(seed, device):
 
 def phase_train(seed, device):
     """The reference cell, fp32 then bf16: 1 warm + TIMED_STEPS steps."""
-    from fnssl_tpu_torch.kernels import lstm_cuda as L
-
     frames = TRAIN_NB * 298 * 256
     rows = {}
-    counts = (L.launches, L.launches_v2, L.launches_bwd)
+    counts = launch_counters()
     for c in counts:
         c.reset()
     for precision in ("fp32", "bf16"):
@@ -692,17 +740,13 @@ def phase_train(seed, device):
         del state, step, batch
     steps = 2 * (1 + TIMED_STEPS)
     launched = [c.value for c in counts]
-    want = [LAUNCHES_PER_TRAIN_STEP * steps, 0,
-            LAUNCHES_PER_TRAIN_STEP * steps]
+    want = [steps * n for n in STEP_LAUNCHES]
     if launched != want:
-        raise AssertionError(f"training launched (lstm_cluster, lstm_fwd, "
-                             f"lstm_bwd) {launched} for {steps} steps, "
-                             f"expected {want}")
-    log(f"  launches (lstm_cluster, lstm_fwd, lstm_bwd) {launched} = "
-        f"{LAUNCHES_PER_TRAIN_STEP} x {steps} steps of each kernel of the "
-        "path")
-    return rows, dict(zip(("lstm_cluster", "lstm_fwd", "lstm_bwd"),
-                          launched))
+        raise AssertionError(f"training launched {COUNTED} {launched} for "
+                             f"{steps} steps, expected {want}")
+    log(f"  launches {COUNTED} {launched} = {steps} steps x "
+        f"{STEP_LAUNCHES}")
+    return rows, dict(zip(COUNTED, launched))
 
 
 def bwd_bound_terms(t_steps, batch, hidden, itemsize):
@@ -737,7 +781,8 @@ def lstm_grad_case(t_steps, batch, hidden, in_size, ndir, device, seed):
 
 
 def phase_train_times(device):
-    """K1, K2 and the whole LSTM backward at the two training shapes."""
+    """K1, K2 (both sources, in turns) and the whole LSTM backward at the
+    two training shapes."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
     from fnssl_tpu_torch.models.lstm import lstm
 
@@ -745,7 +790,8 @@ def phase_train_times(device):
     for name, t, b, h, i, ndir in TRAIN_SHAPES:
         bidir = ndir == 2
         row = {"shape": name, "T": t, "B": b, "H": h, "I": i, "ndir": ndir,
-               "plan": L.cluster_plan(h, 4, b)}
+               "plan": L.cluster_plan(h, 4, b),
+               "k2_plan": L.bwd_cluster_plan(h, 4)}
         for dtype in ("float32", "bfloat16"):
             tdt = getattr(torch, dtype)
             itemsize = tdt.itemsize
@@ -765,11 +811,18 @@ def phase_train_times(device):
             # K2 rewrites g in place: each timed launch starts from the last
             # one's dgates, which costs the same work
             args = bwd_inputs((ndir,), t, b, h, tdt, device, 8)
-            k2, k2_plain = ((L.lstm_bwd_bidir, L.lstm_bwd_bidir_plain)
-                            if bidir else (L.lstm_bwd, L.lstm_bwd_plain))
+            k2_plain = (L.lstm_bwd_bidir_plain if bidir
+                        else L.lstm_bwd_plain)
             if not bidir:
                 args = tuple(a[0] for a in args)
-            row[f"k2_ms_{dtype}"] = cuda_ms(lambda: k2(*args), 5)
+            turns = {}
+            for src in ("lstm_bwd", "lstm_bwd_cluster", "lstm_bwd_cluster",
+                        "lstm_bwd"):
+                turns.setdefault(src, []).append(
+                    cuda_ms(lambda: k2_source(src, *args), 5))
+            for src, ms in turns.items():
+                row[f"k2_{src}_turns_{dtype}"] = ms
+                row[f"k2_{src}_ms_{dtype}"] = float(np.mean(ms))
             row[f"k2_bound_terms_{dtype}"] = {
                 k: ndir * v for k, v in bwd_bound_terms(t, b, h,
                                                         itemsize).items()}
@@ -800,14 +853,52 @@ def phase_train_times(device):
             f"{row['k1_ms_bfloat16']:.3f} (bound "
             f"{bound(row['k1_bound_terms_float32'])[0]:.3f}, plain "
             f"{row['k1_plain_ms']:.1f}, lstm_fwd.cu {row['v2_ms']:.3f}, "
-            f"cuDNN fwd {row['library_fwd_ms']:.3f}); K2 fp32 "
-            f"{row['k2_ms_float32']:.3f} ms, bf16 "
-            f"{row['k2_ms_bfloat16']:.3f} (bound "
+            f"cuDNN fwd {row['library_fwd_ms']:.3f}); K2 (plan "
+            f"{row['k2_plan']}) in turns "
+            "lstm_bwd.cu/lstm_bwd_cluster.cu/lstm_bwd_cluster.cu/lstm_bwd.cu"
+            " fp32 " + "/".join(f"{v:.3f}" for v in (
+                row["k2_lstm_bwd_turns_float32"][0],
+                *row["k2_lstm_bwd_cluster_turns_float32"],
+                row["k2_lstm_bwd_turns_float32"][1])) + " ms, bf16 "
+            + "/".join(f"{v:.3f}" for v in (
+                row["k2_lstm_bwd_turns_bfloat16"][0],
+                *row["k2_lstm_bwd_cluster_turns_bfloat16"],
+                row["k2_lstm_bwd_turns_bfloat16"][1])) + " (bound "
             f"{bound(row['k2_bound_terms_float32'])[0]:.3f} "
             f"{bound(row['k2_bound_terms_float32'])[1]}, plain "
             f"{row['k2_plain_ms']:.1f}); whole LSTM backward "
             f"{row['port_bwd_ms']:.3f} ms (forward {row['port_fwd_ms']:.3f}),"
             f" cuDNN backward {row['library_bwd_ms']:.3f}")
+    return rows
+
+
+def phase_bwd_plans(device):
+    """Every plan of lstm_bwd_cluster.cu that fits at the two training
+    shapes, fp32 and bf16."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    rows = []
+    for name, t, b, h, _, ndir in TRAIN_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            args = bwd_inputs((ndir,), t, b, h, tdt, device, 8)
+            if ndir == 1:
+                args = tuple(a[0] for a in args)
+            default = L.bwd_cluster_plan(h, tdt.itemsize)
+            bt = L.BWD_TILE
+            plans = [(n, bt, ks, upt) for n in L.CLUSTER_SIZES
+                     for ks in (h // 16, h // 8) for upt in L.BWD_UPTS
+                     if L.bwd_cluster_fits(h, tdt.itemsize, n, bt, ks, upt)]
+            for plan in plans:
+                ms = cuda_ms(lambda: k2_source("lstm_bwd_cluster", *args,
+                                               plan=plan), 3)
+                rows.append({"shape": name, "dtype": dtype,
+                             **dict(zip(("N", "Bt", "KS", "UPT"), plan)),
+                             "ms": ms, "default": plan == default})
+                log(f"  {name:16s} {dtype:8s} N={plan[0]} Bt={plan[1]:2d} "
+                    f"KS={plan[2]:2d} UPT={plan[3]}: {ms:.3f} ms"
+                    + (" (default)" if plan == default else ""))
+            del args
     return rows
 
 
@@ -852,7 +943,8 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    reports = cuda_build.build(["lstm_cluster", "lstm_fwd", "lstm_bwd"])
+    reports = cuda_build.build(["lstm_cluster", "lstm_fwd", "lstm_bwd",
+                                "lstm_bwd_cluster"])
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         spills = [line.strip() for line in report.splitlines()
@@ -877,7 +969,7 @@ def main():
     # 6-9. training
     log("[backward] K2 against its plain version on the card; K1 at the "
         "training shapes")
-    worst_bwd = phase_backward(device, worst)
+    worst_bwd, bwd_checks = phase_backward(device, worst)
     log(f"[train parity] one fp32 train step, nb={PARITY_NB} x {TRAIN_T_S} s,"
         " dropout off: the card against the CPU")
     parity = phase_train_parity(args.seed, device)
@@ -886,6 +978,8 @@ def main():
     train, train_launches = phase_train(args.seed, device)
     log("[train times] K1, K2 and the LSTM backward at the training shapes")
     train_rows = phase_train_times(device)
+    log("[bwd plans] lstm_bwd_cluster plans at the training shapes")
+    bwd_plans = phase_bwd_plans(device)
 
     # each kernel's work in one online chunk step, fp32: 3 BiLSTMs over
     # frequency and 3 LSTMs over time
@@ -947,24 +1041,29 @@ def main():
         "serve_chunk_step": {
             "ms": 2 * nf * full["v2_ms_float32"]
             + nn_ * narrow["v2_ms_float32"], **serve_common},
-    }, {
-        "name": "lstm_bwd", "route": "cuda",
-        "source": "fnssl_tpu_torch/kernels/csrc/lstm_bwd.cu",
+    }]
+    k2_common = {
         "replaces": "fnssl_tpu/kernels/lstm_pallas.py:269",
-        "launches": train_launches["lstm_bwd"],
-        "launches_by_path": {k: v.get("lstm_bwd", 0)
-                             for k, v in paths.items()},
-        "max_abs_err": worst_bwd["float32"],
-        "max_abs_err_bf16": worst_bwd["bfloat16"],
-        "ms": per_train_step(train_rows, "k2_ms_float32"),
-        "ms_bf16": per_train_step(train_rows, "k2_ms_bfloat16"),
         "plain_ms": per_train_step(train_rows, "k2_plain_ms"),
         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
         "library_ms": per_train_step(train_rows, "library_bwd_ms"),
         "work": work + "; library_ms is cuDNN's backward (forward+backward "
-                "less forward) of the same LSTMs, input gradients included",
-        "lstm_backward_ms": per_train_step(train_rows, "port_bwd_ms"),
-    }]
+                "less forward) of the same LSTMs, input gradients "
+                "included; ms is this source's time for all 6 launches",
+        "lstm_backward_ms": per_train_step(train_rows, "port_bwd_ms")}
+    for src in ("lstm_bwd_cluster", "lstm_bwd"):
+        kernels.append({
+            "name": src, "route": "cuda",
+            "source": f"fnssl_tpu_torch/kernels/csrc/{src}.cu",
+            "launches": launches[src] + train_launches[src],
+            "launches_by_path": {k: v[src] for k, v in paths.items()},
+            "max_abs_err": worst_bwd[src]["float32"],
+            "max_abs_err_bf16": worst_bwd[src]["bfloat16"],
+            "checks": bwd_checks[src],
+            "ms": per_train_step(train_rows, f"k2_{src}_ms_float32"),
+            "ms_bf16": per_train_step(train_rows, f"k2_{src}_ms_bfloat16"),
+            **k2_common})
+    kernels[-2]["plans"] = bwd_plans
     report = {"card": card, "kind": kind, "kernels": kernels,
               "train": train, "train_parity": parity}
     out = Path(args.out)

@@ -8,8 +8,10 @@ Only ``serve --model fnssl`` is ported:
 serves FN-SSL over TCP (runtime/server.py's wire protocol) with the model
 on the first CUDA device, or on the CPU with ``--platform cpu``. Weights
 come from ``<log-dir>/best_model.tar`` (the reference ``.tar`` format)
-when it exists, else from ``--seed``. Every other subcommand and model
-exits with "not ported yet".
+when it exists, else from ``--seed``. A JAX fit leaves orbax checkpoints
+instead; ``tools/jax_ckpt_to_tar.py --log-dir <log-dir>`` writes its
+best epoch as that file. Every other subcommand and model exits with
+"not ported yet".
 """
 from __future__ import annotations
 
@@ -51,6 +53,24 @@ def build_parser():
     return ap
 
 
+def load_fnssl(log_dir: str, seed: int, device):
+    """FN-SSL (``FNSSLConfig()``) in eval mode on ``device``: weights from
+    ``<log_dir>/best_model.tar`` when it exists, else fresh from ``seed``
+    with a warning."""
+    from fnssl_tpu_torch.models.fnssl import FNSSL, FNSSLConfig
+    from fnssl_tpu_torch.train.convert import load_torch_tar
+
+    model = FNSSL(FNSSLConfig(), device=device,
+                  generator=torch.Generator().manual_seed(seed))
+    ckpt = os.path.join(log_dir, "best_model.tar")
+    if os.path.exists(ckpt):
+        state, _ = load_torch_tar(ckpt)
+        model.load_state_dict(state, strict=True)
+    else:
+        print("warning: no checkpoint found; using fresh params")
+    return model.eval()
+
+
 def build_server(args):
     """The LocalizationServer that ``serve`` runs, and its announcement.
 
@@ -59,25 +79,15 @@ def build_server(args):
     the card sees one model step per chunk.
     """
     from fnssl_tpu_torch.eval.pred_doa import PredDOA
-    from fnssl_tpu_torch.models.fnssl import FNSSL, FNSSLConfig
     from fnssl_tpu_torch.runtime.server import LocalizationServer
     from fnssl_tpu_torch.runtime.streaming import (
         StreamingLocalizer, make_fnssl_stream_step)
-    from fnssl_tpu_torch.train.convert import load_torch_tar
     from fnssl_tpu_torch.utils.device import resolve_device
 
     if args.model != "fnssl":
         raise SystemExit(f"serve --model {args.model}: not ported yet")
     device = resolve_device("cpu" if args.platform == "cpu" else None)
-    model = FNSSL(FNSSLConfig(), device=device,
-                  generator=torch.Generator().manual_seed(args.seed))
-    ckpt = os.path.join(args.log_dir, "best_model.tar")
-    if os.path.exists(ckpt):
-        state, _ = load_torch_tar(ckpt)
-        model.load_state_dict(state, strict=True)
-    else:
-        print("warning: no checkpoint found; using fresh params")
-    model.eval()
+    model = load_fnssl(args.log_dir, args.seed, device)
 
     nch = args.nch or 2
     host = torch.device("cpu")

@@ -12,10 +12,16 @@ bound with ``ctypes``, chosen by shape:
 - ``csrc/lstm_fwd.cu`` for H above 256 (up to 1024): one direction a
   launch, W_hh read through L2 on every step.
 
-K2, the backward recurrence (``csrc/lstm_bwd.cu``, H up to 256), replaces
-the sequential part of ``_lstm_backward``, K1's ``custom_vjp``: the
-replay of c and the reverse walk that turns the gate pre-activations into
-dgates, dh0 and dc0 (``lstm_bwd``, ``lstm_bwd_bidir``).
+K2, the backward recurrence (H up to 256), replaces the sequential part
+of ``_lstm_backward``, K1's ``custom_vjp``: the replay of c and the
+reverse walk that turns the gate pre-activations into dgates, dh0 and dc0
+(``lstm_bwd``, ``lstm_bwd_bidir``). ``csrc/lstm_bwd_cluster.cu`` is K1's
+cluster design mirrored: each CTA keeps the W_hh columns of its hidden
+units in shared memory and dgates are exchanged through distributed
+shared memory; ``bwd_cluster_plan`` picks its plan. ``csrc/lstm_bwd.cu``
+(one block per 16-row tile, W_hh read through L2 at every step) is the
+earlier design, slower at both of FN-SSL's training shapes; no wrapper
+launches it, and ``chip_smoke.py`` times it beside the new one.
 
 Each source's header comment says what bounds it on the card and how the
 design responds. Every wrapper runs the plain version for tensors on the
@@ -36,20 +42,29 @@ from fnssl_tpu_torch.kernels.cuda_build import LaunchCounter, load_library
 
 # launches of each CUDA kernel (the plain version is not counted):
 # ``launches`` for lstm_cluster.cu, ``launches_v2`` for lstm_fwd.cu,
-# ``launches_bwd`` for lstm_bwd.cu
+# ``launches_bwd`` for lstm_bwd.cu, ``launches_bwd_cluster`` for
+# lstm_bwd_cluster.cu
 launches = LaunchCounter()
 launches_v2 = LaunchCounter()
 launches_bwd = LaunchCounter()
+launches_bwd_cluster = LaunchCounter()
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 CLUSTER_MAX_HIDDEN = 256          # lstm_cluster.cu's H; lstm_fwd.cu above
-BWD_MAX_HIDDEN = 256              # lstm_bwd.cu's H
+BWD_MAX_HIDDEN = 256              # lstm_bwd.cu's and lstm_bwd_cluster.cu's H
+BWD_MAX_THREADS = 512             # threads of a lstm_bwd_cluster.cu CTA
+BWD_UPTS = (2, 1)                 # units a thread sums in its product
+BWD_TILE = 8                      # batch rows of a lstm_bwd_cluster.cu tile
 # dynamic shared memory a CTA may use: 227 KB less 16 B of mbarriers
 SMEM_BYTES = 232_448 - 16
+# an H100 SM's shared memory (228 KB), of which the runtime reserves 1 KB
+# for each resident CTA
+SM_SMEM_BYTES = 233_472
+CTA_RESERVED_SMEM = 1_024
 MAX_THREADS = {8: 512, 16: 256}   # threads a CTA may have, by tile
 CLUSTER_SIZES = (1, 2, 4, 8)      # 8 is the portable cluster limit
-TILES = (8, 16)
+TILES = (8, 16)                   # lstm_cluster.cu's tiles
 
 
 def lstm_fwd_plain(xg: torch.Tensor, w_hh_t: torch.Tensor,
@@ -134,6 +149,71 @@ def cluster_plan(hidden: int, itemsize: int, batch: int, *,
                     return m, b, k
     raise ValueError(f"lstm_cluster: no plan fits hidden={hidden}, "
                      f"itemsize={itemsize}, N={n}, Bt={bt}, KS={ks}")
+
+
+def bwd_cluster_smem(hidden: int, itemsize: int, n: int, bt: int,
+                     ks: int) -> int:
+    """Shared memory (bytes) of one CTA of lstm_bwd_cluster.cu: the W_hh
+    column slice (4H x H/N in ys's dtype), two dgates buffers (Bt x 4H
+    float32) and the KS partial dh sums (Bt x H/N float32)."""
+    units = hidden // n
+    return (4 * hidden * units * itemsize + 2 * bt * 4 * hidden * 4
+            + ks * bt * units * 4)
+
+
+def bwd_cluster_fits(hidden: int, itemsize: int, n: int, bt: int, ks: int,
+                     upt: int) -> bool:
+    """Whether lstm_bwd_cluster.cu takes (N, Bt, KS, UPT) at this H: tiles
+    of 8 rows, a k-slice of H/KS = 16 or 8 units, UPT dividing the CTA's
+    H/N units, KS x H/N / UPT <= 512 threads and at most 2 (row, unit)
+    pairs a thread in the cell part, and the shared memory within 227 KB."""
+    units = hidden // n
+    return (n in CLUSTER_SIZES and bt == BWD_TILE and upt in BWD_UPTS
+            and ks in (hidden // 16, hidden // 8) and units % upt == 0
+            and ks * units // upt <= BWD_MAX_THREADS and upt * bt <= 2 * ks
+            and bwd_cluster_smem(hidden, itemsize, n, bt, ks) <= SMEM_BYTES)
+
+
+def _ctas_per_sm(smem: int) -> int:
+    """CTAs of `smem` dynamic bytes (and the 16 of mbarriers) that share
+    one SM's shared memory."""
+    return SM_SMEM_BYTES // (smem + 16 + CTA_RESERVED_SMEM)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_cluster_plan(hidden: int, itemsize: int):
+    """(N, Bt, KS, UPT) for lstm_bwd_cluster.cu: CTAs per cluster, batch
+    rows per tile (8), the k-split inside a CTA and the units a thread sums
+    in the product.
+
+    The first that fits in this order: UPT = 2, then 1; the smallest
+    cluster from N = 2 up; and of its k-splits the one that puts the most
+    CTAs on an SM, KS = H/8 (the more threads) on a tie. A thread that sums
+    two units halves the product's dgates loads from shared memory, which
+    set its pace; a smaller cluster puts fewer SMs on a tile, so that more
+    tiles run at once, in fewer waves of the grid; and two CTAs on an SM
+    hide each other's waits. A cluster of 1 (no exchange) is left to a
+    pinned plan: at the full-band shape in bfloat16 it measured slower than
+    N = 2 with two CTAs an SM. At FN-SSL's training shapes the rule gives
+    (2, 8, 16, 2) at H=128 and (8, 8, 32, 2) at H=256 in float32, (2, 8, 8,
+    2) and (4, 8, 16, 2) in bfloat16: the fastest of every plan that fits
+    at each (chip_smoke.py phase 9; PERF.md). The wrappers' ``plan`` takes
+    any other plan that ``bwd_cluster_fits``.
+    """
+    if hidden % 32 or not 32 <= hidden <= BWD_MAX_HIDDEN:
+        raise ValueError(f"lstm_bwd_cluster: hidden={hidden} must be a "
+                         f"multiple of 32 up to {BWD_MAX_HIDDEN}")
+    for upt in BWD_UPTS:
+        for n in CLUSTER_SIZES[1:]:
+            splits = [ks for ks in (hidden // 8, hidden // 16)
+                      if bwd_cluster_fits(hidden, itemsize, n, BWD_TILE, ks,
+                                          upt)]
+            if splits:
+                ks = max(splits, key=lambda k: _ctas_per_sm(bwd_cluster_smem(
+                    hidden, itemsize, n, BWD_TILE, k)))
+                return n, BWD_TILE, ks, upt
+    raise ValueError(f"lstm_bwd_cluster: no plan fits hidden={hidden}, "
+                     f"itemsize={itemsize}")
 
 
 def _check(xg, w_hh_t, h0, c0, ndir: int | None = None):
@@ -330,52 +410,70 @@ def _check_bwd(g, w_hh, c0, dys, dh_t, dc_t, ndir: int | None = None):
 
 def lstm_bwd(g: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor,
              dys: torch.Tensor, dh_t: torch.Tensor | None = None,
-             dc_t: torch.Tensor | None = None, *, reverse: bool = False):
+             dc_t: torch.Tensor | None = None, *, reverse: bool = False,
+             plan=None):
     """One direction of K2 (contract of ``lstm_bwd_plain``): dgates
     written over g, and dh0, dc0.
 
-    CPU tensors take the plain version; CUDA tensors launch lstm_bwd.cu
-    once. Any B; H a multiple of 32 up to 256.
+    CPU tensors take the plain version; CUDA tensors launch
+    lstm_bwd_cluster.cu once (``plan`` overrides ``bwd_cluster_plan``'s
+    (N, Bt, KS, UPT)). Any B; H a multiple of 32 up to 256.
     """
     dims, dh_t, dc_t = _check_bwd(g, w_hh, c0, dys, dh_t, dc_t)
     if dims is None:
         return lstm_bwd_plain(g, w_hh, c0, dys, dh_t, dc_t, reverse=reverse)
-    return _launch_bwd(g, w_hh, c0, dys, dh_t, dc_t, dims, 1, reverse)
+    return _launch_bwd("lstm_bwd_cluster", g, w_hh, c0, dys, dh_t, dc_t,
+                       dims, 1, reverse, plan)
 
 
 def lstm_bwd_bidir(g: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor,
                    dys: torch.Tensor, dh_t: torch.Tensor | None = None,
-                   dc_t: torch.Tensor | None = None):
+                   dc_t: torch.Tensor | None = None, *, plan=None):
     """Both directions of K2 in one launch: direction 0 walked forward,
     direction 1 walked t = T-1 .. 0 (as ``lstm_fwd_bidir``).
 
     g (2, T, B, 4H) float32; w_hh (2, 4H, H) and dys (2, T, B, H) in ys's
     dtype; c0, dh_t, dc_t (2, B, H) float32 (dh_t/dc_t None: zeros).
     Returns (g holding dgates, dh0, dc0) (contract of
-    ``lstm_bwd_bidir_plain``).
+    ``lstm_bwd_bidir_plain``). CUDA tensors launch lstm_bwd_cluster.cu
+    once for both directions (``plan`` as in ``lstm_bwd``).
     """
     dims, dh_t, dc_t = _check_bwd(g, w_hh, c0, dys, dh_t, dc_t, ndir=2)
     if dims is None:
         return lstm_bwd_bidir_plain(g, w_hh, c0, dys, dh_t, dc_t)
-    return _launch_bwd(g, w_hh, c0, dys, dh_t, dc_t, dims, 2, False)
+    return _launch_bwd("lstm_bwd_cluster", g, w_hh, c0, dys, dh_t, dc_t,
+                       dims, 2, False, plan)
 
 
-def _launch_bwd(g, w_hh, c0, dys, dh_t, dc_t, dims, ndir, reverse):
+BWD_COUNTERS = {"lstm_bwd": launches_bwd,
+                "lstm_bwd_cluster": launches_bwd_cluster}
+
+
+def _launch_bwd(name, g, w_hh, c0, dys, dh_t, dc_t, dims, ndir, reverse,
+                plan=None):
+    """One launch of K2's kernel ``name`` (lstm_bwd_cluster or the earlier
+    lstm_bwd) on checked CUDA inputs; ``plan`` is taken by
+    lstm_bwd_cluster only."""
     t_steps, batch, hidden = dims
     dh0, dc0 = torch.empty_like(c0), torch.empty_like(c0)
     if batch == 0:
         return g, dh0, dc0
     cs = torch.empty(dys.shape, dtype=torch.float32, device=g.device)
-    lib = _library("lstm_bwd")
-    err = lib.lstm_bwd(
-        g.data_ptr(), cs.data_ptr(), w_hh.data_ptr(), c0.data_ptr(),
-        dys.data_ptr(), dh_t.data_ptr(), dc_t.data_ptr(), dh0.data_ptr(),
-        dc0.data_ptr(), t_steps, batch, hidden, ndir, int(reverse),
-        int(dys.dtype == torch.bfloat16), g.device.index, _stream(g))
+    lib = _library(name)
+    args = [g.data_ptr(), cs.data_ptr(), w_hh.data_ptr(), c0.data_ptr(),
+            dys.data_ptr(), dh_t.data_ptr(), dc_t.data_ptr(), dh0.data_ptr(),
+            dc0.data_ptr(), t_steps, batch, hidden, ndir, int(reverse),
+            int(dys.dtype == torch.bfloat16)]
+    what = f"{name} launch failed"
+    if name == "lstm_bwd_cluster":
+        plan = plan or bwd_cluster_plan(hidden, dys.element_size())
+        args += list(plan)
+        what += " (N={}, Bt={}, KS={}, UPT={})".format(*plan)
+    err = getattr(lib, name)(*args, g.device.index, _stream(g))
     if err:
-        raise RuntimeError("lstm_bwd launch failed: "
-                           + lib.lstm_bwd_error_string(err).decode())
-    launches_bwd.add()
+        raise RuntimeError(f"{what}: " + getattr(
+            lib, f"{name}_error_string")(err).decode())
+    BWD_COUNTERS[name].add()
     return g, dh0, dc0
 
 
@@ -429,6 +527,8 @@ _ARGTYPES = {
     + [ctypes.c_void_p],
     # g cs w_hh c0 dys dhT dcT dh0 dc0, then the ints, then the stream
     "lstm_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+    "lstm_bwd_cluster": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
     + [ctypes.c_void_p],
 }
 

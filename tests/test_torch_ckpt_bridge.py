@@ -1,0 +1,70 @@
+"""tools/jax_ckpt_to_tar.py: the orbax checkpoints of a JAX fit become the
+``best_model.tar`` that the port's ``cli serve`` loads.
+
+The checkpoints are written by fnssl_tpu's own CheckpointManager, as its
+Learner does (the train state of two epochs of seeded full-width params,
+no fit): the tool must take the best epoch by validation loss, not the
+last, bit for bit.
+"""
+import importlib.util
+import os
+from pathlib import Path
+
+import jax
+import numpy as np
+import torch
+
+from fnssl_tpu.models.fnssl import FNSSLConfig as JConfig
+from fnssl_tpu.models.fnssl import init_fnssl_params
+from fnssl_tpu.train.checkpoint import CheckpointManager
+from fnssl_tpu.train.convert import nested_to_flat
+from fnssl_tpu.train.step import init_train_state, make_optimizer
+from fnssl_tpu_torch.cli.main import load_fnssl
+from fnssl_tpu_torch.models.fnssl import FNSSL, FNSSLConfig
+from fnssl_tpu_torch.train.convert import load_torch_tar
+
+TOOL = Path(__file__).resolve().parents[1] / "tools" / "jax_ckpt_to_tar.py"
+
+
+def load_tool():
+    spec = importlib.util.spec_from_file_location("jax_ckpt_to_tar", TOOL)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bridge_writes_the_best_epoch_and_serve_loads_it(tmp_path, capsys):
+    cfg = JConfig()
+    best = init_fnssl_params(jax.random.PRNGKey(7), cfg)
+    last = init_fnssl_params(jax.random.PRNGKey(8), cfg)
+    log_dir = str(tmp_path)
+    state = init_train_state(best, make_optimizer("adam"))
+    mgr = CheckpointManager(os.path.join(log_dir, "ckpt"))
+    mgr.save(0, state, 0.25)
+    mgr.save(1, state._replace(params=last), 0.5)
+    mgr.close()
+
+    # without the file, serve's loader warns and takes fresh params
+    capsys.readouterr()
+    load_fnssl(log_dir, 2, "cpu")
+    assert "using fresh params" in capsys.readouterr().out
+
+    path = load_tool().main(["--log-dir", log_dir, "--seed", "2"])
+    assert path == os.path.join(log_dir, "best_model.tar")
+    state, meta = load_torch_tar(path)
+    assert meta["epoch"] == 0
+    want = nested_to_flat(best)
+    assert sorted(state) == sorted(want)
+    for name, value in want.items():
+        got = state[name].numpy()
+        assert got.dtype == value.dtype and got.shape == value.shape
+        assert np.array_equal(got.view(np.uint32), value.view(np.uint32)), \
+            name
+    FNSSL(FNSSLConfig(), device="cpu").load_state_dict(state, strict=True)
+
+    capsys.readouterr()
+    model = load_fnssl(log_dir, 2, "cpu")
+    assert "fresh params" not in capsys.readouterr().out
+    assert not model.training
+    for name, value in model.state_dict().items():
+        assert torch.equal(value, state[name]), name

@@ -1,5 +1,6 @@
 """The Hopper LSTM kernels (kernels/csrc/lstm_cluster.cu for H up to 256,
-kernels/csrc/lstm_fwd.cu above, and the backward kernels/csrc/lstm_bwd.cu)
+kernels/csrc/lstm_fwd.cu above, and the backward kernels/csrc/
+lstm_bwd_cluster.cu and its earlier design kernels/csrc/lstm_bwd.cu)
 against their plain version, on the card; the autograd Function and one
 train step on the card.
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
@@ -161,9 +162,11 @@ def test_kernel_refuses_grad(cuda):
         lstm_cuda.lstm_fwd(xg, w, s, s)
 
 
-# K2, the backward recurrence (kernels/csrc/lstm_bwd.cu). Tolerance: fp32
-# and bf16 dgates, dh0 and dc0 within 1e-4 of the plain version (the same
-# float32 arithmetic on the same bf16 values, summed in another order).
+# K2, the backward recurrence (kernels/csrc/lstm_bwd_cluster.cu, which
+# lstm_bwd and lstm_bwd_bidir launch, and the earlier lstm_bwd.cu).
+# Tolerance: fp32 and bf16 dgates, dh0 and dc0 within 1e-4 of the plain
+# version (the same float32 arithmetic on the same bf16 values, summed in
+# another order).
 BWD_TOL = 1e-4
 
 
@@ -181,10 +184,12 @@ def bwd_inputs(lead, t_steps, b, h, dtype, device, seed=0):
     return g, w, c0, dys, dh_t, dc_t
 
 
-def check_bwd(fn, plain, args, what, **kw):
-    before = lstm_cuda.launches_bwd.value
-    got = fn(args[0].clone(), *args[1:], **kw)
-    assert lstm_cuda.launches_bwd.value == before + 1
+def check_bwd(fn, plain, args, what, counter=lstm_cuda.launches_bwd_cluster,
+              plan=None, **kw):
+    before = counter.value
+    got = fn(args[0].clone(), *args[1:], **kw, **({"plan": plan} if plan
+                                                   else {}))
+    assert counter.value == before + 1
     want = plain(args[0].clone(), *args[1:], **kw)
     torch.cuda.synchronize()
     for name, g, w in zip(("dgates", "dh0", "dc0"), got, want):
@@ -193,11 +198,21 @@ def check_bwd(fn, plain, args, what, **kw):
         assert err <= BWD_TOL, (what, name, err)
 
 
+def earlier_bwd(g, w_hh, c0, dys, dh_t, dc_t, reverse=False):
+    """lstm_bwd.cu, the earlier K2, on one direction or (g 4-D) both."""
+    ndir = 2 if g.dim() == 4 else None
+    dims, dh_t, dc_t = lstm_cuda._check_bwd(g, w_hh, c0, dys, dh_t, dc_t,
+                                            ndir=ndir)
+    return lstm_cuda._launch_bwd("lstm_bwd", g, w_hh, c0, dys, dh_t, dc_t,
+                                 dims, ndir or 1, reverse)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hidden", [32, 64, 128, 256])
 def test_bwd_kernel_matches_plain(cuda, dtype, hidden):
-    """Both entry points, both walk orders, ragged B, short T."""
+    """lstm_bwd_cluster.cu through both entry points, both walk orders,
+    ragged B, short T."""
     seed = 0
     for b in (1, 11, 13, 17):
         for t_steps in (1, 2, 7):
@@ -209,6 +224,75 @@ def test_bwd_kernel_matches_plain(cuda, dtype, hidden):
                 check_bwd(lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_plain,
                           tuple(a[int(reverse)] for a in args),
                           (b, t_steps, reverse), reverse=reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden", [32, 128, 256])
+def test_earlier_bwd_kernel_matches_plain(cuda, dtype, hidden):
+    """lstm_bwd.cu, both directions in one launch and one reversed walk."""
+    for seed, (b, t_steps) in enumerate(((1, 1), (13, 2), (17, 7))):
+        args = bwd_inputs((2,), t_steps, b, hidden, dtype, cuda, seed)
+        check_bwd(earlier_bwd, lstm_cuda.lstm_bwd_bidir_plain, args,
+                  (b, t_steps), counter=lstm_cuda.launches_bwd)
+        check_bwd(earlier_bwd, lstm_cuda.lstm_bwd_plain,
+                  tuple(a[1] for a in args), (b, t_steps, True),
+                  counter=lstm_cuda.launches_bwd, reverse=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden", [64, 128, 256])
+def test_bwd_every_plan_matches_plain(cuda, dtype, hidden):
+    """Every (N, Bt, KS, UPT) that lstm_bwd_cluster.cu takes gives the
+    same answer, through both entry points."""
+    itemsize = 4 if dtype == "float32" else 2
+    args = bwd_inputs((2,), 9, 19, hidden, dtype, cuda)
+    bt = lstm_cuda.BWD_TILE
+    plans = [(n, bt, ks, upt) for n in lstm_cuda.CLUSTER_SIZES
+             for ks in (hidden // 16, hidden // 8)
+             for upt in lstm_cuda.BWD_UPTS
+             if lstm_cuda.bwd_cluster_fits(hidden, itemsize, n, bt, ks, upt)]
+    assert plans
+    for plan in plans:
+        check_bwd(lstm_cuda.lstm_bwd_bidir, lstm_cuda.lstm_bwd_bidir_plain,
+                  args, plan, plan=plan)
+        check_bwd(lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_plain,
+                  tuple(a[1] for a in args), (plan, True), plan=plan,
+                  reverse=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 16 * 298, 128, 2),
+                                   (298, 16 * 256, 256, 1)])
+def test_bwd_kernel_at_training_shapes(cuda, shape):
+    """FN-SSL's two training shapes at nb=16, fp32: a BiLSTM over
+    frequency (one launch) and an LSTM over time."""
+    t_steps, b, h, ndir = shape
+    args = bwd_inputs((ndir,), t_steps, b, h, "float32", cuda)
+    if ndir == 2:
+        check_bwd(lstm_cuda.lstm_bwd_bidir, lstm_cuda.lstm_bwd_bidir_plain,
+                  args, shape)
+    else:
+        check_bwd(lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_plain,
+                  tuple(a[0] for a in args), shape)
+
+
+@pytest.mark.cuda
+def test_bwd_plan_that_does_not_fit_is_refused(cuda):
+    """A plan lstm_bwd_cluster.cu does not take raises, never runs another
+    way, and counts no launch."""
+    args = bwd_inputs((2,), 3, 4, 256, "float32", cuda)
+    before = (lstm_cuda.launches_bwd.value,
+              lstm_cuda.launches_bwd_cluster.value)
+    with pytest.raises(RuntimeError, match="lstm_bwd_cluster launch failed"):
+        lstm_cuda.lstm_bwd_bidir(*args, plan=(4, 8, 16, 1))  # 1024 threads
+    with pytest.raises(RuntimeError, match="lstm_bwd_cluster launch failed"):
+        lstm_cuda.lstm_bwd_bidir(*args, plan=(8, 16, 16, 1))  # 16-row tiles
+    with pytest.raises(RuntimeError, match="lstm_bwd_cluster launch failed"):
+        lstm_cuda.lstm_bwd_bidir(*args, plan=(4, 8, 16, 2))  # 352 KB fp32
+    assert (lstm_cuda.launches_bwd.value,
+            lstm_cuda.launches_bwd_cluster.value) == before
 
 
 def lstm_case(device, bidirectional, seed=0, t_steps=6, b=5, i=7, h=32):
@@ -238,10 +322,12 @@ def test_lstm_function_on_card_matches_cpu(cuda, bidirectional):
     results = []
     for device in (cuda, torch.device("cpu")):
         params, x, state, wy = lstm_case(device, bidirectional)
-        before = (lstm_cuda.launches.value, lstm_cuda.launches_bwd.value)
+        before = (lstm_cuda.launches.value,
+                  lstm_cuda.launches_bwd_cluster.value)
         out, st = lstm(params, x, state, bidirectional)
         ((out * wy).sum() + st.h.sum() + (st.c * 0.5).sum()).backward()
-        after = (lstm_cuda.launches.value, lstm_cuda.launches_bwd.value)
+        after = (lstm_cuda.launches.value,
+                 lstm_cuda.launches_bwd_cluster.value)
         assert after == ((before[0] + 1, before[1] + 1) if device.type
                          == "cuda" else before)
         results.append([out, st.h, st.c, x.grad, state.h.grad, state.c.grad]
@@ -253,8 +339,8 @@ def test_lstm_function_on_card_matches_cpu(cuda, bidirectional):
 @pytest.mark.cuda
 def test_train_step_launch_counts(cuda):
     """One train step of FN-SSL (hidden 64: full-band H 32, narrow-band H
-    64) launches K1 and K2 6 times each: 3 fused full-band BiLSTMs and 3
-    narrow-band LSTMs."""
+    64) launches K1 and K2 (lstm_bwd_cluster.cu) 6 times each: 3 fused
+    full-band BiLSTMs and 3 narrow-band LSTMs."""
     from fnssl_tpu_torch.models.fnssl import FNSSL, FNSSLConfig
     from fnssl_tpu_torch.train import step, tasks
 
@@ -266,12 +352,12 @@ def test_train_step_launch_counts(cuda):
     train = step.make_train_step(tasks.make_fnssl_task(cfg).loss_fn, tx)
     batch = tasks.synthetic_fnssl_batch(nb=1, t_s=0.4, seed=1)
     counters = (lstm_cuda.launches, lstm_cuda.launches_v2,
-                lstm_cuda.launches_bwd)
+                lstm_cuda.launches_bwd, lstm_cuda.launches_bwd_cluster)
     before = [c.value for c in counters]
     state, loss = train(state, batch,
                         torch.Generator(device=cuda).manual_seed(1))
     torch.cuda.synchronize()
-    assert [c.value - b for c, b in zip(counters, before)] == [6, 0, 6]
+    assert [c.value - b for c, b in zip(counters, before)] == [6, 0, 0, 6]
     assert state.step == 1 and torch.isfinite(loss)
 
 
@@ -283,7 +369,9 @@ def test_backward_above_256_is_refused(cuda):
 
     layer = LSTM(4, 512, device=cuda)
     out, _ = layer(torch.randn(2, 3, 4, device=cuda))
-    before = lstm_cuda.launches_bwd.value
+    before = (lstm_cuda.launches_bwd.value,
+              lstm_cuda.launches_bwd_cluster.value)
     with pytest.raises(ValueError, match="up to 256"):
         out.sum().backward()
-    assert lstm_cuda.launches_bwd.value == before
+    assert (lstm_cuda.launches_bwd.value,
+            lstm_cuda.launches_bwd_cluster.value) == before

@@ -1,20 +1,34 @@
 #!/usr/bin/env python3
-"""Where a launch of K2 (fnssl_tpu_torch/kernels/csrc/lstm_bwd.cu) spends
-its time, on the card.
+"""Where a launch of K2 spends its time on the card, for both of its
+sources: fnssl_tpu_torch/kernels/csrc/lstm_bwd_cluster.cu and the earlier
+lstm_bwd.cu.
 
-  python3 tools/lstm_bwd_breakdown.py
+  python3 tools/lstm_bwd_breakdown.py [--source lstm_bwd_cluster|lstm_bwd]
 
-Builds the kernel and three variants of its source, each with one part
-cut out (the per-step product dgates @ W_hh; the replay of c; the L2
-traffic of W_hh, by reading the same four rows of it, which stay in L1,
-for every column of the product), into
-fnssl_tpu_torch/_build/variants/, and times all four on the same inputs
-at the two training shapes of FN-SSL at nb=16, fp32, with CUDA events,
-in turns (base, variants, variants, base). The variants compute wrong
-gradients: they only time what is left. Prints one JSON line per shape.
+Builds each source and copies of it with one part cut out, into
+fnssl_tpu_torch/_build/variants/, and times them all on the same inputs
+at the two training shapes of FN-SSL at nb=16, fp32, with CUDA events, in
+turns (base, variants, variants reversed, base). The cuts:
+  no_product — the per-step product dgates @ W_hh (both sources);
+  no_replay  — the replay of c (both sources);
+  no_remote  — lstm_bwd_cluster.cu: every CTA stores its dgates N times
+               into its own buffer instead of once into each CTA of the
+               cluster (the same bytes on the same mbarrier, no
+               distributed shared memory);
+  dg_one_row — lstm_bwd_cluster.cu: the product reads one row of dgates
+               for every row of the tile (1/Bt of its dgates loads from
+               shared memory, the same FMAs);
+  loads_cached — lstm_bwd_cluster.cu: every walk step loads the operands
+               of the same time step, which stay in cache (no HBM latency
+               for the loads issued a step ahead);
+  w_in_l1    — lstm_bwd.cu: every column of the product reads the same
+               four rows of W_hh, which stay in L1 (no L2 traffic).
+The variants compute wrong gradients: they only time what is left. Prints
+one JSON line per source and shape.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -32,41 +46,64 @@ from fnssl_tpu_torch.kernels import cuda_build, lstm_cuda  # noqa: E402
 SHAPES = [("train_fullband", 256, 16 * 298, 128, 2),
           ("train_narrowband", 298, 16 * 256, 256, 1)]
 CUTS = {
-    "no_product": ("for (int col = col_begin; col < col_begin + k_len;",
-                   "for (int col = col_begin; col < col_begin;"),
-    "no_replay": ("for (int s = 0; s < t_steps; ++s) {",
-                  "for (int s = 0; s < 0; ++s) {"),
-    "w_in_l1": ("w_hh + static_cast<size_t>(col) * hidden + j;",
-                "w_hh + j;"),
+    "lstm_bwd_cluster": {
+        "no_product": ("for (int uu = 0; uu < KL; ++uu) {",
+                       "for (int uu = 0; uu < 0; ++uu) {"),
+        "no_replay": ("for (int s0 = 0; s0 < t_steps; s0 += kRing) {",
+                      "for (int s0 = 0; s0 < 0; s0 += kRing) {"),
+        "no_remote": ("store_async4(map_rank(dst, p), d, map_rank(bar, p));",
+                      "store_async4(map_rank(dst, rank), d, "
+                      "map_rank(bar, rank));"),
+        "dg_one_row": ("const float4 v = dg[r * hidden + u];",
+                       "const float4 v = dg[u];"),
+        "loads_cached": ("const int t = backward ? t_steps - 1 - s : s;\n"
+                         "    const int t_prev = backward ? t + 1 : t - 1;",
+                         "const int t = 1 + 0 * s;\n"
+                         "    const int t_prev = 1;"),
+    },
+    "lstm_bwd": {
+        "no_product": ("for (int col = col_begin; col < col_begin + k_len;",
+                       "for (int col = col_begin; col < col_begin;"),
+        "no_replay": ("for (int s = 0; s < t_steps; ++s) {",
+                      "for (int s = 0; s < 0; ++s) {"),
+        "w_in_l1": ("w_hh + static_cast<size_t>(col) * hidden + j;",
+                    "w_hh + j;"),
+    },
 }
 
 
-def build_variants() -> dict[str, ctypes.CDLL]:
-    src = (cuda_build.CSRC / "lstm_bwd.cu").read_text()
+def build_variants(source: str) -> dict[str, ctypes.CDLL]:
+    src = (cuda_build.CSRC / f"{source}.cu").read_text()
     out = cuda_build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (old, new) in {"base": ("", ""), **CUTS}.items():
+    for name, (old, new) in {"base": ("", ""), **CUTS[source]}.items():
         if old and src.count(old) != 1:
-            raise RuntimeError(f"{name}: the source no longer has {old!r}")
-        (out / f"{name}.cu").write_text(src.replace(old, new) if old else src)
+            raise RuntimeError(f"{name}: {source}.cu no longer has {old!r}")
+        path = out / f"{source}_{name}.cu"
+        path.write_text(src.replace(old, new) if old else src)
         procs[name] = subprocess.Popen(
             [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o",
-             str(out / f"lib{name}.so"), str(out / f"{name}.cu")],
+             str(out / f"lib{source}_{name}.so"), str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
-        lib.lstm_bwd.argtypes = lstm_cuda._ARGTYPES["lstm_bwd"]
-        lib.lstm_bwd.restype = ctypes.c_int
+            raise RuntimeError(f"nvcc failed for {source} {name}:\n{log}")
+        lib = ctypes.CDLL(str(out / f"lib{source}_{name}.so"))
+        fn = getattr(lib, source)
+        fn.argtypes = lstm_cuda._ARGTYPES[source]
+        fn.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--source", choices=list(CUTS), action="append",
+                    help="the sources to break down (default: both)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("lstm_bwd_breakdown: no CUDA device")
     device = torch.device("cuda", 0)
@@ -74,50 +111,56 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout
     card = card.strip().splitlines()[0]
-    libs = build_variants()
-    for name, t_steps, batch, hidden, ndir in SHAPES:
-        gen = torch.Generator(device=device).manual_seed(0)
+    for source in args.source or list(CUTS):
+        libs = build_variants(source)
+        for name, t_steps, batch, hidden, ndir in SHAPES:
+            gen = torch.Generator(device=device).manual_seed(0)
 
-        def randn(*shape):
-            return torch.randn(ndir, *shape, generator=gen, device=device)
+            def randn(*shape):
+                return torch.randn(ndir, *shape, generator=gen,
+                                   device=device)
 
-        g = randn(t_steps, batch, 4 * hidden)
-        w_hh = randn(4 * hidden, hidden) / hidden ** 0.5
-        c0, dh_t, dc_t = (randn(batch, hidden) for _ in range(3))
-        dys = randn(t_steps, batch, hidden)
-        cs = torch.empty_like(dys)
-        dh0, dc0 = torch.empty_like(c0), torch.empty_like(c0)
-        stream = torch.cuda.current_stream(device).cuda_stream
+            g = randn(t_steps, batch, 4 * hidden)
+            w_hh = randn(4 * hidden, hidden) / hidden ** 0.5
+            c0, dh_t, dc_t = (randn(batch, hidden) for _ in range(3))
+            dys = randn(t_steps, batch, hidden)
+            cs = torch.empty_like(dys)
+            dh0, dc0 = torch.empty_like(c0), torch.empty_like(c0)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            plan = (lstm_cuda.bwd_cluster_plan(hidden, 4)
+                    if source == "lstm_bwd_cluster" else ())
 
-        def launch(lib):
-            err = lib.lstm_bwd(
-                g.data_ptr(), cs.data_ptr(), w_hh.data_ptr(), c0.data_ptr(),
-                dys.data_ptr(), dh_t.data_ptr(), dc_t.data_ptr(),
-                dh0.data_ptr(), dc0.data_ptr(), t_steps, batch, hidden, ndir,
-                0, 0, device.index, stream)
-            if err:
-                raise RuntimeError(f"lstm_bwd launch failed ({err})")
+            def launch(lib):
+                err = getattr(lib, source)(
+                    g.data_ptr(), cs.data_ptr(), w_hh.data_ptr(),
+                    c0.data_ptr(), dys.data_ptr(), dh_t.data_ptr(),
+                    dc_t.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+                    t_steps, batch, hidden, ndir, 0, 0, *plan,
+                    device.index, stream)
+                if err:
+                    raise RuntimeError(f"{source} launch failed ({err})")
 
-        def ms(lib, iters=3):
-            launch(lib)
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
+            def ms(lib, iters=3):
                 launch(lib)
-            end.record()
-            torch.cuda.synchronize()
-            return start.elapsed_time(end) / iters
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(iters):
+                    launch(lib)
+                end.record()
+                torch.cuda.synchronize()
+                return start.elapsed_time(end) / iters
 
-        order = list(libs) + list(libs)[::-1]
-        times = {k: [] for k in libs}
-        for k in order:
-            times[k].append(ms(libs[k]))
-        row = {"shape": name, "T": t_steps, "B": batch, "H": hidden,
-               "ndir": ndir, "card": card,
-               "ms": times}
-        print(json.dumps(row), flush=True)
+            order = list(libs) + list(libs)[::-1]
+            times = {k: [] for k in libs}
+            for k in order:
+                times[k].append(ms(libs[k]))
+            print(json.dumps({"source": source, "shape": name, "T": t_steps,
+                              "B": batch, "H": hidden, "ndir": ndir,
+                              "plan": plan, "card": card, "ms": times}),
+                  flush=True)
+            del g, w_hh, c0, dh_t, dc_t, dys, cs, dh0, dc0
 
 
 if __name__ == "__main__":
