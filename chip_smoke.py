@@ -49,6 +49,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
                cuDNN's (forward+backward less forward). Then every plan
                (N, Bt, KS, UPT) of lstm_bwd_cluster.cu that fits, fp32 and
                bf16.
+ 10. fit     — the user's loop through the CLI (`main()` in this process)
+               on cuda:0 at full width: `simulate` 256 train scenes
+               (wav+pickle) and 8 dev scenes (compact npz) of 4.79 s;
+               `fit --model fnssl --bz 16 --epochs 2` (16 steps an epoch),
+               `test`, `test --best`, then `serve` from the fit's
+               best_model.tar (one TCP connection); `fit --model fnssl_doa
+               --epochs 1 --train-size 32` and `test`. Checked: the native
+               ISM ran, finite losses, each test loss equal to the valid
+               loss of the epoch it restored (1e-6), the checkpoint files,
+               finite ACC/MAE, exact launch counts (6 K1 and 6 K2 a train
+               step, 6 K1 and no K2 an eval batch or a test batch, 6 K1 a
+               serve chunk step, none of lstm_fwd.cu or lstm_bwd.cu).
+               Printed: the simulate seconds a scene and its engine, train
+               seconds, the wait for the first batch and the loader wait
+               after it a fit epoch, ms a train step after the warm epoch's
+               first batch against phase 8's synthetic step, each host
+               stage of one batch, peak memory.
 The line before the last is the kernels JSON line (each kernel's numbers
 over one train step's work); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -56,7 +73,9 @@ over one train step's work); the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import io
 import json
 import re
 import subprocess
@@ -103,6 +122,11 @@ TRAIN_SHAPES = [("train_fullband", 256, 16 * 298, 128, 256, 2),
 PER_TRAIN_STEP = 3                      # launches of each shape a step
 LAUNCHES_PER_TRAIN_STEP = 6             # K1, and K2, each
 BWD_EDGE_T = (1, 2, 7)
+# phase 10, the user's loop through the CLI: scenes of TRAIN_T_S seconds,
+# bz 16, 2 epochs of fnssl (16 steps each, so that the loop reaches its
+# steady state after the first batch) and 1 of fnssl_doa on the first
+# FIT_DOA_TRAIN scenes
+FIT_TRAIN, FIT_DEV, FIT_BZ, FIT_EPOCHS, FIT_DOA_TRAIN = 256, 8, 16, 2, 32
 BWD_TOL = 1e-4                          # K2 vs plain, fp32 and bf16
 
 
@@ -902,6 +926,248 @@ def phase_bwd_plans(device):
     return rows
 
 
+def cli(argv):
+    """The port's CLI main(argv) in this process; echoes its output and
+    returns (its last line as JSON, all of its output, seconds)."""
+    from fnssl_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        if not line.startswith("generated "):
+            log(f"    {line}")
+    return json.loads(out.strip().splitlines()[-1]), out, seconds
+
+
+def counted_cli(argv, want, what):
+    """cli(argv) with every launch counter set to 0 just before it and read
+    just after; fails unless the counts are `want` (in COUNTED's order)."""
+    counts = launch_counters()
+    for c in counts:
+        c.reset()
+    result, out, seconds = cli(argv)
+    launched = [c.value for c in counts]
+    if launched != want:
+        raise AssertionError(f"{what} launched {COUNTED} {launched}, "
+                             f"expected {want}")
+    log(f"  {what}: launches {COUNTED} {launched}, {seconds:.2f} s")
+    return result, out, launched, seconds
+
+
+def loader_stages(data_dir, bz, device, compact_dir):
+    """Seconds of each host stage of one train batch, run serially on the
+    dataset fit reads: the items as fit's loader fetches them (scene reads
+    and Segmenting), the same items read without Segmenting, collate, and
+    the pinned copy to the card; and, for comparison, a batch's worth of
+    compact npz items (which hold the segmented labels)."""
+    from fnssl_tpu_torch.data import (FixTrajectoryDataset, Segmenting,
+                                      collate_segmented, prefetch_to_device)
+
+    def fetched(ds):
+        t0 = time.perf_counter()
+        items = [ds[i] for i in range(bz)]
+        return items, time.perf_counter() - t0
+
+    t = {}
+    _, t["read"] = fetched(FixTrajectoryDataset(
+        str(data_dir), return_acoustic_scene=True))
+    items, t["fetch"] = fetched(FixTrajectoryDataset(
+        str(data_dir), transforms=[Segmenting()]))
+    t["segment"] = t["fetch"] - t["read"]
+    t0 = time.perf_counter()
+    batch = collate_segmented(items)
+    t["collate"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    list(prefetch_to_device([batch], device=device))
+    torch.cuda.synchronize()
+    t["copy"] = time.perf_counter() - t0
+    compact = FixTrajectoryDataset(str(compact_dir))
+    t0 = time.perf_counter()
+    for i in range(len(compact)):
+        compact[i]
+    t["compact_read"] = (time.perf_counter() - t0) / len(compact) * bz
+    return t
+
+
+def epoch_stats(log_dir):
+    """Per epoch, from the fit's metrics.jsonl: train seconds, steps, the
+    seconds the loop waited on the loader and, of those, the wait for the
+    first batch; and the steady state after the first batch: ms a step
+    and the share of that time the loop waited on the loader."""
+    stats = {}
+    for line in open(Path(log_dir) / "metrics.jsonl"):
+        rec = json.loads(line)
+        if rec["tag"] in ("train/epoch_s", "train/steps",
+                          "train/loader_wait_s", "train/first_batch_wait_s"):
+            stats.setdefault(rec["step"], {})[rec["tag"][6:]] = rec["value"]
+    for st in stats.values():
+        after = st["epoch_s"] - st["first_batch_wait_s"]
+        st["ms_per_step"] = st["epoch_s"] / st["steps"] * 1e3
+        st["steady_ms_per_step"] = after / st["steps"] * 1e3
+        st["steady_loader_wait_share"] = (
+            st["loader_wait_s"] - st["first_batch_wait_s"]) / after
+    return [stats[e] for e in sorted(stats)]
+
+
+def phase_fit(seed, device, card, step_ms):
+    """The user's training loop through the CLI, in-process on the card at
+    full width: simulate, fit, test (latest and best) and serve fnssl from
+    the fit's best_model.tar; fit and test fnssl_doa."""
+    from fnssl_tpu_torch.cli.main import build_parser, build_server
+    from fnssl_tpu_torch.runtime.server import stream_client
+    from fnssl_tpu_torch.sim import native
+
+    k1_k2 = [1, 0, 0, 1]              # COUNTED order: K1 and K2 a step
+    k1 = [1, 0, 0, 0]
+    valid_batches = -(-FIT_DEV // FIT_BZ)
+
+    def want(train_steps, eval_batches):
+        return [LAUNCHES_PER_TRAIN_STEP * (train_steps * a + eval_batches * b)
+                for a, b in zip(k1_k2, k1)]
+
+    # the numpy ISM takes ~20x longer: fail before simulating with it
+    if not native.native_available():
+        raise AssertionError(f"the native ISM did not build: "
+                             f"{native.build_error('ism')}")
+    report = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        data, runs = Path(tmp) / "data", Path(tmp) / "runs"
+        sims = []
+        for sub, num, seed_, extra in (("train", FIT_TRAIN, 1, []),
+                                       ("dev", FIT_DEV, 77, ["--compact"])):
+            sim, _, seconds = cli(["simulate", "--out", str(data / sub),
+                                   "--num", str(num), "--T", str(TRAIN_T_S),
+                                   "--seed", str(seed_), *extra])
+            sims.append(sim)
+            if sim["ism_engine"] != "native C++/OpenMP":
+                raise AssertionError(f"simulate {sub} ran the "
+                                     f"{sim['ism_engine']} ISM")
+            log(f"  simulate {sub}: {num} scenes of {TRAIN_T_S} s in "
+                f"{sim['seconds']:.2f} s, {sim['seconds'] / num:.3f} s a "
+                f"scene, ISM engine {sim['ism_engine']} ({sim['threads']} "
+                f"threads); {card}")
+        report["simulate"] = sims
+        launches = {}
+
+        def fit_and_test(model, epochs, log_dir, train_size):
+            common = ["--model", model, "--bz", str(FIT_BZ), "--seed",
+                      str(seed), "--log-dir", str(log_dir)]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fit, _, launched, fit_s = counted_cli(
+                ["fit", *common, "--train-dir", str(data / "train"),
+                 "--valid-dir", str(data / "dev"), "--epochs", str(epochs),
+                 "--train-size", str(train_size)],
+                want(epochs * (train_size // FIT_BZ), epochs * valid_batches),
+                f"fit {model} ({epochs} epochs of {train_size} scenes)")
+            peak = torch.cuda.max_memory_allocated()
+            if not (np.isfinite(fit["final_train"])
+                    and np.isfinite(fit["final_valid"])):
+                raise AssertionError(f"fit {model}: losses {fit}")
+            for f in [f"ckpt/epoch_{e}.tar" for e in range(epochs)] + [
+                    "ckpt/index.json", "best_model.tar", "config.json"]:
+                if not (log_dir / f).exists():
+                    raise AssertionError(f"fit {model}: no {f}")
+            test, _, tested, _ = counted_cli(
+                ["test", *common, "--data-dir", str(data / "dev")],
+                want(0, valid_batches), f"test {model}")
+            if not abs(test["loss"] - fit["final_valid"]) <= 1e-6:
+                raise AssertionError(f"test {model}: loss {test['loss']} vs "
+                                     f"the fit's final valid "
+                                     f"{fit['final_valid']}")
+            if not all(np.isfinite(test[k]) for k in ("ACC", "MAE")):
+                raise AssertionError(f"test {model}: metrics {test}")
+            launches[model] = [a + b for a, b in zip(launched, tested)]
+            return {"fit": fit, "fit_s": fit_s, "test": test,
+                    "peak_bytes": peak, "epochs": epoch_stats(log_dir)}
+
+        fnssl = fit_and_test("fnssl", FIT_EPOCHS, runs / "fnssl", FIT_TRAIN)
+        best, out, tested, _ = counted_cli(
+            ["test", "--model", "fnssl", "--bz", str(FIT_BZ), "--log-dir",
+             str(runs / "fnssl"), "--data-dir", str(data / "dev"), "--best"],
+            want(0, valid_batches), "test --best fnssl")
+        index = json.loads((runs / "fnssl/ckpt/index.json").read_text())
+        best_epoch = min(sorted(index, key=int), key=lambda e: index[e])
+        if f"resumed from epoch {best_epoch}" not in out or not abs(
+                best["loss"] - index[best_epoch]) <= 1e-6:
+            raise AssertionError(f"test --best: {best}, index {index}")
+        fnssl["test_best"] = best
+        launches["fnssl"] = [a + b for a, b in zip(launches["fnssl"], tested)]
+
+        # serve the fit's best_model.tar: one connection, lines and eof
+        args = build_parser().parse_args(
+            ["serve", "--model", "fnssl", "--port", "0", "--log-dir",
+             str(runs / "fnssl")])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            server, info = build_server(args)
+        if "no checkpoint" in buf.getvalue():
+            raise AssertionError("serve did not find the fit's "
+                                 "best_model.tar")
+        server.start()
+        counts = launch_counters()
+        try:
+            for c in counts:
+                c.reset()
+            msgs = stream_client("127.0.0.1", server.port,
+                                 make_audio(seed + 200, 4), block=1600)
+            served = [c.value for c in counts]
+        finally:
+            server.shutdown()
+        n_out = len(msgs) - 1
+        if not (n_out > 0 and msgs[-1] == {"eof": True, "outputs": n_out}
+                and served == [LAUNCHES_PER_CHUNK * n_out, 0, 0, 0]):
+            raise AssertionError(f"serve after fit: {n_out} lines, eof "
+                                 f"{msgs[-1]}, launches {served}")
+        log(f"  serve from the fit's best_model.tar: {n_out} lines and eof; "
+            f"launches {COUNTED} {served}")
+        launches["serve_after_fit"] = served
+        fnssl["serve_lines"] = n_out
+
+        report["fnssl"] = fnssl
+        report["fnssl_doa"] = fit_and_test("fnssl_doa", 1, runs / "doa",
+                                           FIT_DOA_TRAIN)
+        report["loader_stages_s"] = loader_stages(data / "train", FIT_BZ,
+                                                  device, data / "dev")
+
+    warm = fnssl["epochs"][-1]
+    ms = warm["steady_ms_per_step"]
+    report.update({
+        "fit_ms_per_step": warm["ms_per_step"], "steady_ms_per_step": ms,
+        "synthetic_step_ms": step_ms, "overhead_ms": ms - step_ms,
+        "overhead_share": (ms - step_ms) / step_ms,
+        "first_batch_wait_s": warm["first_batch_wait_s"],
+        "loader_wait_share": warm["steady_loader_wait_share"],
+        "launches": launches})
+    total = [sum(v[i] for v in launches.values())
+             for i in range(len(COUNTED))]
+    for e, st in enumerate(fnssl["epochs"]):
+        log(f"  fnssl epoch {e}: {st['epoch_s']:.3f} s of train steps "
+            f"({int(st['steps'])} steps, {st['ms_per_step']:.1f} ms a step)"
+            f", of it {st['first_batch_wait_s']:.3f} s waiting for the first"
+            f" batch; after it {st['steady_ms_per_step']:.1f} ms a step, "
+            f"loader wait {st['loader_wait_s'] - st['first_batch_wait_s']:.3f}"
+            f" s ({st['steady_loader_wait_share']:.1%}); {card}")
+    log(f"  fit's warm epoch after its first batch: {ms:.2f} ms a train step "
+        f"against phase 8's synthetic step {step_ms:.2f} ms: overhead "
+        f"{ms - step_ms:+.2f} ms ({report['overhead_share']:+.1%}), loader "
+        f"wait {report['loader_wait_share']:.1%}; first batch "
+        f"{warm['first_batch_wait_s']:.3f} s; {card}")
+    stages = report["loader_stages_s"]
+    log("  one train batch's host stages, serial: " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()) + f"; {card}")
+    log(f"  peak device memory: fit fnssl {fnssl['peak_bytes'] / 2**30:.2f} "
+        f"GiB, fit fnssl_doa "
+        f"{report['fnssl_doa']['peak_bytes'] / 2**30:.2f} GiB; {card}")
+    log(f"  fit path launches {COUNTED} {total}")
+    return report, dict(zip(COUNTED, total))
+
+
 def per_train_step(rows, key):
     """A per-shape number summed over one train step's launches."""
     return PER_TRAIN_STEP * sum(r[key] for r in rows)
@@ -981,6 +1247,13 @@ def main():
     log("[bwd plans] lstm_bwd_cluster plans at the training shapes")
     bwd_plans = phase_bwd_plans(device)
 
+    # 10. the user's training loop through the CLI
+    log(f"[fit] cli simulate -> fit -> test -> serve at full width: "
+        f"{FIT_TRAIN}+{FIT_DEV} scenes of {TRAIN_T_S} s, bz {FIT_BZ}, fnssl "
+        f"{FIT_EPOCHS} epochs, fnssl_doa 1")
+    fit_report, fit_launches = phase_fit(args.seed, device, card,
+                                         train["fp32"]["ms_mean"])
+
     # each kernel's work in one online chunk step, fp32: 3 BiLSTMs over
     # frequency and 3 LSTMs over time
     serve = {r["shape"]: r for r in rows if r["shape"] in PER_CHUNK}
@@ -1012,11 +1285,11 @@ def main():
                  "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
                  "library_ms": per_train_step(train_rows, "library_fwd_ms"),
                  "work": work}
-    paths = {"serve": launches, "train": train_launches}
+    paths = {"serve": launches, "train": train_launches, "fit": fit_launches}
     kernels = [{
         "name": "lstm_cluster", "route": "cuda",
         "source": "fnssl_tpu_torch/kernels/csrc/lstm_cluster.cu",
-        "launches": launches["lstm_cluster"] + train_launches["lstm_cluster"],
+        "launches": sum(v["lstm_cluster"] for v in paths.values()),
         "launches_by_path": {k: v["lstm_cluster"] for k, v in paths.items()},
         "max_abs_err": worst["lstm_cluster"]["float32"],
         "ms": per_train_step(train_rows, "k1_ms_float32"), **k1_common,
@@ -1030,7 +1303,7 @@ def main():
     }, {
         "name": "lstm_fwd", "route": "cuda",
         "source": "fnssl_tpu_torch/kernels/csrc/lstm_fwd.cu",
-        "launches": launches["lstm_fwd"] + train_launches["lstm_fwd"],
+        "launches": sum(v["lstm_fwd"] for v in paths.values()),
         "launches_by_path": {k: v["lstm_fwd"] for k, v in paths.items()},
         "max_abs_err": worst["lstm_fwd"]["float32"],
         "ms": per_train_step(train_rows, "v2_ms"), **k1_common,
@@ -1055,7 +1328,7 @@ def main():
         kernels.append({
             "name": src, "route": "cuda",
             "source": f"fnssl_tpu_torch/kernels/csrc/{src}.cu",
-            "launches": launches[src] + train_launches[src],
+            "launches": sum(v[src] for v in paths.values()),
             "launches_by_path": {k: v[src] for k, v in paths.items()},
             "max_abs_err": worst_bwd[src]["float32"],
             "max_abs_err_bf16": worst_bwd[src]["bfloat16"],
@@ -1065,7 +1338,7 @@ def main():
             **k2_common})
     kernels[-2]["plans"] = bwd_plans
     report = {"card": card, "kind": kind, "kernels": kernels,
-              "train": train, "train_parity": parity}
+              "train": train, "train_parity": parity, "fit": fit_report}
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -38,7 +38,10 @@ def test_port_imports_no_jax_and_no_fnssl_tpu():
     assert out["bad"] == []
     assert "fnssl_tpu_torch.kernels.lstm_cuda" in out["modules"]
     assert "fnssl_tpu_torch.runtime.server" in out["modules"]
-    assert len(out["modules"]) >= 20
+    for name in ("data.simu", "data.loader", "sim.native", "eval.metrics",
+                 "train.learner", "train.checkpoint", "parallel"):
+        assert f"fnssl_tpu_torch.{name}" in out["modules"]
+    assert len(out["modules"]) >= 54
 
 
 @pytest.fixture
@@ -59,6 +62,24 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
             make()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["serve", "--port", "0", "--log-dir", str(tmp_path)])
+
+
+def test_training_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
+    """Learner, ``cli fit`` and ``cli test`` without ``--platform cpu``
+    raise where there is no card, before they write anything."""
+    from fnssl_tpu_torch.cli.main import main
+    from fnssl_tpu_torch.train.learner import Learner
+
+    log_dir = str(tmp_path / "runs")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Learner(lambda module, batch, generator: 0.0,
+                torch.nn.Linear(2, 2), log_dir=log_dir)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["fit", "--train-dir", str(tmp_path), "--valid-dir",
+              str(tmp_path), "--log-dir", log_dir])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["test", "--data-dir", str(tmp_path), "--log-dir", log_dir])
+    assert not (tmp_path / "runs").exists()
 
 
 def test_cpu_is_taken_only_when_asked(no_cuda):

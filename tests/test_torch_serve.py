@@ -160,7 +160,7 @@ def test_cli_serve_wiring(tmp_path, capsys):
         server._sock.close()
 
 
-@pytest.mark.parametrize("argv", [["fit", "--epochs", "1"],
+@pytest.mark.parametrize("argv", [["predict", "--wav", "x.wav"],
                                   ["serve", "--model", "ipdnet",
                                    "--platform", "cpu"]])
 def test_cli_unported_paths_say_so(argv):
