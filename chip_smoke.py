@@ -25,7 +25,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
                one launch; lstm_fwd.cu; the plain version; the bound; and
                torch.nn.LSTM (cuDNN, one- and bidirectional) as the library
                yardstick (the port never calls it). Then every cluster plan
-               (N, Bt, KS) that fits at the two serve shapes.
+               (N, Bt, KS) that fits at FN-SSL's and IPDnet's serve shapes.
   6. backward — K2 (lstm_bwd_cluster.cu) against its plain version
                through lstm_bwd (both walks) and lstm_bwd_bidir: dgates,
                dh0, dc0 at the two training shapes and at edge cases (B
@@ -66,6 +66,39 @@ Phases, each fatal on failure (exit code != 0, no result line):
                after it a fit epoch, ms a train step after the warm epoch's
                first batch against phase 8's synthetic step, each host
                stage of one batch, peak memory.
+ 11. ipdnet kernels — K1 (both entry points) and K2 against their plain
+               versions, fp32 and bf16, at every IPDnet shape: training
+               (full-band H 64 B 4480 both directions, narrow-band H 128 B
+               4096, offline narrow-band H 64 both directions, the variable
+               cell's B 13440 and 12288), the serve chunk step and the
+               offline model's 312-frame chunked test.
+ 12. plans   — every lstm_cluster plan at IPDnet's and FN-SSL's training
+               shapes and every lstm_bwd_cluster plan at IPDnet's, fp32
+               and bf16; each rule's pick against the fastest, both
+               families.
+ 13. ipdnet serve — `cli serve --model ipdnet` (IPDnetConfig(), weights
+               from --seed) on cuda:0, 3 TCP connections as phase 4: 4
+               lstm_cluster launches a chunk step, outputs within 1e-3 of
+               the CPU, equal DOAs per track but at exact ties, eof.
+ 14. ipdnet times and parity — K1/K2, plain and cuDNN at IPDnet's shapes
+               (as phases 5 and 9); one fp32 train step of make_ipdnet_task
+               and make_ipdnet_offline_task (nb=2 x 4.5 s) and of
+               make_variable_ipdnet_task (nch 4, nb 1), dropout off, the
+               card against the CPU at phase 7's tolerances, the CPU step
+               taking the card's ReLU gates in the conv head.
+ 15. ipdnet train — the JAX package's cells (bench.py:179-265): ipdnet at
+               nb=16 x 4.5 s and variable_ipdnet at nch 4, nb 8, Adam 5e-4
+               / gamma 0.975, dropout on, fp32 then bf16: ms a step (mean,
+               p90 of 5), peak memory, launches (4 K1 + 4 K2 a step), the
+               variable forward; one fp32 ipdnet step under torch.profiler
+               (busy time by kernel group, idle share).
+ 16. ipdnet fit — `simulate --preset ipdnet` (64 train scenes of 1 or 2
+               sources, 8 dev; 16 + 8 of 1 source), fit ipdnet 2 epochs at
+               bz 16, test, test --best, serve its best_model.tar; fit +
+               test ipdnet_offline (the test scores the chunked inference:
+               8 K1 a test batch) and variable_ipdnet, 1 epoch each. Test
+               loss = the restored epoch's valid loss (1e-6), finite
+               ACC/MAE, exact launches.
 The line before the last is the kernels JSON line (each kernel's numbers
 over one train step's work); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -99,17 +132,20 @@ TOL = {"float32": {"ys": 1e-4, "hT": 1e-4, "cT": 1e-4},
        "bfloat16": {"ys": 2e-2, "hT": 1e-4, "cT": 1e-4}}
 SERVE_AUDIO_S = 5.0
 FS = 16000
-# (name, T, B, H, I): the recurrences of one chunk step of the serve path
-# (nb=1, P=1, 12 frames, nf=256) and of a one-shot 4.79 s forward (nt=298)
-SHAPES = [("serve_fullband", 256, 12, 128, 256),
-          ("serve_narrowband", 12, 256, 256, 256),
-          ("oneshot_fullband", 256, 298, 128, 256),
-          ("oneshot_narrowband", 298, 256, 256, 256)]
+# (name, T, B, H, I, ndir): the recurrences of one chunk step of the serve
+# path (nb=1, P=1, 12 frames, nf=256) and of a one-shot 4.79 s forward
+# (nt=298); ndir 2 = a BiLSTM, both directions in one launch
+SHAPES = [("serve_fullband", 256, 12, 128, 256, 2),
+          ("serve_narrowband", 12, 256, 256, 256, 1),
+          ("oneshot_fullband", 256, 298, 128, 256, 2),
+          ("oneshot_narrowband", 298, 256, 256, 256, 1)]
 # recurrences of each shape in one online chunk step (3 FN blocks): a
 # BiLSTM over frequency (both directions in one launch of the cluster
 # kernel, two of lstm_fwd.cu) and a one-direction LSTM over time
 PER_CHUNK = {"serve_fullband": 3, "serve_narrowband": 3}
 LAUNCHES_PER_CHUNK = 6
+# K1 launches a serve chunk step, by model: FN-SSL's 3 blocks, IPDnet's 2
+PER_CHUNK_BY_MODEL = {"fnssl": LAUNCHES_PER_CHUNK, "ipdnet": 4}
 EDGE_B, EDGE_T, EDGE_H = (1, 11, 13, 17), (0, 1, 2, 7), (32, 64, 128, 256)
 V2_CASE = (5, 13, 512)                  # (T, B, H): lstm_fwd.cu serves H > 256
 # training: the JAX package's reference cell (bench.py:96-135), nb scenes
@@ -185,7 +221,7 @@ def phase_kernels(device):
 
     worst = {k: {"float32": 0.0, "bfloat16": 0.0, "bfloat16_ys": 0.0}
              for k in ("lstm_cluster", "lstm_fwd")}
-    cases = [(n, t, b, h) for n, t, b, h, _ in SHAPES]
+    cases = [(n, t, b, h) for n, t, b, h, _, _ in SHAPES]
     cases += [("edge", t, b, h) for h in EDGE_H for b in EDGE_B
               for t in EDGE_T]
     cases += [("v2_h512", *V2_CASE)]
@@ -232,39 +268,69 @@ def make_audio(seed, delay):
     return sig + rng.standard_normal(sig.shape).astype(np.float32) * 0.01
 
 
-def cpu_reference(seed, sig, block):
-    """The same pipeline on the CPU, through the plain versions."""
-    from fnssl_tpu_torch.eval.pred_doa import PredDOA
+def serve_pipeline(model, seed, device):
+    """(stream step, front-end options, decode) of `cli serve --model
+    model` built directly on `device` with weights from `seed`; the decode
+    returns the decoded dict and the (tracks, grid) spatial spectra."""
+    from fnssl_tpu_torch.eval.decode import spatial_spectrum
+    from fnssl_tpu_torch.eval.pred_doa import PredDOA, PredDOAMultiTrack
     from fnssl_tpu_torch.models.fnssl import FNSSL
-    from fnssl_tpu_torch.runtime.streaming import (StreamingLocalizer,
-                                                   make_fnssl_stream_step)
+    from fnssl_tpu_torch.models.ipdnet import IPDnet
+    from fnssl_tpu_torch.runtime.streaming import (make_fnssl_stream_step,
+                                                   make_ipdnet_stream_step)
+    from fnssl_tpu_torch.train.tasks import DUALCH_MIC_LOCATION
 
-    model = FNSSL(device="cpu",
-                  generator=torch.Generator().manual_seed(seed)).eval()
-    loc = StreamingLocalizer(make_fnssl_stream_step(model), nch=2,
-                             device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    if model == "ipdnet":
+        net = IPDnet(device=device, generator=gen).eval()
+        decoder = PredDOAMultiTrack(DUALCH_MIC_LOCATION, device="cpu")
+
+        def decode(out):
+            spec = [spatial_spectrum(out[..., k], decoder.template)
+                    for k in range(out.shape[-1])]
+            return decoder.pred2doa(out)[0], torch.cat(spec).reshape(
+                out.shape[-1], -1)
+
+        return (make_ipdnet_stream_step(net),
+                dict(ch_mode="none", sample_length=280), decode)
+    net = FNSSL(device=device, generator=gen).eval()
     decoder = PredDOA(device="cpu")
+
+    def decode(out):
+        res = decoder.predgt2doa(out)[0]
+        return res, res["spatial_spectrum"].reshape(1, -1)
+
+    return make_fnssl_stream_step(net), dict(ch_mode="MM"), decode
+
+
+def cpu_reference(seed, sig, block, model="fnssl"):
+    """The same pipeline on the CPU, through the plain versions."""
+    from fnssl_tpu_torch.runtime.streaming import StreamingLocalizer
+
+    step, front, decode = serve_pipeline(model, seed, "cpu")
+    loc = StreamingLocalizer(step, nch=2, device="cpu", **front)
     outs, doas, ss = [], [], []
     for start in range(0, sig.shape[0], block):
         for out in loc.push(sig[start: start + block]):
-            res = decoder.predgt2doa(out)[0]
+            res, spec = decode(out)
             outs.append(out)
             doas.append(np.degrees(res["doa"].numpy())[0])
-            ss.append(res["spatial_spectrum"].numpy()[0])
+            ss.append(spec.numpy())
     return outs, doas, ss
 
 
-def phase_serve(seed, device):
-    """Drive `cli serve --model fnssl` on the card over TCP."""
+def phase_serve(seed, device, model="fnssl"):
+    """Drive `cli serve --model model` on the card over TCP."""
     from fnssl_tpu_torch.cli.main import build_parser, build_server
     from fnssl_tpu_torch.runtime.server import stream_client
 
     block = 1600
     sessions = []
+    per_chunk = PER_CHUNK_BY_MODEL[model]
 
     with tempfile.TemporaryDirectory() as log_dir:
         args = build_parser().parse_args(
-            ["serve", "--model", "fnssl", "--port", "0", "--seed",
+            ["serve", "--model", model, "--port", "0", "--seed",
              str(seed), "--log-dir", log_dir])
         server, info = build_server(args)
     log(f"  placement: {json.dumps(info)}")
@@ -317,37 +383,45 @@ def phase_serve(seed, device):
         if not len(msgs) - 1 == n_steps == expected_steps:
             raise AssertionError(f"connection {s}: {len(msgs) - 1} lines "
                                  f"for {n_steps} chunk steps")
-        outs, doas, ss = cpu_reference(seed, make_audio(s, d), block)
+        outs, doas, ss = cpu_reference(seed, make_audio(s, d), block, model)
         if len(outs) != n_steps:
             raise AssertionError(f"connection {s}: CPU fired {len(outs)}")
         out_err = max((g - w).abs().max().item()
                       for g, w in zip(rec["outs"], outs))
         if not out_err <= 1e-3:
-            raise AssertionError(f"connection {s}: FN-SSL output max|diff| "
-                                 f"{out_err} vs the CPU > 1e-3")
+            raise AssertionError(f"connection {s}: {model} output "
+                                 f"max|diff| {out_err} vs the CPU > 1e-3")
         mismatched = 0
         for msg, want, spec in zip(msgs[:-1], doas, ss):
-            if np.allclose(msg["doa_deg"], np.round(want[0], 3), atol=1e-3):
+            got = np.asarray(msg["doa_deg"])
+            if np.allclose(got, np.round(want[0], 3), atol=1e-3):
                 continue
-            top2 = np.sort(spec.ravel())[-2:]
-            if top2[1] - top2[0] > 1e-3:       # not an exact tie
-                raise AssertionError(f"connection {s} t={msg['t']}: served "
-                                     f"{msg['doa_deg']}, CPU {want[0]}")
+            # a track whose decoded azimuth differs must sit on an exact
+            # tie of its spatial spectrum
+            for k in range(got.shape[-1]):
+                if np.allclose(got[..., k], np.round(want[0][..., k], 3),
+                               atol=1e-3):
+                    continue
+                top2 = np.sort(spec[k])[-2:]
+                if top2[1] - top2[0] > 1e-3:       # not an exact tie
+                    raise AssertionError(
+                        f"connection {s} t={msg['t']}: served "
+                        f"{msg['doa_deg']}, CPU {want[0]}")
             mismatched += 1
         azis = [m["doa_deg"][1][0] for m in msgs[:-1]]
         log(f"  connection seed={s} delay={d:+d}: {n_steps} chunk steps, "
-            f"eof ok, FN-SSL max|diff| vs CPU {out_err:.3e}, DOAs equal "
+            f"eof ok, {model} max|diff| vs CPU {out_err:.3e}, DOAs equal "
             f"(ties {mismatched}), median azimuth {np.median(azis):.1f} deg")
 
     # K1 through lstm_cluster.cu only; no backward while serving
-    want = [LAUNCHES_PER_CHUNK * steps, 0, 0, 0]
+    want = [per_chunk * steps, 0, 0, 0]
     if launched != want:
         raise AssertionError(f"serving launched {COUNTED} {launched} for "
                              f"{steps} chunk steps, expected {want}")
     ms = np.concatenate([rec["ms"][1:] for rec in sessions])
     rtf = [rec["loc"].rtf for rec in sessions]
     log(f"  launches {COUNTED} {launched} = {steps} chunk steps x "
-        f"{LAUNCHES_PER_CHUNK} lstm_cluster")
+        f"{per_chunk} lstm_cluster")
     log(f"  model step ms (warm, synchronized): mean {ms.mean():.3f} "
         f"p90 {np.percentile(ms, 90):.3f} over {ms.size} steps; RTF per "
         f"connection {', '.join(f'{r:.4f}' for r in rtf)}")
@@ -413,6 +487,19 @@ def lstm_v2(args):
     return outs
 
 
+# cuDNN's TF32 as this PyTorch sets it at start, which the library
+# yardstick keeps at every shape (an IPDnet Conv2d built on the card turns
+# it off for the process: the port's float32 is full float32)
+LIBRARY_TF32 = torch.backends.cudnn.allow_tf32
+
+
+def library_flags():
+    """The cuDNN flags the library yardstick (nn.LSTM) is timed under."""
+    c = torch.backends.cudnn
+    return c.flags(enabled=True, benchmark=c.benchmark,
+                   deterministic=c.deterministic, allow_tf32=LIBRARY_TF32)
+
+
 def library_lstm(i, h, w_hh_t, bidirectional, device):
     ref = torch.nn.LSTM(i, h, batch_first=True,
                         bidirectional=bidirectional).to(device)
@@ -423,14 +510,16 @@ def library_lstm(i, h, w_hh_t, bidirectional, device):
     return ref
 
 
-def phase_times(device):
+def phase_times(device, shapes=SHAPES):
+    """K1 at `shapes` (forward only); a BiLSTM (ndir 2) is also timed with
+    both directions in one launch."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
     rows = []
-    for name, t, b, h, i in SHAPES:
-        full = name.endswith("fullband")
+    for name, t, b, h, i, ndir in shapes:
+        full = ndir == 2
         row = {"shape": name, "T": t, "B": b, "H": h,
-               "plan": L.cluster_plan(h, 4, b)}
+               "plan": L.cluster_plan(h, 4, b, ndir)}
         for dtype in ("float32", "bfloat16"):
             itemsize = 4 if dtype == "float32" else 2
             both = lstm_inputs(t, b, h, getattr(torch, dtype), device, 7,
@@ -458,7 +547,7 @@ def phase_times(device):
         one = tuple(a[0] for a in both)
         row["plain_ms"] = cuda_ms(lambda: L.lstm_fwd_plain(*one), 3)
         x = torch.randn(b, t, i, device=device)
-        with torch.no_grad():
+        with torch.no_grad(), library_flags():
             ref = library_lstm(i, h, both[1], False, device)
             state = (one[2][None], one[3][None])
             row["library_ms"] = cuda_ms(lambda: ref(x, state), 20)
@@ -488,30 +577,36 @@ def phase_times(device):
     return rows
 
 
-def phase_plans(device):
-    """Every cluster plan that fits at the two serve shapes, fp32: the
-    fused full-band launch and the one-direction narrow-band launch."""
+def phase_plans(device, shapes=SHAPES[:2], dtypes=("float32",), iters=20):
+    """Every cluster plan that fits at `shapes` (a BiLSTM in one fused
+    launch, else one direction), in each of `dtypes`."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
     rows = []
-    for name, t, b, h, _ in SHAPES[:2]:
-        full = name.endswith("fullband")
-        args = lstm_inputs(t, b, h, torch.float32, device, 7,
-                           ndir=2 if full else None)
-        fn = L.lstm_fwd_bidir if full else L.lstm_fwd
-        default = L.cluster_plan(h, 4, b)
-        for n in L.CLUSTER_SIZES:
-            for bt in L.TILES:
-                for ks in (h // 16, h // 8):
-                    try:
-                        plan = L.cluster_plan(h, 4, b, n=n, bt=bt, ks=ks)
-                    except ValueError:
-                        continue                 # does not fit
-                    ms = cuda_ms(lambda: fn(*args, plan=plan), 20)
-                    rows.append({"shape": name, "N": n, "Bt": bt, "KS": ks,
-                                 "ms": ms, "default": plan == default})
-                    log(f"  {name:18s} N={n} Bt={bt:2d} KS={ks:2d}: "
-                        f"{ms:.4f} ms{' (default)' if plan == default else ''}")
+    for name, t, b, h, _, ndir in shapes:
+        full = ndir == 2
+        for dtype in dtypes:
+            tdt = getattr(torch, dtype)
+            args = lstm_inputs(t, b, h, tdt, device, 7,
+                               ndir=2 if full else None)
+            fn = L.lstm_fwd_bidir if full else L.lstm_fwd
+            default = L.cluster_plan(h, tdt.itemsize, b, ndir)
+            for n in L.CLUSTER_SIZES:
+                for bt in L.TILES:
+                    for ks in (h // 16, h // 8):
+                        try:
+                            plan = L.cluster_plan(h, tdt.itemsize, b, n=n,
+                                                  bt=bt, ks=ks)
+                        except ValueError:
+                            continue                 # does not fit
+                        ms = cuda_ms(lambda: fn(*args, plan=plan), iters)
+                        rows.append({"shape": name, "dtype": dtype, "N": n,
+                                     "Bt": bt, "KS": ks, "ms": ms,
+                                     "default": plan == default})
+                        log(f"  {name:18s} {dtype:8s} N={n} Bt={bt:2d} "
+                            f"KS={ks:2d}: {ms:.4f} ms"
+                            f"{' (default)' if plan == default else ''}")
+            del args
     return rows
 
 
@@ -634,8 +729,9 @@ def phase_backward(device, worst):
                              got, L.lstm_fwd_bidir_plain(*both), worst))
             del got, both
             log(f"  lstm_cluster {name:16s} T={t:3d} B={b:4d} H={h:3d} "
-                f"{dtype:8s} plan {L.cluster_plan(h, 4, b)} max|diff| "
-                "fwd/rev/bidir ys " + "/".join(f"{e['ys']:.2e}" for e in errs)
+                f"{dtype:8s} plan (bidir) {L.cluster_plan(h, 4, b, 2)} "
+                "max|diff| fwd/rev/bidir ys "
+                + "/".join(f"{e['ys']:.2e}" for e in errs)
                 + " hT,cT " + "/".join(f"{max(e['hT'], e['cT']):.2e}"
                                        for e in errs))
     return worst_bwd, checks
@@ -674,18 +770,58 @@ def launch_counters():
 STEP_LAUNCHES = [LAUNCHES_PER_TRAIN_STEP, 0, 0, LAUNCHES_PER_TRAIN_STEP]
 
 
-def phase_train_parity(seed, device):
-    """One fp32 train step, dropout off, on the card and on the CPU."""
-    runs = []
-    for dev in (device, torch.device("cpu")):
-        state, step, batch = train_setup(seed, dev, PARITY_NB)
+def gate_hooks(module, names, masks, record):
+    """Forward hooks on the submodules `names`, whose outputs go through a
+    ReLU: with `record`, keep each output's signs (> 0) in `masks`; else
+    give each output the signs kept there, straight through (the value
+    moves only where a sign differs, by twice its magnitude; the gradient
+    passes unchanged). Returns the handles and, filled as the hooks run,
+    the count of signs changed by name."""
+    changed = {}
+
+    def hook(name):
+        def fn(mod, args, out):
+            if record:
+                masks[name] = out > 0
+                return None
+            want = masks[name].to(out.device)
+            changed[name] = int((want != (out > 0)).sum())
+            forced = torch.where(want, out.abs(), -out.abs())
+            return out + (forced - out).detach()
+        return fn
+
+    subs = dict(module.named_modules())
+    return [subs[n].register_forward_hook(hook(n)) for n in names], changed
+
+
+def phase_train_parity(seed, device, setup=None, lr=1e-3,
+                       want=STEP_LAUNCHES, gates=()):
+    """One fp32 train step, dropout off, on the card and on the CPU:
+    `setup(device)` gives (state, step, batch), FN-SSL's at nb=PARITY_NB
+    by default; Adam at `lr`; `want` launches on the card. `gates` names
+    the modules whose outputs pass a ReLU: the CPU step takes the card's
+    ReLU gates there (`gate_hooks`), since an output within float32
+    rounding of 0 may take either side, and one gate switched moves a
+    weight gradient summed over ~1e5 positions by ~1e-3 of its largest
+    value, more than the summation order does; the gates switched are
+    counted and printed."""
+    if setup is None:
+        setup = functools.partial(train_setup, seed, nb=PARITY_NB)
+    runs, masks, switched = [], {}, {}
+    for k, dev in enumerate((device, torch.device("cpu"))):
+        state, step, batch = setup(device=dev)
         counts = launch_counters()
         for c in counts:
             c.reset()
+        handles, changed = gate_hooks(state.module, gates, masks,
+                                      record=k == 0)
         t0 = time.perf_counter()
         state, loss = step(state, batch)
         loss = float(loss)
         seconds = time.perf_counter() - t0
+        for h in handles:
+            h.remove()
+        switched.update(changed)
         named = list(state.module.named_parameters())
         runs.append((loss, {n: p.grad.cpu() for n, p in named},
                      {n: p.detach().cpu() for n, p in named},
@@ -693,7 +829,6 @@ def phase_train_parity(seed, device):
         del state, step, batch, named
     (loss_c, grads_c, params_c, launched, sec_c), (
         loss_p, grads_p, params_p, plain_launched, sec_p) = runs
-    want = STEP_LAUNCHES
     if launched != want or plain_launched != [0] * len(COUNTED):
         raise AssertionError(f"train step launched {COUNTED} {launched} on "
                              f"the card, {plain_launched} on the CPU; "
@@ -710,20 +845,22 @@ def phase_train_parity(seed, device):
         f"worst grad max|diff|/max|g| {grad_rel[worst_grad]:.2e} "
         f"({worst_grad}); params after Adam max|diff| {dp_max:.2e}, share "
         f"> 1e-6 {dp_moved:.2e}; launches {launched}; step {sec_c:.2f} s "
-        f"on the card (first, with set-up), {sec_p:.2f} s on the CPU")
+        f"on the card (first, with set-up), {sec_p:.2f} s on the CPU"
+        + (f"; ReLU gates the CPU took from the card where its own differ: "
+           f"{switched}" if gates else ""))
     # tolerances: float32 recurrences of up to 298 steps summed in another
     # order (measured on an H100: loss 6e-8, gradients 2.3e-6); Adam's
     # first step moves every parameter by about lr * sign(g), so only a
     # gradient within its error of 0 can flip a parameter's step (by at
     # most 2 lr)
     if not (loss_rel <= 1e-6 and grad_rel[worst_grad] <= 1e-4
-            and dp_max <= 2.1e-3 and dp_moved <= 1e-4):
+            and dp_max <= 2.1 * lr and dp_moved <= 1e-4):
         raise AssertionError("train step on the card disagrees with the "
                              "CPU beyond the stated tolerances")
     return {"loss_card": loss_c, "loss_cpu": loss_p, "loss_rel": loss_rel,
             "grad_rel_max": grad_rel[worst_grad], "grad_rel": grad_rel,
             "param_max_abs_diff": dp_max, "param_share_above_1e-6": dp_moved,
-            "launches": launched}
+            "launches": launched, "relu_gates_switched": switched}
 
 
 def phase_train(seed, device):
@@ -804,17 +941,17 @@ def lstm_grad_case(t_steps, batch, hidden, in_size, ndir, device, seed):
     return params, x, gy
 
 
-def phase_train_times(device):
+def phase_train_times(device, shapes=TRAIN_SHAPES):
     """K1, K2 (both sources, in turns) and the whole LSTM backward at the
-    two training shapes."""
+    training shapes."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
     from fnssl_tpu_torch.models.lstm import lstm
 
     rows = []
-    for name, t, b, h, i, ndir in TRAIN_SHAPES:
+    for name, t, b, h, i, ndir in shapes:
         bidir = ndir == 2
         row = {"shape": name, "T": t, "B": b, "H": h, "I": i, "ndir": ndir,
-               "plan": L.cluster_plan(h, 4, b),
+               "plan": L.cluster_plan(h, 4, b, ndir),
                "k2_plan": L.bwd_cluster_plan(h, 4)}
         for dtype in ("float32", "bfloat16"):
             tdt = getattr(torch, dtype)
@@ -864,10 +1001,12 @@ def phase_train_times(device):
         # under no_grad, and forward+backward less forward with grads
         ref = torch.nn.LSTM(i, h, batch_first=True,
                             bidirectional=bidir).to(device)
-        with torch.no_grad():
-            row["library_fwd_ms"] = cuda_ms(lambda: ref(x), 5)
-        fwd_grad = cuda_ms(lambda: ref(x), 3)
-        both = cuda_ms(lambda: torch.autograd.backward(ref(x)[0], gy), 3)
+        with library_flags():
+            with torch.no_grad():
+                row["library_fwd_ms"] = cuda_ms(lambda: ref(x), 5)
+            fwd_grad = cuda_ms(lambda: ref(x), 3)
+            both = cuda_ms(lambda: torch.autograd.backward(ref(x)[0], gy),
+                           3)
         row["library_bwd_ms"] = both - fwd_grad
         del ref, x, gy
         torch.cuda.empty_cache()
@@ -896,13 +1035,13 @@ def phase_train_times(device):
     return rows
 
 
-def phase_bwd_plans(device):
-    """Every plan of lstm_bwd_cluster.cu that fits at the two training
-    shapes, fp32 and bf16."""
+def phase_bwd_plans(device, shapes=TRAIN_SHAPES):
+    """Every plan of lstm_bwd_cluster.cu that fits at the training shapes,
+    fp32 and bf16."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
     rows = []
-    for name, t, b, h, _, ndir in TRAIN_SHAPES:
+    for name, t, b, h, _, ndir in shapes:
         for dtype in ("float32", "bfloat16"):
             tdt = getattr(torch, dtype)
             args = bwd_inputs((ndir,), t, b, h, tdt, device, 8)
@@ -1014,21 +1153,113 @@ def epoch_stats(log_dir):
     return [stats[e] for e in sorted(stats)]
 
 
+def path_launches(per, train_steps, eval_batches, extra_k1=0):
+    """Launches in COUNTED's order of `train_steps` train steps and
+    `eval_batches` eval forwards, `per` K1 (and K2 a train step) each, and
+    `extra_k1` more K1."""
+    return [per * (train_steps + eval_batches) + extra_k1, 0, 0,
+            per * train_steps]
+
+
+def fit_and_test(model, data, log_dir, epochs, train_size, bz, seed,
+                 want_fit, want_test):
+    """`cli fit` (the first `train_size` scenes of data/train, data/dev)
+    then `cli test` of `model`, with exact launch counts (`want_fit`,
+    `want_test`); checks finite losses, the checkpoint files, the test loss
+    against the fit's final valid loss (1e-6) and finite ACC/MAE. Returns
+    its report and the launches of both."""
+    common = ["--model", model, "--bz", str(bz), "--seed", str(seed),
+              "--log-dir", str(log_dir)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fit, _, launched, fit_s = counted_cli(
+        ["fit", *common, "--train-dir", str(data / "train"), "--valid-dir",
+         str(data / "dev"), "--epochs", str(epochs), "--train-size",
+         str(train_size)], want_fit,
+        f"fit {model} ({epochs} epochs of {train_size} scenes)")
+    peak = torch.cuda.max_memory_allocated()
+    if not (np.isfinite(fit["final_train"])
+            and np.isfinite(fit["final_valid"])):
+        raise AssertionError(f"fit {model}: losses {fit}")
+    for f in [f"ckpt/epoch_{e}.tar" for e in range(epochs)] + [
+            "ckpt/index.json", "best_model.tar", "config.json"]:
+        if not (log_dir / f).exists():
+            raise AssertionError(f"fit {model}: no {f}")
+    test, _, tested, _ = counted_cli(
+        ["test", *common, "--data-dir", str(data / "dev")], want_test,
+        f"test {model}")
+    if not abs(test["loss"] - fit["final_valid"]) <= 1e-6:
+        raise AssertionError(f"test {model}: loss {test['loss']} vs the "
+                             f"fit's final valid {fit['final_valid']}")
+    if not all(np.isfinite(test[k]) for k in ("ACC", "MAE")):
+        raise AssertionError(f"test {model}: metrics {test}")
+    return ({"fit": fit, "fit_s": fit_s, "test": test, "peak_bytes": peak,
+             "epochs": epoch_stats(log_dir)},
+            [a + b for a, b in zip(launched, tested)])
+
+
+def test_best(model, bz, log_dir, data_dir, want):
+    """`cli test --best`: it must restore the epoch of the least valid
+    loss in ckpt/index.json and give that loss. Returns its result and
+    launches."""
+    best, out, tested, _ = counted_cli(
+        ["test", "--model", model, "--bz", str(bz), "--log-dir",
+         str(log_dir), "--data-dir", str(data_dir), "--best"], want,
+        f"test --best {model}")
+    index = json.loads((log_dir / "ckpt/index.json").read_text())
+    best_epoch = min(sorted(index, key=int), key=lambda e: index[e])
+    if f"resumed from epoch {best_epoch}" not in out or not abs(
+            best["loss"] - index[best_epoch]) <= 1e-6:
+        raise AssertionError(f"test --best {model}: {best}, index {index}")
+    return best, tested
+
+
+def serve_after_fit(model, log_dir, audio, per_chunk):
+    """`cli serve --model model` from the fit's best_model.tar, one TCP
+    connection of `audio`: lines, eof and `per_chunk` K1 launches a chunk
+    step. Returns the lines and the launches."""
+    from fnssl_tpu_torch.cli.main import build_parser, build_server
+    from fnssl_tpu_torch.runtime.server import stream_client
+
+    args = build_parser().parse_args(
+        ["serve", "--model", model, "--port", "0", "--log-dir",
+         str(log_dir)])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        server, _ = build_server(args)
+    if "no checkpoint" in buf.getvalue():
+        raise AssertionError(f"serve {model} did not find the fit's "
+                             "best_model.tar")
+    server.start()
+    counts = launch_counters()
+    try:
+        for c in counts:
+            c.reset()
+        msgs = stream_client("127.0.0.1", server.port, audio, block=1600)
+        served = [c.value for c in counts]
+    finally:
+        server.shutdown()
+    n_out = len(msgs) - 1
+    if not (n_out > 0 and msgs[-1] == {"eof": True, "outputs": n_out}
+            and served == [per_chunk * n_out, 0, 0, 0]):
+        raise AssertionError(f"serve {model} after fit: {n_out} lines, eof "
+                             f"{msgs[-1]}, launches {served}")
+    log(f"  serve {model} from the fit's best_model.tar: {n_out} lines and "
+        f"eof; launches {COUNTED} {served}")
+    return n_out, served
+
+
 def phase_fit(seed, device, card, step_ms):
     """The user's training loop through the CLI, in-process on the card at
     full width: simulate, fit, test (latest and best) and serve fnssl from
     the fit's best_model.tar; fit and test fnssl_doa."""
-    from fnssl_tpu_torch.cli.main import build_parser, build_server
-    from fnssl_tpu_torch.runtime.server import stream_client
     from fnssl_tpu_torch.sim import native
 
-    k1_k2 = [1, 0, 0, 1]              # COUNTED order: K1 and K2 a step
-    k1 = [1, 0, 0, 0]
     valid_batches = -(-FIT_DEV // FIT_BZ)
 
     def want(train_steps, eval_batches):
-        return [LAUNCHES_PER_TRAIN_STEP * (train_steps * a + eval_batches * b)
-                for a, b in zip(k1_k2, k1)]
+        return path_launches(LAUNCHES_PER_TRAIN_STEP, train_steps,
+                             eval_batches)
 
     # the numpy ISM takes ~20x longer: fail before simulating with it
     if not native.native_available():
@@ -1053,85 +1284,22 @@ def phase_fit(seed, device, card, step_ms):
                 f"threads); {card}")
         report["simulate"] = sims
         launches = {}
-
-        def fit_and_test(model, epochs, log_dir, train_size):
-            common = ["--model", model, "--bz", str(FIT_BZ), "--seed",
-                      str(seed), "--log-dir", str(log_dir)]
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            fit, _, launched, fit_s = counted_cli(
-                ["fit", *common, "--train-dir", str(data / "train"),
-                 "--valid-dir", str(data / "dev"), "--epochs", str(epochs),
-                 "--train-size", str(train_size)],
-                want(epochs * (train_size // FIT_BZ), epochs * valid_batches),
-                f"fit {model} ({epochs} epochs of {train_size} scenes)")
-            peak = torch.cuda.max_memory_allocated()
-            if not (np.isfinite(fit["final_train"])
-                    and np.isfinite(fit["final_valid"])):
-                raise AssertionError(f"fit {model}: losses {fit}")
-            for f in [f"ckpt/epoch_{e}.tar" for e in range(epochs)] + [
-                    "ckpt/index.json", "best_model.tar", "config.json"]:
-                if not (log_dir / f).exists():
-                    raise AssertionError(f"fit {model}: no {f}")
-            test, _, tested, _ = counted_cli(
-                ["test", *common, "--data-dir", str(data / "dev")],
-                want(0, valid_batches), f"test {model}")
-            if not abs(test["loss"] - fit["final_valid"]) <= 1e-6:
-                raise AssertionError(f"test {model}: loss {test['loss']} vs "
-                                     f"the fit's final valid "
-                                     f"{fit['final_valid']}")
-            if not all(np.isfinite(test[k]) for k in ("ACC", "MAE")):
-                raise AssertionError(f"test {model}: metrics {test}")
-            launches[model] = [a + b for a, b in zip(launched, tested)]
-            return {"fit": fit, "fit_s": fit_s, "test": test,
-                    "peak_bytes": peak, "epochs": epoch_stats(log_dir)}
-
-        fnssl = fit_and_test("fnssl", FIT_EPOCHS, runs / "fnssl", FIT_TRAIN)
-        best, out, tested, _ = counted_cli(
-            ["test", "--model", "fnssl", "--bz", str(FIT_BZ), "--log-dir",
-             str(runs / "fnssl"), "--data-dir", str(data / "dev"), "--best"],
-            want(0, valid_batches), "test --best fnssl")
-        index = json.loads((runs / "fnssl/ckpt/index.json").read_text())
-        best_epoch = min(sorted(index, key=int), key=lambda e: index[e])
-        if f"resumed from epoch {best_epoch}" not in out or not abs(
-                best["loss"] - index[best_epoch]) <= 1e-6:
-            raise AssertionError(f"test --best: {best}, index {index}")
-        fnssl["test_best"] = best
+        fnssl, launches["fnssl"] = fit_and_test(
+            "fnssl", data, runs / "fnssl", FIT_EPOCHS, FIT_TRAIN, FIT_BZ,
+            seed, want(FIT_EPOCHS * (FIT_TRAIN // FIT_BZ),
+                       FIT_EPOCHS * valid_batches), want(0, valid_batches))
+        fnssl["test_best"], tested = test_best(
+            "fnssl", FIT_BZ, runs / "fnssl", data / "dev",
+            want(0, valid_batches))
         launches["fnssl"] = [a + b for a, b in zip(launches["fnssl"], tested)]
-
-        # serve the fit's best_model.tar: one connection, lines and eof
-        args = build_parser().parse_args(
-            ["serve", "--model", "fnssl", "--port", "0", "--log-dir",
-             str(runs / "fnssl")])
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            server, info = build_server(args)
-        if "no checkpoint" in buf.getvalue():
-            raise AssertionError("serve did not find the fit's "
-                                 "best_model.tar")
-        server.start()
-        counts = launch_counters()
-        try:
-            for c in counts:
-                c.reset()
-            msgs = stream_client("127.0.0.1", server.port,
-                                 make_audio(seed + 200, 4), block=1600)
-            served = [c.value for c in counts]
-        finally:
-            server.shutdown()
-        n_out = len(msgs) - 1
-        if not (n_out > 0 and msgs[-1] == {"eof": True, "outputs": n_out}
-                and served == [LAUNCHES_PER_CHUNK * n_out, 0, 0, 0]):
-            raise AssertionError(f"serve after fit: {n_out} lines, eof "
-                                 f"{msgs[-1]}, launches {served}")
-        log(f"  serve from the fit's best_model.tar: {n_out} lines and eof; "
-            f"launches {COUNTED} {served}")
-        launches["serve_after_fit"] = served
-        fnssl["serve_lines"] = n_out
-
+        fnssl["serve_lines"], launches["serve_after_fit"] = serve_after_fit(
+            "fnssl", runs / "fnssl", make_audio(seed + 200, 4),
+            LAUNCHES_PER_CHUNK)
         report["fnssl"] = fnssl
-        report["fnssl_doa"] = fit_and_test("fnssl_doa", 1, runs / "doa",
-                                           FIT_DOA_TRAIN)
+        report["fnssl_doa"], launches["fnssl_doa"] = fit_and_test(
+            "fnssl_doa", data, runs / "doa", 1, FIT_DOA_TRAIN, FIT_BZ, seed,
+            want(FIT_DOA_TRAIN // FIT_BZ, valid_batches),
+            want(0, valid_batches))
         report["loader_stages_s"] = loader_stages(data / "train", FIT_BZ,
                                                   device, data / "dev")
 
@@ -1165,6 +1333,401 @@ def phase_fit(seed, device, card, step_ms):
         f"GiB, fit fnssl_doa "
         f"{report['fnssl_doa']['peak_bytes'] / 2**30:.2f} GiB; {card}")
     log(f"  fit path launches {COUNTED} {total}")
+    return report, dict(zip(COUNTED, total))
+
+
+# --------------------------------------------------------------------------
+# IPDnet (phases 11-16): IPDnetConfig() (hidden 128, input 4, 2 tracks)
+# and VariableIPDnetConfig(), nb scenes of 4.5 s (280 frames, 256 bins, 23
+# output frames); the JAX package's cells bench.py:179-214 (fixed array,
+# nb 16) and bench.py:217-265 (variable array, nch 4, P = 6 pairs, nb 8)
+
+IPD_T_S, IPD_NB, IPD_PARITY_NB = 4.5, 16, 2
+IPD_VAR_NB, IPD_VAR_NCH = 8, 4
+IPD_LR = 5e-4
+IPD_LAUNCHES = 4            # K1 a forward, and K2 a train step: 2 blocks
+IPD_STEP_LAUNCHES = [IPD_LAUNCHES, 0, 0, IPD_LAUNCHES]
+# (name, T, B, H, I, ndir) of one train step: per block a BiLSTM over
+# frequency (H 64, B = rows*280) and an LSTM over time (H 128, B =
+# rows*256; both directions at H 64 offline); the first block's I
+IPD_TRAIN_SHAPES = [
+    ("ipdnet_train_fullband", 256, 16 * 280, 64, 4, 2),
+    ("ipdnet_train_narrowband", 280, 16 * 256, 128, 132, 1),
+    ("ipdnet_offline_narrowband", 280, 16 * 256, 64, 132, 2),
+    ("variable_train_fullband", 256, 8 * 6 * 280, 64, 4, 2),
+    ("variable_train_narrowband", 280, 8 * 6 * 256, 128, 128, 1)]
+# forward only: the serve chunk step, and the offline model's 312-frame
+# chunked test at nb 16
+IPD_FWD_SHAPES = [
+    ("ipdnet_serve_fullband", 256, 12, 64, 4, 2),
+    ("ipdnet_serve_narrowband", 12, 256, 128, 132, 1),
+    ("offline_chunked_fullband", 256, 16 * 312, 64, 4, 2),
+    ("offline_chunked_narrowband", 312, 16 * 256, 64, 132, 2)]
+# phase 16: scenes of IPD_T_S s; ipdnet 2 epochs of 4 steps at bz 16 on a
+# corpus of 1- and 2-source scenes, ipdnet_offline 1 epoch on it,
+# variable_ipdnet 1 epoch of 1 step on a 1-source corpus (its labels are
+# not padded to 2 tracks, as in the JAX CLI)
+IPD_FIT_TRAIN, IPD_FIT_DEV, IPD_FIT_SINGLE = 64, 8, 16
+
+
+def phase_ipdnet_kernels(device, worst, worst_bwd, bwd_checks):
+    """K1 (both entry points, fp32 and bf16) at every IPDnet shape and K2
+    (fp32 and bf16) at the training shapes against their plain versions,
+    folded into phases 3's and 6's worst errors. Returns the checks."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    seed, checks = 3000, 0
+    for name, t, b, h, _, ndir in IPD_TRAIN_SHAPES + IPD_FWD_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            seed += 1
+            tdt = getattr(torch, dtype)
+            both = lstm_inputs(t, b, h, tdt, device, seed, ndir=2)
+            errs = []
+            for reverse in (False, True):
+                one = tuple(a[int(reverse)] for a in both)
+                got = counted(L.launches, 1, L.lstm_fwd, *one,
+                              reverse=reverse)
+                errs.append(held("lstm_cluster", f"{name} lstm_fwd reverse="
+                                 f"{int(reverse)}", dtype, got,
+                                 L.lstm_fwd_plain(*one, reverse=reverse),
+                                 worst))
+            got = counted(L.launches, 1, L.lstm_fwd_bidir, *both)
+            errs.append(held("lstm_cluster", f"{name} lstm_fwd_bidir", dtype,
+                             got, L.lstm_fwd_bidir_plain(*both), worst))
+            del got, both
+            checks += 3
+            k2 = ""
+            if (name, t, b, h, _, ndir) in IPD_TRAIN_SHAPES:
+                args = bwd_inputs((ndir,), t, b, h, tdt, device, seed)
+                fn, plain = L.lstm_bwd_bidir, L.lstm_bwd_bidir_plain
+                if ndir == 1:
+                    args = tuple(a[0] for a in args)
+                    fn, plain = L.lstm_bwd, L.lstm_bwd_plain
+                got = counted(L.launches_bwd_cluster, 1, fn,
+                              args[0].clone(), *args[1:])
+                err = held_bwd(f"lstm_bwd_cluster {name}", got,
+                               plain(args[0].clone(), *args[1:]),
+                               worst_bwd["lstm_bwd_cluster"], dtype)
+                bwd_checks["lstm_bwd_cluster"] += 1
+                k2 = (f"; K2 plan {L.bwd_cluster_plan(h, tdt.itemsize)} "
+                      f"max|diff| {err:.2e}")
+                del args, got
+            log(f"  {name:26s} T={t:3d} B={b:5d} H={h:3d} {dtype:8s} K1 plan "
+                f"{L.cluster_plan(h, tdt.itemsize, b, ndir)} max|diff| "
+                "fwd/rev/bidir ys " + "/".join(f"{e['ys']:.2e}" for e in errs)
+                + " hT,cT " + "/".join(f"{max(e['hT'], e['cT']):.2e}"
+                                       for e in errs) + k2)
+    torch.cuda.empty_cache()
+    return checks
+
+
+def plan_picks(rows, label):
+    """Per (shape, dtype): the rule's plan and ms against the fastest plan
+    timed; logs them and returns them."""
+    picks = []
+    for key in dict.fromkeys((r["shape"], r["dtype"]) for r in rows):
+        mine = [r for r in rows if (r["shape"], r["dtype"]) == key]
+        best = min(mine, key=lambda r: r["ms"])
+        rule = next(r for r in mine if r["default"])
+        plan = {k: v for k, v in rule.items()
+                if k in ("N", "Bt", "KS", "UPT")}
+        fastest = {k: v for k, v in best.items()
+                   if k in ("N", "Bt", "KS", "UPT")}
+        pick = {"shape": key[0], "dtype": key[1], "rule": plan,
+                "rule_ms": rule["ms"], "fastest": fastest,
+                "fastest_ms": best["ms"],
+                "rule_over_fastest": rule["ms"] / best["ms"] - 1.0}
+        picks.append(pick)
+        log(f"  {label} pick {key[0]:26s} {key[1]:8s} rule {plan} "
+            f"{rule['ms']:.4f} ms, fastest {fastest} {best['ms']:.4f} ms "
+            f"(rule {pick['rule_over_fastest']:+.1%})")
+    return picks
+
+
+def ipdnet_batch(nb, nch, seed):
+    """The JAX package's IPDnet bench batch (bench.py:179-265): nb scenes
+    of 4.5 s of noise, 2 tracks at uniform DOAs, unit VAD."""
+    rng = np.random.default_rng(seed)
+    nsample = int(IPD_T_S * FS)
+    nt2 = ((nsample - 512) // 256 + 1) // 12
+    return {"mic_sig": rng.standard_normal((nb, nsample, nch)).astype(
+                np.float32),
+            "doa": rng.uniform(0, np.pi, (nb, nt2, 2, 2)).astype(np.float32),
+            "vad": np.ones((nb, nt2, 2), np.float32)}
+
+
+def variable_mics(nch):
+    mic = np.zeros((nch, 3))
+    mic[:, 0] = np.linspace(-0.06, 0.06, nch)
+    return mic
+
+
+def ipdnet_setup(seed, which, nb, device, precision="fp32", nch=None):
+    """(state, step, batch) of an IPDnet task at its published width on
+    `device`: weights from `seed`, Adam 5e-4 / gamma 0.975, the bench
+    batch on the device; the variable-array task on a linear array of
+    `nch` mics (default IPD_VAR_NCH)."""
+    from fnssl_tpu_torch.models.ipdnet import IPDnet, VariableIPDnet
+    from fnssl_tpu_torch.train import step as S
+    from fnssl_tpu_torch.train import tasks as TK
+
+    if which == "variable_ipdnet":
+        nch = nch or IPD_VAR_NCH
+        task = TK.make_variable_ipdnet_task(
+            mic_location=variable_mics(nch), precision=precision,
+            device=device)
+        cls = VariableIPDnet
+    else:
+        nch = 2
+        make = (TK.make_ipdnet_task if which == "ipdnet"
+                else TK.make_ipdnet_offline_task)
+        task, cls = make(precision=precision, device=device), IPDnet
+    model = cls(task.cfg, device=device,
+                generator=torch.Generator().manual_seed(seed))
+    tx = S.make_optimizer("adam", IPD_LR, 0.975, 1)
+    step = S.make_train_step(task.loss_fn, tx)
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in ipdnet_batch(nb, nch, seed).items()}
+    return S.init_train_state(model, tx), step, batch
+
+
+def phase_ipdnet_parity(seed, device):
+    """Phase 7's check for each IPDnet task: nb=2 x 4.5 s (variable:
+    nch 4, nb 1), dropout off, the card against the CPU."""
+    out = {}
+    for which, nb in (("ipdnet", IPD_PARITY_NB),
+                      ("ipdnet_offline", IPD_PARITY_NB),
+                      ("variable_ipdnet", 1)):
+        log(f"  {which}, nb={nb}:")
+        out[which] = phase_train_parity(
+            seed, device, functools.partial(ipdnet_setup, seed, which, nb),
+            lr=IPD_LR, want=IPD_STEP_LAUNCHES,
+            gates=("conv.conv1", "conv.conv2"))
+    return out
+
+
+KERNEL_GROUPS = (("K1", ("lstm_cluster",)), ("K2", ("lstm_bwd_cluster",)),
+                 ("conv head", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                                "implicit", "winograd")),
+                 ("GEMMs", ("gemm", "gemv", "cutlass", "xmma")),
+                 ("copies", ("copy", "cat", "memcpy", "memset")))
+
+
+def profile_step(step_fn):
+    """One call of step_fn under torch.profiler: wall ms, the card's busy
+    ms (union of kernel intervals), idle share, busy ms by kernel group
+    (KERNEL_GROUPS, first match by name, else 'the rest') and the top
+    kernels by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur = 0.0, None
+    for start, end in spans:
+        if cur is None or start > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    busy /= 1e3                                 # the profiler's unit is µs
+    groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
+    groups["the rest"] = 0.0
+    by_name = {}
+    for e in kernels:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        low = e.name.lower()
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in low for k in keys)), "the rest")
+        groups[group] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"wall_ms": wall, "busy_ms": busy,
+            "idle_share": 1.0 - busy / wall if busy else None,
+            "groups_ms": groups,
+            "top": [{"kernel": n[:100], "ms": ms} for n, ms in top]}
+
+
+def timed_steps(state, step, batch, gen, n):
+    """1 warm and n timed train steps: (state, ms list, losses)."""
+    ms, losses = [], []
+    for k in range(1 + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch, gen)
+        torch.cuda.synchronize()
+        if k:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return state, np.array(ms), losses
+
+
+def phase_ipdnet_train(seed, device):
+    """The fixed-array cell (nb 16) and the variable-array cell (nch 4, nb
+    8) at the published widths, fp32 then the bf16 policy: 1 warm + 5
+    timed steps, dropout on; the variable forward; one fp32 step of the
+    fixed model under torch.profiler."""
+    from fnssl_tpu_torch.train.precision import wrap_apply
+    from fnssl_tpu_torch.train.tasks import _apply_module
+
+    rows = {}
+    counts = launch_counters()
+    for c in counts:
+        c.reset()
+    steps, fwd_launches = 0, 0
+    for which, nb in (("ipdnet", IPD_NB), ("variable_ipdnet", IPD_VAR_NB)):
+        for precision in ("fp32", "bf16"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            state, step, batch = ipdnet_setup(seed, which, nb, device,
+                                              precision)
+            gen = torch.Generator(device=device).manual_seed(seed)
+            state, ms, losses = timed_steps(state, step, batch, gen,
+                                            TIMED_STEPS)
+            steps += 1 + TIMED_STEPS
+            row = {"ms_mean": float(ms.mean()),
+                   "ms_p90": float(np.percentile(ms, 90)),
+                   "ms": ms.tolist(),
+                   "audio_s_per_s": nb * IPD_T_S / (ms.mean() / 1e3),
+                   "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "losses": losses}
+            if not np.isfinite(losses).all():
+                raise AssertionError(f"{which} {precision}: losses {losses}")
+            extra = ""
+            if which == "variable_ipdnet":
+                # the forward alone on the step's features (bench.py:246-255)
+                from fnssl_tpu_torch.train import tasks as TK
+                task = TK.make_variable_ipdnet_task(
+                    mic_location=variable_mics(IPD_VAR_NCH), device=device)
+                feats, _ = task.preprocess(batch["mic_sig"], batch["doa"],
+                                           batch["vad"])
+                fwd = wrap_apply(_apply_module, precision)
+                model = state.module.eval()
+                params = dict(model.named_parameters())
+                with torch.no_grad():
+                    # cuda_ms: 2 warm calls and TIMED_STEPS timed
+                    row["fwd_ms"] = cuda_ms(lambda: fwd(
+                        params, feats, module=model, npair=6), TIMED_STEPS)
+                fwd_launches += IPD_LAUNCHES * (2 + TIMED_STEPS)
+                row["fwd_audio_s_per_s"] = nb * IPD_T_S / (row["fwd_ms"] /
+                                                           1e3)
+                extra = f"; forward {row['fwd_ms']:.2f} ms"
+                del feats, model, params
+            rows[f"{which}_{precision}"] = row
+            log(f"  {which} nb={nb} {precision}: step ms mean "
+                f"{row['ms_mean']:.2f} p90 {row['ms_p90']:.2f} over "
+                f"{TIMED_STEPS} steps; {row['audio_s_per_s']:.1f} s of audio "
+                f"a second; peak {row['peak_bytes'] / 2**30:.2f} GiB"
+                f"{extra}; losses " + ", ".join(f"{v:.6f}" for v in losses))
+            del state, step, batch
+    launched = [c.value for c in counts]
+    want = [steps * n for n in IPD_STEP_LAUNCHES]
+    want[0] += fwd_launches
+    if launched != want:
+        raise AssertionError(f"IPDnet training launched {COUNTED} "
+                             f"{launched} for {steps} steps and the "
+                             f"forwards, expected {want}")
+    log(f"  launches {COUNTED} {launched} = {steps} steps x "
+        f"{IPD_STEP_LAUNCHES} and {fwd_launches} K1 of the timed forwards")
+    torch.cuda.empty_cache()
+    state, step, batch = ipdnet_setup(seed, "ipdnet", IPD_NB, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state, _ = step(state, batch, gen)
+    prof = profile_step(lambda: step(state, batch, gen))
+    if not prof["busy_ms"]:
+        raise AssertionError("the profiler saw no kernel on the card")
+    log(f"  profile of one fp32 ipdnet step: wall {prof['wall_ms']:.2f} ms, "
+        f"busy {prof['busy_ms']:.2f} ms, idle share "
+        f"{prof['idle_share']:.2%}; busy by group " + ", ".join(
+            f"{g} {ms:.2f} ms ({ms / prof['busy_ms']:.1%})"
+            for g, ms in prof["groups_ms"].items()))
+    for k in prof["top"]:
+        log(f"    {k['ms']:9.3f} ms  {k['kernel']}")
+    rows["profile_fp32"] = prof
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return rows, dict(zip(COUNTED, launched))
+
+
+def phase_ipdnet_fit(seed, device, card):
+    """The user's IPDnet loop through the CLI on the card: simulate
+    (preset ipdnet), fit, test, test --best and serve ipdnet; fit and test
+    ipdnet_offline (its test scores the 312-frame chunked inference) and
+    variable_ipdnet."""
+    from fnssl_tpu_torch.sim import native
+
+    if not native.native_available():
+        raise AssertionError(f"the native ISM did not build: "
+                             f"{native.build_error('ism')}")
+    valid = -(-IPD_FIT_DEV // IPD_NB)
+    report = {"card": card}
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data, runs = Path(tmp) / "data", Path(tmp) / "runs"
+        sims = []
+        for corpus, ns, stage, num, extra in (
+                ("mixed", 2, "train", IPD_FIT_TRAIN, []),
+                ("mixed", 2, "dev", IPD_FIT_DEV, ["--compact"]),
+                ("single", 1, "train", IPD_FIT_SINGLE, []),
+                ("single", 1, "dev", IPD_FIT_DEV, ["--compact"])):
+            sim, _, _ = cli(["simulate", "--preset", "ipdnet", "--stage",
+                             stage, "--out", str(data / corpus / stage),
+                             "--num", str(num), "--T", str(IPD_T_S),
+                             "--num-source", str(ns), *extra])
+            if sim["ism_engine"] != "native C++/OpenMP":
+                raise AssertionError(f"simulate ran the {sim['ism_engine']}"
+                                     " ISM")
+            sims.append(sim)
+            log(f"  simulate ipdnet {corpus}/{stage}: {num} scenes of "
+                f"{IPD_T_S} s in {sim['seconds']:.2f} s, "
+                f"{sim['seconds'] / num:.3f} s a scene; {card}")
+        report["simulate"] = sims
+        for model, corpus, epochs, train in (
+                ("ipdnet", "mixed", 2, IPD_FIT_TRAIN),
+                ("ipdnet_offline", "mixed", 1, IPD_FIT_TRAIN),
+                ("variable_ipdnet", "single", 1, IPD_FIT_SINGLE)):
+            # the offline test also runs the chunked inference a batch
+            chunked = IPD_LAUNCHES * valid if model == "ipdnet_offline" else 0
+            report[model], launches[model] = fit_and_test(
+                model, data / corpus, runs / model, epochs, train, IPD_NB,
+                seed, path_launches(IPD_LAUNCHES, epochs * (train // IPD_NB),
+                                    epochs * valid),
+                path_launches(IPD_LAUNCHES, 0, valid, chunked))
+            if model == "ipdnet":
+                report[model]["test_best"], tested = test_best(
+                    model, IPD_NB, runs / model, data / corpus / "dev",
+                    path_launches(IPD_LAUNCHES, 0, valid))
+                launches[model] = [a + b for a, b in zip(launches[model],
+                                                         tested)]
+                report[model]["serve_lines"], launches["serve_after_fit"] = \
+                    serve_after_fit(model, runs / model,
+                                    make_audio(seed + 300, -3), IPD_LAUNCHES)
+    for model in ("ipdnet", "ipdnet_offline", "variable_ipdnet"):
+        r = report[model]
+        for e, st in enumerate(r["epochs"]):
+            log(f"  {model} epoch {e}: {st['epoch_s']:.3f} s of train steps "
+                f"({int(st['steps'])} steps, {st['ms_per_step']:.1f} ms a "
+                f"step), of it {st['first_batch_wait_s']:.3f} s waiting for "
+                f"the first batch; after it {st['steady_ms_per_step']:.1f} ms"
+                f" a step; {card}")
+        log(f"  {model}: fit {r['fit_s']:.2f} s, test loss "
+            f"{r['test']['loss']:.6f} = valid {r['fit']['final_valid']:.6f}"
+            f", ACC {r['test']['ACC']:.4f} MAE {r['test']['MAE']:.2f}, peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB")
+    total = [sum(v[i] for v in launches.values())
+             for i in range(len(COUNTED))]
+    report["launches"] = launches
+    log(f"  IPDnet fit path launches {COUNTED} {total}")
     return report, dict(zip(COUNTED, total))
 
 
@@ -1229,8 +1792,9 @@ def main():
     # 5. times
     log("[times] K1 at the main path's shapes")
     rows = phase_times(device)
-    log("[plans] lstm_cluster plans at the serve shapes, fp32")
-    plans = phase_plans(device)
+    log("[plans] lstm_cluster plans at FN-SSL's and IPDnet's serve shapes, "
+        "fp32")
+    plans = phase_plans(device, SHAPES[:2] + IPD_FWD_SHAPES[:2])
 
     # 6-9. training
     log("[backward] K2 against its plain version on the card; K1 at the "
@@ -1253,6 +1817,45 @@ def main():
         f"{FIT_EPOCHS} epochs, fnssl_doa 1")
     fit_report, fit_launches = phase_fit(args.seed, device, card,
                                          train["fp32"]["ms_mean"])
+
+    # 11-16. IPDnet
+    log("[ipdnet kernels] K1 and K2 at IPDnet's shapes against their plain "
+        "versions")
+    ipd_checks = phase_ipdnet_kernels(device, worst, worst_bwd, bwd_checks)
+    log(f"  {ipd_checks} K1 checks; worst K1 {json.dumps(worst)}, K2 "
+        f"{json.dumps(worst_bwd)}")
+    log("[ipdnet plans] every lstm_cluster and lstm_bwd_cluster plan at "
+        "IPDnet's training shapes")
+    ipd_plans = phase_plans(device, IPD_TRAIN_SHAPES,
+                            ("float32", "bfloat16"), iters=5)
+    ipd_bwd_plans = phase_bwd_plans(device, IPD_TRAIN_SHAPES)
+    log("  and every lstm_cluster plan at FN-SSL's training shapes")
+    train_plans = phase_plans(device, TRAIN_SHAPES, ("float32", "bfloat16"),
+                              iters=5)
+    picks = {"serve_k1": plan_picks(plans, "K1"),
+             "fnssl_train_k1": plan_picks(train_plans, "K1"),
+             "fnssl_train_k2": plan_picks(bwd_plans, "K2"),
+             "ipdnet_train_k1": plan_picks(ipd_plans, "K1"),
+             "ipdnet_train_k2": plan_picks(ipd_bwd_plans, "K2")}
+    log("[ipdnet serve] cli serve --model ipdnet on the card, 3 TCP "
+        "connections")
+    ipd_launches, ipd_steps, ipd_serve = phase_serve(args.seed, device,
+                                                     "ipdnet")
+    log("[ipdnet times] K1 and K2 at IPDnet's shapes")
+    ipd_rows = phase_times(device, IPD_FWD_SHAPES)
+    ipd_train_rows = phase_train_times(device, IPD_TRAIN_SHAPES)
+    log(f"[ipdnet parity] one fp32 train step of each IPDnet task, "
+        f"nb={IPD_PARITY_NB} x {IPD_T_S} s (variable: nch {IPD_VAR_NCH}, nb "
+        f"1), dropout off: the card against the CPU")
+    ipd_parity = phase_ipdnet_parity(args.seed, device)
+    log(f"[ipdnet train] ipdnet nb={IPD_NB} and variable_ipdnet nb="
+        f"{IPD_VAR_NB} (nch {IPD_VAR_NCH}) x {IPD_T_S} s, Adam 5e-4 / gamma "
+        "0.975, dropout on: fp32, then the bf16 policy")
+    ipd_train, ipd_train_launches = phase_ipdnet_train(args.seed, device)
+    log(f"[ipdnet fit] cli simulate --preset ipdnet -> fit -> test -> serve: "
+        f"{IPD_FIT_TRAIN}+{IPD_FIT_DEV} scenes of {IPD_T_S} s, bz {IPD_NB}; "
+        "ipdnet 2 epochs, ipdnet_offline 1, variable_ipdnet 1")
+    ipd_fit, ipd_fit_launches = phase_ipdnet_fit(args.seed, device, card)
 
     # each kernel's work in one online chunk step, fp32: 3 BiLSTMs over
     # frequency and 3 LSTMs over time
@@ -1285,7 +1888,22 @@ def main():
                  "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
                  "library_ms": per_train_step(train_rows, "library_fwd_ms"),
                  "work": work}
-    paths = {"serve": launches, "train": train_launches, "fit": fit_launches}
+    paths = {"serve": launches, "train": train_launches, "fit": fit_launches,
+             "ipdnet_serve": ipd_launches, "ipdnet_train": ipd_train_launches,
+             "ipdnet_fit": ipd_fit_launches}
+    # and in one fixed-array IPDnet train step at nb=16, fp32: 2 full-band
+    # BiLSTMs and 2 narrow-band LSTMs, forward (K1) and backward (K2)
+    ipd_step_rows = ipd_train_rows[:2]
+    ipd_work = (f"one IPDnet train step at nb={IPD_NB}, fp32: 2 full-band "
+                "BiLSTMs (T=256, B=4480, H=64) and 2 narrow-band LSTMs "
+                "(T=280, B=4096, H=128)")
+
+    def ipd_step(key):
+        return 2 * sum(r[key] for r in ipd_step_rows)
+
+    def ipd_step_bound(key):
+        return bound({k: 2 * sum(r[key][k] for r in ipd_step_rows)
+                      for k in ("bytes", "operations")})
     kernels = [{
         "name": "lstm_cluster", "route": "cuda",
         "source": "fnssl_tpu_torch/kernels/csrc/lstm_cluster.cu",
@@ -1299,7 +1917,32 @@ def main():
             "ms": nf * full["fused_ms_float32"] + nn_ * narrow["ms_float32"],
             **serve_common, "launches_per_chunk_step": LAUNCHES_PER_CHUNK,
             "chunk_steps": steps, **step},
-        "per_shape": rows + train_rows, "plans": plans,
+        "per_shape": rows + train_rows + ipd_rows + ipd_train_rows,
+        "plans": plans + train_plans + ipd_plans,
+        "ipdnet_train_step": {
+            "ms": ipd_step("k1_ms_float32"),
+            "ms_bf16": ipd_step("k1_ms_bfloat16"),
+            "plain_ms": ipd_step("k1_plain_ms"),
+            "bound_ms": ipd_step_bound("k1_bound_terms_float32")[0],
+            "bound_by": ipd_step_bound("k1_bound_terms_float32")[1],
+            "library_ms": ipd_step("library_fwd_ms"), "work": ipd_work,
+            "launches_per_train_step": IPD_LAUNCHES},
+        "ipdnet_serve_chunk_step": {
+            "ms": 2 * (ipd_rows[0]["fused_ms_float32"]
+                       + ipd_rows[1]["ms_float32"]),
+            "plain_ms": 2 * (ipd_rows[0]["fused_plain_ms"]
+                             + ipd_rows[1]["plain_ms"]),
+            "library_ms": 2 * (ipd_rows[0]["library_bidir_ms"]
+                               + ipd_rows[1]["library_ms"]),
+            **dict(zip(("bound_ms", "bound_by"), bound({k: 2 * (
+                2 * ipd_rows[0]["bound_terms_float32"][k]
+                + ipd_rows[1]["bound_terms_float32"][k])
+                for k in ("bytes", "operations")}))),
+            "work": "the recurrences of one IPDnet chunk step, fp32: 2 "
+                    "full-band BiLSTMs (T=256, B=12, H=64) and 2 narrow-band "
+                    "LSTMs (T=12, B=256, H=128)",
+            "launches_per_chunk_step": IPD_LAUNCHES,
+            "chunk_steps": ipd_steps, **ipd_serve},
     }, {
         "name": "lstm_fwd", "route": "cuda",
         "source": "fnssl_tpu_torch/kernels/csrc/lstm_fwd.cu",
@@ -1335,10 +1978,21 @@ def main():
             "checks": bwd_checks[src],
             "ms": per_train_step(train_rows, f"k2_{src}_ms_float32"),
             "ms_bf16": per_train_step(train_rows, f"k2_{src}_ms_bfloat16"),
-            **k2_common})
-    kernels[-2]["plans"] = bwd_plans
+            **k2_common,
+            "ipdnet_train_step": {
+                "ms": ipd_step(f"k2_{src}_ms_float32"),
+                "ms_bf16": ipd_step(f"k2_{src}_ms_bfloat16"),
+                "plain_ms": ipd_step("k2_plain_ms"),
+                "bound_ms": ipd_step_bound("k2_bound_terms_float32")[0],
+                "bound_by": ipd_step_bound("k2_bound_terms_float32")[1],
+                "library_ms": ipd_step("library_bwd_ms"),
+                "lstm_backward_ms": ipd_step("port_bwd_ms"),
+                "work": ipd_work}})
+    kernels[-2]["plans"] = bwd_plans + ipd_bwd_plans
     report = {"card": card, "kind": kind, "kernels": kernels,
-              "train": train, "train_parity": parity, "fit": fit_report}
+              "train": train, "train_parity": parity, "fit": fit_report,
+              "plan_picks": picks, "ipdnet_train": ipd_train,
+              "ipdnet_train_parity": ipd_parity, "ipdnet_fit": ipd_fit}
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -1,7 +1,8 @@
 """Command-line entry point of the port (mirrors ``fnssl_tpu/cli/main.py``).
 
-Ported: ``simulate``, and ``fit``/``test`` for ``fnssl`` and
-``fnssl_doa``, and ``serve --model fnssl``:
+Ported: ``simulate`` (presets ``fnssl`` and ``ipdnet``), ``fit``/``test``
+for ``fnssl``, ``fnssl_doa``, ``ipdnet``, ``ipdnet_offline`` and
+``variable_ipdnet``, and ``serve --model fnssl|ipdnet``:
 
   python -m fnssl_tpu_torch.cli simulate --out data/train --num 64
   python -m fnssl_tpu_torch.cli fit --model fnssl --train-dir data/train \
@@ -18,12 +19,14 @@ keeps its checkpoints in ``<log-dir>/ckpt/`` (one ``.tar`` per kept epoch)
 and writes the best epoch as ``<log-dir>/best_model.tar`` (the reference
 ``.tar`` format), which ``serve`` reads. A JAX fit leaves orbax
 checkpoints instead; ``tools/jax_ckpt_to_tar.py --log-dir <log-dir>``
-writes its best epoch as that file. Every other subcommand, model and
-option exits with "not ported yet".
+writes its best epoch as that file. ``test --model ipdnet_offline``
+scores the 312-frame chunked inference (runIPDnetOff.py:174). Every other
+subcommand, model and option exits with "not ported yet".
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import time
@@ -33,8 +36,13 @@ import torch
 MODELS = ["fnssl", "fnssl_doa", "ipdnet", "ipdnet_offline",
           "variable_ipdnet", "ipdnet2", "ipd_baseline"]
 NOT_PORTED = ["predict", "stream", "export", "locata"]
-# per-model (lr, gamma) of the ExponentialLR schedule (Train.py:94-117)
-LR_GAMMA = {"fnssl": (1e-3, 0.8988), "fnssl_doa": (1e-3, 0.8988)}
+# per-model (lr, gamma) of the ExponentialLR schedule (Train.py:94-117,
+# runIPDnetOn.py:44-58)
+LR_GAMMA = {"fnssl": (1e-3, 0.8988), "fnssl_doa": (1e-3, 0.8988),
+            "ipdnet": (5e-4, 0.975), "ipdnet_offline": (5e-4, 0.975),
+            "variable_ipdnet": (5e-4, 0.975)}
+IPDNET_MODELS = ("ipdnet", "ipdnet_offline", "variable_ipdnet")
+SERVED = ("fnssl", "ipdnet")
 # options of the JAX CLI that the port does not carry yet
 JAX_ONLY_FLAGS = ("--spawn", "--use-mesh", "--coordinator",
                   "--num-processes", "--process-id", "--profile",
@@ -84,11 +92,12 @@ def build_parser():
     p.add_argument("--librispeech", default=None,
                    help="LibriSpeech root (synthetic sources if omitted)")
     p.add_argument("--preset", default="fnssl", choices=["fnssl", "ipdnet"],
-                   help="simulation stage constants (ipdnet: not ported "
-                        "yet)")
+                   help="simulation stage constants (Simu.py variants); "
+                        "ipdnet draws 1 to --num-source sources a scene "
+                        "and takes its seed from --stage")
     p.add_argument("--stage", default="train",
                    choices=["train", "dev", "test"],
-                   help="the ipdnet preset's stage")
+                   help="the ipdnet preset's stage (SNR, T60 and seed)")
     p.add_argument("--compact", action="store_true",
                    help="write compact per-scene npz (int16 mic + "
                         "segmented labels) instead of wav+pickle; both "
@@ -137,7 +146,7 @@ def build_parser():
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=7316)
     p.add_argument("--nch", type=int, default=None,
-                   help="channels per connection (default 2 for fnssl)")
+                   help="channels per connection (default 2)")
     p.add_argument("--platform", default="default",
                    choices=["default", "cpu"],
                    help="default = the first CUDA device (an error where "
@@ -183,26 +192,46 @@ def _make_task(name: str, args, device):
     from fnssl_tpu_torch.models.fnssl import FNSSLConfig
     from fnssl_tpu_torch.train import tasks
 
+    pol = dict(remat=args.remat, precision=args.precision, device=device)
+    if name == "ipdnet":
+        return tasks.make_ipdnet_task(**pol)
+    if name == "ipdnet_offline":
+        # bidirectional narrow-band LSTMs + global magnitude norm
+        # (runIPDnetOff.py:79-303)
+        return tasks.make_ipdnet_offline_task(**pol)
+    if name == "variable_ipdnet":
+        return tasks.make_variable_ipdnet_task(**pol)
     cfg = FNSSLConfig(is_doa=name == "fnssl_doa")
-    return tasks.make_fnssl_task(cfg, remat=args.remat,
-                                 precision=args.precision, device=device)
+    return tasks.make_fnssl_task(cfg, **pol)
 
 
-def _init_model(task, seed: int, device):
+def _init_model(name: str, cfg, seed: int, device):
+    """The model of ``name`` with ``cfg``, weights drawn from ``seed``."""
     from fnssl_tpu_torch.models.fnssl import FNSSL
+    from fnssl_tpu_torch.models.ipdnet import IPDnet, VariableIPDnet
 
-    return FNSSL(task.cfg, device=device,
-                 generator=torch.Generator().manual_seed(seed))
+    cls = {"ipdnet": IPDnet, "ipdnet_offline": IPDnet,
+           "variable_ipdnet": VariableIPDnet}.get(name, FNSSL)
+    return cls(cfg, device=device,
+               generator=torch.Generator().manual_seed(seed))
+
+
+def _pad_tracks(task):
+    """Tracks each item's labels are padded to before stacking: the
+    multi-track models' ``max_track`` (IPDnet/Dataset.py:518-534), else
+    None (``variable_ipdnet``'s config has none, as in the JAX CLI)."""
+    return getattr(task.cfg, "max_track", None)
 
 
 def _batches(data_dir: str, bz: int, epoch: int, seed: int, shuffle: bool,
              workers: int = 2, prefetch: int = 2,
-             dataset_sz: int | None = None):
+             dataset_sz: int | None = None, pad_tracks: int | None = None):
     """Deterministic per-epoch batches from a wav+npz (or compact npz)
     dir, assembled on the prefetching loader so file reads and
     segmenting overlap the device step. Train batches keep the
     fixed-shape drop_last contract; eval keeps the ragged last batch, so
-    no sample is lost."""
+    no sample is lost. ``pad_tracks`` pads each item's source axis
+    (``collate_segmented``)."""
     from fnssl_tpu_torch.data import (
         DataLoader, FixTrajectoryDataset, Segmenting, collate_segmented)
     from fnssl_tpu_torch.parallel import host_local_slice
@@ -211,24 +240,31 @@ def _batches(data_dir: str, bz: int, epoch: int, seed: int, shuffle: bool,
                               transforms=[Segmenting()])
     sched = host_local_slice(len(ds), epoch, seed=seed, shuffle=shuffle)
     return DataLoader(lambda entry: ds[entry[0]], sched, bz,
-                      collate_segmented, num_workers=workers,
-                      prefetch=prefetch, drop_last=shuffle)
+                      functools.partial(collate_segmented,
+                                        pad_tracks=pad_tracks),
+                      num_workers=workers, prefetch=prefetch,
+                      drop_last=shuffle)
 
 
 def cmd_simulate(args):
     from fnssl_tpu_torch.data import (
-        LibriSpeechDataset, generate, make_fnssl_trajectory_dataset)
+        LibriSpeechDataset, generate, make_fnssl_trajectory_dataset,
+        make_ipdnet_trajectory_dataset)
     from fnssl_tpu_torch.sim import native
 
-    if args.preset != "fnssl":
-        raise SystemExit(f"simulate --preset {args.preset}: not ported yet")
     src = None
     if args.librispeech:
         src = LibriSpeechDataset(args.librispeech, args.T, 16000,
                                  args.num_source, return_vad=True)
-    ds = make_fnssl_trajectory_dataset(
-        src, T=args.T, num_source=args.num_source,
-        nb_points=args.nb_points, seed=args.seed)
+    if args.preset == "ipdnet":
+        ds = make_ipdnet_trajectory_dataset(
+            src, stage=args.stage, T=args.T,
+            num_source=tuple(range(1, args.num_source + 1)),
+            nb_points=args.nb_points)
+    else:
+        ds = make_fnssl_trajectory_dataset(
+            src, T=args.T, num_source=args.num_source,
+            nb_points=args.nb_points, seed=args.seed)
     # the engine is chosen (and the C++ built) before the clock starts
     engine = ("native C++/OpenMP" if native.native_available()
               else "numpy")
@@ -265,19 +301,20 @@ def cmd_fit(args):
     set_seed(args.seed)
     _snapshot_config(args)
     task = _make_task(args.model, args, device)
-    model = _init_model(task, args.seed, device)
+    model = _init_model(args.model, task.cfg, args.seed, device)
     lr, gamma = LR_GAMMA[args.model]
     if args.lr_gamma:
         gamma = args.lr_gamma
+    pad = _pad_tracks(task)
 
     def train_fn(epoch):
         return _batches(args.train_dir, args.bz, epoch, args.seed, True,
                         args.workers, args.prefetch,
-                        dataset_sz=args.train_size)
+                        dataset_sz=args.train_size, pad_tracks=pad)
 
     def valid_fn(epoch):
         return _batches(args.valid_dir, args.bz, 0, args.seed, False,
-                        args.workers, args.prefetch)
+                        args.workers, args.prefetch, pad_tracks=pad)
 
     # The γ^epoch decay steps at EPOCH boundaries (torch ExponentialLR
     # semantics): the schedule must know the epoch length, or the decay
@@ -299,6 +336,35 @@ def cmd_fit(args):
     print(json.dumps({"final_train": history["train"][-1],
                       "final_valid": history["valid"][-1],
                       "best_epoch": learner.ckpt.best_epoch()}))
+
+
+def _ipdnet_metric_fn(name: str, task, module, precision: str, device):
+    """Scores a batch with ``PredDOAMultiTrack`` (ae_th 10, vad_th (0.001,
+    0.5)): per-track IDL on the azimuth grid of the task's array, on the
+    all-pair ('MM') template for ``variable_ipdnet``. ``ipdnet_offline``
+    scores the 312-frame chunked inference of ``module`` (one more
+    forward; the loss stays the task's, on the whole input), the others
+    the eval step's output."""
+    from fnssl_tpu_torch.eval.pred_doa import PredDOAMultiTrack
+    from fnssl_tpu_torch.train.precision import wrap_apply
+    from fnssl_tpu_torch.train.tasks import _apply_module, _batch_on
+
+    decoder = PredDOAMultiTrack(
+        task.dpipd.mic_location, max_track=_pad_tracks(task) or 2,
+        ch_mode="MM" if name == "variable_ipdnet" else "M", device=device)
+    chunked = wrap_apply(_apply_module, precision)
+
+    def metric_fn(pred, batch):
+        if name == "ipdnet_offline":
+            b = _batch_on(batch, device)
+            feats, _ = task.preprocess(b["mic_sig"], b["doa"], b["vad"])
+            with torch.no_grad():
+                pred = chunked(dict(module.named_parameters()), feats,
+                               module=module, offline_inference=True)
+        gtd = {"doa": batch["doa"], "vad_sources": batch["vad"]}
+        return decoder(pred.float(), gtd, vad_th=(0.001, 0.5))
+
+    return metric_fn
 
 
 def _metric_fn(model: str, device):
@@ -330,26 +396,34 @@ def cmd_test(args):
     device = _device(args)
     _snapshot_config(args)
     task = _make_task(args.model, args, device)
-    learner = Learner(task.loss_fn, _init_model(task, args.seed, device),
-                      log_dir=args.log_dir, seed=args.seed, device=device,
-                      metric_fn=_metric_fn(args.model, device))
+    model = _init_model(args.model, task.cfg, args.seed, device)
+    if args.model in IPDNET_MODELS:
+        metric_fn = _ipdnet_metric_fn(args.model, task, model,
+                                      args.precision, device)
+    else:
+        metric_fn = _metric_fn(args.model, device)
+    learner = Learner(task.loss_fn, model, log_dir=args.log_dir,
+                      seed=args.seed, device=device, metric_fn=metric_fn)
     if learner.resume(best=args.best) == 0:
         print("warning: no checkpoint found; testing fresh params")
     metrics = learner.test(_batches(args.data_dir, args.bz, 0, args.seed,
-                                    False, args.workers, args.prefetch))
+                                    False, args.workers, args.prefetch,
+                                    pad_tracks=_pad_tracks(task)))
     learner.close()
     print(json.dumps(metrics))
 
 
-def load_fnssl(log_dir: str, seed: int, device):
-    """FN-SSL (``FNSSLConfig()``) in eval mode on ``device``: weights from
+def load_model(name: str, log_dir: str, seed: int, device):
+    """The served model at its published width (``FNSSLConfig()`` or
+    ``IPDnetConfig()``) in eval mode on ``device``: weights from
     ``<log_dir>/best_model.tar`` when it exists, else fresh from ``seed``
     with a warning."""
-    from fnssl_tpu_torch.models.fnssl import FNSSL, FNSSLConfig
+    from fnssl_tpu_torch.models.fnssl import FNSSLConfig
+    from fnssl_tpu_torch.models.ipdnet import IPDnetConfig
     from fnssl_tpu_torch.train.convert import load_torch_tar
 
-    model = FNSSL(FNSSLConfig(), device=device,
-                  generator=torch.Generator().manual_seed(seed))
+    cfg = IPDnetConfig() if name == "ipdnet" else FNSSLConfig()
+    model = _init_model(name, cfg, seed, device)
     ckpt = os.path.join(log_dir, "best_model.tar")
     if os.path.exists(ckpt):
         state, _ = load_torch_tar(ckpt)
@@ -366,28 +440,43 @@ def build_server(args):
     cpu``); the per-chunk front-end and the DOA decode run on the CPU, so
     the card sees one model step per chunk.
     """
-    from fnssl_tpu_torch.eval.pred_doa import PredDOA
+    from fnssl_tpu_torch.eval.pred_doa import PredDOA, PredDOAMultiTrack
     from fnssl_tpu_torch.runtime.server import LocalizationServer
     from fnssl_tpu_torch.runtime.streaming import (
-        StreamingLocalizer, make_fnssl_stream_step)
+        StreamingLocalizer, make_fnssl_stream_step, make_ipdnet_stream_step)
+    from fnssl_tpu_torch.train.tasks import DUALCH_MIC_LOCATION
     from fnssl_tpu_torch.utils.device import resolve_device
 
-    if args.model != "fnssl":
+    if args.model in ("ipdnet_offline", "variable_ipdnet"):
+        raise SystemExit(f"stream: model {args.model!r} is not causal "
+                         "(the offline/bidirectional variants see future "
+                         "frames — use `cli predict` or the chunked "
+                         "offline inference in `cli test`)")
+    if args.model not in SERVED:
         raise SystemExit(f"serve --model {args.model}: not ported yet")
     device = resolve_device("cpu" if args.platform == "cpu" else None)
-    model = load_fnssl(args.log_dir, args.seed, device)
+    model = load_model(args.model, args.log_dir, args.seed, device)
 
     nch = args.nch or 2
     host = torch.device("cpu")
-    decoder = PredDOA(device=host)
-
-    def decode(chunk):
-        return decoder.predgt2doa(chunk)[0]
+    if args.model == "ipdnet":
+        # all channels, forgetting norm L=280 (runIPDnetOn.py:236-253);
+        # per-track decode on the azimuth grid
+        decoder = PredDOAMultiTrack(DUALCH_MIC_LOCATION,
+                                    max_track=model.cfg.max_track,
+                                    device=host)
+        decode = lambda chunk: decoder.pred2doa(chunk)[0]  # noqa: E731
+        front = dict(ch_mode="none", sample_length=280)
+        make_step = make_ipdnet_stream_step
+    else:
+        decoder = PredDOA(device=host)
+        decode = lambda chunk: decoder.predgt2doa(chunk)[0]  # noqa: E731
+        front = dict(ch_mode="MM")
+        make_step = make_fnssl_stream_step
 
     def session_factory():
-        loc = StreamingLocalizer(make_fnssl_stream_step(model), nch=nch,
-                                 ch_mode="MM", frames_per_step=12,
-                                 device=host)
+        loc = StreamingLocalizer(make_step(model), nch=nch,
+                                 frames_per_step=12, device=host, **front)
         return loc, decode
 
     server = LocalizationServer(session_factory, host=args.host,

@@ -1,7 +1,7 @@
 """The FN-SSL data path on the host (port of ``fnssl_tpu/data``): scene
 simulation, the wav+pickle and compact npz formats, segmenting, batching
-and the device prefetch. LOCATA, RealMAN, the IPDnet stage config and
-the 312-frame segments wait for their ports."""
+and the device prefetch, with the FN-SSL and IPDnet stage configs.
+LOCATA, RealMAN and the 312-frame segments wait for their ports."""
 from fnssl_tpu_torch.data.params import Parameter, as_parameter
 from fnssl_tpu_torch.data.arrays import ArraySetup, dualch_array_setup
 from fnssl_tpu_torch.data.vad import frame_vad, clean_silences
@@ -15,5 +15,6 @@ from fnssl_tpu_torch.data.trajectory import RandomTrajectoryDataset
 from fnssl_tpu_torch.data.segmenting import Segmenting
 from fnssl_tpu_torch.data.fixed import (
     FixTrajectoryDataset, collate_segmented, save_compact)
-from fnssl_tpu_torch.data.simu import make_fnssl_trajectory_dataset, generate
+from fnssl_tpu_torch.data.simu import (
+    make_fnssl_trajectory_dataset, make_ipdnet_trajectory_dataset, generate)
 from fnssl_tpu_torch.data.loader import DataLoader, prefetch_to_device

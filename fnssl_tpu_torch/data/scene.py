@@ -6,8 +6,8 @@ Parity: FN-SSL/Dataset.py:120-201 (AcousticScene), FN-SSL/utils.py:138-164
 (save/load contract: wav via soundfile + pickled ``__dict__`` in a ``.npz``
 -named file) — reference-generated datasets are directly consumable and
 vice versa. Simulation runs on the fnssl_tpu_torch.sim host engine instead of
-gpuRIR. IPDnet's ``keep_dp_signals`` (IPDnet/Dataset.py:159) waits for
-the IPDnet port.
+gpuRIR; IPDnet's variant also keeps ``dp_mic_signals_sources``
+(IPDnet/Dataset.py:159), asked for with ``keep_dp_signals``.
 """
 from __future__ import annotations
 
@@ -62,7 +62,7 @@ class AcousticScene:
     def empty(cls):
         return cls(*([[]] * 14), c=[])
 
-    def simulate(self) -> np.ndarray:
+    def simulate(self, keep_dp_signals: bool = False) -> np.ndarray:
         """Reverberant + direct-path simulation, noise at target SNR,
         per-source VAD propagated through the direct-path RIRs."""
         if self.T60 == 0:
@@ -94,6 +94,9 @@ class AcousticScene:
 
         mic_signals = np.sum(mic_signals_sources, axis=0)
         dp_mic_signals = np.sum(dp_signals_sources, axis=0)
+        if keep_dp_signals:
+            self.dp_mic_signals_sources = np.stack(
+                dp_signals_sources, axis=2)  # (nsample, nch, ns)
 
         if self.noise_signal is None or len(self.noise_signal) == 0:
             self.noise_signal = np.random.standard_normal(mic_signals.shape)

@@ -4,8 +4,8 @@ Writes N (wav, pickled-scene npz) pairs with the FN-SSL stage parameters:
 T=4.79 s, 50 trajectory points, rooms 6×6×2.5–10×8×6 m, T60 0.2–1.3 s,
 SNR −5–15 dB, 2-mic ±4 cm array, diffuse-capable noise.
 
-Port of ``fnssl_tpu/data/simu.py``, the same numpy code;
-``make_ipdnet_trajectory_dataset`` waits for the IPDnet port.
+Port of ``fnssl_tpu/data/simu.py``, the same numpy code, with IPDnet's
+stage config (``make_ipdnet_trajectory_dataset``).
 """
 from __future__ import annotations
 
@@ -46,6 +46,45 @@ def make_fnssl_trajectory_dataset(source_dataset=None, *, T: float = 4.79,
         array_pos=Parameter([0.1, 0.1, 0.3], [0.9, 0.5, 0.5]),
         noiseDataset=noise,
         SNR=Parameter(-5, 15),
+        nb_points=nb_points,
+        min_dis=Parameter(0.3, 0.5),
+        seed=seed)
+
+
+def make_ipdnet_trajectory_dataset(source_dataset=None, *, stage: str =
+                                   "train", T: float = 4.5,
+                                   fs: int = 16000, num_source=(1, 2),
+                                   source_state: str = "mobile",
+                                   noise_type: str = "spatial_white",
+                                   noise_path: str | None = None,
+                                   nb_points: int = 50, seed: int | None
+                                   = None) -> RandomTrajectoryDataset:
+    """IPDnet stage config (IPDnet/Simu.py:11-70): T=4.5 s, 50 trajectory
+    points, stage-dependent SNR/T60 (train −5–15 dB / 0.2–1.3 s,
+    dev/test 0–15 dB / 0.2–1 s), random 1-or-2 sources, diffuse-capable
+    noise, seeds 100/101/102 for train/test/dev. Reference scale: 300k
+    train / 4k dev / 4k test.
+    """
+    snr = Parameter(-5, 15) if stage == "train" else Parameter(0, 15)
+    t60 = Parameter(0.2, 1.3) if stage == "train" else Parameter(0.2, 1.0)
+    if seed is None:
+        seed = {"train": 100, "test": 101, "dev": 102}.get(stage, 0)
+    if source_dataset is None:
+        source_dataset = SyntheticSpeechDataset(T, fs, max(num_source))
+    noise = NoiseDataset(T, fs, nmic=2,
+                         noise_type=Parameter([noise_type], discrete=True),
+                         noise_path=noise_path, c=343.0)
+    return RandomTrajectoryDataset(
+        sourceDataset=source_dataset,
+        num_source=Parameter(list(num_source), discrete=True),
+        source_state=source_state,
+        room_sz=Parameter([6, 6, 2.5], [10, 8, 6]),
+        T60=t60,
+        abs_weights=Parameter([0.5] * 6, [1.0] * 6),
+        array_setup=dualch_array_setup(),
+        array_pos=Parameter([0.1, 0.1, 0.3], [0.9, 0.5, 0.5]),
+        noiseDataset=noise,
+        SNR=snr,
         nb_points=nb_points,
         min_dis=Parameter(0.3, 0.5),
         seed=seed)

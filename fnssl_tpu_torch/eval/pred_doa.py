@@ -1,8 +1,10 @@
-"""End-to-end prediction → DOA → metrics wrapper (port of ``PredDOA`` and
-``predgt2doa_cls`` from ``fnssl_tpu/eval/pred_doa.py``; the IPDnet
-``PredDOAMultiTrack`` and ``ipd_baseline`` wait for their ports)."""
+"""End-to-end prediction → DOA → metrics wrappers (port of ``PredDOA``,
+``PredDOAMultiTrack`` and ``predgt2doa_cls`` from
+``fnssl_tpu/eval/pred_doa.py``; ``ipd_baseline`` waits for ``cli
+predict``)."""
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import numpy as np
@@ -90,6 +92,92 @@ class PredDOA:
     def __call__(self, pred_batch, gt_batch, **metric_kw):
         pred, gt = self.predgt2doa(pred_batch, gt_batch)
         return self.evaluate(pred, gt, **metric_kw)
+
+
+class PredDOAMultiTrack:
+    """Multi-track IPDnet decode + metrics (IPDnet/Module.py:423-600).
+
+    Each track's (nb, nt, 2nf, P) IPD is decoded on its own by
+    single-source IDL on an azimuth-only grid (ele = π/2, azi 0..π over
+    ``res_phi`` points), its VAD the least-squares template scale
+    ('unkNum'); the tracks are stacked and scored with Hungarian-matched
+    multi-source metrics (``ae_th`` 10, ``vad_th`` (0.001, 0.5)).
+    ``save_dir`` writes the per-batch npy dumps (Module.py:592-597).
+
+    ``scale_norm="utterance"`` divides each utterance's VAD scores by
+    max(its own 95th percentile, ``scale_norm_floor``), which makes the
+    0.5 gate scale-invariant across arrays the model never saw (the JAX
+    package's docstring gives the measurement); off by default, the
+    reference's decode. ``device=None`` is the first CUDA device.
+    """
+
+    def __init__(self, mic_location, max_track: int = 2,
+                 res_the: int = 1, res_phi: int = 180, fs: int = 16000,
+                 nfft: int = 512, ch_mode: str = "M",
+                 speed: float = 340.0, save_dir: str | None = None,
+                 scale_norm: str | None = None,
+                 scale_norm_floor: float = 0.5, device=None):
+        if scale_norm not in (None, "utterance"):
+            raise ValueError(f"unknown scale_norm {scale_norm!r}")
+        device = resolve_device(device)
+        self.scale_norm = scale_norm
+        self.scale_norm_floor = scale_norm_floor
+        self.max_track = max_track
+        self.fre_used = slice(1, nfft // 2 + 1)
+        self.save_dir = save_dir
+        dpipd = DPIPD(ndoa_candidate=[res_the, res_phi],
+                      mic_location=np.asarray(mic_location),
+                      nf=nfft // 2 + 1, fre_max=fs / 2, ch_mode=ch_mode,
+                      speed=speed, ele_range=(np.pi / 2, np.pi / 2),
+                      azi_range=(0.0, np.pi))
+        self.template = torch.as_tensor(
+            template_ri(dpipd.template, self.fre_used), device=device)
+        self.ele_candidate = torch.full((res_the,), np.pi / 2,
+                                        dtype=torch.float32, device=device)
+        self.azi_candidate = torch.as_tensor(
+            np.linspace(0.0, np.pi, res_phi).astype(np.float32),
+            device=device)
+
+    def pred2doa(self, pred, gt_batch=None):
+        """pred: (nb, nt, 2nf, P, max_track) model output → {'doa' (nb, nt,
+        2, tracks) radians, 'vad_sources' (nb, nt, tracks)} on the
+        decoder's device."""
+        pred = torch.as_tensor(pred).to(self.template.device).float()
+        doas, vads = [], []
+        for track in range(self.max_track):
+            res = idl_decode(pred[..., track], self.template,
+                             self.ele_candidate, self.azi_candidate,
+                             max_num_sources=1, source_num_mode="unkNum")
+            doas.append(res.doa[..., 0])
+            vads.append(res.vad[..., 0])
+        vad = torch.stack(vads, dim=-1)              # (nb, nt, tracks)
+        if self.scale_norm == "utterance":
+            q = torch.quantile(vad.reshape(vad.shape[0], -1), 0.95, dim=1)
+            vad = vad / q.clamp_min(self.scale_norm_floor)[:, None, None]
+        return {"doa": torch.stack(doas, dim=-1), "vad_sources": vad}, \
+            gt_batch
+
+    def evaluate(self, pred, gt, ae_th: float = 10.0,
+                 vad_th=(0.001, 0.5), idx: int | None = None):
+        """Metrics in degrees, on the host; with ``save_dir`` and ``idx``,
+        the batch's gt/est DOA and VAD as ``<idx>_<name>.npy``."""
+        doa_gt = np.degrees(_host(gt["doa"]).astype(np.float64))
+        doa_est = np.degrees(_host(pred["doa"]).astype(np.float64))
+        vad_gt = _host(gt["vad_sources"])
+        vad_est = _host(pred["vad_sources"])
+        if self.save_dir is not None and idx is not None:
+            os.makedirs(self.save_dir, exist_ok=True)
+            for name, arr in (("doagt", doa_gt), ("doaest", doa_est),
+                              ("vadgt", vad_gt), ("vadest", vad_est)):
+                np.save(os.path.join(self.save_dir, f"{idx}_{name}.npy"),
+                        arr)
+        return get_metric_multiple(doa_gt, vad_gt, doa_est, vad_est,
+                                   ae_mode=("azi",), ae_th=ae_th,
+                                   use_vad=True, vad_th=vad_th)
+
+    def __call__(self, pred_batch, gt_batch, idx: int | None = None, **kw):
+        pred, gt = self.pred2doa(pred_batch, gt_batch)
+        return self.evaluate(pred, gt, idx=idx, **kw)
 
 
 def _host(x) -> np.ndarray:

@@ -64,6 +64,7 @@ SM_SMEM_BYTES = 233_472
 CTA_RESERVED_SMEM = 1_024
 MAX_THREADS = {8: 512, 16: 256}   # threads a CTA may have, by tile
 CLUSTER_SIZES = (1, 2, 4, 8)      # 8 is the portable cluster limit
+SMS = 132                         # an H100 SXM's SMs
 TILES = (8, 16)                   # lstm_cluster.cu's tiles
 
 
@@ -121,30 +122,48 @@ def _k_splits(hidden: int, itemsize: int, n: int, bt: int):
 
 
 @functools.lru_cache(maxsize=None)
-def cluster_plan(hidden: int, itemsize: int, batch: int, *,
+def cluster_plan(hidden: int, itemsize: int, batch: int, ndir: int = 1, *,
                  n: int | None = None, bt: int | None = None,
                  ks: int | None = None):
     """(N, Bt, KS) for lstm_cluster.cu: CTAs per cluster, batch rows per
     tile and the k-split inside a CTA.
 
-    By default the largest cluster (8), 8 rows a tile and a k-slice of 16
-    (KS = H/16) that fit: the fastest plan at both serve shapes on the card
-    (PERF.md). ``n``, ``bt`` and ``ks`` pin any of the three, to time other
-    plans. A plan fits when the CTA has <= 512 threads (256 at 16 rows a
-    tile), each thread finishes at most 2 rows in the cell update, and the
-    CTA's shared memory stays within 227 KB.
+    By default 8 rows a tile, and the cluster size by the grid's tiles
+    (B/8 a direction, ``ndir`` directions): while the tiles are no more
+    than the card's SMs (serving: B = 12 or 256), the largest cluster that
+    keeps 16 hidden units a CTA (N = 8 at H >= 128, 4 at H = 64), which
+    spreads each tile's step over the most SMs; above (training, B in the
+    thousands) the smallest cluster from N = 2 that fits, since every SM
+    then holds tiles already and a larger cluster only adds exchanges and
+    waves. The k-split is H/16 (a k-slice of 16), or H/8 where H/16 leaves
+    the CTA fewer than 128 threads. Measured on the card (PERF.md): the
+    fastest plan at every serve shape of FN-SSL and IPDnet, and within 3%
+    of the fastest at every training shape (N = 8 had been 64-80% slower
+    at IPDnet's H = 64 training shapes and 41% at its serve full band).
+    ``n``, ``bt`` and ``ks`` pin any of the three, to time other plans. A
+    plan fits when the CTA has <= 512 threads (256 at 16 rows a tile),
+    each thread finishes at most 2 rows in the cell update, and the CTA's
+    shared memory stays within 227 KB.
     """
-    del batch                     # every plan takes any B (masked tiles)
     if hidden % 32 or not 32 <= hidden <= CLUSTER_MAX_HIDDEN:
         raise ValueError(f"lstm_cluster: hidden={hidden} must be a multiple "
                          f"of 32 up to {CLUSTER_MAX_HIDDEN}")
-    ns = (n,) if n else CLUSTER_SIZES[::-1]
+    tiles = -(-batch // TILES[0]) * ndir
+    if n:
+        ns = (n,)
+    elif tiles <= SMS:
+        ns = sorted(CLUSTER_SIZES, key=lambda m: (hidden // m < 16, -m))
+    else:
+        ns = CLUSTER_SIZES[1:] + CLUSTER_SIZES[:1]
     bts = (bt,) if bt else TILES
     for b in bts:
         for m in ns:
             if m not in CLUSTER_SIZES or b not in TILES:
                 raise ValueError(f"lstm_cluster: no plan with N={m}, Bt={b}")
-            for k in _k_splits(hidden, itemsize, m, b):
+            splits = list(_k_splits(hidden, itemsize, m, b))
+            if len(splits) == 2 and splits[0] * (hidden // m) < 128:
+                splits.reverse()
+            for k in splits:
                 if ks in (None, k):
                     return m, b, k
     raise ValueError(f"lstm_cluster: no plan fits hidden={hidden}, "
@@ -187,27 +206,32 @@ def bwd_cluster_plan(hidden: int, itemsize: int):
     in the product.
 
     The first that fits in this order: UPT = 2, then 1; the smallest
-    cluster from N = 2 up; and of its k-splits the one that puts the most
-    CTAs on an SM, KS = H/8 (the more threads) on a tie. A thread that sums
-    two units halves the product's dgates loads from shared memory, which
-    set its pace; a smaller cluster puts fewer SMs on a tile, so that more
-    tiles run at once, in fewer waves of the grid; and two CTAs on an SM
-    hide each other's waits. A cluster of 1 (no exchange) is left to a
-    pinned plan: at the full-band shape in bfloat16 it measured slower than
-    N = 2 with two CTAs an SM. At FN-SSL's training shapes the rule gives
-    (2, 8, 16, 2) at H=128 and (8, 8, 32, 2) at H=256 in float32, (2, 8, 8,
-    2) and (4, 8, 16, 2) in bfloat16: the fastest of every plan that fits
-    at each (chip_smoke.py phase 9; PERF.md). The wrappers' ``plan`` takes
-    any other plan that ``bwd_cluster_fits``.
+    cluster from N = 1 up, a cluster of 1 (no exchange) only at UPT = 2 and
+    with two of its CTAs on an SM; and of its k-splits the one that puts
+    the most CTAs on an SM, KS = H/8 (the more threads) on a tie. A thread
+    that sums two units halves the product's dgates loads from shared
+    memory, which set its pace; a smaller cluster puts fewer SMs on a tile,
+    so that more tiles run at once, in fewer waves of the grid; and two
+    CTAs on an SM hide each other's waits (N = 1 with one CTA an SM, at
+    H=128 in bfloat16, measured slower than N = 2 with two). At FN-SSL's
+    training shapes the rule gives (2, 8, 16, 2) at H=128 and (8, 8, 32, 2)
+    at H=256 in float32, (2, 8, 8, 2) and (4, 8, 16, 2) in bfloat16; at
+    IPDnet's H=64, (1, 8, 8, 2): the fastest of every plan that fits at
+    each shape but one, within 3% of it there (chip_smoke.py phases 9 and
+    12; PERF.md). The wrappers' ``plan`` takes any other plan that
+    ``bwd_cluster_fits``.
     """
     if hidden % 32 or not 32 <= hidden <= BWD_MAX_HIDDEN:
         raise ValueError(f"lstm_bwd_cluster: hidden={hidden} must be a "
                          f"multiple of 32 up to {BWD_MAX_HIDDEN}")
     for upt in BWD_UPTS:
-        for n in CLUSTER_SIZES[1:]:
+        for n in CLUSTER_SIZES:
             splits = [ks for ks in (hidden // 8, hidden // 16)
                       if bwd_cluster_fits(hidden, itemsize, n, BWD_TILE, ks,
                                           upt)]
+            if n == 1:
+                splits = [ks for ks in splits if upt == 2 and _ctas_per_sm(
+                    bwd_cluster_smem(hidden, itemsize, 1, BWD_TILE, ks)) >= 2]
             if splits:
                 ks = max(splits, key=lambda k: _ctas_per_sm(bwd_cluster_smem(
                     hidden, itemsize, n, BWD_TILE, k)))
@@ -489,7 +513,7 @@ def _stream(t):
 def _launch_cluster(xg, w_hh_t, h0, c0, outs, ndir, reverse, plan):
     t_steps, batch, four_h = xg.shape[-3:]
     hidden = four_h // 4
-    n, bt, ks = plan or cluster_plan(hidden, xg.element_size(), batch)
+    n, bt, ks = plan or cluster_plan(hidden, xg.element_size(), batch, ndir)
     lib = _library("lstm_cluster")
     ys, h_t, c_t = outs
     err = lib.lstm_cluster(

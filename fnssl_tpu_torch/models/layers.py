@@ -1,10 +1,11 @@
-"""Small layers with torch-compatible parameter naming (port of the
-parts of ``fnssl_tpu/models/layers.py`` that FN-SSL uses)."""
+"""Small layers with torch-compatible parameter naming (port of
+``fnssl_tpu/models/layers.py``: the parts that FN-SSL and IPDnet use)."""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -22,6 +23,23 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor | None = None,
+           padding=((0, 0), (0, 0))) -> torch.Tensor:
+    """NCHW conv with OIHW weights and explicit symmetric (h, w) padding
+    (``lax.conv_general_dilated`` in the JAX package, cuDNN here)."""
+    (ph0, ph1), (pw0, pw1) = padding
+    if ph0 != ph1 or pw0 != pw1:
+        x = F.pad(x, (pw0, pw1, ph0, ph1))
+        return F.conv2d(x, weight, bias)
+    return F.conv2d(x, weight, bias, padding=(ph0, pw0))
+
+
+def prelu(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """torch nn.PReLU with one shared slope ``weight`` (shape (1,))."""
+    return torch.where(x >= 0, x, weight * x)
 
 
 def avg_pool_time(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -57,3 +75,47 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear(x, self.weight, self.bias)
+
+
+class Conv2d(nn.Module):
+    """nn.Conv2d's parameters (``weight`` (out, in, kh, kw)[, ``bias``])
+    with torch's default init U(-1/sqrt(fan_in), 1/sqrt(fan_in)), drawn
+    from ``generator``; stride 1, explicit (h, w) padding.
+
+    float32 means float32 here, as for the port's matrix products (whose
+    TF32 is off by default): built on a CUDA device, it turns off cuDNN's
+    TF32 (``torch.backends.cudnn.allow_tf32``, on by default), for the
+    process, since a convolution's backward reads the flag when it runs.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: tuple[int, int], *,
+                 bias: bool = True, padding=((0, 0), (0, 0)), device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if device is not None and torch.device(device).type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+        self.padding = padding
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, *kernel,
+                                               device=device))
+        k = 1.0 / math.sqrt(in_ch * kernel[0] * kernel[1])
+        uniform_(self.weight, k, generator)
+        if bias:
+            self.bias = nn.Parameter(torch.empty(out_ch, device=device))
+            uniform_(self.bias, k, generator)
+        else:
+            self.bias = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.weight, self.bias, self.padding)
+
+
+class PReLU(nn.Module):
+    """nn.PReLU with one shared slope ``weight`` (1,), initialised to
+    0.25 as torch does."""
+
+    def __init__(self, init: float = 0.25, *, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((1,), init, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return prelu(x, self.weight)

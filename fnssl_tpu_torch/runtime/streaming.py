@@ -1,5 +1,5 @@
 """Real-time chunked localization runtime (port of
-``fnssl_tpu/runtime/streaming.py`` for FN-SSL).
+``fnssl_tpu/runtime/streaming.py`` for FN-SSL and IPDnet).
 
 Every stage carries explicit streaming state —
 
@@ -8,7 +8,7 @@ Every stage carries explicit streaming state —
 
 so chunked output equals the one-shot pipeline. Audio can be pushed in
 pieces of any size; the model step fires whenever a full frame-chunk (12
-frames for FN-SSL) is buffered.
+frames for FN-SSL and IPDnet) is buffered.
 
 Placement: the front-end runs on the ``device`` the localizer is given,
 and the model step on the model's device. Serving passes the CPU for the
@@ -126,6 +126,28 @@ def make_fnssl_stream_step(model, nf: int = 256):
         if state["s"] is None:
             state["s"] = init_fnssl_state(feats.shape[0], nf, model.cfg,
                                           model.device)
+        with torch.inference_mode():
+            out, state["s"] = model(feats, state=state["s"],
+                                    return_state=True)
+        return out
+
+    return step
+
+
+def make_ipdnet_stream_step(model, nf: int = 256):
+    """Stateful IPDnet chunk step for StreamingLocalizer: one online
+    ``IPDnet`` chunk forward on the model's device, carrying the
+    narrow-band LSTM states and the causal-conv tails (chunks of a
+    multiple of 12 frames give the one-shot output)."""
+    from fnssl_tpu_torch.models.ipdnet import init_ipdnet_state
+
+    state = {"s": None}
+
+    def step(feats: torch.Tensor) -> torch.Tensor:
+        feats = feats.to(model.device)
+        if state["s"] is None:
+            state["s"] = init_ipdnet_state(feats.shape[0], nf, model.cfg,
+                                           model.device)
         with torch.inference_mode():
             out, state["s"] = model(feats, state=state["s"],
                                     return_state=True)

@@ -1,11 +1,14 @@
-"""Training losses of FN-SSL (port of ``mse_ipd_loss`` and
-``ce_doa_loss`` in ``fnssl_tpu/train/losses.py``; the IPDnet PIT losses
-wait for the IPDnet port).
+"""Training losses: IPD MSE, DOA cross-entropy and frame-level PIT (port
+of ``fnssl_tpu/train/losses.py``).
 
 Parity targets: the MSE on pair-unbatched IPD (Lightning/main.py:191-198,
-Learner.py:470-487) and the azimuth-class CE (Learner.py:489-496).
+Learner.py:470-487), the azimuth-class CE (Learner.py:489-496) and
+IPDnet's frame-level permutation-invariant MSE over the tracks
+(runIPDnetOn.py:196-206), vectorised over all ns! permutations.
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -34,3 +37,31 @@ def ce_doa_loss(pred_logits: torch.Tensor,
     logp = torch.log_softmax(pred_logits, dim=-1)
     nll = -torch.gather(logp, -1, doa_class[..., None].long())
     return nll.mean()
+
+
+def _perm_costs(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """(n_perm, nb, nt) MSE over (F, P, ns) of every track permutation of
+    ``pred``, in ``itertools.permutations`` order."""
+    perms = itertools.permutations(range(pred.shape[-1]))
+    return torch.stack([((pred[..., list(p)] - gt) ** 2).mean(dim=(2, 3, 4))
+                        for p in perms])
+
+
+def pit_mse_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Frame-level permutation-invariant MSE over the track axis: for
+    every frame, the permutation with the least MSE (the reference's
+    torchmetrics PIT with eval_func='min', runIPDnetOn.py:196-206).
+
+    Args:
+      pred, gt: (nb, nt, F, P, ns): F = 2·nf features, P mic pairs, ns
+        tracks.
+    Returns:
+      the mean over frames of each frame's best-permutation MSE.
+    """
+    return _perm_costs(pred, gt).min(dim=0).values.mean()
+
+
+def pit_permutation(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Each frame's best permutation: (nb, nt) indices into
+    ``itertools.permutations(range(ns))``."""
+    return _perm_costs(pred, gt).argmin(dim=0)

@@ -1,18 +1,18 @@
 """On-line training-step preprocessing: STFT front-end features and
-DP-IPD targets (port of ``stft_features`` and ``make_fnssl_preprocess``
-in ``fnssl_tpu/train/preprocess.py``).
+DP-IPD targets (port of ``fnssl_tpu/train/preprocess.py``).
 
 As in the JAX package, the STFT and the ground-truth DP-IPD are made
-inside the training step from the batch's tensors, on their device; the
-IPDnet closure waits for the IPDnet port."""
+inside the training step from the batch's tensors, on their device."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from fnssl_tpu_torch.core.norm import forgetting_norm, offline_norm
 from fnssl_tpu_torch.core.pairs import pair_rebatch
 from fnssl_tpu_torch.core.stft import stft
 from fnssl_tpu_torch.physics.targets import (ipd_complex_to_ri,
+                                             vad_gate_with_nonsource,
                                              vad_mask_and_sum)
 
 
@@ -70,5 +70,42 @@ def make_fnssl_preprocess(dpipd, *, ch_mode: str = "MM",
         ipd = ipd_complex_to_ri(dpipd.targets(doa), fre_used)
         return feats, {"ipd": vad_mask_and_sum(ipd, vad), "doa": doa,
                        "vad_sources": vad}
+
+    return preprocess
+
+
+def make_ipdnet_preprocess(dpipd, nonsource, *, ch_mode: str = "none",
+                           win_len: int = 512, win_shift_ratio: float = 0.5,
+                           nfft: int = 512, sample_length: int = 280,
+                           vad_threshold: float = 0.001,
+                           norm: str = "online"):
+    """IPDnet multi-track preprocessing: per-track targets with the
+    Bessel non-source fill on silent frames (runIPDnetOn.py:236-301).
+
+    ``nonsource`` is the (2nf, P) Bessel target
+    (``physics.targets.bessel_nonsource_target``); ``norm='offline'`` is
+    the offline model's global-mean normalisation
+    (runIPDnetOff.py:249-251).
+
+    Returns fn(mic_sig, doa, vad) → (features, {'ipd', 'doa',
+    'vad_sources'}) on the inputs' device: features (nb, 2·nch, nfft/2,
+    nt) with ``ch_mode='none'``; 'ipd' (nb, nt2, 2·nfft/2, P, ns)
+    per-track targets for the PIT loss.
+    """
+    fre_used = slice(1, nfft // 2 + 1)
+    host = torch.as_tensor(np.asarray(nonsource, np.float32))
+    on_device = {}                # the target, copied once to each device
+
+    def preprocess(mic_sig, doa, vad):
+        feats = stft_features(
+            mic_sig, ch_mode=ch_mode, win_len=win_len,
+            win_shift_ratio=win_shift_ratio, nfft=nfft, norm=norm,
+            sample_length=sample_length)
+        ipd = ipd_complex_to_ri(dpipd.targets(doa), fre_used)
+        if ipd.device not in on_device:
+            on_device[ipd.device] = host.to(ipd.device)
+        gt = vad_gate_with_nonsource(ipd, vad, on_device[ipd.device],
+                                     threshold=vad_threshold)
+        return feats, {"ipd": gt, "doa": doa, "vad_sources": vad}
 
     return preprocess

@@ -1,10 +1,10 @@
-"""The FN-SSL training task: preprocessing + model + loss as one function
-(port of the FN-SSL half of ``fnssl_tpu/train/tasks.py``).
+"""Training tasks: preprocessing + model + loss as one function (port of
+``fnssl_tpu/train/tasks.py`` but ``make_ipdnet2_task``).
 
-``make_fnssl_task`` builds ``loss_fn(module, batch, generator) -> scalar``
-for ``train.step.make_train_step``: the reference's data_preprocess →
-forward → cal_loss chain (Lightning/main.py:149-157), run on the task's
-device. The IPDnet tasks wait for the IPDnet port.
+Each ``make_*_task`` builds ``loss_fn(module, batch, generator) ->
+scalar`` for ``train.step.make_train_step``: the reference's
+data_preprocess → forward → cal_loss chain (Lightning/main.py:149-157),
+run on the task's device.
 """
 from __future__ import annotations
 
@@ -17,10 +17,14 @@ from torch.utils.checkpoint import checkpoint
 
 from fnssl_tpu_torch.core.stft import num_frames
 from fnssl_tpu_torch.models.fnssl import FNSSLConfig
+from fnssl_tpu_torch.models.ipdnet import IPDnetConfig, VariableIPDnetConfig
 from fnssl_tpu_torch.physics.dpipd import DPIPD
-from fnssl_tpu_torch.train.losses import ce_doa_loss, mse_ipd_loss
+from fnssl_tpu_torch.physics.targets import bessel_nonsource_target
+from fnssl_tpu_torch.train.losses import (ce_doa_loss, mse_ipd_loss,
+                                          pit_mse_loss)
 from fnssl_tpu_torch.train.precision import wrap_apply
-from fnssl_tpu_torch.train.preprocess import make_fnssl_preprocess
+from fnssl_tpu_torch.train.preprocess import (make_fnssl_preprocess,
+                                              make_ipdnet_preprocess)
 from fnssl_tpu_torch.utils.device import resolve_device
 
 # 2-mic linear array at ±4 cm — the FN-SSL training array
@@ -35,9 +39,10 @@ class FNSSLTask(NamedTuple):
     dpipd: DPIPD
 
 
-def _apply_module(params, x, *, module, generator=None):
+def _apply_module(params, x, *, module, generator=None, **kw):
     """The module's forward with ``params`` in place of its own."""
-    return functional_call(module, params, (x,), {"generator": generator})
+    return functional_call(module, params, (x,),
+                           {"generator": generator, **kw})
 
 
 def _remat(apply_base):
@@ -104,6 +109,125 @@ def make_fnssl_task(cfg: FNSSLConfig = FNSSLConfig(),
         return mse_ipd_loss(pred, gt["ipd"], nb=b["mic_sig"].shape[0])
 
     return FNSSLTask(loss_fn, preprocess, cfg, dpipd)
+
+
+class IPDnetTask(NamedTuple):
+    loss_fn: object
+    preprocess: object
+    cfg: object
+    dpipd: DPIPD
+
+
+def _batch_on(batch, device):
+    return {k: torch.as_tensor(batch[k], device=device)
+            for k in ("mic_sig", "doa", "vad")}
+
+
+def _ipdnet_task(cfg, mic_location, ch_mode, nfft, fs, speed,
+                 vad_threshold, remat, precision, device, norm="online",
+                 npair=None) -> IPDnetTask:
+    """The three IPDnet tasks: DP-IPD targets on the (37, 73) grid with
+    the Bessel non-source fill, the model and the frame-level PIT MSE.
+    The variable-array task (``npair`` given) runs the net on pair
+    features and crops pred and targets to the shorter frame count."""
+    device = resolve_device(device)
+    dpipd = DPIPD(ndoa_candidate=[37, 73], mic_location=mic_location,
+                  nf=nfft // 2 + 1, fre_max=fs / 2, ch_mode=ch_mode,
+                  speed=speed)
+    dpipd.tables(device)
+    nonsource = bessel_nonsource_target(
+        mic_location, fre_used=slice(1, nfft // 2 + 1), nf=nfft // 2 + 1,
+        fre_max=fs / 2, speed=speed, ch_mode=ch_mode)
+    preprocess = make_ipdnet_preprocess(
+        dpipd, nonsource, ch_mode="none" if npair is None else ch_mode,
+        nfft=nfft, vad_threshold=vad_threshold, norm=norm)
+    apply_fn = wrap_apply(_remat(_apply_module) if remat else _apply_module,
+                          precision)
+    extra = {} if npair is None else {"npair": npair}
+
+    def loss_fn(module, batch, generator=None):
+        b = _batch_on(batch, device)
+        feats, gt = preprocess(b["mic_sig"], b["doa"], b["vad"])
+        pred = apply_fn(dict(module.named_parameters()), feats,
+                        module=module, generator=generator, **extra)
+        target = gt["ipd"]
+        if npair is not None:
+            nt = min(pred.shape[1], target.shape[1])
+            pred, target = pred[:, :nt], target[:, :nt]
+        return pit_mse_loss(pred, target)
+
+    return IPDnetTask(loss_fn, preprocess, cfg, dpipd)
+
+
+def make_ipdnet_task(cfg=None, mic_location: np.ndarray | None = None,
+                     nfft: int = 512, fs: int = 16000,
+                     speed: float = 340.0, max_track: int = 2,
+                     vad_threshold: float = 0.001, remat: bool = False,
+                     precision: str = "fp32", device=None) -> IPDnetTask:
+    """IPDnet multi-track DP-IPD task with frame-level PIT loss
+    (runIPDnetOn.py:80-301).
+
+    Batch contract: dict (numpy arrays or tensors) with
+      'mic_sig' (nb, nsample, nch),
+      'doa' (nb, nt2, 2, ns) radians,
+      'vad' (nb, nt2, ns) soft dp-VAD at the output frame rate;
+    moved to ``device`` (the first CUDA device unless given). ``remat``,
+    ``precision`` and ``loss_fn``'s generator as in ``make_fnssl_task``.
+    """
+    if mic_location is None:
+        mic_location = DUALCH_MIC_LOCATION
+    if cfg is None:
+        cfg = IPDnetConfig(input_size=2 * mic_location.shape[0],
+                           max_track=max_track)
+    return _ipdnet_task(cfg, mic_location, "M", nfft, fs, speed,
+                        vad_threshold, remat, precision, device)
+
+
+def make_variable_ipdnet_task(cfg=None,
+                              mic_location: np.ndarray | None = None,
+                              nfft: int = 512, fs: int = 16000,
+                              speed: float = 340.0,
+                              vad_threshold: float = 0.001,
+                              remat: bool = False, precision: str = "fp32",
+                              device=None) -> IPDnetTask:
+    """Variable-array IPDnet task: mic pairs ride the batch axis in
+    nb-major pair groups (VariableArrayIPDnet.py:107-118), PIT loss over
+    the 2 tracks against all-pair ('MM') DP-IPD targets, pred and targets
+    cropped to the shorter frame count (run_IPDnet2.py:183-189).
+
+    Batch contract as ``make_ipdnet_task``; nb utterances of one array
+    batch together (their pair means stay per utterance).
+    """
+    if mic_location is None:
+        mic_location = DUALCH_MIC_LOCATION
+    if cfg is None:
+        cfg = VariableIPDnetConfig()
+    n = mic_location.shape[0]
+    return _ipdnet_task(cfg, mic_location, "MM", nfft, fs, speed,
+                        vad_threshold, remat, precision, device,
+                        npair=n * (n - 1) // 2)
+
+
+def make_ipdnet_offline_task(cfg=None,
+                             mic_location: np.ndarray | None = None,
+                             nfft: int = 512, fs: int = 16000,
+                             speed: float = 340.0, max_track: int = 2,
+                             vad_threshold: float = 0.001,
+                             remat: bool = False, precision: str = "fp32",
+                             device=None) -> IPDnetTask:
+    """Offline IPDnet (runIPDnetOff.py:79-303): bidirectional narrow-band
+    LSTMs and the global magnitude normalisation instead of the
+    forgetting norm. The loss runs the net on the whole input; the test
+    step scores the 312-frame chunked inference (``IPDnet(...,
+    offline_inference=True)``)."""
+    if mic_location is None:
+        mic_location = DUALCH_MIC_LOCATION
+    if cfg is None:
+        cfg = IPDnetConfig(input_size=2 * mic_location.shape[0],
+                           max_track=max_track, is_online=False)
+    return _ipdnet_task(cfg, mic_location, "M", nfft, fs, speed,
+                        vad_threshold, remat, precision, device,
+                        norm="offline")
 
 
 def synthetic_fnssl_batch(nb: int = 2, t_s: float = 4.79, fs: int = 16000,

@@ -12,6 +12,7 @@ from pathlib import Path
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from fnssl_tpu.models.fnssl import FNSSLConfig as JConfig
@@ -19,7 +20,7 @@ from fnssl_tpu.models.fnssl import init_fnssl_params
 from fnssl_tpu.train.checkpoint import CheckpointManager
 from fnssl_tpu.train.convert import nested_to_flat
 from fnssl_tpu.train.step import init_train_state, make_optimizer
-from fnssl_tpu_torch.cli.main import load_fnssl
+from fnssl_tpu_torch.cli.main import load_model
 from fnssl_tpu_torch.models.fnssl import FNSSL, FNSSLConfig
 from fnssl_tpu_torch.train.convert import load_torch_tar
 
@@ -46,7 +47,7 @@ def test_bridge_writes_the_best_epoch_and_serve_loads_it(tmp_path, capsys):
 
     # without the file, serve's loader warns and takes fresh params
     capsys.readouterr()
-    load_fnssl(log_dir, 2, "cpu")
+    load_model("fnssl", log_dir, 2, "cpu")
     assert "using fresh params" in capsys.readouterr().out
 
     path = load_tool().main(["--log-dir", log_dir, "--seed", "2"])
@@ -63,8 +64,44 @@ def test_bridge_writes_the_best_epoch_and_serve_loads_it(tmp_path, capsys):
     FNSSL(FNSSLConfig(), device="cpu").load_state_dict(state, strict=True)
 
     capsys.readouterr()
-    model = load_fnssl(log_dir, 2, "cpu")
+    model = load_model("fnssl", log_dir, 2, "cpu")
     assert "fresh params" not in capsys.readouterr().out
     assert not model.training
     for name, value in model.state_dict().items():
         assert torch.equal(value, state[name]), name
+
+
+@pytest.mark.parametrize("model", ["ipdnet", "ipdnet_offline",
+                                   "variable_ipdnet"])
+def test_bridge_takes_the_ipdnet_models(tmp_path, model):
+    """A JAX IPDnet fit's checkpoints (the train state of its published
+    config) become a best_model.tar that the port's model loads strictly,
+    bit for bit; ``ipdnet``'s through ``cli serve``'s loader."""
+    import fnssl_tpu.models.ipdnet as jm
+    import fnssl_tpu_torch.models.ipdnet as tm
+    if model == "variable_ipdnet":
+        init, cfg = jm.init_variable_ipdnet_params, jm.VariableIPDnetConfig()
+        port = tm.VariableIPDnet(tm.VariableIPDnetConfig(), device="cpu")
+    else:
+        kw = dict(is_online=model == "ipdnet")
+        init, cfg = jm.init_ipdnet_params, jm.IPDnetConfig(**kw)
+        port = tm.IPDnet(tm.IPDnetConfig(**kw), device="cpu")
+    jinit = jax.jit(init, static_argnums=1)
+    best, last = (jinit(jax.random.PRNGKey(k), cfg) for k in (3, 4))
+    state = init_train_state(best, make_optimizer("adam"))
+    mgr = CheckpointManager(os.path.join(tmp_path, "ckpt"))
+    mgr.save(0, state._replace(params=last), 0.5)
+    mgr.save(1, state, 0.25)
+    mgr.close()
+
+    path = load_tool().main(["--log-dir", str(tmp_path), "--model", model])
+    sd, meta = load_torch_tar(path)
+    assert meta["epoch"] == 1
+    port.load_state_dict(sd, strict=True)
+    for name, value in nested_to_flat(best).items():
+        assert np.array_equal(sd[name].numpy().view(np.uint32),
+                              value.view(np.uint32)), name
+    if model == "ipdnet":
+        served = load_model("ipdnet", str(tmp_path), 2, "cpu")
+        for name, value in served.state_dict().items():
+            assert torch.equal(value, sd[name]), name

@@ -210,14 +210,34 @@ def test_bidirectional_lstm_makes_one_recurrence_call(rng, monkeypatch):
 def test_cluster_plan_fits(hidden, itemsize):
     """Every H the cluster kernel takes has a plan within 227 KB of shared
     memory, <= 512 threads and a portable cluster (N <= 8), at any B."""
-    for batch in (1, 12, 256, 298):
-        n, bt, ks = lstm_cuda.cluster_plan(hidden, itemsize, batch)
+    for batch, ndir in ((1, 1), (12, 2), (256, 1), (298, 2), (4096, 1),
+                        (4480, 2), (13440, 2)):
+        n, bt, ks = lstm_cuda.cluster_plan(hidden, itemsize, batch, ndir)
         units = hidden // n
         assert n in (1, 2, 4, 8) and bt in (8, 16)
         assert hidden % n == 0 and hidden % (4 * ks) == 0
         assert ks * units <= (512 if bt == 8 else 256) and 2 * ks >= bt
         assert lstm_cuda.cluster_smem(hidden, itemsize, n, bt,
                                       ks) <= 227 * 1024
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_cluster_plan_takes_its_cluster_by_the_grids_tiles(itemsize):
+    """At most as many 8-row tiles (all directions) as SMs: the largest
+    cluster that keeps 16 units a CTA (the serve shapes of FN-SSL and
+    IPDnet); more: the smallest from N = 2 that fits (the training
+    shapes), N = 8 at H = 256 where nothing smaller fits. The k-split is
+    H/16, or H/8 where H/16 leaves fewer than 128 threads a CTA."""
+    plan = lstm_cuda.cluster_plan
+    for h, b, ndir in ((128, 12, 2), (256, 256, 1), (128, 256, 1),
+                       (128, 298, 2), (128, 8 * 66, 2)):
+        assert plan(h, itemsize, b, ndir) == (8, 8, h // 16)
+    assert plan(64, itemsize, 12, 2) == (4, 8, 8)
+    for h, b, ndir in ((128, 16 * 298, 2), (64, 16 * 280, 2),
+                       (128, 16 * 256, 1), (64, 16 * 256, 2),
+                       (64, 48 * 280, 2), (128, 8 * 66 + 1, 2)):
+        assert plan(h, itemsize, b, ndir) == (2, 8, h // 16)
+    assert plan(256, itemsize, 16 * 256, 1) == (8, 8, 16)
 
 
 def test_cluster_plan_examples_and_refusals():

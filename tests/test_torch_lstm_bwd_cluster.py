@@ -50,7 +50,10 @@ def test_bwd_cluster_plan_accepts_exactly_the_plans_that_fit(hidden,
                     accepted += want
     assert accepted >= 1
     default = lstm_cuda.bwd_cluster_plan(hidden, itemsize)
-    assert fits(hidden, itemsize, *default) and default[0] >= 2
+    assert fits(hidden, itemsize, *default)
+    # a cluster of 1 only with two units a thread and two CTAs an SM
+    assert default[0] >= 2 or (default[3] == 2 and lstm_cuda._ctas_per_sm(
+        lstm_cuda.bwd_cluster_smem(hidden, itemsize, *default[:3])) >= 2)
 
 
 @pytest.mark.parametrize("itemsize", [4, 2])
@@ -58,12 +61,16 @@ def test_bwd_cluster_default_plan_at_the_training_shapes(itemsize):
     """The default at FN-SSL's full-band (H 128) and narrow-band (H 256)
     LSTMs: two units a thread, the smallest cluster of at least 2 that
     fits, and the k-split that puts the most CTAs on an SM (the one with
-    the more threads on a tie); the worked example of 212,992 B (N=8, Bt=8,
+    the more threads on a tie); at IPDnet's H 64 a cluster of 1, two CTAs
+    an SM (three in bfloat16); the worked example of 212,992 B (N=8, Bt=8,
     KS=H/16)."""
     want = {4: ((2, 8, 16, 2), (8, 8, 32, 2)),
             2: ((2, 8, 8, 2), (4, 8, 16, 2))}[itemsize]
     assert lstm_cuda.bwd_cluster_plan(128, itemsize) == want[0]
     assert lstm_cuda.bwd_cluster_plan(256, itemsize) == want[1]
+    assert lstm_cuda.bwd_cluster_plan(64, itemsize) == (1, 8, 8, 2)
+    assert lstm_cuda._ctas_per_sm(lstm_cuda.bwd_cluster_smem(
+        64, itemsize, 1, 8, 8)) == {4: 2, 2: 3}[itemsize]
     # H=32 has too few k-slices for 2 units a thread
     assert lstm_cuda.bwd_cluster_plan(32, itemsize) == (2, 8, 4, 1)
     assert lstm_cuda.bwd_cluster_smem(256, 4, 8, 8, 16) == 212_992

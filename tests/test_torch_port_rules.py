@@ -39,9 +39,11 @@ def test_port_imports_no_jax_and_no_fnssl_tpu():
     assert "fnssl_tpu_torch.kernels.lstm_cuda" in out["modules"]
     assert "fnssl_tpu_torch.runtime.server" in out["modules"]
     for name in ("data.simu", "data.loader", "sim.native", "eval.metrics",
-                 "train.learner", "train.checkpoint", "parallel"):
+                 "train.learner", "train.checkpoint", "parallel",
+                 "models.ipdnet", "eval.pred_doa", "physics.targets",
+                 "train.tasks", "runtime.streaming"):
         assert f"fnssl_tpu_torch.{name}" in out["modules"]
-    assert len(out["modules"]) >= 54
+    assert len(out["modules"]) >= 55
 
 
 @pytest.fixture
@@ -51,17 +53,24 @@ def no_cuda(monkeypatch):
 
 def test_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
     from fnssl_tpu_torch.cli.main import main
-    from fnssl_tpu_torch.eval.pred_doa import PredDOA
+    from fnssl_tpu_torch.eval.pred_doa import PredDOA, PredDOAMultiTrack
     from fnssl_tpu_torch.models.fnssl import FNSSL
+    from fnssl_tpu_torch.models.ipdnet import IPDnet, VariableIPDnet
     from fnssl_tpu_torch.models.lstm import LSTM
     from fnssl_tpu_torch.runtime.streaming import StreamingLocalizer
+    from fnssl_tpu_torch.train.tasks import (DUALCH_MIC_LOCATION,
+                                             make_ipdnet_task)
 
     for make in (FNSSL, lambda: LSTM(4, 32), PredDOA,
-                 lambda: StreamingLocalizer(lambda f: f, nch=2)):
+                 lambda: StreamingLocalizer(lambda f: f, nch=2), IPDnet,
+                 VariableIPDnet, make_ipdnet_task,
+                 lambda: PredDOAMultiTrack(DUALCH_MIC_LOCATION)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        main(["serve", "--port", "0", "--log-dir", str(tmp_path)])
+    for model in ("fnssl", "ipdnet"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["serve", "--model", model, "--port", "0", "--log-dir",
+                  str(tmp_path)])
 
 
 def test_training_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):

@@ -161,7 +161,7 @@ def test_cli_serve_wiring(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["predict", "--wav", "x.wav"],
-                                  ["serve", "--model", "ipdnet",
+                                  ["serve", "--model", "ipdnet2",
                                    "--platform", "cpu"]])
 def test_cli_unported_paths_say_so(argv):
     from fnssl_tpu_torch.cli.main import main

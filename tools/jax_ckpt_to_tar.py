@@ -4,14 +4,18 @@ the PyTorch port's ``cli serve`` loads.
 
   python tools/jax_ckpt_to_tar.py --log-dir D [--model fnssl] [--seed N]
 
+``--model`` is one of fnssl, fnssl_doa, ipdnet, ipdnet_offline and
+variable_ipdnet: the models whose ``cli fit`` checkpoints plain Adam.
+
 fnssl_tpu's ``cli fit`` keeps orbax checkpoints under ``D/ckpt`` (the
 top-k epochs by validation loss, and the last), and its ``serve``
 restores the best of them. fnssl_tpu_torch's ``serve`` reads
 ``D/best_model.tar`` and cannot read orbax without JAX. This tool builds
 the train state that ``cli fit`` checkpointed (the task's parameters
 from ``--seed`` and plain Adam, as ``_restore_learner`` does for the
-FN-SSL models), restores the best epoch by validation loss into it (as
-``serve`` does with ``best=True``), and writes its parameters to
+FN-SSL and IPDnet models), restores the best epoch by validation loss
+into it (as ``serve`` does with ``best=True``), and writes its
+parameters to
 ``D/best_model.tar`` with ``fnssl_tpu.train.convert.save_torch_tar``;
 ``epoch`` in the file is the restored epoch. Unlike a Learner, it writes
 no logs into D. It imports JAX and fnssl_tpu, so it runs where the JAX
@@ -32,7 +36,9 @@ def main(argv=None) -> str:
     ap.add_argument("--log-dir", required=True,
                     help="the log dir of the JAX fit (checkpoints in "
                          "<log-dir>/ckpt); best_model.tar is written there")
-    ap.add_argument("--model", default="fnssl", choices=["fnssl", "fnssl_doa"])
+    ap.add_argument("--model", default="fnssl",
+                    choices=["fnssl", "fnssl_doa", "ipdnet", "ipdnet_offline",
+                             "variable_ipdnet"])
     ap.add_argument("--seed", type=int, default=2,
                     help="seed of the template the checkpoint is restored "
                          "into, as for `cli fit`; the values come from the "
