@@ -7,8 +7,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
   1. device  — the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build   — nvcc builds every kernel from the sources in the checkout
                (lstm_cluster.cu, lstm_fwd.cu, lstm_bwd.cu,
-               lstm_bwd_cluster.cu), one nvcc per source, all started
-               together.
+               lstm_bwd_cluster.cu, ssm_scan.cu), one nvcc per source, all
+               started together.
   3. kernels — each kernel against its plain PyTorch version on the card:
                the cluster kernel through lstm_fwd (both directions) and
                lstm_fwd_bidir at the main path's shapes and at edge cases
@@ -99,6 +99,34 @@ Phases, each fatal on failure (exit code != 0, no result line):
                8 K1 a test batch) and variable_ipdnet, 1 epoch each. Test
                loss = the restored epoch's valid loss (1e-6), finite
                ACC/MAE, exact launches.
+ 17. ipdnet2 kernels — K3 and K4 (ssm_scan.cu) against their plain
+               versions at every scan shape of the IPDnet2 paths (training
+               B 256 at L 201 and 40, the forward cell's L 200, serve B 16
+               at L 5 and 1, d 192) and edge cases (B 1/3/13, L 0/1/2/7, d
+               32/192), fp32 and bf16 inputs.
+ 18. ipdnet2 serve — `cli serve --model ipdnet2` (SpatialNetConfig(),
+               weights from --seed) on cuda:0, 3 TCP connections of 5 s of
+               5-channel audio with fixed inter-mic delays: 16 K3 launches
+               a chunk step and no K4, outputs within 1e-3 of the CPU,
+               equal DOAs per track but at exact ties, eof.
+ 19. ipdnet2 times and parity — K3 and K4 a launch at each scan shape
+               (fp32 and bf16 inputs), their bound and plain versions; the
+               task's preprocess on the card against the CPU (features
+               1e-5, targets 1e-4), then one fp32 train step (nb=2 x 4 s,
+               AdamW with a clip of 5) on the card against the CPU at
+               phase 7's tolerances, the CPU step taking the card's PReLU
+               gates (as phase 14 its ReLU gates), with 16 K3 + 16 K4
+               launches.
+ 20. ipdnet2 train — the JAX package's cells bench.py:138-176 (nb 16 x 4
+               s, fp32 then bf16: ms a step, mean and p90 of 5, seconds of
+               audio a second, peak memory, launches) and bench.py:460-481
+               (the forward at nb 16, nt 200); one fp32 step under
+               torch.profiler (busy time by group, idle share).
+ 21. ipdnet2 fit — a RealMAN-layout corpus written as wav (16 + 8
+               recordings of 6 s), `fit --model ipdnet2` 2 epochs at bz 8,
+               `test`, `test --best` (each test loss equal to the restored
+               epoch's valid loss: the same items and seed), `serve` from
+               its best_model.tar; exact launches.
 The line before the last is the kernels JSON line (each kernel's numbers
 over one train step's work); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -144,8 +172,12 @@ SHAPES = [("serve_fullband", 256, 12, 128, 256, 2),
 # kernel, two of lstm_fwd.cu) and a one-direction LSTM over time
 PER_CHUNK = {"serve_fullband": 3, "serve_narrowband": 3}
 LAUNCHES_PER_CHUNK = 6
-# K1 launches a serve chunk step, by model: FN-SSL's 3 blocks, IPDnet's 2
-PER_CHUNK_BY_MODEL = {"fnssl": LAUNCHES_PER_CHUNK, "ipdnet": 4}
+# launches a serve chunk step by model, in COUNTED's order: K1 for FN-SSL's
+# 3 blocks and IPDnet's 2; K3 for IPDnet2's 8 layers x 2 Mamba blocks
+CHUNK_LAUNCHES = {"fnssl": [LAUNCHES_PER_CHUNK, 0, 0, 0, 0, 0],
+                  "ipdnet": [4, 0, 0, 0, 0, 0],
+                  "ipdnet2": [0, 0, 0, 0, 16, 0]}
+SERVE_NCH = {"ipdnet2": 5}              # channels a connection, else 2
 EDGE_B, EDGE_T, EDGE_H = (1, 11, 13, 17), (0, 1, 2, 7), (32, 64, 128, 256)
 V2_CASE = (5, 13, 512)                  # (T, B, H): lstm_fwd.cu serves H > 256
 # training: the JAX package's reference cell (bench.py:96-135), nb scenes
@@ -256,15 +288,16 @@ def phase_kernels(device):
     return worst
 
 
-def make_audio(seed, delay):
-    """Noise reaching mic 2 `delay` samples after mic 1, plus a little
+def make_audio(seed, delay, nch=2):
+    """Noise reaching mic k k·`delay` samples after mic 0, plus a little
     independent noise on each mic."""
     rng = np.random.default_rng(seed)
     n = int(SERVE_AUDIO_S * FS)
-    src = rng.standard_normal(n + abs(delay)).astype(np.float32) * 0.1
-    m1 = src[abs(delay): abs(delay) + n] if delay >= 0 else src[:n]
-    m2 = src[:n] if delay >= 0 else src[abs(delay): abs(delay) + n]
-    sig = np.stack([m1, m2], axis=1)
+    span = (nch - 1) * abs(delay)
+    src = rng.standard_normal(n + span).astype(np.float32) * 0.1
+    starts = [(nch - 1 - k) * delay if delay >= 0 else k * -delay
+              for k in range(nch)]
+    sig = np.stack([src[a: a + n] for a in starts], axis=1)
     return sig + rng.standard_normal(sig.shape).astype(np.float32) * 0.01
 
 
@@ -276,23 +309,37 @@ def serve_pipeline(model, seed, device):
     from fnssl_tpu_torch.eval.pred_doa import PredDOA, PredDOAMultiTrack
     from fnssl_tpu_torch.models.fnssl import FNSSL
     from fnssl_tpu_torch.models.ipdnet import IPDnet
-    from fnssl_tpu_torch.runtime.streaming import (make_fnssl_stream_step,
-                                                   make_ipdnet_stream_step)
+    from fnssl_tpu_torch.runtime.streaming import (
+        make_fnssl_stream_step, make_ipdnet_stream_step,
+        make_spatialnet_stream_step)
     from fnssl_tpu_torch.train.tasks import DUALCH_MIC_LOCATION
 
     gen = torch.Generator().manual_seed(seed)
-    if model == "ipdnet":
+    if model == "ipdnet2":
+        from fnssl_tpu_torch.data.arrays import audiowu_high_array_geometry
+        from fnssl_tpu_torch.models.spatialnet import SpatialNet
+        from fnssl_tpu_torch.train.tasks import IPDNET2_MIC_IDS
+
+        net = SpatialNet(device=device, generator=gen).eval()
+        decoder = PredDOAMultiTrack(
+            audiowu_high_array_geometry()[list(IPDNET2_MIC_IDS)],
+            device="cpu")
+        step, front = make_spatialnet_stream_step(net), dict(
+            ch_mode="none", hop=320, center=True, sample_length=249,
+            frames_per_step=5)
+    elif model == "ipdnet":
         net = IPDnet(device=device, generator=gen).eval()
         decoder = PredDOAMultiTrack(DUALCH_MIC_LOCATION, device="cpu")
-
+        step, front = make_ipdnet_stream_step(net), dict(
+            ch_mode="none", sample_length=280)
+    if model in ("ipdnet", "ipdnet2"):
         def decode(out):
             spec = [spatial_spectrum(out[..., k], decoder.template)
                     for k in range(out.shape[-1])]
             return decoder.pred2doa(out)[0], torch.cat(spec).reshape(
                 out.shape[-1], -1)
 
-        return (make_ipdnet_stream_step(net),
-                dict(ch_mode="none", sample_length=280), decode)
+        return step, front, decode
     net = FNSSL(device=device, generator=gen).eval()
     decoder = PredDOA(device="cpu")
 
@@ -308,7 +355,7 @@ def cpu_reference(seed, sig, block, model="fnssl"):
     from fnssl_tpu_torch.runtime.streaming import StreamingLocalizer
 
     step, front, decode = serve_pipeline(model, seed, "cpu")
-    loc = StreamingLocalizer(step, nch=2, device="cpu", **front)
+    loc = StreamingLocalizer(step, nch=sig.shape[1], device="cpu", **front)
     outs, doas, ss = [], [], []
     for start in range(0, sig.shape[0], block):
         for out in loc.push(sig[start: start + block]):
@@ -326,7 +373,8 @@ def phase_serve(seed, device, model="fnssl"):
 
     block = 1600
     sessions = []
-    per_chunk = PER_CHUNK_BY_MODEL[model]
+    per_chunk = CHUNK_LAUNCHES[model]
+    nch = SERVE_NCH.get(model, 2)
 
     with tempfile.TemporaryDirectory() as log_dir:
         args = build_parser().parse_args(
@@ -365,14 +413,15 @@ def phase_serve(seed, device, model="fnssl"):
         for c in counters:
             c.reset()
         replies = [stream_client("127.0.0.1", server.port,
-                                 make_audio(s, d), block=block)
+                                 make_audio(s, d, nch), block=block)
                    for s, d in conns]
         launched = [c.value for c in counters]
     finally:
         server.shutdown()
 
     n = int(SERVE_AUDIO_S * FS)
-    expected_steps = ((n - 512) // 256 + 1) // 12
+    expected_steps = (((n + 256 - 512) // 320 + 1) // 5 if model == "ipdnet2"
+                      else ((n - 512) // 256 + 1) // 12)
     steps = 0
     for (s, d), msgs, rec in zip(conns, replies, sessions):
         n_steps = len(rec["ms"])
@@ -383,7 +432,8 @@ def phase_serve(seed, device, model="fnssl"):
         if not len(msgs) - 1 == n_steps == expected_steps:
             raise AssertionError(f"connection {s}: {len(msgs) - 1} lines "
                                  f"for {n_steps} chunk steps")
-        outs, doas, ss = cpu_reference(seed, make_audio(s, d), block, model)
+        outs, doas, ss = cpu_reference(seed, make_audio(s, d, nch), block,
+                                       model)
         if len(outs) != n_steps:
             raise AssertionError(f"connection {s}: CPU fired {len(outs)}")
         out_err = max((g - w).abs().max().item()
@@ -413,22 +463,37 @@ def phase_serve(seed, device, model="fnssl"):
             f"eof ok, {model} max|diff| vs CPU {out_err:.3e}, DOAs equal "
             f"(ties {mismatched}), median azimuth {np.median(azis):.1f} deg")
 
-    # K1 through lstm_cluster.cu only; no backward while serving
-    want = [per_chunk * steps, 0, 0, 0]
+    # K1 through lstm_cluster.cu (K3 for IPDnet2) only; no backward while
+    # serving
+    want = [n * steps for n in per_chunk]
     if launched != want:
         raise AssertionError(f"serving launched {COUNTED} {launched} for "
                              f"{steps} chunk steps, expected {want}")
     ms = np.concatenate([rec["ms"][1:] for rec in sessions])
     rtf = [rec["loc"].rtf for rec in sessions]
     log(f"  launches {COUNTED} {launched} = {steps} chunk steps x "
-        f"{per_chunk} lstm_cluster")
+        f"{per_chunk}")
+    # one chunk step of a warm session (front end, model step, no decode)
+    # under torch.profiler, outside the server
+    loc, _ = make_session()
+    audio = make_audio(seed, 3, nch)
+    chunk = loc.frames_per_step * loc.hop
+    loc.push(audio[: 2 * chunk])
+    fired = []
+    prof = profile_step(lambda: fired.append(
+        len(loc.push(audio[2 * chunk: 3 * chunk]))))
+    log(f"  profile of a push that fired {fired[0]} chunk step: wall "
+        f"{prof['wall_ms']:.2f} ms, {prof['kernels']} kernels, busy "
+        f"{prof['busy_ms']:.3f} ms, idle share {prof['idle_share']:.2%}")
     log(f"  model step ms (warm, synchronized): mean {ms.mean():.3f} "
         f"p90 {np.percentile(ms, 90):.3f} over {ms.size} steps; RTF per "
         f"connection {', '.join(f'{r:.4f}' for r in rtf)}")
     return dict(zip(COUNTED, launched)), steps, {
         "model_step_ms_mean": float(ms.mean()),
         "model_step_ms_p90": float(np.percentile(ms, 90)),
-        "rtf_per_connection": rtf}
+        "rtf_per_connection": rtf,
+        "chunk_step_profile": {k: prof[k] for k in (
+            "wall_ms", "busy_ms", "idle_share", "kernels")}}
 
 
 def cuda_ms(fn, iters):
@@ -755,19 +820,22 @@ def train_setup(seed, device, nb, precision="fp32"):
     return S.init_train_state(model, tx), step, batch
 
 
-COUNTED = ("lstm_cluster", "lstm_fwd", "lstm_bwd", "lstm_bwd_cluster")
+COUNTED = ("lstm_cluster", "lstm_fwd", "lstm_bwd", "lstm_bwd_cluster",
+           "ssm_scan_fwd", "ssm_scan_bwd")
 
 
 def launch_counters():
     """The launch counters of every kernel, in the order of COUNTED."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
+    from fnssl_tpu_torch.kernels import ssm_cuda as S
 
     return (L.launches, L.launches_v2, L.launches_bwd,
-            L.launches_bwd_cluster)
+            L.launches_bwd_cluster, S.launches_ssm_fwd, S.launches_ssm_bwd)
 
 
 # launches of each kernel in one train step, in the order of COUNTED
-STEP_LAUNCHES = [LAUNCHES_PER_TRAIN_STEP, 0, 0, LAUNCHES_PER_TRAIN_STEP]
+STEP_LAUNCHES = [LAUNCHES_PER_TRAIN_STEP, 0, 0, LAUNCHES_PER_TRAIN_STEP, 0,
+                 0]
 
 
 def gate_hooks(module, names, masks, record):
@@ -846,8 +914,8 @@ def phase_train_parity(seed, device, setup=None, lr=1e-3,
         f"({worst_grad}); params after Adam max|diff| {dp_max:.2e}, share "
         f"> 1e-6 {dp_moved:.2e}; launches {launched}; step {sec_c:.2f} s "
         f"on the card (first, with set-up), {sec_p:.2f} s on the CPU"
-        + (f"; ReLU gates the CPU took from the card where its own differ: "
-           f"{switched}" if gates else ""))
+        + (f"; gates (ReLU, PReLU) the CPU took from the card where its own "
+           f"differ: {switched}" if gates else ""))
     # tolerances: float32 recurrences of up to 298 steps summed in another
     # order (measured on an H100: loss 6e-8, gradients 2.3e-6); Adam's
     # first step moves every parameter by about lr * sign(g), so only a
@@ -1158,7 +1226,7 @@ def path_launches(per, train_steps, eval_batches, extra_k1=0):
     `eval_batches` eval forwards, `per` K1 (and K2 a train step) each, and
     `extra_k1` more K1."""
     return [per * (train_steps + eval_batches) + extra_k1, 0, 0,
-            per * train_steps]
+            per * train_steps, 0, 0]
 
 
 def fit_and_test(model, data, log_dir, epochs, train_size, bz, seed,
@@ -1214,10 +1282,10 @@ def test_best(model, bz, log_dir, data_dir, want):
     return best, tested
 
 
-def serve_after_fit(model, log_dir, audio, per_chunk):
+def serve_after_fit(model, log_dir, audio):
     """`cli serve --model model` from the fit's best_model.tar, one TCP
-    connection of `audio`: lines, eof and `per_chunk` K1 launches a chunk
-    step. Returns the lines and the launches."""
+    connection of `audio`: lines, eof and the model's CHUNK_LAUNCHES a
+    chunk step. Returns the lines and the launches."""
     from fnssl_tpu_torch.cli.main import build_parser, build_server
     from fnssl_tpu_torch.runtime.server import stream_client
 
@@ -1241,7 +1309,7 @@ def serve_after_fit(model, log_dir, audio, per_chunk):
         server.shutdown()
     n_out = len(msgs) - 1
     if not (n_out > 0 and msgs[-1] == {"eof": True, "outputs": n_out}
-            and served == [per_chunk * n_out, 0, 0, 0]):
+            and served == [n * n_out for n in CHUNK_LAUNCHES[model]]):
         raise AssertionError(f"serve {model} after fit: {n_out} lines, eof "
                              f"{msgs[-1]}, launches {served}")
     log(f"  serve {model} from the fit's best_model.tar: {n_out} lines and "
@@ -1293,8 +1361,7 @@ def phase_fit(seed, device, card, step_ms):
             want(0, valid_batches))
         launches["fnssl"] = [a + b for a, b in zip(launches["fnssl"], tested)]
         fnssl["serve_lines"], launches["serve_after_fit"] = serve_after_fit(
-            "fnssl", runs / "fnssl", make_audio(seed + 200, 4),
-            LAUNCHES_PER_CHUNK)
+            "fnssl", runs / "fnssl", make_audio(seed + 200, 4))
         report["fnssl"] = fnssl
         report["fnssl_doa"], launches["fnssl_doa"] = fit_and_test(
             "fnssl_doa", data, runs / "doa", 1, FIT_DOA_TRAIN, FIT_BZ, seed,
@@ -1346,7 +1413,7 @@ IPD_T_S, IPD_NB, IPD_PARITY_NB = 4.5, 16, 2
 IPD_VAR_NB, IPD_VAR_NCH = 8, 4
 IPD_LR = 5e-4
 IPD_LAUNCHES = 4            # K1 a forward, and K2 a train step: 2 blocks
-IPD_STEP_LAUNCHES = [IPD_LAUNCHES, 0, 0, IPD_LAUNCHES]
+IPD_STEP_LAUNCHES = [IPD_LAUNCHES, 0, 0, IPD_LAUNCHES, 0, 0]
 # (name, T, B, H, I, ndir) of one train step: per block a BiLSTM over
 # frequency (H 64, B = rows*280) and an LSTM over time (H 128, B =
 # rows*256; both directions at H 64 offline); the first block's I
@@ -1507,6 +1574,7 @@ def phase_ipdnet_parity(seed, device):
 
 
 KERNEL_GROUPS = (("K1", ("lstm_cluster",)), ("K2", ("lstm_bwd_cluster",)),
+                 ("K3", ("ssm_fwd_kernel",)), ("K4", ("ssm_bwd_kernel",)),
                  ("conv head", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
                                 "implicit", "winograd")),
                  ("GEMMs", ("gemm", "gemv", "cutlass", "xmma")),
@@ -1552,7 +1620,7 @@ def profile_step(step_fn):
                       if any(k in low for k in keys)), "the rest")
         groups[group] += ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"wall_ms": wall, "busy_ms": busy,
+    return {"wall_ms": wall, "busy_ms": busy, "kernels": len(kernels),
             "idle_share": 1.0 - busy / wall if busy else None,
             "groups_ms": groups,
             "top": [{"kernel": n[:100], "ms": ms} for n, ms in top]}
@@ -1711,7 +1779,7 @@ def phase_ipdnet_fit(seed, device, card):
                                                          tested)]
                 report[model]["serve_lines"], launches["serve_after_fit"] = \
                     serve_after_fit(model, runs / model,
-                                    make_audio(seed + 300, -3), IPD_LAUNCHES)
+                                    make_audio(seed + 300, -3))
     for model in ("ipdnet", "ipdnet_offline", "variable_ipdnet"):
         r = report[model]
         for e, st in enumerate(r["epochs"]):
@@ -1728,6 +1796,450 @@ def phase_ipdnet_fit(seed, device, card):
              for i in range(len(COUNTED))]
     report["launches"] = launches
     log(f"  IPDnet fit path launches {COUNTED} {total}")
+    return report, dict(zip(COUNTED, total))
+
+
+# IPDnet2 (phases 17-21): SpatialNetConfig() (dim_input 10, dim_output 16,
+# 8 layers, hidden 96, 256 bins, d_state 16, d_conv 4) on the 5-mic subset
+# of the Westlake array, nb scenes of 4 s (201 frames, 40 labels at 10 Hz);
+# the JAX package's cells bench.py:138-176 (train, nb 16, AdamW 5e-4 /
+# gamma 0.975, clip 5) and bench.py:460-481 (forward, nb 16, nt 200)
+I2_T_S, I2_NB, I2_PARITY_NB, I2_LR, I2_FWD_NT = 4.0, 16, 2, 5e-4, 200
+I2_LAUNCHES = 16         # K3 a forward, K4 a train step: 8 layers x 2 blocks
+I2_STEP_LAUNCHES = [0, 0, 0, 0, I2_LAUNCHES, I2_LAUNCHES]
+# (name, B, L, d) of the scans: a train step at nb 16 (layer 0 at T 201,
+# layers 1-7 at 40 after the 5x time mean), the forward cell's layer 0 (T
+# 200) and a serve chunk step (5 frames at layer 0, then 1); each path runs
+# 2 scans of a layer-0 shape and 14 of the later one
+SSM_SHAPES = [("train_layer0", 256, 201, 192), ("train_layers1_7", 256, 40, 192),
+              ("forward_layer0", 256, 200, 192),
+              ("serve_layer0", 16, 5, 192), ("serve_layers1_7", 16, 1, 192)]
+SSM_EDGE_B, SSM_EDGE_L, SSM_EDGE_D = (1, 3, 13), (0, 1, 2, 7), (32, 192)
+# K3/K4 against their plain versions: float32 outputs within 1e-5 relative
+# + 1e-4 (a fused multiply-add a step, the 16 states summed in another
+# order; the state decays); bf16 gradients within 1e-2 (one bf16 rounding
+# of float32 values that differ in their last bits)
+SSM_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+# phase 21: RealMAN-layout recordings of 6 s (4 s crops), bz 8: 2 train
+# steps an epoch, 1 valid batch
+I2_FIT_TRAIN, I2_FIT_DEV, I2_FIT_BZ, I2_FIT_EPOCHS = 16, 8, 8, 2
+
+
+def ssm_inputs(batch, steps, dim, dtype, device, seed):
+    """Scan inputs on the device: da = exp(delta · a), a = -(1..16), delta
+    in [1e-3, 0.1] (IPDnet2's dt init range); the rest normal."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=device) * scale
+
+    delta = torch.rand(batch, steps, dim, 1, generator=g,
+                       device=device) * 0.099 + 0.001
+    a = -torch.arange(1, 17, dtype=torch.float32, device=device)
+    return {"da": torch.exp(delta * a).to(dtype),
+            "dbx": randn(batch, steps, dim, 16, scale=0.1).to(dtype),
+            "c": randn(batch, steps, 16).to(dtype),
+            "h0": randn(batch, dim, 16, scale=0.5),
+            "dy": randn(batch, steps, dim),
+            "dh_last": randn(batch, dim, 16, scale=0.5)}
+
+
+def ssm_held(what, got, want, worst, key):
+    """Max |kernel - plain| of each output against SSM_TOL (by the
+    output's dtype); folds them into worst[key], key the inputs' dtype.
+    Returns the largest."""
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(("y/d(da)", "h/d(dbx)", "d(c)", "d(h0)"), got,
+                          want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{what} {name}: {g.dtype} {tuple(g.shape)}"
+                                 f" vs plain {w.dtype} {tuple(w.shape)}")
+        if not g.numel():
+            continue
+        rtol, atol = SSM_TOL[g.dtype]
+        diff = (g.float() - w.float()).abs()
+        bad = diff > atol + rtol * w.float().abs()
+        if bad.any():
+            raise AssertionError(f"{what} {name}: max|diff| "
+                                 f"{diff.max().item():.3e} beyond rtol "
+                                 f"{rtol} atol {atol}")
+        e = diff.max().item()
+        worst[key] = max(worst[key], e)
+        err = max(err, e)
+    return err
+
+
+def phase_ssm_kernels(device):
+    """K3 and K4 against their plain versions at every scan shape of the
+    IPDnet2 paths and at edge cases (B 1/3/13, L 0/1/2/7, d 32/192),
+    float32 and bfloat16 inputs. Returns the worst errors and the checks."""
+    from fnssl_tpu_torch.kernels import ssm_cuda as S
+
+    worst = {k: {"float32": 0.0, "bfloat16": 0.0}
+             for k in ("ssm_scan_fwd", "ssm_scan_bwd")}
+    cases = [(n, b, t, d) for n, b, t, d in SSM_SHAPES]
+    cases += [("edge", b, t, d) for d in SSM_EDGE_D for b in SSM_EDGE_B
+              for t in SSM_EDGE_L]
+    seed, checks = 5000, 0
+    for name, b, t, d in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            seed += 1
+            x = ssm_inputs(b, t, d, dtype, device, seed)
+            args = (x["da"], x["dbx"], x["c"], x["h0"])
+            n = 1 if t else 0
+            key = str(dtype)[6:]
+            fwd = counted(S.launches_ssm_fwd, n, S.ssm_scan_fwd, *args)
+            e3 = ssm_held(f"ssm_scan_fwd {name} B={b} L={t} d={d} {key}",
+                          fwd, S.ssm_scan_fwd_plain(*args),
+                          worst["ssm_scan_fwd"], key)
+            bwd = counted(S.launches_ssm_bwd, n, S.ssm_scan_bwd, *args,
+                          x["dy"], x["dh_last"])
+            e4 = ssm_held(f"ssm_scan_bwd {name} B={b} L={t} d={d} {key}",
+                          bwd, S.ssm_scan_bwd_plain(*args, x["dy"],
+                                                    x["dh_last"]),
+                          worst["ssm_scan_bwd"], key)
+            checks += 2
+            if name != "edge":
+                log(f"  {name:16s} B={b:3d} L={t:3d} d={d:3d} {key:8s} "
+                    f"max|diff| K3 {e3:.2e} K4 {e4:.2e}")
+            del x, args, fwd, bwd
+    torch.cuda.empty_cache()
+    log(f"  {checks} checks passed; edge cases B {SSM_EDGE_B} x L "
+        f"{SSM_EDGE_L} x d {SSM_EDGE_D}; worst {json.dumps(worst)}")
+    return worst, checks
+
+
+def ssm_bound_terms(batch, steps, dim, itemsize):
+    """The least time (ms) of K3 and of K4 for the bytes each must move
+    (every input read once, every output written once) and for its float32
+    operations: K3 reads da, dbx, c, h0 and writes y, h_last, 4 FLOPs a
+    state a step (the recurrence's and the contraction's multiply-adds);
+    K4 reads those and dy, dh_last and writes d(da), d(dbx), d(c), d(h0),
+    8 FLOPs a state a step (the recurrence replayed, gh, d(da), d(c)'s
+    product and sum, the carry)."""
+    big = batch * steps * dim * 16
+    state, c, y = batch * dim * 16 * 4, batch * steps * 16, batch * steps * dim
+    k3 = ((2 * big + c) * itemsize + 2 * state + y * 4, 4 * big)
+    k4 = (2 * (2 * big + c) * itemsize + 3 * state + y * 4, 8 * big)
+    return tuple({"bytes": nbytes / HBM_BYTES_S * 1e3,
+                  "operations": flops / FP32_FLOP_S * 1e3}
+                 for nbytes, flops in (k3, k4))
+
+
+def phase_ssm_times(device):
+    """K3 and K4 at each scan shape of the IPDnet2 paths (CUDA events,
+    warm), float32 and bfloat16 inputs, beside their bound and their plain
+    versions (float32). No PyTorch call computes a selective scan: there
+    is no library time."""
+    from fnssl_tpu_torch.kernels import ssm_cuda as S
+
+    rows = []
+    for name, b, t, d in SSM_SHAPES:
+        row = {"shape": name, "B": b, "L": t, "d": d}
+        for dtype in (torch.float32, torch.bfloat16):
+            x = ssm_inputs(b, t, d, dtype, device, 7)
+            args = (x["da"], x["dbx"], x["c"], x["h0"])
+            key = str(dtype)[6:]
+            row[f"k3_ms_{key}"] = cuda_ms(lambda: S.ssm_scan_fwd(*args), 20)
+            row[f"k4_ms_{key}"] = cuda_ms(
+                lambda: S.ssm_scan_bwd(*args, x["dy"], x["dh_last"]), 20)
+            k3, k4 = ssm_bound_terms(b, t, d, dtype.itemsize)
+            row[f"k3_bound_terms_{key}"], row[f"k4_bound_terms_{key}"] = \
+                k3, k4
+            if dtype == torch.float32:
+                row["k3_plain_ms"] = cuda_ms(
+                    lambda: S.ssm_scan_fwd_plain(*args), 3)
+                row["k4_plain_ms"] = cuda_ms(lambda: S.ssm_scan_bwd_plain(
+                    *args, x["dy"], x["dh_last"]), 3)
+            del x, args
+        k3b, k4b = bound(row["k3_bound_terms_float32"]), bound(
+            row["k4_bound_terms_float32"])
+        row["k3_bound_ms"], row["k4_bound_ms"] = k3b[0], k4b[0]
+        rows.append(row)
+        log(f"  {name:16s} B={b:3d} L={t:3d} d={d}: K3 "
+            f"{row['k3_ms_float32']:.4f} ms ({row['k3_ms_bfloat16']:.4f}) "
+            f"bound {k3b[0]:.4f} ({k3b[1]}) plain {row['k3_plain_ms']:.2f};"
+            f" K4 {row['k4_ms_float32']:.4f} ({row['k4_ms_bfloat16']:.4f}) "
+            f"bound {k4b[0]:.4f} ({k4b[1]}) plain {row['k4_plain_ms']:.2f}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ipdnet2_batch(nb, seed):
+    """The JAX package's IPDnet2 bench batch (bench.py:138-176): nb scenes
+    of 4 s of 5-channel noise, 2 tracks at uniform azimuths and ranges,
+    unit VAD, the 5-mic subset's positions."""
+    from fnssl_tpu_torch.data.arrays import audiowu_high_array_geometry
+    from fnssl_tpu_torch.train.tasks import IPDNET2_MIC_IDS
+
+    rng = np.random.default_rng(seed)
+    mic = audiowu_high_array_geometry()[list(IPDNET2_MIC_IDS)]
+    nt2 = int(I2_T_S * 10)
+    return {"mic_sig": rng.standard_normal(
+                (nb, int(I2_T_S * FS), 5)).astype(np.float32),
+            "azi_deg": rng.uniform(0, 180, (nb, nt2, 2)).astype(np.float32),
+            "distance": rng.uniform(0.5, 3.0, (nb, nt2, 2)).astype(
+                np.float32),
+            "vad": np.ones((nb, nt2, 2), np.float32),
+            "mic_pos": np.broadcast_to(mic, (nb,) + mic.shape).astype(
+                np.float32).copy()}
+
+
+def ipdnet2_setup(seed, nb, device, precision="fp32"):
+    """(state, step, batch) of make_ipdnet2_task at SpatialNetConfig() on
+    `device`: weights from `seed`, AdamW 5e-4 / gamma 0.975 with a clip of
+    5, the bench batch on the device."""
+    from fnssl_tpu_torch.models.spatialnet import SpatialNet
+    from fnssl_tpu_torch.train import step as S
+    from fnssl_tpu_torch.train import tasks as TK
+
+    task = TK.make_ipdnet2_task(precision=precision, device=device)
+    model = SpatialNet(task.cfg, device=device,
+                       generator=torch.Generator().manual_seed(seed))
+    tx = S.make_optimizer("adamw", I2_LR, 0.975, 1, grad_clip=5.0)
+    step = S.make_train_step(task.loss_fn, tx)
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in ipdnet2_batch(nb, seed).items()}
+    return S.init_train_state(model, tx), step, batch
+
+
+# the grouped convs over frequency whose outputs pass a per-channel PReLU:
+# the gates of phase 19's parity step
+I2_GATES = tuple(f"layers.{i}.fconv{j}.1" for i in range(8) for j in (1, 2))
+
+
+def phase_ipdnet2_parity(seed, device):
+    """The task's preprocess (STFT center=True, forgetting norm, DPIPD2
+    targets) on the card against the CPU, then phase 7's check of one
+    fp32 train step (nb=I2_PARITY_NB x 4 s), the CPU step taking the
+    card's PReLU gates (I2_GATES): the PReLU's slope switches from 1 to
+    0.25 at 0, and on the CPU (nb 2) a 1e-7 relative perturbation of
+    layer 0's first LayerNorm output, which moves conv outputs within
+    rounding of 0 across it, moves layers.0.full.weight's gradient by
+    7.7e-4 of its largest value (a perturbation of any other output
+    tried, ~3e-7)."""
+    from fnssl_tpu_torch.train import tasks as TK
+
+    batch = ipdnet2_batch(I2_PARITY_NB, seed)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        task = TK.make_ipdnet2_task(device=dev)
+        feats, gt = task.preprocess(*(torch.as_tensor(batch[k], device=dev)
+                                      for k in TK.IPDNET2_KEYS))
+        out[dev.type] = (feats.cpu(), gt["ipd"].cpu())
+    feats_err = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
+    ipd_err = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    log(f"  preprocess card vs CPU: features max|diff| {feats_err:.2e} "
+        f"(max|x| {out['cpu'][0].abs().max().item():.2f}), targets "
+        f"max|diff| {ipd_err:.2e}")
+    # features atol 1e-5, the CPU tests' tolerance against JAX; targets
+    # 1e-4: their phase 2*pi*f*(d2 - d1)/c takes the difference of two
+    # float32 distances of ~3 m, whose ulp (2.4e-7 m) is 3.5e-5 rad at 8 kHz
+    if not (feats_err <= 1e-5 and ipd_err <= 1e-4):
+        raise AssertionError("the preprocess on the card disagrees with the"
+                             " CPU beyond 1e-5 (features) or 1e-4 (targets)")
+    res = phase_train_parity(
+        seed, device, functools.partial(ipdnet2_setup, seed, I2_PARITY_NB),
+        lr=I2_LR, want=I2_STEP_LAUNCHES, gates=I2_GATES)
+    return {"preprocess_features_max_abs_diff": feats_err,
+            "preprocess_targets_max_abs_diff": ipd_err, **res}
+
+
+def phase_ipdnet2_train(seed, device):
+    """The JAX package's train cell (nb 16 x 4 s, fp32 then the bf16
+    policy: 1 warm + 5 timed steps) and forward cell (nb 16, nt 200, fp32,
+    warm, CUDA events); one fp32 train step under torch.profiler."""
+    from fnssl_tpu_torch.models.spatialnet import SpatialNet
+
+    rows = {}
+    counts = launch_counters()
+    for c in counts:
+        c.reset()
+    steps = 0
+    for precision in ("fp32", "bf16"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, step, batch = ipdnet2_setup(seed, I2_NB, device, precision)
+        state, ms, losses = timed_steps(state, step, batch, None,
+                                        TIMED_STEPS)
+        steps += 1 + TIMED_STEPS
+        row = {"ms_mean": float(ms.mean()),
+               "ms_p90": float(np.percentile(ms, 90)), "ms": ms.tolist(),
+               "audio_s_per_s": I2_NB * I2_T_S / (ms.mean() / 1e3),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "losses": losses}
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"ipdnet2 {precision}: losses {losses}")
+        rows[precision] = row
+        log(f"  ipdnet2 nb={I2_NB} x {I2_T_S} s {precision}: step ms mean "
+            f"{row['ms_mean']:.2f} p90 {row['ms_p90']:.2f} over "
+            f"{TIMED_STEPS} steps; {row['audio_s_per_s']:.1f} s of audio a "
+            f"second; peak {row['peak_bytes'] / 2**30:.2f} GiB; losses "
+            + ", ".join(f"{v:.6f}" for v in losses))
+        del state, step, batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = SpatialNet(device=device,
+                     generator=torch.Generator().manual_seed(seed)).eval()
+    x = torch.randn(I2_NB, 10, 256, I2_FWD_NT, device=device,
+                    generator=torch.Generator(device=device).manual_seed(0))
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: net(x), 10)
+    fwd_launches = I2_LAUNCHES * 12
+    rows["forward_fp32"] = {
+        "ms": fwd_ms, "audio_s_per_s": I2_NB * I2_FWD_NT * 320 / FS
+        / (fwd_ms / 1e3), "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"  forward nb={I2_NB} nt={I2_FWD_NT} fp32: {fwd_ms:.2f} ms, "
+        f"{rows['forward_fp32']['audio_s_per_s']:.1f} s of audio a second,"
+        f" peak {rows['forward_fp32']['peak_bytes'] / 2**30:.2f} GiB")
+    del net, x
+    launched = [c.value for c in counts]
+    want = [steps * n for n in I2_STEP_LAUNCHES]
+    want[4] += fwd_launches
+    if launched != want:
+        raise AssertionError(f"IPDnet2 training launched {COUNTED} "
+                             f"{launched} for {steps} steps and the "
+                             f"forwards, expected {want}")
+    log(f"  launches {COUNTED} {launched} = {steps} steps x "
+        f"{I2_STEP_LAUNCHES} and {fwd_launches} K3 of the timed forwards")
+    torch.cuda.empty_cache()
+    state, step, batch = ipdnet2_setup(seed, I2_NB, device)
+    state, _ = step(state, batch)
+    prof = profile_step(lambda: step(state, batch))
+    if not prof["busy_ms"]:
+        raise AssertionError("the profiler saw no kernel on the card")
+    log(f"  profile of one fp32 ipdnet2 step: wall {prof['wall_ms']:.2f} "
+        f"ms, busy {prof['busy_ms']:.2f} ms, idle share "
+        f"{prof['idle_share']:.2%}; busy by group " + ", ".join(
+            f"{g} {ms:.2f} ms ({ms / prof['busy_ms']:.1%})"
+            for g, ms in prof["groups_ms"].items()))
+    for k in prof["top"]:
+        log(f"    {k['ms']:9.3f} ms  {k['kernel']}")
+    rows["profile_fp32"] = prof
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return rows, dict(zip(COUNTED, launched))
+
+
+def write_realman(root, recordings, seed):
+    """A RealMAN-layout corpus of `recordings` 6 s recordings (the 5
+    channels of the mic subset, a dp_speech copy, one static source a
+    third, the rest moving with 60-value 10 Hz streams) and 5 s of noise,
+    as wav; returns the targets CSV."""
+    from fnssl_tpu_torch.train.tasks import IPDNET2_MIC_IDS
+    from fnssl_tpu_torch.utils.audio_io import write_audio
+
+    rng = np.random.default_rng(seed)
+    for sub in ("ma_speech", "dp_speech", "noise"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    rows = ["filename,angle(°),distance"]
+    for rec in range(recordings):
+        src = rng.standard_normal(6 * FS + 64).astype(np.float32) * 0.3
+        delay = int(rng.integers(-6, 7))
+        for k, ch in enumerate(IPDNET2_MIC_IDS):
+            a = 32 + k * delay
+            write_audio(str(root / "ma_speech" / f"rec{rec}_CH{ch}.wav"),
+                        src[a: a + 6 * FS], FS)
+        write_audio(str(root / "dp_speech" / f"rec{rec}.wav"),
+                    src[32: 32 + 6 * FS], FS)
+        if rec % 3 == 0:
+            rows.append(f"rec{rec}.wav,{rng.integers(0, 180)}.0,"
+                        f"{rng.uniform(0.5, 3):.2f}")
+        else:
+            a0 = int(rng.integers(0, 120))
+            angs = ",".join(str(a0 + i) for i in range(60))
+            diss = ",".join(f"{1.0 + 0.01 * i:.2f}" for i in range(60))
+            rows.append(f'rec{rec}.wav,"{angs}","{diss}"')
+    nz = rng.standard_normal((5 * FS, 5)).astype(np.float32) * 0.1
+    for k, ch in enumerate(IPDNET2_MIC_IDS):
+        write_audio(str(root / "noise" / f"amb_CH{ch}.wav"), nz[:, k], FS)
+    csv = root / "targets.csv"
+    csv.write_text("\n".join(rows) + "\n", encoding="utf-8")
+    return csv
+
+
+def phase_ipdnet2_fit(seed, device, card):
+    """The user's IPDnet2 loop through the CLI on the card: a synthetic
+    RealMAN-layout corpus as wav, `fit --model ipdnet2` 2 epochs, `test`,
+    `test --best` (the valid items with the fit's seed: each test loss
+    equals the valid loss of the epoch it restored) and `serve` from the
+    fit's best_model.tar."""
+    report = {"card": card}
+    launches = {}
+    train_steps = I2_FIT_EPOCHS * (I2_FIT_TRAIN // I2_FIT_BZ)
+    valid = -(-I2_FIT_DEV // I2_FIT_BZ)
+
+    def want(train, evals):
+        return [0, 0, 0, 0, I2_LAUNCHES * (train + evals),
+                I2_LAUNCHES * train]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        train_csv = write_realman(Path(tmp) / "train", I2_FIT_TRAIN, seed)
+        dev_csv = write_realman(Path(tmp) / "dev", I2_FIT_DEV, seed + 1)
+        log_dir = Path(tmp) / "runs"
+        # the fit validates with its one --realman-noise dir: the test
+        # reads the same noise, so that it reads the same items
+        dev = ["--realman-csv", str(dev_csv), "--realman-noise",
+               str(Path(tmp) / "train" / "noise"), "--realman-ext", "wav"]
+        common = ["--model", "ipdnet2", "--bz", str(I2_FIT_BZ), "--seed",
+                  str(seed), "--log-dir", str(log_dir)]
+        ma = str(Path(tmp) / "train" / "ma_speech") + "/"
+        dev_ma = str(Path(tmp) / "dev" / "ma_speech") + "/"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fit, _, launches["fit"], fit_s = counted_cli(
+            ["fit", *common, "--train-dir", ma, "--valid-dir", dev_ma,
+             "--epochs", str(I2_FIT_EPOCHS), "--realman-csv",
+             str(train_csv), "--realman-valid-csv", str(dev_csv),
+             "--realman-noise", str(Path(tmp) / "train" / "noise"),
+             "--realman-ext", "wav"], want(train_steps,
+                                           I2_FIT_EPOCHS * valid),
+            f"fit ipdnet2 ({I2_FIT_EPOCHS} epochs of {I2_FIT_TRAIN} items)")
+        report["fit"], report["fit_s"] = fit, fit_s
+        report["peak_bytes"] = torch.cuda.max_memory_allocated()
+        if not (np.isfinite(fit["final_train"])
+                and np.isfinite(fit["final_valid"])):
+            raise AssertionError(f"fit ipdnet2: losses {fit}")
+        for f in [f"ckpt/epoch_{e}.tar" for e in range(I2_FIT_EPOCHS)] + [
+                "ckpt/index.json", "best_model.tar", "config.json"]:
+            if not (log_dir / f).exists():
+                raise AssertionError(f"fit ipdnet2: no {f}")
+        test, _, launches["test"], _ = counted_cli(
+            ["test", *common, "--data-dir", dev_ma, *dev], want(0, valid),
+            "test ipdnet2")
+        if not abs(test["loss"] - fit["final_valid"]) <= 1e-6:
+            raise AssertionError(f"test ipdnet2: loss {test['loss']} vs the "
+                                 f"fit's final valid {fit['final_valid']}")
+        if not all(np.isfinite(test[k]) for k in ("ACC", "MAE")):
+            raise AssertionError(f"test ipdnet2: metrics {test}")
+        report["test"] = test
+        best, out, launches["test_best"], _ = counted_cli(
+            ["test", *common, "--data-dir", dev_ma, *dev, "--best"],
+            want(0, valid), "test --best ipdnet2")
+        index = json.loads((log_dir / "ckpt/index.json").read_text())
+        best_epoch = min(sorted(index, key=int), key=lambda e: index[e])
+        if f"resumed from epoch {best_epoch}" not in out or not abs(
+                best["loss"] - index[best_epoch]) <= 1e-6:
+            raise AssertionError(f"test --best ipdnet2: {best}, index "
+                                 f"{index}")
+        report["test_best"] = best
+        report["epochs"] = epoch_stats(log_dir)
+        report["serve_lines"], launches["serve_after_fit"] = serve_after_fit(
+            "ipdnet2", log_dir, make_audio(seed + 400, 2, 5))
+    for e, st in enumerate(report["epochs"]):
+        log(f"  ipdnet2 epoch {e}: {st['epoch_s']:.3f} s of train steps "
+            f"({int(st['steps'])} steps, {st['ms_per_step']:.1f} ms a step),"
+            f" of it {st['first_batch_wait_s']:.3f} s waiting for the first "
+            f"batch; {card}")
+    log(f"  ipdnet2: fit {fit_s:.2f} s, test loss {test['loss']:.6f} = valid"
+        f" {fit['final_valid']:.6f}, test --best {best['loss']:.6f} (epoch "
+        f"{best_epoch}), ACC {test['ACC']:.4f} MAE {test['MAE']:.2f}, peak "
+        f"{report['peak_bytes'] / 2**30:.2f} GiB")
+    total = [sum(v[i] for v in launches.values())
+             for i in range(len(COUNTED))]
+    report["launches"] = launches
+    log(f"  IPDnet2 fit path launches {COUNTED} {total}")
     return report, dict(zip(COUNTED, total))
 
 
@@ -1773,7 +2285,7 @@ def main():
     # 2. build
     t0 = time.perf_counter()
     reports = cuda_build.build(["lstm_cluster", "lstm_fwd", "lstm_bwd",
-                                "lstm_bwd_cluster"])
+                                "lstm_bwd_cluster", "ssm_scan"])
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         spills = [line.strip() for line in report.splitlines()
@@ -1857,6 +2369,27 @@ def main():
         "ipdnet 2 epochs, ipdnet_offline 1, variable_ipdnet 1")
     ipd_fit, ipd_fit_launches = phase_ipdnet_fit(args.seed, device, card)
 
+    # 17-21. IPDnet2
+    log("[ipdnet2 kernels] K3 and K4 against their plain versions at every "
+        "scan shape")
+    ssm_worst, ssm_checks = phase_ssm_kernels(device)
+    log("[ipdnet2 serve] cli serve --model ipdnet2 on the card, 3 TCP "
+        "connections of 5-channel audio")
+    i2_launches, i2_steps, i2_serve = phase_serve(args.seed, device,
+                                                  "ipdnet2")
+    log("[ipdnet2 times] K3 and K4 a launch, bound and plain version")
+    ssm_rows = phase_ssm_times(device)
+    log(f"[ipdnet2 parity] one fp32 train step, nb={I2_PARITY_NB} x {I2_T_S} "
+        "s: the card against the CPU")
+    i2_parity = phase_ipdnet2_parity(args.seed, device)
+    log(f"[ipdnet2 train] nb={I2_NB} x {I2_T_S} s, AdamW 5e-4 / gamma 0.975, "
+        f"clip 5: fp32, then the bf16 policy; the forward at nt={I2_FWD_NT}")
+    i2_train, i2_train_launches = phase_ipdnet2_train(args.seed, device)
+    log(f"[ipdnet2 fit] a RealMAN-layout corpus ({I2_FIT_TRAIN}+{I2_FIT_DEV} "
+        f"recordings) -> fit {I2_FIT_EPOCHS} epochs -> test -> test --best ->"
+        " serve")
+    i2_fit, i2_fit_launches = phase_ipdnet2_fit(args.seed, device, card)
+
     # each kernel's work in one online chunk step, fp32: 3 BiLSTMs over
     # frequency and 3 LSTMs over time
     serve = {r["shape"]: r for r in rows if r["shape"] in PER_CHUNK}
@@ -1890,7 +2423,9 @@ def main():
                  "work": work}
     paths = {"serve": launches, "train": train_launches, "fit": fit_launches,
              "ipdnet_serve": ipd_launches, "ipdnet_train": ipd_train_launches,
-             "ipdnet_fit": ipd_fit_launches}
+             "ipdnet_fit": ipd_fit_launches, "ipdnet2_serve": i2_launches,
+             "ipdnet2_train": i2_train_launches,
+             "ipdnet2_fit": i2_fit_launches}
     # and in one fixed-array IPDnet train step at nb=16, fp32: 2 full-band
     # BiLSTMs and 2 narrow-band LSTMs, forward (K1) and backward (K2)
     ipd_step_rows = ipd_train_rows[:2]
@@ -1989,10 +2524,58 @@ def main():
                 "lstm_backward_ms": ipd_step("port_bwd_ms"),
                 "work": ipd_work}})
     kernels[-2]["plans"] = bwd_plans + ipd_bwd_plans
+    # K3 and K4 over one IPDnet2 train step at nb=16 (2 scans at layer 0, T
+    # 201, and 14 at T 40) and one serve chunk step (2 at L 5, 14 at L 1)
+    ssm = {r["shape"]: r for r in ssm_rows}
+
+    def ssm_path(key, first, later):
+        return 2 * ssm[first][key] + 14 * ssm[later][key]
+
+    def ssm_path_bound(k, first, later):
+        return bound({t: 2 * ssm[first][f"{k}_bound_terms_float32"][t]
+                      + 14 * ssm[later][f"{k}_bound_terms_float32"][t]
+                      for t in ("bytes", "operations")})
+
+    for k, name, replaces in (
+            ("k3", "ssm_scan_fwd", "fnssl_tpu/models/mamba.py:145"),
+            ("k4", "ssm_scan_bwd", "fnssl_tpu/models/mamba.py:189")):
+        step_bound_ = ssm_path_bound(k, "train_layer0", "train_layers1_7")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fnssl_tpu_torch/kernels/csrc/ssm_scan.cu",
+            "replaces": replaces,
+            "launches": sum(v[name] for v in paths.values()),
+            "launches_by_path": {p: v[name] for p, v in paths.items()},
+            "max_abs_err": ssm_worst[name]["float32"],
+            "max_abs_err_bf16": ssm_worst[name]["bfloat16"],
+            "checks": ssm_checks // 2,
+            "ms": ssm_path(f"{k}_ms_float32", "train_layer0",
+                           "train_layers1_7"),
+            "ms_bf16": ssm_path(f"{k}_ms_bfloat16", "train_layer0",
+                                "train_layers1_7"),
+            "plain_ms": ssm_path(f"{k}_plain_ms", "train_layer0",
+                                 "train_layers1_7"),
+            "bound_ms": step_bound_[0], "bound_by": step_bound_[1],
+            "library_ms": None,
+            "work": f"one IPDnet2 train step at nb={I2_NB} x {I2_T_S} s, fp32:"
+                    " 2 scans at B=256, L=201, d=192 (layer 0) and 14 at "
+                    "L=40; no PyTorch call computes a selective scan",
+            "per_shape": ssm_rows})
+    serve_bound_ = ssm_path_bound("k3", "serve_layer0", "serve_layers1_7")
+    kernels[-2]["serve_chunk_step"] = {
+        "ms": ssm_path("k3_ms_float32", "serve_layer0", "serve_layers1_7"),
+        "plain_ms": ssm_path("k3_plain_ms", "serve_layer0",
+                             "serve_layers1_7"),
+        "bound_ms": serve_bound_[0], "bound_by": serve_bound_[1],
+        "work": "2 scans at B=16, L=5, d=192 and 14 at L=1",
+        "launches_per_chunk_step": I2_LAUNCHES, "chunk_steps": i2_steps,
+        **i2_serve}
     report = {"card": card, "kind": kind, "kernels": kernels,
               "train": train, "train_parity": parity, "fit": fit_report,
               "plan_picks": picks, "ipdnet_train": ipd_train,
-              "ipdnet_train_parity": ipd_parity, "ipdnet_fit": ipd_fit}
+              "ipdnet_train_parity": ipd_parity, "ipdnet_fit": ipd_fit,
+              "ipdnet2_train": i2_train, "ipdnet2_train_parity": i2_parity,
+              "ipdnet2_fit": i2_fit}
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

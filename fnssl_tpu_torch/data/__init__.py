@@ -1,9 +1,12 @@
-"""The FN-SSL data path on the host (port of ``fnssl_tpu/data``): scene
+"""The data path on the host (port of ``fnssl_tpu/data``): scene
 simulation, the wav+pickle and compact npz formats, segmenting, batching
-and the device prefetch, with the FN-SSL and IPDnet stage configs.
-LOCATA, RealMAN and the 312-frame segments wait for their ports."""
+and the device prefetch, with the FN-SSL and IPDnet stage configs, and
+IPDnet2's RealMAN reader. LOCATA and the 312-frame segments wait for
+their ports."""
 from fnssl_tpu_torch.data.params import Parameter, as_parameter
-from fnssl_tpu_torch.data.arrays import ArraySetup, dualch_array_setup
+from fnssl_tpu_torch.data.arrays import (
+    ArraySetup, audiowu_high_array_geometry, circular_array_geometry,
+    dualch_array_setup)
 from fnssl_tpu_torch.data.vad import frame_vad, clean_silences
 from fnssl_tpu_torch.data.noise import (
     NoiseDataset, gen_diffuse_noise, mix_signals)
@@ -18,3 +21,5 @@ from fnssl_tpu_torch.data.fixed import (
 from fnssl_tpu_torch.data.simu import (
     make_fnssl_trajectory_dataset, make_ipdnet_trajectory_dataset, generate)
 from fnssl_tpu_torch.data.loader import DataLoader, prefetch_to_device
+from fnssl_tpu_torch.data.realman import (
+    RealData, collate_realman, search_files)

@@ -1,8 +1,8 @@
 """Microphone-array geometry: ``ArraySetup`` and the FN-SSL 2-mic array.
 
-Parity: FN-SSL/Dataset.py:85-118. The DICIT, linear, circular and
-Westlake arrays of the JAX module wait for the LOCATA, IPDnet and
-IPDnet2 ports.
+Parity: FN-SSL/Dataset.py:85-118, and the Westlake 32-mic array that
+IPDnet2 trains on (RealMAN). The DICIT and linear arrays of the JAX
+module wait for the LOCATA port.
 
 Port of ``fnssl_tpu/data/arrays.py``, the same numpy code.
 """
@@ -31,3 +31,28 @@ def dualch_array_setup() -> ArraySetup:
         mic_scale=Parameter(1),
         mic_pos=np.array([(-0.04, 0.0, 0.0), (0.04, 0.0, 0.0)]),
         mic_orV=None, mic_pattern="omni")
+
+
+def circular_array_geometry(radius: float, mic_num: int) -> np.ndarray:
+    angles = np.arange(mic_num) * 2 * np.pi / mic_num
+    return radius * np.stack(
+        [np.cos(angles), np.sin(angles), np.zeros(mic_num)], axis=1)
+
+
+def audiowu_high_array_geometry() -> np.ndarray:
+    """Westlake audio-lab 32-mic array: 3 concentric 8-mic circles
+    (R=3/6/9 cm) + 3 linear + 4 vertical mics, mic 0 at origin."""
+    r = 0.03
+    pos = np.zeros((32, 3))
+    pos[1:9] = circular_array_geometry(r, 8)
+    pos[9:17] = circular_array_geometry(2 * r, 8)
+    pos[17:25] = circular_array_geometry(3 * r, 8)
+    pos[25] = [-4 * r, 0, 0]
+    pos[26] = [4 * r, 0, 0]
+    pos[27] = [5 * r, 0, 0]
+    length = 0.045
+    pos[28] = [0, 0, 2 * length]
+    pos[29] = [0, 0, length]
+    pos[30] = [0, 0, -length]
+    pos[31] = [0, 0, -2 * length]
+    return pos

@@ -22,6 +22,8 @@ from typing import Callable, Iterable, Iterator, Sequence
 
 import torch
 
+from fnssl_tpu_torch.utils.device import resolve_device
+
 
 class DataLoader:
     """Deterministic prefetching batch loader.
@@ -101,8 +103,9 @@ class DataLoader:
 def prefetch_to_device(batches: Iterable, size: int = 2,
                        device=None) -> Iterator:
     """Yield each batch (a dict of arrays) as tensors on the CUDA
-    ``device``, with the copies of up to ``size`` later batches already
-    under way.
+    ``device`` (None: the first CUDA device, as every entry point of the
+    port; it raises here where there is none), with the copies of up to
+    ``size`` later batches already under way.
 
     On a CUDA device each array goes to pinned host memory, then to the
     card with a ``non_blocking`` copy on a side stream, and an event
@@ -118,7 +121,11 @@ def prefetch_to_device(batches: Iterable, size: int = 2,
     epoch waits for that many batch assemblies; later steps find theirs
     assembled under the steps before.
     """
-    device = torch.device("cpu") if device is None else torch.device(device)
+    return _prefetch(batches, size, resolve_device(device))
+
+
+def _prefetch(batches: Iterable, size: int, device: torch.device
+              ) -> Iterator:
     if device.type != "cuda":
         yield from batches
         return

@@ -1,5 +1,6 @@
 """Small layers with torch-compatible parameter naming (port of
-``fnssl_tpu/models/layers.py``: the parts that FN-SSL and IPDnet use)."""
+``fnssl_tpu/models/layers.py``: the parts that FN-SSL, IPDnet and
+IPDnet2 use)."""
 from __future__ import annotations
 
 import math
@@ -80,20 +81,14 @@ class Linear(nn.Module):
 class Conv2d(nn.Module):
     """nn.Conv2d's parameters (``weight`` (out, in, kh, kw)[, ``bias``])
     with torch's default init U(-1/sqrt(fan_in), 1/sqrt(fan_in)), drawn
-    from ``generator``; stride 1, explicit (h, w) padding.
-
-    float32 means float32 here, as for the port's matrix products (whose
-    TF32 is off by default): built on a CUDA device, it turns off cuDNN's
-    TF32 (``torch.backends.cudnn.allow_tf32``, on by default), for the
-    process, since a convolution's backward reads the flag when it runs.
-    """
+    from ``generator``; stride 1, explicit (h, w) padding; full float32 on
+    the card (``_full_fp32_convs``)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: tuple[int, int], *,
                  bias: bool = True, padding=((0, 0), (0, 0)), device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if device is not None and torch.device(device).type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
+        _full_fp32_convs(device)
         self.padding = padding
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, *kernel,
                                                device=device))
@@ -107,6 +102,54 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d(x, self.weight, self.bias, self.padding)
+
+
+def conv1d(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor | None = None, groups: int = 1,
+           padding=(0, 0)) -> torch.Tensor:
+    """NCL conv with OIL weights, ``groups`` and explicit (left, right)
+    padding (``lax.conv_general_dilated`` in the JAX package, cuDNN
+    here), in the promoted dtype of input and weight."""
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    if padding[0] != padding[1]:
+        x = F.pad(x, tuple(padding))
+        padding = (0, 0)
+    return F.conv1d(x.to(dt), weight.to(dt),
+                    None if bias is None else bias.to(dt),
+                    padding=padding[0], groups=groups)
+
+
+def _full_fp32_convs(device) -> None:
+    """float32 means float32 here, as for the port's matrix products (whose
+    TF32 is off by default): a convolution built on a CUDA device turns off
+    cuDNN's TF32 (``torch.backends.cudnn.allow_tf32``, on by default) for
+    the process, since a convolution's backward reads the flag when it
+    runs."""
+    if device is not None and torch.device(device).type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+
+
+class Conv1d(nn.Module):
+    """nn.Conv1d's parameters (``weight`` (out, in/groups, k), ``bias``)
+    with torch's default init U(-1/sqrt(fan_in), 1/sqrt(fan_in)), drawn
+    from ``generator``; stride 1, explicit (left, right) padding; full
+    float32 on the card, as ``Conv2d``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, *,
+                 groups: int = 1, padding=(0, 0), device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        _full_fp32_convs(device)
+        self.groups, self.padding = groups, padding
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups,
+                                               kernel, device=device))
+        self.bias = nn.Parameter(torch.empty(out_ch, device=device))
+        k = 1.0 / math.sqrt(in_ch // groups * kernel)
+        uniform_(self.weight, k, generator)
+        uniform_(self.bias, k, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv1d(x, self.weight, self.bias, self.groups, self.padding)
 
 
 class PReLU(nn.Module):

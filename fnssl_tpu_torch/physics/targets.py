@@ -1,11 +1,12 @@
-"""Training-target assembly (port of ``fnssl_tpu/physics/targets.py``
-but ``energy_vad``, which is IPDnet2's): vectorised replacements for the
-reference's python-loop target plumbing —
+"""Training-target assembly (port of ``fnssl_tpu/physics/targets.py``):
+vectorised replacements for the reference's python-loop target
+plumbing —
 
   * FN-SSL single-source masking (Lightning/main.py:237-259);
   * IPDnet's Bessel non-source fill, the nb×nt×ns loop at
     runIPDnetOn.py:279-283, as one ``torch.where``;
-  * the direct-path VAD (runIPDnetOn.py:224-235).
+  * the direct-path VAD (runIPDnetOn.py:224-235);
+  * IPDnet2's log-energy VAD of a RealMAN recording (host numpy).
 """
 from __future__ import annotations
 
@@ -96,3 +97,17 @@ def dp_vad(dp_stft: torch.Tensor, mix_stft: torch.Tensor,
     nb, nt, ns = vad.shape
     t2 = nt // pool
     return vad[:, : t2 * pool].reshape(nb, t2, pool, ns).mean(dim=2)
+
+
+def energy_vad(signal: np.ndarray, fs: int = 16000, win_s: float = 0.1,
+               threshold: float = -2.5) -> np.ndarray:
+    """Log-FFT-energy VAD over 0.1 s windows (RealMAN recordings).
+
+    Parity: IPDnet2/RecordData.py:41-55. Host-side numpy (data pipeline).
+    """
+    win = int(fs * win_s)
+    nwin = len(signal) // win
+    x = signal[: nwin * win].reshape(nwin, win)
+    spec = np.fft.fft(x, axis=1)[:, : win // 2]  # reference keeps fft half
+    energy = np.log10(np.sum(np.abs(spec) ** 2, axis=1) + 1e-10)
+    return (energy >= threshold).astype(np.float32)

@@ -1,5 +1,5 @@
 """Real-time chunked localization runtime (port of
-``fnssl_tpu/runtime/streaming.py`` for FN-SSL and IPDnet).
+``fnssl_tpu/runtime/streaming.py``).
 
 Every stage carries explicit streaming state —
 
@@ -8,7 +8,7 @@ Every stage carries explicit streaming state —
 
 so chunked output equals the one-shot pipeline. Audio can be pushed in
 pieces of any size; the model step fires whenever a full frame-chunk (12
-frames for FN-SSL and IPDnet) is buffered.
+frames for FN-SSL and IPDnet, 5 for IPDnet2) is buffered.
 
 Placement: the front-end runs on the ``device`` the localizer is given,
 and the model step on the model's device. Serving passes the CPU for the
@@ -37,7 +37,12 @@ class StreamingLocalizer:
         ``make_fnssl_stream_step`` or any callable carrying its own state.
       nch: microphone count.
       ch_mode: 'M'/'MM' pair features, or 'none' (all channels).
-      frames_per_step: model chunk size (12 for FN-SSL).
+      frames_per_step: model chunk size (12 for FN-SSL, 5 for IPDnet2).
+      center: the STFT convention of IPDnet2 (torch.stft center=True): the
+        one-shot reflect pad of nfft//2 at the signal start becomes a
+        one-time prefix built from the first nfft//2+1 samples; frames are
+        then cut as with center=False. (The one-shot end pad has no live
+        counterpart: those tail frames fire once real audio fills them.)
       device: where the front-end runs; None is the first CUDA device.
     """
 
@@ -45,7 +50,7 @@ class StreamingLocalizer:
                  ch_mode: str = "MM", win_len: int = 512, hop: int = 256,
                  nfft: int = 512, sample_length: int = 298,
                  frames_per_step: int = 12, eps: float = 1e-6,
-                 device=None):
+                 center: bool = False, device=None):
         self.model_step = model_step
         self.device = resolve_device(device)
         self.nch = nch
@@ -54,6 +59,7 @@ class StreamingLocalizer:
         self.sample_length = sample_length
         self.frames_per_step = frames_per_step
         self.eps = eps
+        self._need_prefix = bool(center)
         rows = num_pairs(nch, ch_mode) if ch_mode != "none" else 1
         self._norm_state = init_state(rows, self.device)
         self._samples = np.zeros((0, nch), np.float32)
@@ -64,6 +70,13 @@ class StreamingLocalizer:
     def _frame_chunk(self) -> torch.Tensor | None:
         """Consume buffered samples into STFT frames (exact one-shot
         framing: frames advance by hop, each sees win_len samples)."""
+        if self._need_prefix:
+            pad = self.nfft // 2
+            if self._samples.shape[0] < pad + 1:
+                return None
+            prefix = self._samples[pad:0:-1]         # np.pad mode="reflect"
+            self._samples = np.concatenate([prefix, self._samples], axis=0)
+            self._need_prefix = False
         n = self._samples.shape[0]
         if n < self.win_len:
             return None
@@ -148,6 +161,29 @@ def make_ipdnet_stream_step(model, nf: int = 256):
         if state["s"] is None:
             state["s"] = init_ipdnet_state(feats.shape[0], nf, model.cfg,
                                            model.device)
+        with torch.inference_mode():
+            out, state["s"] = model(feats, state=state["s"],
+                                    return_state=True)
+        return out
+
+    return step
+
+
+def make_spatialnet_stream_step(model):
+    """Stateful IPDnet2 chunk step for StreamingLocalizer: one
+    ``SpatialNet`` chunk forward on the model's device (5 frames, 100 ms
+    at hop 320), carrying the encoder's conv tail and both Mamba states of
+    every layer (chunks of a multiple of 5 frames give the one-shot
+    output)."""
+    from fnssl_tpu_torch.models.spatialnet import init_spatialnet_state
+
+    state = {"s": None}
+
+    def step(feats: torch.Tensor) -> torch.Tensor:
+        feats = feats.to(model.device)
+        if state["s"] is None:
+            state["s"] = init_spatialnet_state(feats.shape[0], model.cfg,
+                                               model.device)
         with torch.inference_mode():
             out, state["s"] = model(feats, state=state["s"],
                                     return_state=True)

@@ -1,5 +1,5 @@
 """Training tasks: preprocessing + model + loss as one function (port of
-``fnssl_tpu/train/tasks.py`` but ``make_ipdnet2_task``).
+``fnssl_tpu/train/tasks.py``).
 
 Each ``make_*_task`` builds ``loss_fn(module, batch, generator) ->
 scalar`` for ``train.step.make_train_step``: the reference's
@@ -18,13 +18,17 @@ from torch.utils.checkpoint import checkpoint
 from fnssl_tpu_torch.core.stft import num_frames
 from fnssl_tpu_torch.models.fnssl import FNSSLConfig
 from fnssl_tpu_torch.models.ipdnet import IPDnetConfig, VariableIPDnetConfig
-from fnssl_tpu_torch.physics.dpipd import DPIPD
-from fnssl_tpu_torch.physics.targets import bessel_nonsource_target
+from fnssl_tpu_torch.data.arrays import audiowu_high_array_geometry
+from fnssl_tpu_torch.models.spatialnet import SpatialNetConfig
+from fnssl_tpu_torch.physics.dpipd import DPIPD, DPIPD2
+from fnssl_tpu_torch.physics.targets import (bessel_nonsource_target,
+                                             vad_gate_with_nonsource)
 from fnssl_tpu_torch.train.losses import (ce_doa_loss, mse_ipd_loss,
                                           pit_mse_loss)
 from fnssl_tpu_torch.train.precision import wrap_apply
 from fnssl_tpu_torch.train.preprocess import (make_fnssl_preprocess,
-                                              make_ipdnet_preprocess)
+                                              make_ipdnet_preprocess,
+                                              stft_features)
 from fnssl_tpu_torch.utils.device import resolve_device
 
 # 2-mic linear array at ±4 cm — the FN-SSL training array
@@ -228,6 +232,78 @@ def make_ipdnet_offline_task(cfg=None,
     return _ipdnet_task(cfg, mic_location, "M", nfft, fs, speed,
                         vad_threshold, remat, precision, device,
                         norm="offline")
+
+
+# the 5-mic subset of the Westlake 32-mic array IPDnet2 trains on (RealMAN)
+IPDNET2_MIC_IDS = (0, 1, 3, 5, 7)
+IPDNET2_KEYS = ("mic_sig", "azi_deg", "distance", "vad", "mic_pos")
+
+
+def make_ipdnet2_task(cfg=None, mic_location: np.ndarray | None = None,
+                      nfft: int = 512, fs: int = 16000,
+                      speed: float = 340.0, remat: bool = False,
+                      precision: str = "fp32", feats_sharding=None,
+                      device=None) -> IPDnetTask:
+    """IPDnet2/OnlineSpatialNet near-field task (run_IPDnet2.py:82-339):
+    STFT center=True hop 0.625, forgetting-norm L=249, all channels;
+    near-field DP-IPD targets (``DPIPD2``) from the batch's own array
+    topology; the Bessel non-source fill where a track's VAD is 0; the
+    frame-level PIT MSE after the reconcile of pred and target frame
+    counts (run_IPDnet2.py:183-189).
+
+    Batch contract: dict (numpy arrays or tensors) with
+      'mic_sig' (nb, nsample, nch),
+      'azi_deg' (nb, nt2, ns) azimuth targets in degrees (10 Hz stream),
+      'distance' (nb, nt2, ns) meters,
+      'vad' (nb, nt2, ns),
+      'mic_pos' (nb, nmic, 3) per-batch topology;
+    moved to ``device`` (the first CUDA device unless given). ``remat``,
+    ``precision`` and ``loss_fn``'s generator as in ``make_fnssl_task``
+    (the model has no dropout). ``feats_sharding`` (the JAX package's
+    frequency-sharded mesh) is not ported yet.
+    """
+    if feats_sharding is not None:
+        raise NotImplementedError("make_ipdnet2_task(feats_sharding=...): "
+                                  "not ported yet")
+    device = resolve_device(device)
+    if mic_location is None:
+        mic_location = audiowu_high_array_geometry()[list(IPDNET2_MIC_IDS)]
+    nmic = mic_location.shape[0]
+    if cfg is None:
+        cfg = SpatialNetConfig(dim_input=2 * nmic, dim_output=4 * (nmic - 1))
+    dpipd2 = DPIPD2(ndoa_candidate=[1, 180], mic_location=mic_location,
+                    nf=nfft // 2 + 1, fre_max=fs / 2, ch_mode="M",
+                    speed=speed)
+    nonsource = torch.as_tensor(bessel_nonsource_target(
+        mic_location, fre_used=slice(1, nfft // 2 + 1), nf=nfft // 2 + 1,
+        fre_max=fs / 2, speed=speed), dtype=torch.float32, device=device)
+    fre_used = slice(1, nfft // 2 + 1)
+
+    def preprocess(mic_sig, azi_deg, distance, vad, mic_pos):
+        feats = stft_features(mic_sig, ch_mode="none", win_len=nfft,
+                              win_shift_ratio=0.625, nfft=nfft,
+                              center=True, sample_length=249)
+        ele = torch.full_like(azi_deg, 90.0)
+        doa = torch.stack([ele, azi_deg], dim=2) * (np.pi / 180.0)
+        ipd = dpipd2.targets(doa, distance, mic_pos)
+        ipd = torch.cat([ipd.real[:, :, fre_used], ipd.imag[:, :, fre_used]],
+                        dim=2).float()
+        return feats, {"ipd": vad_gate_with_nonsource(ipd, vad, nonsource,
+                                                      threshold=0.0)}
+
+    apply_fn = wrap_apply(_remat(_apply_module) if remat else _apply_module,
+                          precision)
+
+    def loss_fn(module, batch, generator=None):
+        b = {k: torch.as_tensor(batch[k], device=device)
+             for k in IPDNET2_KEYS}
+        feats, gt = preprocess(*(b[k] for k in IPDNET2_KEYS))
+        pred = apply_fn(dict(module.named_parameters()), feats,
+                        module=module, generator=generator)
+        nt = min(pred.shape[1], gt["ipd"].shape[1])
+        return pit_mse_loss(pred[:, :nt], gt["ipd"][:, :nt])
+
+    return IPDnetTask(loss_fn, preprocess, cfg, dpipd2)
 
 
 def synthetic_fnssl_batch(nb: int = 2, t_s: float = 4.79, fs: int = 16000,

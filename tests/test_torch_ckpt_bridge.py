@@ -105,3 +105,39 @@ def test_bridge_takes_the_ipdnet_models(tmp_path, model):
         served = load_model("ipdnet", str(tmp_path), 2, "cpu")
         for name, value in served.state_dict().items():
             assert torch.equal(value, sd[name]), name
+
+
+def test_bridge_takes_ipdnet2(tmp_path, monkeypatch):
+    """A JAX IPDnet2 fit's checkpoints (the train state under AdamW with a
+    clip of 5, as its ``cli fit``) become a best_model.tar that ``cli
+    serve``'s loader takes strictly, bit for bit. Both packages'
+    ``SpatialNetConfig`` at 2 layers, hidden 16: the tool builds its
+    template from eager JAX draws, one compile each."""
+    import fnssl_tpu.models.spatialnet as js
+    import fnssl_tpu_torch.models.spatialnet as ts
+    import fnssl_tpu_torch.train.tasks as ttasks
+
+    for mod in (js, ts, ttasks):
+        monkeypatch.setattr(mod, "SpatialNetConfig", lambda _o=getattr(
+            mod, "SpatialNetConfig"), **kw: _o(**{"num_layers": 2,
+                                                  "dim_hidden": 16, **kw}))
+    cfg = js.SpatialNetConfig(dim_input=10, dim_output=16)
+    jinit = jax.jit(js.init_spatialnet_params, static_argnums=1)
+    best, last = (jinit(jax.random.PRNGKey(k), cfg) for k in (3, 4))
+    state = init_train_state(best, make_optimizer("adamw", grad_clip=5.0))
+    mgr = CheckpointManager(os.path.join(tmp_path, "ckpt"))
+    mgr.save(0, state._replace(params=last), 0.5)
+    mgr.save(1, state, 0.25)
+    mgr.close()
+
+    path = load_tool().main(["--log-dir", str(tmp_path), "--model",
+                             "ipdnet2"])
+    sd, meta = load_torch_tar(path)
+    assert meta["epoch"] == 1
+    for name, value in nested_to_flat(best).items():
+        assert np.array_equal(sd[name].numpy().view(np.uint32),
+                              value.view(np.uint32)), name
+    served = load_model("ipdnet2", str(tmp_path), 2, "cpu")
+    assert sorted(served.state_dict()) == sorted(sd)
+    for name, value in served.state_dict().items():
+        assert torch.equal(value, sd[name]), name

@@ -251,12 +251,12 @@ def test_config_yaml_sets_defaults_and_flags_win(workdir):
       "--process-id", "0"], "not ported yet"),
     (["fit", "--profile", "1"], "--profile: not ported yet"),
     (["fit", "--debug-nans"], "--debug-nans: not ported yet"),
-    (["fit", "--model", "ipdnet2"], "fit --model ipdnet2: not ported yet"),
+    (["fit", "--model", "ipdnet2"], "ipdnet2 trains on RealMAN"),
     (["fit", "--model", "ipdnet2", "--realman-csv", "t.csv"],
-     "--realman-csv: not ported yet"),
+     "pass --realman-csv and --realman-noise"),
     (["fit", "--model", "ipd_baseline"], "model-free"),
-    (["test", "--model", "ipdnet2"], "not ported yet"),
-    (["test", "--model", "ipdnet2", "--best"], "not ported yet"),
+    (["test", "--model", "ipdnet2"], "ipdnet2 tests on RealMAN"),
+    (["test", "--model", "ipdnet2", "--best"], "pass --realman-csv"),
 ])
 def test_cli_unported_options_say_so(workdir, argv, match):
     dirs = {"fit": ["--train-dir", "data/train", "--valid-dir", "data/dev",

@@ -220,6 +220,21 @@ def test_prefetch_to_device_passes_batches_through_on_the_cpu():
     assert len(got) == 5 and all(g is w for g, w in zip(got, batches_))
 
 
+def test_prefetch_to_device_defaults_to_the_card(monkeypatch):
+    """``device=None`` is the first CUDA device, as for every entry point:
+    where there is none it raises at the call, and takes no batch."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    taken = []
+
+    def batches_():
+        taken.append(1)
+        yield {"mic_sig": np.zeros((2, 3), np.float32)}
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdata.prefetch_to_device(batches_(), size=2)
+    assert taken == []
+
+
 @pytest.mark.cuda
 def test_prefetch_to_device_lands_every_batch_on_the_card():
     """Each batch, read on the compute stream while the copies of the next

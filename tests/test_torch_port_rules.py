@@ -41,9 +41,10 @@ def test_port_imports_no_jax_and_no_fnssl_tpu():
     for name in ("data.simu", "data.loader", "sim.native", "eval.metrics",
                  "train.learner", "train.checkpoint", "parallel",
                  "models.ipdnet", "eval.pred_doa", "physics.targets",
-                 "train.tasks", "runtime.streaming"):
+                 "train.tasks", "runtime.streaming", "models.mamba",
+                 "models.spatialnet", "kernels.ssm_cuda", "data.realman"):
         assert f"fnssl_tpu_torch.{name}" in out["modules"]
-    assert len(out["modules"]) >= 55
+    assert len(out["modules"]) >= 59
 
 
 @pytest.fixture
@@ -56,18 +57,22 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
     from fnssl_tpu_torch.eval.pred_doa import PredDOA, PredDOAMultiTrack
     from fnssl_tpu_torch.models.fnssl import FNSSL
     from fnssl_tpu_torch.models.ipdnet import IPDnet, VariableIPDnet
+    from fnssl_tpu_torch.data.loader import prefetch_to_device
     from fnssl_tpu_torch.models.lstm import LSTM
+    from fnssl_tpu_torch.models.spatialnet import SpatialNet
     from fnssl_tpu_torch.runtime.streaming import StreamingLocalizer
     from fnssl_tpu_torch.train.tasks import (DUALCH_MIC_LOCATION,
+                                             make_ipdnet2_task,
                                              make_ipdnet_task)
 
     for make in (FNSSL, lambda: LSTM(4, 32), PredDOA,
                  lambda: StreamingLocalizer(lambda f: f, nch=2), IPDnet,
                  VariableIPDnet, make_ipdnet_task,
-                 lambda: PredDOAMultiTrack(DUALCH_MIC_LOCATION)):
+                 lambda: PredDOAMultiTrack(DUALCH_MIC_LOCATION), SpatialNet,
+                 make_ipdnet2_task, lambda: prefetch_to_device([])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
-    for model in ("fnssl", "ipdnet"):
+    for model in ("fnssl", "ipdnet", "ipdnet2"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["serve", "--model", model, "--port", "0", "--log-dir",
                   str(tmp_path)])
@@ -88,6 +93,13 @@ def test_training_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
               str(tmp_path), "--log-dir", log_dir])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["test", "--data-dir", str(tmp_path), "--log-dir", log_dir])
+    realman = ["--realman-csv", "t.csv", "--realman-noise", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["fit", "--model", "ipdnet2", "--train-dir", str(tmp_path),
+              "--valid-dir", str(tmp_path), "--log-dir", log_dir] + realman)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["test", "--model", "ipdnet2", "--data-dir", str(tmp_path),
+              "--log-dir", log_dir] + realman)
     assert not (tmp_path / "runs").exists()
 
 
@@ -120,3 +132,37 @@ def test_cluster_kernel_source_ships_with_the_package():
     assert "cudaLaunchAttributeClusterDimension" in text
     assert (cuda_build.library_path("lstm_cluster").parent
             == cuda_build.BUILD_DIR)
+
+
+def test_ssm_kernel_source_ships_with_the_package():
+    from fnssl_tpu_torch.kernels import cuda_build, ssm_cuda
+
+    text = (cuda_build.CSRC / "ssm_scan.cu").read_text()
+    for name in ("ssm_scan_fwd", "ssm_scan_bwd"):
+        assert f'extern "C" int {name}(' in text
+        assert name in ssm_cuda._ARGTYPES
+    assert "fnssl_tpu/models/mamba.py: ssm_scan" in text
+    assert (cuda_build.library_path("ssm_scan").parent
+            == cuda_build.BUILD_DIR)
+
+
+def test_ssm_wrappers_take_the_plain_version_on_the_cpu_only():
+    """CPU tensors run the plain scan without moving a launch counter;
+    inputs the kernels do not take raise."""
+    from fnssl_tpu_torch.kernels import ssm_cuda
+
+    gen = torch.Generator().manual_seed(0)
+    da = torch.rand(2, 3, 8, 16, generator=gen)
+    dbx, c = torch.randn(2, 3, 8, 16, generator=gen), torch.randn(2, 3, 16)
+    h0 = torch.randn(2, 8, 16, generator=gen)
+    before = (ssm_cuda.launches_ssm_fwd.value,
+              ssm_cuda.launches_ssm_bwd.value)
+    y, h = ssm_cuda.ssm_scan_fwd(da, dbx, c, h0)
+    ssm_cuda.ssm_scan_bwd(da, dbx, c, h0, torch.ones_like(y), h)
+    assert (ssm_cuda.launches_ssm_fwd.value,
+            ssm_cuda.launches_ssm_bwd.value) == before
+    assert y.shape == (2, 3, 8) and h.shape == (2, 8, 16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssm_cuda.ssm_scan_fwd(da.double(), dbx.double(), c.double(), h0)
+    with pytest.raises(ValueError, match="c must be"):
+        ssm_cuda.ssm_scan_fwd(da, dbx, c[:, :2], h0)

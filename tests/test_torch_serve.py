@@ -161,8 +161,7 @@ def test_cli_serve_wiring(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["predict", "--wav", "x.wav"],
-                                  ["serve", "--model", "ipdnet2",
-                                   "--platform", "cpu"]])
+                                  ["stream", "--wav", "x.wav"]])
 def test_cli_unported_paths_say_so(argv):
     from fnssl_tpu_torch.cli.main import main
 

@@ -4,16 +4,17 @@ the PyTorch port's ``cli serve`` loads.
 
   python tools/jax_ckpt_to_tar.py --log-dir D [--model fnssl] [--seed N]
 
-``--model`` is one of fnssl, fnssl_doa, ipdnet, ipdnet_offline and
-variable_ipdnet: the models whose ``cli fit`` checkpoints plain Adam.
+``--model`` is one of fnssl, fnssl_doa, ipdnet, ipdnet_offline,
+variable_ipdnet (whose ``cli fit`` checkpoints plain Adam) and ipdnet2
+(AdamW with a global-norm clip of 5; the task's mic subset from
+``--mic-ids``, 0,1,3,5,7 by default, as ``cli fit``).
 
 fnssl_tpu's ``cli fit`` keeps orbax checkpoints under ``D/ckpt`` (the
 top-k epochs by validation loss, and the last), and its ``serve``
 restores the best of them. fnssl_tpu_torch's ``serve`` reads
 ``D/best_model.tar`` and cannot read orbax without JAX. This tool builds
 the train state that ``cli fit`` checkpointed (the task's parameters
-from ``--seed`` and plain Adam, as ``_restore_learner`` does for the
-FN-SSL and IPDnet models), restores the best epoch by validation loss
+from ``--seed`` and the model's optimizer, as ``_restore_learner`` does), restores the best epoch by validation loss
 into it (as ``serve`` does with ``best=True``), and writes its
 parameters to
 ``D/best_model.tar`` with ``fnssl_tpu.train.convert.save_torch_tar``;
@@ -38,7 +39,9 @@ def main(argv=None) -> str:
                          "<log-dir>/ckpt); best_model.tar is written there")
     ap.add_argument("--model", default="fnssl",
                     choices=["fnssl", "fnssl_doa", "ipdnet", "ipdnet_offline",
-                             "variable_ipdnet"])
+                             "variable_ipdnet", "ipdnet2"])
+    ap.add_argument("--mic-ids", default="0,1,3,5,7",
+                    help="the RealMAN mic subset of an ipdnet2 fit")
     ap.add_argument("--seed", type=int, default=2,
                     help="seed of the template the checkpoint is restored "
                          "into, as for `cli fit`; the values come from the "
@@ -55,8 +58,10 @@ def main(argv=None) -> str:
     if not os.path.isdir(ckpt_dir):
         raise SystemExit(f"jax_ckpt_to_tar: no checkpoint under {ckpt_dir}")
     task = _make_task(args.model, args)
+    tx = (make_optimizer("adamw", grad_clip=5.0) if args.model == "ipdnet2"
+          else make_optimizer("adam"))
     template = init_train_state(_init_params(args.model, task, args.seed),
-                                make_optimizer("adam"))
+                                tx)
     mgr = CheckpointManager(ckpt_dir)
     try:
         epoch = mgr.best_epoch()
