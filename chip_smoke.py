@@ -11,7 +11,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
                started together.
   3. kernels — each kernel against its plain PyTorch version on the card:
                the cluster kernel through lstm_fwd (both directions) and
-               lstm_fwd_bidir at the main path's shapes and at edge cases
+               lstm_fwd_bidir at the main path's shapes, at the 16-slot
+               tick's (FN-SSL's and IPDnet's, phase 24) and at edge cases
                (B 1/11/13/17, T 0/1/2/7, H 32/64/128/256), fp32 and bf16,
                nonzero h0/c0; lstm_fwd.cu at H = 512, its only use.
   4. serve   — `cli serve --model fnssl` at full width (fresh weights from
@@ -102,7 +103,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
  17. ipdnet2 kernels — K3 and K4 (ssm_scan.cu) against their plain
                versions at every scan shape of the IPDnet2 paths (training
                B 256 at L 201 and 40, the forward cell's L 200, serve B 16
-               at L 5 and 1, d 192) and edge cases (B 1/3/13, L 0/1/2/7, d
+               at L 5 and 1, the 16-slot tick's B 256 at L 5 and 1, d
+               192) and edge cases (B 1/3/13, L 0/1/2/7, d
                32/192), fp32 and bf16 inputs.
  18. ipdnet2 serve — `cli serve --model ipdnet2` (SpatialNetConfig(),
                weights from --seed) on cuda:0, 3 TCP connections of 5 s of
@@ -127,8 +129,40 @@ Phases, each fatal on failure (exit code != 0, no result line):
                `test`, `test --best` (each test loss equal to the restored
                epoch's valid loss: the same items and seed), `serve` from
                its best_model.tar; exact launches.
+ 22. predict — `cli predict` of fnssl, fnssl_doa, ipdnet and ipdnet2 on a 5
+               s wav (5 channels for IPDnet2; fresh weights from --seed):
+               exact launches (6 K1, 6, 4 K1, 16 K3 a forward: B = 1 over
+               the whole wav), the output within 1e-3 of the same weights'
+               plain run on the CPU, the dumped DOAs equal to the CPU's
+               decode but at exact ties; and ipd_baseline (host only).
+ 23. stream  — `cli stream` of each causal model (192 ms pushes): exact
+               launches, the RTF, each chunk's DOA and VAD equal to the
+               serve path's session on the same pushes.
+ 24. slots   — `cli serve --slots 16` of fnssl, ipdnet and ipdnet2: the
+               pool captures tiers 1, 4 and 16 as CUDA graphs; 16
+               concurrent TCP connections (25 chunk steps each, 50 for
+               IPDnet2), each held against a dedicated stream of its audio
+               on the card (outputs 1e-3, DOAs but at exact ties); the
+               live run traced by torch.profiler: no wrapper launches (each
+               tick a graph replay), and the K1/K3 kernels in the trace
+               equal each tier's traced replay x its replays; a replay of
+               each tier equal to the tier run eagerly (1e-6), both running
+               one chunk step's kernels;
+               the ms a tick per tier, ticks, mean occupancy, aggregate
+               chunk steps a second, RTF per connection. Then K1 and K3 at
+               the 16-slot tier's shapes (as phases 5 and 19).
+ 25. export  — `cli export --platforms cuda`: forward and stream artifacts
+               of fnssl, ipdnet and ipdnet2 and a forward artifact of
+               variable_ipdnet, each loaded without model code and held
+               against its module (forward 1e-5; stream chunk by chunk
+               against the one-shot forward, 1e-4) with the module's
+               launches; the fnssl stream artifact is exported for cuda
+               and cpu, its CPU program held against the card's (1e-3);
+               one `serve --artifact` TCP connection against a dedicated
+               stream.
 The line before the last is the kernels JSON line (each kernel's numbers
-over one train step's work); the last line is
+over one train step's work, its launches over every path); the last line
+is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -247,13 +281,14 @@ def counted(counter, n, fn, *args, **kwargs):
 
 
 def phase_kernels(device):
-    """K1 against its plain version on the card. Returns the worst errors
+    """K1 against its plain version on the card, at the serve, one-shot
+    and 16-slot tick shapes and the edge cases. Returns the worst errors
     by kernel and dtype, and the number of checks."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
     worst = {k: {"float32": 0.0, "bfloat16": 0.0, "bfloat16_ys": 0.0}
              for k in ("lstm_cluster", "lstm_fwd")}
-    cases = [(n, t, b, h) for n, t, b, h, _, _ in SHAPES]
+    cases = [(n, t, b, h) for n, t, b, h, _, _ in SHAPES + SLOT_SHAPES]
     cases += [("edge", t, b, h) for h in EDGE_H for b in EDGE_B
               for t in EDGE_T]
     cases += [("v2_h512", *V2_CASE)]
@@ -350,20 +385,53 @@ def serve_pipeline(model, seed, device):
     return make_fnssl_stream_step(net), dict(ch_mode="MM"), decode
 
 
-def cpu_reference(seed, sig, block, model="fnssl"):
-    """The same pipeline on the CPU, through the plain versions."""
+def reference_stream(seed, sig, block, model="fnssl", device="cpu"):
+    """The same pipeline as a dedicated stream (its own model step, batch
+    1) on `device`: through the plain versions on the CPU, the kernels on
+    the card. Returns each chunk's output (on the host), decoded DOAs
+    (degrees) and spectra."""
     from fnssl_tpu_torch.runtime.streaming import StreamingLocalizer
 
-    step, front, decode = serve_pipeline(model, seed, "cpu")
+    step, front, decode = serve_pipeline(model, seed, device)
     loc = StreamingLocalizer(step, nch=sig.shape[1], device="cpu", **front)
     outs, doas, ss = [], [], []
     for start in range(0, sig.shape[0], block):
         for out in loc.push(sig[start: start + block]):
-            res, spec = decode(out)
-            outs.append(out)
+            res, spec = decode(out.cpu())
+            outs.append(out.cpu())
             doas.append(np.degrees(res["doa"].numpy())[0])
             ss.append(spec.numpy())
     return outs, doas, ss
+
+
+def held_lines(label, msgs, doas, spectra):
+    """A server's DOA lines against a reference run's decoded DOAs
+    (degrees), chunk by chunk: equal to the 3 decimals sent, or, for a
+    track whose azimuth differs, an exact tie (1e-3) at the top of that
+    track's spectrum. Returns the lines that sat on a tie."""
+    mismatched = 0
+    for msg, want, spec in zip(msgs, doas, spectra):
+        got = np.asarray(msg["doa_deg"])
+        if np.allclose(got, np.round(want[0], 3), atol=1e-3):
+            continue
+        for k in range(got.shape[-1]):
+            if np.allclose(got[..., k], np.round(want[0][..., k], 3),
+                           atol=1e-3):
+                continue
+            top2 = np.sort(spec[k])[-2:]
+            if top2[1] - top2[0] > 1e-3:           # not an exact tie
+                raise AssertionError(f"{label} t={msg['t']}: served "
+                                     f"{msg['doa_deg']}, reference {want[0]}")
+        mismatched += 1
+    return mismatched
+
+
+def chunk_steps(model, n=int(SERVE_AUDIO_S * FS)):
+    """The chunk steps `n` samples fire: 12 frames of hop 256 a step, or
+    IPDnet2's 5 frames of hop 320 after the 256-sample reflect prefix."""
+    if model == "ipdnet2":
+        return ((n + 256 - 512) // 320 + 1) // 5
+    return ((n - 512) // 256 + 1) // 12
 
 
 def phase_serve(seed, device, model="fnssl"):
@@ -419,9 +487,7 @@ def phase_serve(seed, device, model="fnssl"):
     finally:
         server.shutdown()
 
-    n = int(SERVE_AUDIO_S * FS)
-    expected_steps = (((n + 256 - 512) // 320 + 1) // 5 if model == "ipdnet2"
-                      else ((n - 512) // 256 + 1) // 12)
+    expected_steps = chunk_steps(model)
     steps = 0
     for (s, d), msgs, rec in zip(conns, replies, sessions):
         n_steps = len(rec["ms"])
@@ -432,8 +498,8 @@ def phase_serve(seed, device, model="fnssl"):
         if not len(msgs) - 1 == n_steps == expected_steps:
             raise AssertionError(f"connection {s}: {len(msgs) - 1} lines "
                                  f"for {n_steps} chunk steps")
-        outs, doas, ss = cpu_reference(seed, make_audio(s, d, nch), block,
-                                       model)
+        outs, doas, ss = reference_stream(seed, make_audio(s, d, nch), block,
+                                          model)
         if len(outs) != n_steps:
             raise AssertionError(f"connection {s}: CPU fired {len(outs)}")
         out_err = max((g - w).abs().max().item()
@@ -441,23 +507,7 @@ def phase_serve(seed, device, model="fnssl"):
         if not out_err <= 1e-3:
             raise AssertionError(f"connection {s}: {model} output "
                                  f"max|diff| {out_err} vs the CPU > 1e-3")
-        mismatched = 0
-        for msg, want, spec in zip(msgs[:-1], doas, ss):
-            got = np.asarray(msg["doa_deg"])
-            if np.allclose(got, np.round(want[0], 3), atol=1e-3):
-                continue
-            # a track whose decoded azimuth differs must sit on an exact
-            # tie of its spatial spectrum
-            for k in range(got.shape[-1]):
-                if np.allclose(got[..., k], np.round(want[0][..., k], 3),
-                               atol=1e-3):
-                    continue
-                top2 = np.sort(spec[k])[-2:]
-                if top2[1] - top2[0] > 1e-3:       # not an exact tie
-                    raise AssertionError(
-                        f"connection {s} t={msg['t']}: served "
-                        f"{msg['doa_deg']}, CPU {want[0]}")
-            mismatched += 1
+        mismatched = held_lines(f"connection {s}", msgs[:-1], doas, ss)
         azis = [m["doa_deg"][1][0] for m in msgs[:-1]]
         log(f"  connection seed={s} delay={d:+d}: {n_steps} chunk steps, "
             f"eof ok, {model} max|diff| vs CPU {out_err:.3e}, DOAs equal "
@@ -822,6 +872,10 @@ def train_setup(seed, device, nb, precision="fp32"):
 
 COUNTED = ("lstm_cluster", "lstm_fwd", "lstm_bwd", "lstm_bwd_cluster",
            "ssm_scan_fwd", "ssm_scan_bwd")
+# their kernels' names in a device trace, in the same order
+TRACED = ("lstm_cluster_kernel", "lstm_fwd_kernel", "lstm_bwd_kernel",
+          "lstm_bwd_cluster_kernel", "ssm_fwd_kernel", "ssm_bwd_kernel")
+TRACE_GUARD = 256
 
 
 def launch_counters():
@@ -1872,13 +1926,13 @@ def ssm_held(what, got, want, worst, key):
 
 def phase_ssm_kernels(device):
     """K3 and K4 against their plain versions at every scan shape of the
-    IPDnet2 paths and at edge cases (B 1/3/13, L 0/1/2/7, d 32/192),
+    IPDnet2 paths (the 16-slot tick's too) and at edge cases (B 1/3/13, L 0/1/2/7, d 32/192),
     float32 and bfloat16 inputs. Returns the worst errors and the checks."""
     from fnssl_tpu_torch.kernels import ssm_cuda as S
 
     worst = {k: {"float32": 0.0, "bfloat16": 0.0}
              for k in ("ssm_scan_fwd", "ssm_scan_bwd")}
-    cases = [(n, b, t, d) for n, b, t, d in SSM_SHAPES]
+    cases = [(n, b, t, d) for n, b, t, d in SSM_SHAPES + SSM_SLOT_SHAPES]
     cases += [("edge", b, t, d) for d in SSM_EDGE_D for b in SSM_EDGE_B
               for t in SSM_EDGE_L]
     seed, checks = 5000, 0
@@ -1927,7 +1981,7 @@ def ssm_bound_terms(batch, steps, dim, itemsize):
                  for nbytes, flops in (k3, k4))
 
 
-def phase_ssm_times(device):
+def phase_ssm_times(device, shapes=SSM_SHAPES):
     """K3 and K4 at each scan shape of the IPDnet2 paths (CUDA events,
     warm), float32 and bfloat16 inputs, beside their bound and their plain
     versions (float32). No PyTorch call computes a selective scan: there
@@ -1935,7 +1989,7 @@ def phase_ssm_times(device):
     from fnssl_tpu_torch.kernels import ssm_cuda as S
 
     rows = []
-    for name, b, t, d in SSM_SHAPES:
+    for name, b, t, d in shapes:
         row = {"shape": name, "B": b, "L": t, "d": d}
         for dtype in (torch.float32, torch.bfloat16):
             x = ssm_inputs(b, t, d, dtype, device, 7)
@@ -2243,6 +2297,582 @@ def phase_ipdnet2_fit(seed, device, card):
     return report, dict(zip(COUNTED, total))
 
 
+# phases 22-25: the inference entry points, at the published widths. K1 (or
+# K3) launches of one forward or chunk step, in COUNTED's order
+INFER_MODELS = ("fnssl", "fnssl_doa", "ipdnet", "ipdnet2")
+FORWARD_LAUNCHES = {"fnssl": CHUNK_LAUNCHES["fnssl"],
+                    "fnssl_doa": CHUNK_LAUNCHES["fnssl"],
+                    "ipdnet": CHUNK_LAUNCHES["ipdnet"],
+                    "ipdnet2": CHUNK_LAUNCHES["ipdnet2"]}
+STREAM_BLOCK = int(FS * 0.192)            # `cli stream`'s default push
+# serve --slots: 16 slots, 16 concurrent TCP connections of SERVE_AUDIO_S
+# (25 chunk steps; 50 for IPDnet2), ticks timed a tier
+SLOTS, SLOT_MODELS, TIER_ITERS = 16, ("fnssl", "ipdnet", "ipdnet2"), 20
+# the same connections through the eager per-connection serve path, as the
+# yardstick of the pool's aggregate rate (IPDnet2's ~42 ms eager step
+# would add half a minute)
+EAGER_BASELINE = ("fnssl", "ipdnet")
+# the recurrences of a 16-slot tick: (name, T, B, H, I, ndir), B = 16 x
+# a stream's rows (12 frames full band, 256 bins narrow band)
+SLOT_SHAPES = [("slots16_fullband", 256, 16 * 12, 128, 256, 2),
+               ("slots16_narrowband", 12, 16 * 256, 256, 256, 1),
+               ("ipdnet_slots16_fullband", 256, 16 * 12, 64, 4, 2),
+               ("ipdnet_slots16_narrowband", 12, 16 * 256, 128, 132, 1)]
+# and IPDnet2's scans of a 16-slot tick: B = 16 x 16 compressed bins
+SSM_SLOT_SHAPES = [("slots16_layer0", 256, 5, 192),
+                   ("slots16_layers1_7", 256, 1, 192)]
+# phase 25: (model, modes) of the artifacts exported for the card; the
+# CPU_TOO artifact also carries a CPU program (the ops' plain versions)
+EXPORT_PLATFORM, CPU_TOO = "cuda", ("fnssl", "stream")
+EXPORTS = (("fnssl", ("forward", "stream")), ("ipdnet", ("forward", "stream")),
+           ("ipdnet2", ("forward", "stream")), ("variable_ipdnet", ("forward",)))
+
+
+def spectra_of(model, pred, task):
+    """(tracks, frames, grid): the scores each decoded DOA is the argmax
+    of (the IPD decodes' spatial spectra per track, fnssl_doa's logits)."""
+    from fnssl_tpu_torch.eval.decode import spatial_spectrum
+    from fnssl_tpu_torch.eval.pred_doa import PredDOA, PredDOAMultiTrack
+
+    pred = pred.float().cpu()
+    nt = pred.shape[1]
+    if model == "fnssl_doa":
+        return pred[0][None].numpy()
+    if model == "fnssl":
+        res = PredDOA(device="cpu").predgt2doa(pred)[0]
+        return res["spatial_spectrum"].reshape(1, nt, -1).numpy()
+    dec = PredDOAMultiTrack(task.dpipd.mic_location, max_track=2,
+                            device="cpu")
+    return torch.stack([spatial_spectrum(pred[..., k], dec.template)
+                        .reshape(nt, -1) for k in range(pred.shape[-1])]
+                       ).numpy()
+
+
+def same_or_tie(label, got, want, spectra):
+    """Decoded DOAs (degrees; (frames, 2, tracks)) equal to 1e-3, or at an
+    exact tie (1e-3) at the top of that track's scores. Returns the
+    frames at a tie."""
+    ties = 0
+    for t in range(want.shape[0]):
+        for k in range(want.shape[-1]):
+            if np.allclose(got[t, ..., k], want[t, ..., k], atol=1e-3):
+                continue
+            top2 = np.sort(spectra[k, t])[-2:]
+            if top2[1] - top2[0] > 1e-3:
+                raise AssertionError(f"{label} frame {t} track {k}: "
+                                     f"{got[t, ..., k]} vs {want[t, ..., k]}")
+            ties += 1
+    return ties
+
+
+def quiet(fn, *args, **kwargs):
+    """fn(*args) with its standard output (the CLI's warnings) dropped."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def phase_predict(seed, device, tmp):
+    """`cli predict` of each model on a 5 s wav on the card (fresh weights
+    from `seed`; 5 channels for IPDnet2): exact launches (K1 or K3 at B =
+    1 over the whole wav); the raw output within 1e-3 of the same weights'
+    plain run on the CPU and the dumped DOAs equal to the CPU's decode
+    but at exact ties; and `ipd_baseline` (host only, no launch)."""
+    from fnssl_tpu_torch.cli.main import _task_for, load_model, predict
+    from fnssl_tpu_torch.utils.audio_io import write_audio
+
+    report, totals = {}, [0] * len(COUNTED)
+    for model in INFER_MODELS + ("ipd_baseline",):
+        sig = make_audio(seed + 300, 3, SERVE_NCH.get(model, 2))
+        wav, out = tmp / f"predict_{model}.wav", tmp / f"predict_{model}"
+        write_audio(str(wav), sig, FS)
+        want = FORWARD_LAUNCHES.get(model, [0] * len(COUNTED))
+        res, _, launched, secs = counted_cli(
+            ["predict", "--model", model, "--wav", str(wav), "--out",
+             str(out), "--seed", str(seed), "--log-dir", str(tmp / "none")],
+            want, f"predict {model}")
+        totals = [a + b for a, b in zip(totals, launched)]
+        doa = np.load(out / "doa_est.npy")
+        if not (np.isfinite(doa).all() and doa.shape[1] == res["frames"] > 0):
+            raise AssertionError(f"predict {model}: dump {doa.shape}, {res}")
+        if model == "ipd_baseline":
+            report[model] = {"frames": res["frames"], "seconds": secs}
+            log(f"  ipd_baseline: {res['frames']} frames, finite, "
+                f"{secs:.2f} s on the host")
+            continue
+        task, ctask = _task_for(model, device), _task_for(model, "cpu")
+        card = quiet(load_model, model, str(tmp / "none"), seed, device,
+                     cfg=task.cfg)
+        cpu = quiet(load_model, model, str(tmp / "none"), seed, "cpu",
+                    cfg=ctask.cfg)
+        got, _ = predict(model, card, task, sig, device)
+        ref, dec = predict(model, cpu, ctask, sig, "cpu")
+        err = (got.float().cpu() - ref.float()).abs().max().item()
+        if not err <= 1e-3:
+            raise AssertionError(f"predict {model}: output max|diff| {err} "
+                                 "vs the CPU > 1e-3")
+        ties = same_or_tie(f"predict {model}", doa[0],
+                           np.degrees(dec["doa"].numpy())[0],
+                           spectra_of(model, ref, ctask))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict(model, card, task, sig, device)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        report[model] = {"frames": res["frames"], "max_abs_err": err,
+                         "ties": ties, "cli_seconds": secs,
+                         "predict_ms": ms, "launches": launched}
+        log(f"  predict {model}: {res['frames']} frames, output max|diff| "
+            f"vs CPU {err:.3e}, DOAs equal (ties {ties}); a warm predict "
+            f"(front end, forward, decode) {ms:.2f} ms for "
+            f"{SERVE_AUDIO_S} s of audio")
+    return report, dict(zip(COUNTED, totals))
+
+
+def phase_stream(seed, device, tmp):
+    """`cli stream` of each causal model on the card (192 ms pushes of a
+    5 s wav): exact launches, its RTF, and each chunk's decoded DOA and
+    VAD equal to the serve path's session on the same audio and pushes."""
+    from fnssl_tpu_torch.cli.main import build_parser, build_server
+    from fnssl_tpu_torch.utils.audio_io import write_audio
+
+    report, totals = {}, [0] * len(COUNTED)
+    for model in INFER_MODELS:
+        sig = make_audio(seed + 310, -3, SERVE_NCH.get(model, 2))
+        wav, out = tmp / f"stream_{model}.wav", tmp / f"stream_{model}"
+        write_audio(str(wav), sig, FS)
+        steps = chunk_steps(model)
+        res, _, launched, secs = counted_cli(
+            ["stream", "--model", model, "--wav", str(wav), "--out",
+             str(out), "--seed", str(seed), "--log-dir", str(tmp / "none")],
+            [n * steps for n in FORWARD_LAUNCHES[model]], f"stream {model}")
+        totals = [a + b for a, b in zip(totals, launched)]
+        server, _ = quiet(build_server, build_parser().parse_args(
+            ["serve", "--model", model, "--port", "0", "--seed", str(seed),
+             "--log-dir", str(tmp / "none")]))
+        server._sock.close()
+        loc, decode = server.session_factory()
+        doas, vads = [], []
+        for start in range(0, sig.shape[0], STREAM_BLOCK):
+            for chunk in loc.push(sig[start: start + STREAM_BLOCK]):
+                r = decode(chunk)
+                doas.append(np.degrees(r["doa"].cpu().numpy())[0])
+                vads.append(r["vad_sources"].cpu().numpy()[0])
+        doa, vad = np.load(out / "doa_est.npy"), np.load(out / "vad_est.npy")
+        if not (len(doas) == steps and np.array_equal(
+                doa, np.concatenate(doas)) and np.allclose(
+                    vad, np.concatenate(vads), rtol=0, atol=1e-6)):
+            raise AssertionError(f"stream {model}: {len(doas)} chunks; the "
+                                 "dump differs from the serve path's")
+        report[model] = {"chunk_steps": steps, "rtf": res["rtf"],
+                         "cli_seconds": secs, "launches": launched}
+        log(f"  stream {model}: {steps} chunk steps, RTF {res['rtf']}, "
+            "each chunk's DOA and VAD equal to the serve session's")
+    return report, dict(zip(COUNTED, totals))
+
+
+def traced_launches(fn, *args):
+    """fn(*args) under torch.profiler, device activity only: its result
+    and the kernels of COUNTED that the card ran, counted by name in the
+    trace (CUPTI records every kernel node of a CUDA graph replay, which
+    calls no wrapper and moves no launch counter). A trace may lose its
+    first records (seen on the H100; only ever a run of them at its head),
+    so the window opens with TRACE_GUARD spin kernels and fails unless
+    some of them were recorded: what was lost came before fn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_GUARD):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        out = fn(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    guard = sum("spin_kernel" in n for n in names)
+    if not 0 < guard <= TRACE_GUARD:
+        raise AssertionError(f"the trace kept {guard} of its "
+                             f"{TRACE_GUARD} guard kernels")
+    return out, [sum(1 for n in names if re.search(rf"\b{k}\b", n))
+                 for k in TRACED]
+
+
+def tier_checks(stepper, rows, feat_shape, device, launches):
+    """Each tier of a warm pool: the ms a tick (host clock around
+    step_slots: features up, one replay, outputs down; TIER_ITERS ticks of
+    every slot of the tier active), and one replay, traced, against the
+    same tier run eagerly on the card from the same pool state (outputs
+    and state within 1e-6). The traced replay must run `launches` (one
+    chunk step's, COUNTED's order), as many as the eager tier's wrappers
+    launched. Returns the tiers' numbers and each replay's traced
+    kernels."""
+    rng = np.random.default_rng(0)
+    out, per_tick = {}, {}
+    counters = launch_counters()
+    for s in stepper.tier_sizes:
+        ids = np.arange(s)
+        feats = rng.standard_normal((s * rows,) + feat_shape).astype(
+            np.float32)
+        reset = np.zeros(s, bool)
+        ms = []
+        for _ in range(TIER_ITERS):
+            t0 = time.perf_counter()
+            stepper.step_slots(ids, feats, reset)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        before = [leaf.clone() for leaf in stepper._state]
+        got, per_tick[s] = traced_launches(stepper.step_slots, ids, feats,
+                                           reset)
+        after = [leaf.clone() for leaf in stepper._state]
+        for leaf, b in zip(stepper._state, before):
+            leaf.copy_(b)
+        n0 = [c.value for c in counters]
+        want = stepper._run_tier(
+            s, torch.as_tensor(feats, device=device),
+            torch.as_tensor(ids, device=device),
+            torch.zeros(s, dtype=torch.bool, device=device),
+            torch.ones(s, dtype=torch.bool, device=device)).cpu()
+        eager = [c.value - n for c, n in zip(counters, n0)]
+        if per_tick[s] != launches or eager != launches:
+            raise AssertionError(f"tier {s}: a replay ran {per_tick[s]} "
+                                 f"(trace), the eager tier {eager}, "
+                                 f"expected {launches}")
+        err = max([(got - want).abs().max().item()] + [
+            (a - b).abs().max().item()
+            for a, b in zip(after, stepper._state)])
+        if not err <= 1e-6:
+            raise AssertionError(f"tier {s}: replay vs eager max|diff| {err}")
+        ms = np.asarray(ms)
+        out[s] = {"ms_mean": float(ms.mean()),
+                  "ms_p90": float(np.percentile(ms, 90)),
+                  "replay_vs_eager_max_abs_err": err}
+    return out, per_tick
+
+
+def concurrent_connections(server, audios):
+    """One TCP connection a recording, all at once (each sends its audio
+    as fast as the server reads it), with every launch counter set to 0
+    just before and read just after. Returns the replies, the launches
+    (COUNTED's order) and the wall seconds."""
+    import threading
+
+    from fnssl_tpu_torch.runtime.server import stream_client
+
+    replies = [None] * len(audios)
+
+    def client(i):
+        replies[i] = stream_client("127.0.0.1", server.port, audios[i],
+                                   block=1600)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(audios))]
+    counters = launch_counters()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a connection did not finish")
+    return replies, [c.value for c in counters], wall
+
+
+def concurrent_eager(seed, model, audios, steps):
+    """The same connections through `cli serve` without --slots: each
+    connection's own eager chunk steps (the yardstick of the slot pool's
+    aggregate rate). Checked: eof, a line a chunk step, the launches."""
+    from fnssl_tpu_torch.cli.main import build_parser, build_server
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        server, _ = quiet(build_server, build_parser().parse_args(
+            ["serve", "--model", model, "--port", "0", "--seed", str(seed),
+             "--log-dir", log_dir]))
+    locs = []
+    make_session = server.session_factory
+
+    def tracked():
+        loc, decode = make_session()
+        locs.append(loc)
+        return loc, decode
+
+    server.session_factory = tracked
+    server.start()
+    try:
+        replies, launched, wall = concurrent_connections(server, audios)
+    finally:
+        server.shutdown()
+    n = len(audios) * steps
+    if launched != [k * n for k in CHUNK_LAUNCHES[model]] or any(
+            r[-1] != {"eof": True, "outputs": steps} for r in replies):
+        raise AssertionError(f"eager {model}: launches {launched}")
+    rtf = [loc.rtf for loc in locs]
+    log(f"  the same {len(audios)} connections without --slots (eager chunk "
+        f"steps a connection): {wall:.2f} s = {n / wall:.1f} chunk steps/s; "
+        f"RTF per connection min {min(rtf):.4f} max {max(rtf):.4f}")
+    return {"wall_s": wall, "chunk_steps_per_s": n / wall,
+            "rtf_per_connection": rtf, "launches": launched}
+
+
+def phase_slots(seed, device, model):
+    """`cli serve --model model --slots 16` on the card: the pool captures
+    tiers 1, 4 and 16 as CUDA graphs before traffic; 16 concurrent TCP
+    connections of 5 s of audio (25 chunk steps each, 50 for IPDnet2).
+    Checked: eof and a line a chunk step on each; each connection's
+    outputs within 1e-3 of a dedicated stream of the same audio on the
+    card (its own eager chunk steps at batch 1; another cluster plan) and
+    its DOAs equal but at exact ties; the live run traced: no wrapper
+    launched a kernel (every tick a graph replay) and the trace's K1/K3
+    kernels equal each tier's traced replay times its replays; each
+    tier's replay equal to the tier run eagerly, with the kernels of one
+    chunk step in both. Measured: capture seconds, the ms a tick per tier,
+    the ticks and mean occupancy of the live run, the aggregate chunk
+    steps a second, each connection's RTF; for EAGER_BASELINE, the same
+    connections without --slots."""
+    from fnssl_tpu_torch.cli.main import build_parser, build_server
+
+    nch = SERVE_NCH.get(model, 2)
+    with tempfile.TemporaryDirectory() as log_dir:
+        t0 = time.perf_counter()
+        server, info = quiet(build_server, build_parser().parse_args(
+            ["serve", "--model", model, "--slots", str(SLOTS), "--port",
+             "0", "--seed", str(seed), "--log-dir", log_dir]))
+        warm_s = time.perf_counter() - t0
+    pool, st = server.pool, server.pool.stepper
+    if info["model_device"] != str(device) or st.tier_sizes[-1] != SLOTS:
+        raise AssertionError(f"slots pool: {info}, tiers {st.tier_sizes}")
+    sessions = []
+    make_session = server.session_factory
+
+    def recorded_session():
+        loc, decode = make_session()
+        step, rec = loc.model_step, []
+
+        def wrapped(feats):
+            t0 = time.perf_counter()
+            out = step(feats)
+            loc.wait_s += time.perf_counter() - t0
+            rec.append(out)
+            return out
+
+        wrapped.close = step.close
+        loc.model_step, loc.wait_s = wrapped, 0.0
+        sessions.append((loc, rec))
+        return loc, decode
+
+    server.session_factory = recorded_session
+    server.start()
+    conns = [(seed + 500 + k, (-5, -3, 0, 3, 5)[k % 5]) for k in range(SLOTS)]
+    audios = [make_audio(s, d, nch) for s, d in conns]
+    try:
+        replays0, ticks0, occ0 = dict(st.replays), pool.ticks, pool.occupancy
+        (replies, wrapped, wall), launched = traced_launches(
+            concurrent_connections, server, audios)
+        replays = {s: st.replays[s] - replays0[s] for s in st.tier_sizes}
+        ticks, occupancy = pool.ticks - ticks0, pool.occupancy - occ0
+    finally:
+        server.shutdown()
+    if any(wrapped) or sum(replays.values()) != ticks or not ticks:
+        raise AssertionError(f"slots {model}: wrapper launches {wrapped} "
+                             f"(replays {replays}, ticks {ticks})")
+    steps = chunk_steps(model)
+    errs, ties, unmatched = [], 0, list(range(len(sessions)))
+    if len(sessions) != SLOTS:
+        raise AssertionError(f"slots {model}: {len(sessions)} sessions")
+    for (s, d), msgs, audio in zip(conns, replies, audios):
+        if msgs[-1] != {"eof": True, "outputs": steps} \
+                or len(msgs) != steps + 1:
+            raise AssertionError(f"slots {model} connection {s}: "
+                                 f"{len(msgs) - 1} lines, {msgs[-1]}")
+        outs, doas, ss = reference_stream(seed, audio, 1600, model, device)
+        # the server's session of this connection: the one whose outputs
+        # are nearest its dedicated stream's
+        dist = {i: max((g.cpu() - w).abs().max().item() for g, w in zip(
+            sessions[i][1], outs)) for i in unmatched
+            if len(sessions[i][1]) == steps}
+        if not dist:
+            raise AssertionError(f"slots {model} connection {s}: no session")
+        best = min(dist, key=dist.get)
+        unmatched.remove(best)
+        errs.append(dist[best])
+        if not errs[-1] <= 1e-3:
+            raise AssertionError(f"slots {model} connection {s}: max|diff| "
+                                 f"{errs[-1]} vs its dedicated stream")
+        ties += held_lines(f"slots {model} connection {s}", msgs[:-1], doas,
+                           ss)
+    rows = pool.rows
+    tiers, per_tick = tier_checks(st, rows, pool._feats_shape[1:], device,
+                                  CHUNK_LAUNCHES[model])
+    want = [sum(per_tick[s][i] * replays[s] for s in st.tier_sizes)
+            for i in range(len(COUNTED))]
+    if launched != want:
+        raise AssertionError(f"slots {model}: traced launches {launched}, "
+                             f"expected {want} (replays {replays})")
+    rtf = [loc.rtf for loc, _ in sessions]
+    # where a connection's push time went, a chunk step: waiting for its
+    # tick (submit to result), and the rest (framing, STFT, norm)
+    wait_ms = np.mean([loc.wait_s for loc, _ in sessions]) / steps * 1e3
+    front_ms = np.mean([loc.compute_s - loc.wait_s
+                        for loc, _ in sessions]) / steps * 1e3
+    # the dispatcher's share of the wall in ticks, from each tier's ms a
+    # tick (tier_checks) times its replays in the run
+    busy = sum(replays[s] * tiers[s]["ms_mean"] for s in replays) / 1e3 / wall
+    report = {"capture_s": warm_s, "tiers": tiers, "ticks": ticks,
+              "wait_ms_per_chunk_step": wait_ms,
+              "front_end_ms_per_chunk_step": front_ms,
+              "dispatcher_busy_share": busy,
+              "replays": replays, "mean_occupancy": occupancy / ticks,
+              "chunk_steps": SLOTS * steps, "wall_s": wall,
+              "chunk_steps_per_s": SLOTS * steps / wall,
+              "launches_per_tick": {s: dict(zip(COUNTED, per_tick[s]))
+                                    for s in st.tier_sizes},
+              "rtf_per_connection": rtf,
+              "max_abs_err_vs_dedicated": max(errs), "ties": ties}
+    log(f"  slots {model}: {SLOTS} connections x {steps} chunk steps in "
+        f"{wall:.2f} s = {SLOTS * steps / wall:.1f} chunk steps/s; {ticks} "
+        f"ticks, mean occupancy {occupancy / ticks:.2f}, replays {replays}; "
+        f"outputs vs dedicated streams max|diff| {max(errs):.3e}, DOAs equal "
+        f"(ties {ties}); capture of the 3 tiers {warm_s:.2f} s")
+    log("  ms a tick (all slots of the tier active; features up, replay, "
+        "outputs down): " + ", ".join(
+            f"tier {s} {v['ms_mean']:.3f} (p90 {v['ms_p90']:.3f})"
+            for s, v in tiers.items())
+        + f"; launches a tick {[per_tick[s] for s in st.tier_sizes]}")
+    log(f"  RTF per connection: min {min(rtf):.4f} max {max(rtf):.4f}; a "
+        f"connection's chunk step: {wait_ms:.2f} ms waiting for its tick, "
+        f"{front_ms:.2f} ms in its front end; the dispatcher in ticks "
+        f"{busy:.1%} of the wall (tier ms x replays)")
+    if model in EAGER_BASELINE:
+        report["eager"] = concurrent_eager(seed, model, audios, steps)
+    return report, dict(zip(COUNTED, launched))
+
+
+def phase_export(seed, device, tmp):
+    """`cli export --platforms cuda` of forward and stream artifacts
+    (fnssl, ipdnet, ipdnet2) and a forward artifact (variable_ipdnet),
+    fresh weights from `seed`; each loaded without model code and held
+    against its direct module on the card (forward 1e-5; a stream artifact
+    run chunk by chunk against the one-shot forward, 1e-4: another batch,
+    another cluster plan), the same launches as the module; CPU_TOO's CPU
+    program against the card's; then one `serve --artifact` TCP
+    connection against a dedicated stream."""
+    from fnssl_tpu_torch.cli.main import (_task_for, build_parser,
+                                          build_server, load_model)
+    from fnssl_tpu_torch.runtime.export import load_artifact
+    from fnssl_tpu_torch.runtime.server import stream_client
+
+    counters = launch_counters()
+
+    def counted_call(fn, *args):
+        for c in counters:
+            c.reset()
+        with torch.no_grad():
+            out = fn(*args)
+        torch.cuda.synchronize()
+        return out, [c.value for c in counters]
+
+    def host_ms(fn, *args, iters=5):
+        with torch.no_grad():
+            fn(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn(*args)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    report, totals = {}, [0] * len(COUNTED)
+    gen = torch.Generator().manual_seed(seed)
+    for model, modes in EXPORTS:
+        task = _task_for(model, device)
+        module = quiet(load_model, model, str(tmp / "none"), seed, device,
+                       cfg=task.cfg)
+        for mode in modes:
+            out = tmp / f"art_{model}_{mode}"
+            platforms = EXPORT_PLATFORM + (",cpu" if (model, mode) == CPU_TOO
+                                           else "")
+            res, _, secs = cli(["export", "--model", model, "--mode", mode,
+                                "--platforms", platforms, "--out", str(out),
+                                "--seed", str(seed), "--log-dir",
+                                str(tmp / "none")])
+            art = load_artifact(str(out), device)
+            shape = res["input_shape"]
+            chunks = 2 if mode == "stream" else 1
+            feats = torch.randn(shape[:-1] + [shape[-1] * chunks],
+                                generator=gen)
+            want, want_n = counted_call(module, feats.to(device))
+            if mode == "forward":
+                got, got_n = counted_call(art, feats)
+                tol = 1e-5
+            else:
+                parts = [counted_call(art, feats[..., k * shape[-1]:
+                                                 (k + 1) * shape[-1]])
+                         for k in range(chunks)]
+                got = torch.cat([p[0] for p in parts], dim=1)
+                got_n = [sum(n) for n in zip(*(p[1] for p in parts))]
+                want_n = [chunks * n for n in FORWARD_LAUNCHES[model]]
+                tol = 1e-4
+            err = (got - want).abs().max().item()
+            if not (err <= tol and got_n == want_n and any(got_n)):
+                raise AssertionError(f"export {model} {mode}: max|diff| {err}"
+                                     f" (tol {tol}), launches {got_n} vs "
+                                     f"{want_n}")
+            totals = [a + b for a, b in zip(totals, got_n)]
+            if (model, mode) == CPU_TOO:
+                # the same artifact's CPU program, chunk by chunk, against
+                # the card's (the CPU-vs-card tolerance of the serve paths)
+                on_cpu = load_artifact(str(out), "cpu")
+                cpu_out = torch.cat([on_cpu(feats[..., k * shape[-1]:
+                                                  (k + 1) * shape[-1]])
+                                     for k in range(chunks)], dim=1)
+                cpu_err = (cpu_out - got.cpu()).abs().max().item()
+                if not (cpu_err <= 1e-3 and res["platforms"] == [
+                        "cuda", "cpu"]):
+                    raise AssertionError(f"export {model} {mode}: the cpu "
+                                         f"program max|diff| {cpu_err}")
+                log(f"  export {model} {mode} for {res['platforms']}: the cpu"
+                    f" program within {cpu_err:.3e} of the card's")
+            x = feats[..., :shape[-1]]
+            ms = {"artifact_ms": host_ms(art.clone() if mode == "stream"
+                                         else art, x),
+                  "module_ms": host_ms(module, x.to(device))}
+            report[f"{model}_{mode}"] = {"export_s": secs,
+                                         "max_abs_err": err,
+                                         "launches": got_n, **ms}
+            log(f"  export {model} {mode}: {secs:.2f} s; artifact vs "
+                f"{'module' if mode == 'forward' else 'one-shot module'} "
+                f"max|diff| {err:.3e}; launches {got_n}; a call "
+                f"{ms['artifact_ms']:.3f} ms (module {ms['module_ms']:.3f} "
+                f"ms) at {shape}")
+    server, info = quiet(build_server, build_parser().parse_args(
+        ["serve", "--artifact", str(tmp / "art_fnssl_stream"), "--port",
+         "0"]))
+    server.start()
+    audio = make_audio(seed + 600, 3)
+    try:
+        for c in counters:
+            c.reset()
+        msgs = stream_client("127.0.0.1", server.port, audio, block=1600)
+        launched = [c.value for c in counters]
+    finally:
+        server.shutdown()
+    steps = chunk_steps("fnssl")
+    if msgs[-1] != {"eof": True, "outputs": steps} or launched != [
+            n * steps for n in FORWARD_LAUNCHES["fnssl"]]:
+        raise AssertionError(f"serve --artifact: {msgs[-1]}, launches "
+                             f"{launched}")
+    _, doas, ss = reference_stream(seed, audio, 1600, "fnssl", device)
+    ties = held_lines("serve --artifact", msgs[:-1], doas, ss)
+    totals = [a + b for a, b in zip(totals, launched)]
+    report["serve_artifact"] = {"chunk_steps": steps, "ties": ties,
+                                "launches": launched}
+    log(f"  serve --artifact ({info['serving']}): {steps} lines and eof, "
+        f"DOAs equal to a dedicated stream (ties {ties}); launches "
+        f"{launched}")
+    return report, dict(zip(COUNTED, totals))
+
+
 def per_train_step(rows, key):
     """A per-shape number summed over one train step's launches."""
     return PER_TRAIN_STEP * sum(r[key] for r in rows)
@@ -2390,6 +3020,31 @@ def main():
         " serve")
     i2_fit, i2_fit_launches = phase_ipdnet2_fit(args.seed, device, card)
 
+    # 22-25. the inference entry points
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        log("[predict] cli predict of fnssl, fnssl_doa, ipdnet, ipdnet2 and "
+            "ipd_baseline on a 5 s wav: the card against the CPU")
+        predict_report, predict_launches = phase_predict(args.seed, device,
+                                                         tmp)
+        log("[stream] cli stream of each causal model: RTF, and each chunk "
+            "against the serve path's")
+        stream_report, stream_launches = phase_stream(args.seed, device, tmp)
+        log(f"[slots] cli serve --slots {SLOTS} of {', '.join(SLOT_MODELS)}: "
+            f"{SLOTS} concurrent TCP connections against dedicated streams")
+        slots_report, slots_launches = {}, {k: 0 for k in COUNTED}
+        for model in SLOT_MODELS:
+            slots_report[model], launched = phase_slots(args.seed, device,
+                                                        model)
+            slots_launches = {k: slots_launches[k] + launched[k]
+                              for k in COUNTED}
+        log(f"  K1 and K3 at the {SLOTS}-slot tier's shapes")
+        slot_rows = phase_times(device, SLOT_SHAPES)
+        ssm_slot_rows = phase_ssm_times(device, SSM_SLOT_SHAPES)
+        log("[export] cli export --platforms cuda: forward and stream "
+            "artifacts against their modules; serve --artifact")
+        export_report, export_launches = phase_export(args.seed, device, tmp)
+
     # each kernel's work in one online chunk step, fp32: 3 BiLSTMs over
     # frequency and 3 LSTMs over time
     serve = {r["shape"]: r for r in rows if r["shape"] in PER_CHUNK}
@@ -2425,7 +3080,9 @@ def main():
              "ipdnet_serve": ipd_launches, "ipdnet_train": ipd_train_launches,
              "ipdnet_fit": ipd_fit_launches, "ipdnet2_serve": i2_launches,
              "ipdnet2_train": i2_train_launches,
-             "ipdnet2_fit": i2_fit_launches}
+             "ipdnet2_fit": i2_fit_launches, "predict": predict_launches,
+             "stream": stream_launches, "serve_slots": slots_launches,
+             "export": export_launches}
     # and in one fixed-array IPDnet train step at nb=16, fp32: 2 full-band
     # BiLSTMs and 2 narrow-band LSTMs, forward (K1) and backward (K2)
     ipd_step_rows = ipd_train_rows[:2]
@@ -2452,6 +3109,7 @@ def main():
             "ms": nf * full["fused_ms_float32"] + nn_ * narrow["ms_float32"],
             **serve_common, "launches_per_chunk_step": LAUNCHES_PER_CHUNK,
             "chunk_steps": steps, **step},
+        "slots16": slot_rows,
         "per_shape": rows + train_rows + ipd_rows + ipd_train_rows,
         "plans": plans + train_plans + ipd_plans,
         "ipdnet_train_step": {
@@ -2570,7 +3228,36 @@ def main():
         "work": "2 scans at B=16, L=5, d=192 and 14 at L=1",
         "launches_per_chunk_step": I2_LAUNCHES, "chunk_steps": i2_steps,
         **i2_serve}
+    # each kernel's work in one 16-slot tick of FN-SSL (K1) and IPDnet2
+    # (K3), fp32
+    srow = {r["shape"]: r for r in slot_rows}
+    sf, sn = srow["slots16_fullband"], srow["slots16_narrowband"]
+    kernels[0]["slots16_tick"] = {
+        "ms": nf * sf["fused_ms_float32"] + nn_ * sn["ms_float32"],
+        "plain_ms": nf * sf["fused_plain_ms"] + nn_ * sn["plain_ms"],
+        "library_ms": nf * sf["library_bidir_ms"] + nn_ * sn["library_ms"],
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            {k: 2 * nf * sf["bound_terms_float32"][k]
+             + nn_ * sn["bound_terms_float32"][k]
+             for k in ("bytes", "operations")}))),
+        "work": "the recurrences of one 16-slot FN-SSL tick, fp32: 3 "
+                "full-band BiLSTMs (T=256, B=192, H=128) and 3 narrow-band "
+                "LSTMs (T=12, B=4096, H=256)"}
+    s3 = {r["shape"]: r for r in ssm_slot_rows}
+    l0, l1 = s3["slots16_layer0"], s3["slots16_layers1_7"]
+    kernels[-2]["slots16_tick"] = {
+        "ms": 2 * l0["k3_ms_float32"] + 14 * l1["k3_ms_float32"],
+        "plain_ms": 2 * l0["k3_plain_ms"] + 14 * l1["k3_plain_ms"],
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            {k: 2 * l0["k3_bound_terms_float32"][k]
+             + 14 * l1["k3_bound_terms_float32"][k]
+             for k in ("bytes", "operations")}))),
+        "work": "the scans of one 16-slot IPDnet2 tick: 2 at B=256, L=5, "
+                "d=192 and 14 at L=1"}
+    kernels[-2]["slots16"] = ssm_slot_rows
     report = {"card": card, "kind": kind, "kernels": kernels,
+              "predict": predict_report, "stream": stream_report,
+              "serve_slots": slots_report, "export": export_report,
               "train": train, "train_parity": parity, "fit": fit_report,
               "plan_picks": picks, "ipdnet_train": ipd_train,
               "ipdnet_train_parity": ipd_parity, "ipdnet_fit": ipd_fit,
@@ -2580,7 +3267,8 @@ def main():
     out.mkdir(parents=True, exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(json.dumps({"kernels": [{k: v for k, v in kern.items()
-                                  if k not in ("plans", "per_shape")}
+                                  if k not in ("plans", "per_shape",
+                                               "slots16")}
                                  for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,34 +2,48 @@
 
 Ported: ``simulate`` (presets ``fnssl`` and ``ipdnet``), ``fit``/``test``
 for ``fnssl``, ``fnssl_doa``, ``ipdnet``, ``ipdnet_offline``,
-``variable_ipdnet`` and ``ipdnet2`` (on RealMAN-layout data), and ``serve
---model fnssl|ipdnet|ipdnet2``:
+``variable_ipdnet`` and ``ipdnet2`` (on RealMAN-layout data), ``predict``
+(those of them JAX's predict takes, and the model-free ``ipd_baseline``),
+``stream`` and ``serve`` of the causal models (``fnssl``, ``fnssl_doa``,
+``ipdnet``, ``ipdnet2``; ``serve --slots N`` batches up to N connections
+into one CUDA graph a tick) and ``export`` (a ``torch.export`` artifact
+that ``serve --artifact`` and ``stream --artifact`` read):
 
   python -m fnssl_tpu_torch.cli simulate --out data/train --num 64
   python -m fnssl_tpu_torch.cli fit --model fnssl --train-dir data/train \
       --valid-dir data/dev --epochs 3 --bz 16 --log-dir runs/fnssl
   python -m fnssl_tpu_torch.cli test --model fnssl --data-dir data/test \
       --log-dir runs/fnssl [--best]
+  python -m fnssl_tpu_torch.cli predict --model fnssl --wav x.wav \
+      --log-dir runs/fnssl --out pred/
+  python -m fnssl_tpu_torch.cli stream --model fnssl --wav x.wav \
+      --log-dir runs/fnssl [--chunk-ms 192] [--out st/]
   python -m fnssl_tpu_torch.cli serve --model fnssl --log-dir runs/fnssl \
-      --port 7316
+      --port 7316 [--slots 16]
+  python -m fnssl_tpu_torch.cli export --model fnssl --log-dir runs/fnssl \
+      --out art --mode stream [--platforms cpu,cuda]
+  python -m fnssl_tpu_torch.cli serve --artifact art --port 7316
   python -m fnssl_tpu_torch.cli fit --model ipdnet2 --train-dir R/ma_speech/ \
       --valid-dir R/ma_speech/ --realman-csv R/train.csv \
       --realman-valid-csv R/dev.csv --realman-noise R/noise \
       --realman-ext wav --log-dir runs/ipdnet2
 
 ``simulate`` runs on the host (numpy, and the C++/OpenMP image-source
-engine when it builds). ``fit``, ``test`` and ``serve`` run the model on
-the first CUDA device, or on the CPU with ``--platform cpu``. ``fit``
-keeps its checkpoints in ``<log-dir>/ckpt/`` (one ``.tar`` per kept epoch)
-and writes the best epoch as ``<log-dir>/best_model.tar`` (the reference
-``.tar`` format), which ``serve`` reads. A JAX fit leaves orbax
-checkpoints instead; ``tools/jax_ckpt_to_tar.py --log-dir <log-dir>``
-writes its best epoch as that file. ``test --model ipdnet_offline``
-scores the 312-frame chunked inference (runIPDnetOff.py:174). ``ipdnet2``
-trains with AdamW and a global-norm clip of 5 on the RealMAN reader
-(``--realman-*``, the mic subset ``--mic-ids``) and serves 5-channel audio
-in 5-frame chunk steps. Every other subcommand, model and option exits
-with "not ported yet".
+engine when it builds). Every other command runs the model on the first
+CUDA device, or on the CPU with ``--platform cpu``. ``fit`` keeps its
+checkpoints in ``<log-dir>/ckpt/`` (one ``.tar`` per kept epoch) and
+writes the best epoch as ``<log-dir>/best_model.tar`` (the reference
+``.tar`` format). ``predict`` takes the latest checkpoint, ``stream`` and
+``serve`` the best one, ``export`` the latest (``--best``: the best); each
+falls back to ``best_model.tar`` where ``ckpt/`` holds none (a JAX fit
+leaves orbax checkpoints: ``tools/jax_ckpt_to_tar.py --log-dir <log-dir>``
+writes its best epoch as that file), and to fresh weights from ``--seed``
+with a warning. ``test --model ipdnet_offline`` scores the 312-frame
+chunked inference (runIPDnetOff.py:174). ``ipdnet2`` trains with AdamW
+and a global-norm clip of 5 on the RealMAN reader (``--realman-*``, the
+mic subset ``--mic-ids``) and serves 5-channel audio in 5-frame chunk
+steps. ``locata`` and the options in ``JAX_ONLY_FLAGS`` exit with "not
+ported yet".
 """
 from __future__ import annotations
 
@@ -39,18 +53,21 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 MODELS = ["fnssl", "fnssl_doa", "ipdnet", "ipdnet_offline",
           "variable_ipdnet", "ipdnet2", "ipd_baseline"]
-NOT_PORTED = ["predict", "stream", "export", "locata"]
+NOT_PORTED = ["locata"]
 # per-model (lr, gamma) of the ExponentialLR schedule (Train.py:94-117,
 # runIPDnetOn.py:44-58)
 LR_GAMMA = {"fnssl": (1e-3, 0.8988), "fnssl_doa": (1e-3, 0.8988),
             "ipdnet": (5e-4, 0.975), "ipdnet_offline": (5e-4, 0.975),
             "variable_ipdnet": (5e-4, 0.975), "ipdnet2": (5e-4, 0.975)}
 IPDNET_MODELS = ("ipdnet", "ipdnet_offline", "variable_ipdnet")
-SERVED = ("fnssl", "ipdnet", "ipdnet2")
+# the models that see future frames: `stream` and `serve` refuse them,
+# `predict` is not wired for them (as in JAX)
+NOT_CAUSAL = ("ipdnet_offline", "variable_ipdnet")
 # options of the JAX CLI that the port does not carry yet
 JAX_ONLY_FLAGS = ("--spawn", "--use-mesh", "--coordinator",
                   "--num-processes", "--process-id", "--profile",
@@ -61,16 +78,10 @@ TPU_WORKAROUNDS = ("rss_restart_gb", "stall_restart_s")
 
 
 def _add_common(p):
-    p.add_argument("--model", default="fnssl", choices=MODELS)
-    p.add_argument("--log-dir", default="runs/default")
+    _add_inference(p)
     p.add_argument("--config", default=None,
                    help="YAML file of argument defaults")
-    p.add_argument("--seed", type=int, default=2)
     p.add_argument("--bz", type=int, default=4)
-    p.add_argument("--platform", default="default",
-                   choices=["default", "cpu"],
-                   help="default = the first CUDA device (an error where "
-                        "there is none); cpu = run the model on the CPU")
     p.add_argument("--remat", action="store_true",
                    help="recompute the model's activations in the "
                         "backward (less memory)")
@@ -82,6 +93,21 @@ def _add_common(p):
                    help="batch-assembly threads (0 = serial)")
     p.add_argument("--prefetch", type=int, default=2,
                    help="batches assembled ahead of the train step")
+
+
+def _add_inference(p):
+    """The options of every command that runs a model."""
+    p.add_argument("--model", default="fnssl", choices=MODELS)
+    p.add_argument("--log-dir", default="runs/default",
+                   help="checkpoints in <log-dir>/ckpt/ and "
+                        "<log-dir>/best_model.tar")
+    p.add_argument("--seed", type=int, default=2,
+                   help="seed of the weights' init (fresh weights where "
+                        "there is no checkpoint)")
+    p.add_argument("--platform", default="default",
+                   choices=["default", "cpu"],
+                   help="default = the first CUDA device (an error where "
+                        "there is none); cpu = run the model on the CPU")
 
 
 def _add_realman(p, valid_csv: bool = False):
@@ -165,24 +191,59 @@ def build_parser():
                         "of the latest (the reference's best_model.tar)")
     _add_realman(p)
 
+    p = sub.add_parser("predict", help="DOA prediction for a wav file")
+    _add_inference(p)
+    p.add_argument("--wav", required=True)
+    p.add_argument("--out", default="results/")
+
+    p = sub.add_parser("stream", help="real-time chunked DOA from a wav "
+                       "(the runIPDnetOn causal serving mode as a CLI)")
+    _add_inference(p)
+    p.add_argument("--wav", required=True)
+    p.add_argument("--chunk-ms", type=float, default=192.0,
+                   help="audio push size; outputs fire per 12 (ipdnet2: "
+                        "5) buffered STFT frames regardless of push size")
+    p.add_argument("--out", default=None,
+                   help="directory for doa_est.npy / vad_est.npy dumps")
+    p.add_argument("--artifact", default=None,
+                   help="stream from a `cli export --mode stream` artifact "
+                        "instead of a checkpoint (no model code runs)")
+
     p = sub.add_parser("serve", help="TCP streaming-localization service: "
                        "raw PCM in, per-block DOA/VAD JSON out (one "
                        "independent model stream per connection)")
-    p.add_argument("--model", default="fnssl", choices=MODELS)
-    p.add_argument("--log-dir", default="runs/default",
-                   help="weights from <log-dir>/best_model.tar if present")
-    p.add_argument("--seed", type=int, default=2,
-                   help="seed of the fresh weights when there is no "
-                        "checkpoint")
+    _add_inference(p)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=7316)
     p.add_argument("--nch", type=int, default=None,
                    help="channels per connection (default: 5 for ipdnet2, "
                         "else 2)")
-    p.add_argument("--platform", default="default",
-                   choices=["default", "cpu"],
-                   help="default = the first CUDA device (an error where "
-                        "there is none); cpu = run the model on the CPU")
+    p.add_argument("--artifact", default=None,
+                   help="serve an exported `--mode stream` artifact instead "
+                        "of a checkpoint")
+    p.add_argument("--slots", type=int, default=0,
+                   help="slot-batched execution: up to N concurrent streams "
+                        "ride one tier program a tick (runtime/slots.py; on "
+                        "the card one CUDA graph a tier). 0 = one chunk "
+                        "step per connection")
+
+    p = sub.add_parser("export", help="serialize a model to a serving "
+                       "artifact (torch.export programs with their "
+                       "weights; loadable with runtime.export."
+                       "load_artifact, no model code needed)")
+    _add_inference(p)
+    p.add_argument("--out", required=True, help="artifact directory")
+    p.add_argument("--best", action="store_true",
+                   help="export the best checkpoint instead of the last")
+    p.add_argument("--mode", choices=["forward", "stream"],
+                   default="forward")
+    p.add_argument("--platforms", default=None,
+                   help="comma list of cpu and cuda, one program each; "
+                        "default: the --platform device's")
+    p.add_argument("--export-bz", type=int, default=1)
+    p.add_argument("--export-t", type=int, default=None,
+                   help="frames: forward default 298 (4.79 s), stream "
+                        "default = the model chunk size")
     for name in NOT_PORTED:
         sub.add_parser(name, help="not ported yet")
     return ap
@@ -208,8 +269,8 @@ def _refuse_unported(args):
                              "TPU-client fault and is not carried over to "
                              "the port")
     if args.model == "ipd_baseline":
-        raise SystemExit("ipd_baseline is model-free (no training); `cli "
-                         "predict --model ipd_baseline` is not ported yet")
+        raise SystemExit("ipd_baseline is model-free (no training); use "
+                         "`cli predict --model ipd_baseline`")
     if args.model not in LR_GAMMA:
         raise SystemExit(f"{args.cmd} --model {args.model}: not ported yet")
     if args.model == "ipdnet2" and args.cmd == "fit" and not (
@@ -521,26 +582,256 @@ def cmd_test(args):
     print(json.dumps(metrics))
 
 
-def load_model(name: str, log_dir: str, seed: int, device):
-    """The served model at its published width (``FNSSLConfig()``,
-    ``IPDnetConfig()`` or ``SpatialNetConfig()``) in eval mode on
-    ``device``: weights from ``<log_dir>/best_model.tar`` when it exists,
-    else fresh from ``seed`` with a warning."""
-    from fnssl_tpu_torch.models.fnssl import FNSSLConfig
-    from fnssl_tpu_torch.models.ipdnet import IPDnetConfig
-    from fnssl_tpu_torch.models.spatialnet import SpatialNetConfig
+def _task_for(name: str, device):
+    """``name``'s task at the CLI's defaults (fp32, the default mic subset):
+    its config and the array the decode uses, as JAX's ``_make_task``."""
+    if name == "ipd_baseline":
+        raise SystemExit("ipd_baseline is model-free (no training); use "
+                         "`cli predict --model ipd_baseline`")
+    return _make_task(name, argparse.Namespace(
+        remat=False, precision="fp32", mic_ids="0,1,3,5,7"), device)
+
+
+def _restore_weights(model, log_dir: str, best: bool) -> int:
+    """Load the checkpoint's weights into ``model``: the best (or latest)
+    epoch of ``<log_dir>/ckpt/`` through the CheckpointManager, else
+    ``<log_dir>/best_model.tar``, else none (fresh weights, with a
+    warning). Returns the epoch after the restored one, as the Learner's
+    ``resume`` does (0 when nothing was restored)."""
+    from fnssl_tpu_torch.train.checkpoint import CheckpointManager
     from fnssl_tpu_torch.train.convert import load_torch_tar
 
-    cfg = {"ipdnet": IPDnetConfig(),
-           "ipdnet2": SpatialNetConfig()}.get(name, FNSSLConfig())
-    model = _init_model(name, cfg, seed, device)
-    ckpt = os.path.join(log_dir, "best_model.tar")
-    if os.path.exists(ckpt):
-        state, _ = load_torch_tar(ckpt)
+    ckpt_dir = os.path.join(log_dir, "ckpt")
+    if os.path.isdir(ckpt_dir):
+        mgr = CheckpointManager(ckpt_dir)
+        epoch = mgr.load_weights(model, mgr.best_epoch() if best else None)
+        if epoch is not None:
+            return epoch + 1
+    tar = os.path.join(log_dir, "best_model.tar")
+    if os.path.exists(tar):
+        state, meta = load_torch_tar(tar)
         model.load_state_dict(state, strict=True)
-    else:
-        print("warning: no checkpoint found; using fresh params")
+        return int(meta.get("epoch", 0)) + 1
+    print("warning: no checkpoint found; using fresh params")
+    return 0
+
+
+def load_model(name: str, log_dir: str, seed: int, device,
+               best: bool = True, cfg=None):
+    """The model ``name`` at its published width (its task's config, e.g.
+    ``FNSSLConfig(is_doa=True)`` for ``fnssl_doa``) in eval mode on
+    ``device``, weights from ``_restore_weights`` (else fresh from
+    ``seed``)."""
+    if cfg is None:
+        cfg = _task_for(name, device).cfg
+    model = _init_model(name, cfg, seed, device)
+    _restore_weights(model, log_dir, best)
     return model.eval()
+
+
+def _write_prediction(out: str, result) -> None:
+    """``doa_est.npy`` (degrees) and ``vad_est.npy`` of a decoded
+    prediction, and the JSON line of ``cli predict``."""
+    os.makedirs(out, exist_ok=True)
+    doa = np.degrees(result["doa"].cpu().numpy())
+    np.save(os.path.join(out, "doa_est.npy"), doa)
+    np.save(os.path.join(out, "vad_est.npy"),
+            result["vad_sources"].cpu().numpy())
+    print(json.dumps({"frames": int(doa.shape[1]),
+                      "tracks": int(doa.shape[-1]),
+                      "azimuth_deg_first5": doa[0, :5, 1, 0].tolist(),
+                      "out": out}))
+
+
+def predict(model_name: str, model, task, sig: np.ndarray, device):
+    """One-shot prediction over a whole recording (nsample, nch): the
+    model's front-end and forward on ``device`` (K1 or K3 at B = 1 over
+    the whole wav on the card), the decode on the host. Returns the raw
+    output and the decoded dict."""
+    from fnssl_tpu_torch.eval.pred_doa import (PredDOA, PredDOAMultiTrack,
+                                               predgt2doa_cls)
+    from fnssl_tpu_torch.train.preprocess import stft_features
+
+    host = torch.device("cpu")
+    x = torch.as_tensor(sig[None].astype(np.float32), device=device)
+    with torch.no_grad():
+        if model_name == "ipdnet":
+            pred = model(stft_features(x, ch_mode="none", sample_length=280))
+            decoder = PredDOAMultiTrack(task.dpipd.mic_location,
+                                        max_track=task.cfg.max_track,
+                                        device=host)
+            return pred, decoder.pred2doa(pred)[0]
+        if model_name == "ipdnet2":
+            pred = model(stft_features(x, ch_mode="none",
+                                       win_shift_ratio=0.625, center=True,
+                                       sample_length=249))
+            decoder = PredDOAMultiTrack(task.dpipd.mic_location,
+                                        max_track=2, device=host)
+            return pred, decoder.pred2doa(pred)[0]
+        pred = model(stft_features(x, ch_mode="MM"))
+    if model_name == "fnssl_doa":
+        return pred, predgt2doa_cls(pred.cpu())[0]
+    return pred, PredDOA(device=host).predgt2doa(pred)[0]
+
+
+def cmd_predict(args):
+    from fnssl_tpu_torch.eval.pred_doa import PredDOA, ipd_baseline
+    from fnssl_tpu_torch.utils.audio_io import read_audio
+
+    if args.model == "ipd_baseline":
+        # DNN-free classical path (the reference's wDNN=False,
+        # Learner.py:208-214): the measured cross-spectrum IPD decoded on
+        # the template grid on the host: no checkpoint, no parameters
+        sig, _ = read_audio(args.wav)
+        if sig.ndim == 1 or sig.shape[1] != 2:
+            raise SystemExit("ipd_baseline needs a 2-channel wav")
+        _write_prediction(args.out, ipd_baseline(
+            sig[None].astype(np.float32), PredDOA(device="cpu")))
+        return
+    if args.model in NOT_CAUSAL:
+        raise SystemExit(f"predict: model {args.model!r} not wired")
+    device = _device(args)
+    task = _task_for(args.model, device)
+    model = load_model(args.model, args.log_dir, args.seed, device,
+                       best=False, cfg=task.cfg)
+    sig, _ = read_audio(args.wav)
+    if sig.ndim == 1:
+        raise SystemExit("predict needs a multichannel wav")
+    _write_prediction(args.out, predict(args.model, model, task, sig,
+                                        device)[1])
+
+
+def _load_stream_model(args, device):
+    """Shared stream/serve head: an artifact, or the checkpoint's best
+    weights. Returns (model name, task, module, artifact,
+    frames_per_step); module is None with an artifact and the artifact
+    None without."""
+    if args.artifact:
+        from fnssl_tpu_torch.runtime.export import load_artifact
+
+        art = load_artifact(args.artifact, device)
+        if art.meta["mode"] != "stream":
+            raise SystemExit("needs a `cli export --mode stream` artifact")
+        model = art.meta["model"]
+        task = _task_for(model, device)          # decode metadata only
+        return model, task, None, art, int(art.meta["input_shape"][-1])
+    model = args.model
+    if model in NOT_CAUSAL:
+        raise SystemExit(f"stream: model {model!r} is not causal (the "
+                         "offline/bidirectional variants see future frames "
+                         "— use `cli predict` or the chunked offline "
+                         "inference in `cli test`)")
+    task = _task_for(model, device)
+    module = load_model(model, args.log_dir, args.seed, device,
+                        cfg=task.cfg)
+    return model, task, module, None, 5 if model == "ipdnet2" else 12
+
+
+def _stream_session_factory(model, task, module, art, nch, frames_per_step,
+                            pool=None):
+    """(make_localizer, decode) for one model family: every call of
+    make_localizer() is an independent stream (fresh model state and
+    forgetting-norm statistics); decode is stateless and shared. The
+    chunk step is a leased slot of ``pool`` (a
+    ``runtime.slots.BatchedStreamPool``), a clone of the artifact ``art``,
+    or the module's stream step, in that order.
+
+    Placement: the model step runs on the model's device; the per-chunk
+    front-end and the DOA decode run on the host CPU (chains of tiny
+    ops), so the card sees one model step (or one slot tick) per chunk.
+    """
+    from fnssl_tpu_torch.eval.pred_doa import (PredDOA, PredDOAMultiTrack,
+                                               predgt2doa_cls)
+    from fnssl_tpu_torch.runtime.streaming import (
+        StreamingLocalizer, make_fnssl_stream_step, make_ipdnet_stream_step,
+        make_spatialnet_stream_step)
+
+    host = torch.device("cpu")
+    if model == "ipdnet2":
+        # IPDnet2's front-end: torch.stft(center=True), hop 0.625·512 =
+        # 320, forgetting norm L=249, all channels (run_IPDnet2.py:82-113);
+        # per-track decode on the azimuth grid of the 5-mic subset
+        decoder = PredDOAMultiTrack(task.dpipd.mic_location, max_track=2,
+                                    device=host)
+        decode = lambda chunk: decoder.pred2doa(chunk)[0]  # noqa: E731
+        front = dict(ch_mode="none", hop=320, center=True, sample_length=249)
+        make_step = make_spatialnet_stream_step
+    elif model == "ipdnet":
+        # all channels, forgetting norm L=280 (runIPDnetOn.py:236-253);
+        # per-track decode on the azimuth grid
+        decoder = PredDOAMultiTrack(task.dpipd.mic_location,
+                                    max_track=task.cfg.max_track,
+                                    device=host)
+        decode = lambda chunk: decoder.pred2doa(chunk)[0]  # noqa: E731
+        front = dict(ch_mode="none", sample_length=280)
+        make_step = make_ipdnet_stream_step
+    elif model == "fnssl_doa":
+        # the classification head's argmax class (Learner.py:489-505)
+        decode = lambda chunk: predgt2doa_cls(chunk.cpu())[0]  # noqa: E731
+        front = dict(ch_mode="MM")
+        make_step = make_fnssl_stream_step
+    else:
+        decoder = PredDOA(device=host)
+        decode = lambda chunk: decoder.predgt2doa(chunk)[0]  # noqa: E731
+        front = dict(ch_mode="MM")
+        make_step = make_fnssl_stream_step
+
+    def step():
+        if pool is not None:
+            return pool.session()
+        if art is not None:
+            return art.clone()
+        return make_step(module)
+
+    def make_loc():
+        return StreamingLocalizer(step(), nch=nch,
+                                  frames_per_step=frames_per_step,
+                                  device=host, **front)
+
+    return make_loc, decode
+
+
+def cmd_stream(args):
+    """Chunked streaming DOA over a wav file: audio pushed in
+    ``--chunk-ms`` blocks through the stateful streaming runtime (one-shot
+    outputs, chunk by chunk), each fired output block decoded, the
+    wall-clock RTF reported."""
+    from fnssl_tpu_torch.utils.audio_io import read_audio
+
+    device = _device(args)
+    model, task, module, art, frames = _load_stream_model(args, device)
+    sig, fs = read_audio(args.wav)
+    if sig.ndim == 1:
+        raise SystemExit("stream needs a multichannel wav")
+    sig = sig.astype(np.float32)
+    make_loc, decode = _stream_session_factory(model, task, module, art,
+                                               sig.shape[1], frames)
+    loc = make_loc()
+    step = max(int(fs * args.chunk_ms / 1000.0), 1)
+    doas, vads = [], []
+    t0 = time.perf_counter()
+    for start in range(0, sig.shape[0], step):
+        for chunk in loc.push(sig[start: start + step]):
+            res = decode(chunk)
+            doas.append(res["doa"].cpu().numpy()[0])
+            vads.append(res["vad_sources"].cpu().numpy()[0])
+    wall = time.perf_counter() - t0
+    if not doas:
+        raise SystemExit("wav shorter than one model chunk")
+    doa = np.degrees(np.concatenate(doas, axis=0))   # (nt, 2[, ns])
+    vad = np.concatenate(vads, axis=0)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        np.save(os.path.join(args.out, "doa_est.npy"), doa)
+        np.save(os.path.join(args.out, "vad_est.npy"), vad)
+    azi = doa[..., 1, 0] if doa.ndim == 3 else doa[..., 1]
+    print(json.dumps({
+        "chunks": int(np.ceil(sig.shape[0] / step)),
+        "out_frames": int(doa.shape[0]),
+        "audio_s": round(sig.shape[0] / fs, 3),
+        "rtf": round(wall / (sig.shape[0] / fs), 4),
+        "azimuth_deg_first5": np.round(azi[:5], 2).tolist(),
+        "out": args.out}))
 
 
 def build_server(args):
@@ -548,70 +839,42 @@ def build_server(args):
 
     Placement: the model runs on the card (or the CPU with ``--platform
     cpu``); the per-chunk front-end and the DOA decode run on the CPU, so
-    the card sees one model step per chunk.
+    the card sees one model step per chunk, or with ``--slots N`` one
+    tier program a tick for up to N connections (the pool is warmed, every
+    tier captured, before the server accepts traffic).
     """
-    from fnssl_tpu_torch.eval.pred_doa import PredDOA, PredDOAMultiTrack
+    from fnssl_tpu_torch.core.pairs import num_pairs
     from fnssl_tpu_torch.runtime.server import LocalizationServer
-    from fnssl_tpu_torch.runtime.streaming import (
-        StreamingLocalizer, make_fnssl_stream_step, make_ipdnet_stream_step,
-        make_spatialnet_stream_step)
-    from fnssl_tpu_torch.train.tasks import (DUALCH_MIC_LOCATION,
-                                             IPDNET2_MIC_IDS)
-    from fnssl_tpu_torch.utils.device import resolve_device
 
-    if args.model in ("ipdnet_offline", "variable_ipdnet"):
-        raise SystemExit(f"stream: model {args.model!r} is not causal "
-                         "(the offline/bidirectional variants see future "
-                         "frames — use `cli predict` or the chunked "
-                         "offline inference in `cli test`)")
-    if args.model not in SERVED:
-        raise SystemExit(f"serve --model {args.model}: not ported yet")
-    device = resolve_device("cpu" if args.platform == "cpu" else None)
-    model = load_model(args.model, args.log_dir, args.seed, device)
+    if args.slots and args.artifact:
+        raise SystemExit("--slots serves from a checkpoint (an artifact "
+                         "bakes a fixed batch size)")
+    device = _device(args)
+    model, task, module, art, frames = _load_stream_model(args, device)
+    nch = args.nch or (5 if model == "ipdnet2" else 2)
+    pool = None
+    if args.slots:
+        from fnssl_tpu_torch.runtime.export import _resolve
+        from fnssl_tpu_torch.runtime.slots import BatchedStreamPool
 
-    nch = args.nch or (5 if args.model == "ipdnet2" else 2)
-    host = torch.device("cpu")
-    frames = 12
-    if args.model == "ipdnet2":
-        # IPDnet2's front-end: torch.stft(center=True), hop 0.625·512 =
-        # 320, forgetting norm L=249, all channels (run_IPDnet2.py:82-113);
-        # 5-frame chunk steps (the 5x time compression); per-track decode
-        # on the azimuth grid of the 5-mic Westlake subset
-        from fnssl_tpu_torch.data.arrays import audiowu_high_array_geometry
-        decoder = PredDOAMultiTrack(
-            audiowu_high_array_geometry()[list(IPDNET2_MIC_IDS)],
-            max_track=2, device=host)
-        decode = lambda chunk: decoder.pred2doa(chunk)[0]  # noqa: E731
-        front = dict(ch_mode="none", hop=320, center=True,
-                     sample_length=249)
-        make_step = make_spatialnet_stream_step
-        frames = 5
-    elif args.model == "ipdnet":
-        # all channels, forgetting norm L=280 (runIPDnetOn.py:236-253);
-        # per-track decode on the azimuth grid
-        decoder = PredDOAMultiTrack(DUALCH_MIC_LOCATION,
-                                    max_track=model.cfg.max_track,
-                                    device=host)
-        decode = lambda chunk: decoder.pred2doa(chunk)[0]  # noqa: E731
-        front = dict(ch_mode="none", sample_length=280)
-        make_step = make_ipdnet_stream_step
-    else:
-        decoder = PredDOA(device=host)
-        decode = lambda chunk: decoder.predgt2doa(chunk)[0]  # noqa: E731
-        front = dict(ch_mode="MM")
-        make_step = make_fnssl_stream_step
-
-    def session_factory():
-        loc = StreamingLocalizer(make_step(model), nch=nch,
-                                 frames_per_step=frames, device=host,
-                                 **front)
-        return loc, decode
-
-    server = LocalizationServer(session_factory, host=args.host,
-                                port=args.port)
-    info = {"serving": args.model, "host": args.host, "port": server.port,
-            "nch": nch, "model_device": str(device),
-            "frontend_device": str(host), "decode_device": str(host)}
+        apply_fn, init_state = _resolve(model, module)
+        if model.startswith("fnssl"):
+            rows, cin = num_pairs(nch, "MM"), 4
+        else:
+            rows, cin = 1, 2 * nch
+        pool = BatchedStreamPool(apply_fn, module, init_state,
+                                 feats_shape=(rows, cin, 256, frames),
+                                 slots=args.slots)
+        pool.warmup()
+    make_loc, decode = _stream_session_factory(model, task, module, art, nch,
+                                               frames, pool=pool)
+    server = LocalizationServer(lambda: (make_loc(), decode),
+                                host=args.host, port=args.port, pool=pool)
+    host = "cpu"
+    info = {"serving": model, "host": args.host, "port": server.port,
+            "nch": nch, "model_device": str(device), "frontend_device": host,
+            "decode_device": host, "slots": args.slots,
+            "artifact": args.artifact}
     return server, info
 
 
@@ -622,6 +885,37 @@ def cmd_serve(args):
         server.serve_forever()
     except KeyboardInterrupt:
         server.shutdown()
+
+
+def cmd_export(args):
+    """Serialize the checkpoint's model to a serving artifact
+    (``runtime/export.py``): the ExportedProgram of the forward (or of the
+    streaming chunk step) a platform, with its weights, plus the manifest.
+    """
+    from fnssl_tpu_torch.runtime.export import export_model
+
+    platforms = args.platforms.split(",") if args.platforms else None
+    if platforms and "tpu" in platforms:
+        raise SystemExit("--platforms tpu: the port exports programs for "
+                         "cpu and cuda")
+    device = _device(args)
+    task = _task_for(args.model, device)
+    module = _init_model(args.model, task.cfg, args.seed, device)
+    epoch = _restore_weights(module, args.log_dir, args.best)
+    if args.model == "ipdnet2":
+        cin, nf, chunk = task.cfg.dim_input, task.cfg.num_freqs, 5
+    else:                      # fnssl*/ipdnet*: 2-mic real/imag features
+        cin, nf, chunk = 4, 256, 12
+    nt = args.export_t or (chunk if args.mode == "stream" else 298)
+    if args.mode == "stream" and nt % chunk:
+        raise SystemExit(f"--export-t must be a multiple of the model "
+                         f"chunk size ({chunk}) in stream mode")
+    feats = np.zeros((args.export_bz, cin, nf, nt), np.float32)
+    meta = export_model(args.model, module.eval(), feats, args.out,
+                        mode=args.mode, platforms=platforms)
+    print(json.dumps({"out": args.out, "mode": meta["mode"],
+                      "platforms": meta["platforms"],
+                      "input_shape": meta["input_shape"], "epoch": epoch}))
 
 
 def main(argv=None):
@@ -636,7 +930,8 @@ def main(argv=None):
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     args = _apply_yaml_defaults(ap, args)
     {"simulate": cmd_simulate, "fit": cmd_fit, "test": cmd_test,
-     "serve": cmd_serve}[args.cmd](args)
+     "predict": cmd_predict, "stream": cmd_stream, "serve": cmd_serve,
+     "export": cmd_export}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,6 @@
 """End-to-end prediction → DOA → metrics wrappers (port of ``PredDOA``,
-``PredDOAMultiTrack`` and ``predgt2doa_cls`` from
-``fnssl_tpu/eval/pred_doa.py``; ``ipd_baseline`` waits for ``cli
-predict``)."""
+``PredDOAMultiTrack``, ``ipd_baseline`` and ``predgt2doa_cls`` from
+``fnssl_tpu/eval/pred_doa.py``)."""
 from __future__ import annotations
 
 import os
@@ -178,6 +177,33 @@ class PredDOAMultiTrack:
     def __call__(self, pred_batch, gt_batch, idx: int | None = None, **kw):
         pred, gt = self.pred2doa(pred_batch, gt_batch)
         return self.evaluate(pred, gt, idx=idx, **kw)
+
+
+def ipd_baseline(mic_sig, decoder: PredDOA, *, nfft: int = 512,
+                 win_len: int = 512, win_shift_ratio: float = 0.5,
+                 time_pool_size: int = 12):
+    """DNN-free localization baseline: decode the measured cross-spectrum
+    IPD directly on the template grid, on the decoder's device.
+
+    The reference's ``wDNN=False`` path (Learner.py:208-214) subtracts the
+    normalized imaginary parts of the two channels as a stand-in for
+    phase; this decodes the inter-channel phase difference
+    exp(j·(∠X₁−∠X₂)), which the DP-IPD templates model, as the JAX package
+    does.
+
+    Args: mic_sig (nb, nsample, 2). Returns the PredDOA pred dict.
+    """
+    from fnssl_tpu_torch.core.stft import stft
+
+    sig = torch.as_tensor(mic_sig, dtype=torch.float32,
+                          device=decoder.template.device)
+    spec = stft(sig, win_len=win_len, win_shift_ratio=win_shift_ratio,
+                nfft=nfft)                          # (nb, nf, nt, 2)
+    cross = spec[..., 0] * torch.conj(spec[..., 1])  # (nb, nf, nt)
+    ipd = cross / (cross.abs() + 1e-8)
+    sel = ipd[:, 1: nfft // 2 + 1]
+    pred = torch.cat([sel.real, sel.imag], dim=1).permute(0, 2, 1)
+    return decoder.predgt2doa(pred, time_pool_size=time_pool_size)[0]
 
 
 def _host(x) -> np.ndarray:

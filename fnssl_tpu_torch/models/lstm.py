@@ -9,11 +9,13 @@ directions of a BiLSTM stacked in front (ndir = 1 or 2):
      ``torch.matmul`` against the stacked W_ihᵀ (I, ndir·4H) outside the
      kernel (the JAX package leaves it to XLA); the two biases are summed
      first, so autograd gives both the same gradient, as torch does.
-  2. Only the hidden recurrence runs in ``kernels.lstm_cuda``: one launch
-     of K1 (``lstm_fwd``, or ``lstm_fwd_bidir`` for both directions, whose
-     backward direction walks the unflipped x from T-1 to 0) for CUDA
-     tensors, the plain version for CPU ones. Only x, ys, h0, c0 and the
-     weights are kept for the backward; xg is not.
+  2. Only the hidden recurrence runs in ``kernels.lstm_cuda``, reached
+     through the custom ops of ``kernels.ops`` (so that ``torch.export``
+     traces it as one node): one launch of K1 (``lstm_fwd``, or
+     ``lstm_fwd_bidir`` for both directions, whose backward direction walks
+     the unflipped x from T-1 to 0) for CUDA tensors, the plain version for
+     CPU ones. Only x, ys, h0, c0 and the weights are kept for the
+     backward; xg is not.
 
 Backward (``LSTMRecurrence.backward``), the recompute-in-backward of
 ``_lstm_backward``:
@@ -37,8 +39,8 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from fnssl_tpu_torch.kernels.lstm_cuda import (lstm_bwd, lstm_bwd_bidir,
-                                               lstm_fwd, lstm_fwd_bidir)
+from fnssl_tpu_torch.kernels.lstm_cuda import lstm_bwd, lstm_bwd_bidir
+from fnssl_tpu_torch.kernels.ops import lstm_fwd, lstm_fwd_bidir
 from fnssl_tpu_torch.models.layers import uniform_
 from fnssl_tpu_torch.utils.device import resolve_device
 

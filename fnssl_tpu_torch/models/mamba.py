@@ -6,8 +6,10 @@ CUDA package (IPDnet2/IPDnet2.py:16-19).
     state) carry; ``mamba_apply``: the full sequence from zero state, the
     JAX package's default sequential path (the same chunk forward).
   * The recurrence runs in ``SSMScan``, a ``torch.autograd.Function``:
-    forward K3 and backward K4 (``kernels.ssm_cuda``) for CUDA tensors,
-    their plain versions for CPU ones. The projections around it are
+    forward K3 (through the custom op ``kernels.ops.ssm_scan_fwd``, which
+    ``torch.export`` traces as one node) and backward K4
+    (``kernels.ssm_cuda``) for CUDA tensors, their plain versions for CPU
+    ones. The projections around it are
     torch matrix products, as the JAX package leaves them to XLA.
 
 Parameter names follow mamba_ssm's state_dict (in_proj, conv1d, x_proj,
@@ -28,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fnssl_tpu_torch.kernels.ssm_cuda import ssm_scan_bwd, ssm_scan_fwd
+from fnssl_tpu_torch.kernels.ops import ssm_scan_fwd
+from fnssl_tpu_torch.kernels.ssm_cuda import ssm_scan_bwd
 from fnssl_tpu_torch.models.layers import uniform_
 
 

@@ -6,7 +6,9 @@ The deployment endpoint the reference ecosystem leaves to the user:
 service that accepts raw PCM and emits DOA/VAD per model output block.
 One connection = one independent stream (own model state, own
 forgetting-norm statistics); connections are handled concurrently, each
-on its own thread with its own model steps (no batching across them).
+on its own thread with its own model steps, or, under ``cli serve
+--slots``, a leased slot of a ``runtime.slots.BatchedStreamPool`` whose
+ticks batch the connections' chunk steps.
 
 Wire protocol (newline-framed JSON control, length-framed binary audio):
 
@@ -71,11 +73,14 @@ class LocalizationServer:
         model output block to {'doa' (1, k, 2[, ns]) radians,
         'vad_sources' (1, k[, ns])}.
       host/port: bind address; port=0 picks a free port (see .port).
+      pool: the slot pool the sessions lease from, if any; closed by
+        ``shutdown``.
     """
 
     def __init__(self, session_factory: Callable, host: str = "127.0.0.1",
-                 port: int = 0, send_timeout_s: float = 30.0):
+                 port: int = 0, send_timeout_s: float = 30.0, pool=None):
         self.session_factory = session_factory
+        self.pool = pool
         self.send_timeout_s = send_timeout_s
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -118,6 +123,8 @@ class LocalizationServer:
             t.join(timeout=5.0)
         if hasattr(self, "_accept_thread"):
             self._accept_thread.join(timeout=5.0)
+        if self.pool is not None:
+            self.pool.close()
 
     # ------------------------------------------------------- connection
 
@@ -144,6 +151,7 @@ class LocalizationServer:
 
     def _handle(self, conn: socket.socket):
         f = None
+        localizer = None
         try:
             # bound sendall: a peer that never reads (both TCP buffers
             # full) wedges this thread forever otherwise. SO_SNDTIMEO
@@ -204,6 +212,11 @@ class LocalizationServer:
                     {"error": f"{type(e).__name__}: {e}"}).encode()
                     + b"\n")
         finally:
+            # a slot-pool session releases its slot on disconnect
+            close = getattr(getattr(localizer, "model_step", None), "close",
+                            None)
+            if close is not None:
+                close()
             conn.close()
 
 

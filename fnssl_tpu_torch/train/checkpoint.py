@@ -101,6 +101,18 @@ class CheckpointManager:
             return None
         return min(self._index.items(), key=self._rank)[0]
 
+    def load_weights(self, module, epoch: int | None = None):
+        """Load the latest (or the given) epoch's model weights into
+        ``module`` alone (serving and export). Returns the epoch, or None
+        when there is no checkpoint."""
+        epoch = self.latest_epoch() if epoch is None else epoch
+        if epoch is None:
+            return None
+        payload = torch.load(self.path(epoch), map_location="cpu",
+                             weights_only=False)
+        module.load_state_dict(payload["model"], strict=True)
+        return epoch
+
     def restore(self, state: TrainState, epoch: int | None = None):
         """Load the latest (or the given) epoch into ``state``'s module,
         optimizer and scheduler. Returns (state, epoch), or (None, None)

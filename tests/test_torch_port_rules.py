@@ -42,9 +42,10 @@ def test_port_imports_no_jax_and_no_fnssl_tpu():
                  "train.learner", "train.checkpoint", "parallel",
                  "models.ipdnet", "eval.pred_doa", "physics.targets",
                  "train.tasks", "runtime.streaming", "models.mamba",
-                 "models.spatialnet", "kernels.ssm_cuda", "data.realman"):
+                 "models.spatialnet", "kernels.ssm_cuda", "data.realman",
+                 "kernels.ops", "runtime.slots", "runtime.export"):
         assert f"fnssl_tpu_torch.{name}" in out["modules"]
-    assert len(out["modules"]) >= 59
+    assert len(out["modules"]) >= 62
 
 
 @pytest.fixture
@@ -72,10 +73,16 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
                  make_ipdnet2_task, lambda: prefetch_to_device([])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
-    for model in ("fnssl", "ipdnet", "ipdnet2"):
+    for model in ("fnssl", "fnssl_doa", "ipdnet", "ipdnet2"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["serve", "--model", model, "--port", "0", "--log-dir",
                   str(tmp_path)])
+    for argv in (["predict", "--wav", "x.wav"], ["stream", "--wav", "x.wav"],
+                 ["export", "--out", str(tmp_path / "art")],
+                 ["serve", "--slots", "2", "--port", "0"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv + ["--log-dir", str(tmp_path)])
+    assert not (tmp_path / "art").exists()
 
 
 def test_training_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
