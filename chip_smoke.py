@@ -51,9 +51,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
                (N, Bt, KS, UPT) of lstm_bwd_cluster.cu that fits, fp32 and
                bf16.
  10. fit     — the user's loop through the CLI (`main()` in this process)
-               on cuda:0 at full width: `simulate` 256 train scenes
+               on cuda:0 at full width: `simulate` 192 train scenes
                (wav+pickle) and 8 dev scenes (compact npz) of 4.79 s;
-               `fit --model fnssl --bz 16 --epochs 2` (16 steps an epoch),
+               `fit --model fnssl --bz 16 --epochs 2` (12 steps an epoch),
                `test`, `test --best`, then `serve` from the fit's
                best_model.tar (one TCP connection); `fit --model fnssl_doa
                --epochs 1 --train-size 32` and `test`. Checked: the native
@@ -160,6 +160,31 @@ Phases, each fatal on failure (exit code != 0, no result line):
                and cpu, its CPU program held against the card's (1e-3);
                one `serve --artifact` TCP connection against a dedicated
                stream.
+ 26. locata  — a synthetic LOCATA tree (task 3 and 5, recordings 1 and 2,
+               dicit: 15 channels of 20 s at 48 kHz, pose, time, source and
+               VAD files; written before phase 3, which holds K1 at its
+               frame count too): `cli locata --model fnssl` from phase 10's
+               best_model.tar on the card (exactly 6 K1 launches a
+               recording, nothing else; the npy dumps; `--plot`'s figure,
+               or its refusal where matplotlib is not installed), the same
+               command with `--platform cpu` (the same metrics, the est
+               dumps within 1e-3 degrees but at exact decode ties) and
+               `locata --model ipd_baseline`; then K1 at the locata shapes
+               (as phase 5).
+ 27. time modules — IPDnet2 with attention mhsa(251) (rope False and
+               ALiBi) and ret(2) (rope False and True) at SpatialNetConfig's
+               width: the forward at nb 16, nt 200 against the CPU (1e-3),
+               ms (mean, p90 of 5) and peak memory; 5-frame chunks over 40
+               frames against the one-shot forward (2e-4 mhsa, 2e-2 ret);
+               one train step of make_ipdnet2_task(cfg) against the CPU
+               (phase 19's tolerances and gates); the train cell (nb 16 x 4
+               s) beside phase 20's Mamba step; no kernel launched; then
+               retention's chunkwise and parallel modes alone at layer 0's
+               shape (B 256, T 201, H 96, 4 heads).
+ 28. fit flags — `fit --model fnssl` on 64 scenes of phase 10's corpus, 1
+               epoch at bz 16: plain, `--profile 1` (the trace exists and
+               names K1's and K2's kernels) and `--debug-nans` (finite
+               losses, ms a step beside the plain fit's); exact launches.
 The line before the last is the kernels JSON line (each kernel's numbers
 over one train step's work, its launches over every path); the last line
 is
@@ -225,10 +250,10 @@ PER_TRAIN_STEP = 3                      # launches of each shape a step
 LAUNCHES_PER_TRAIN_STEP = 6             # K1, and K2, each
 BWD_EDGE_T = (1, 2, 7)
 # phase 10, the user's loop through the CLI: scenes of TRAIN_T_S seconds,
-# bz 16, 2 epochs of fnssl (16 steps each, so that the loop reaches its
+# bz 16, 2 epochs of fnssl (12 steps each, so that the loop reaches its
 # steady state after the first batch) and 1 of fnssl_doa on the first
 # FIT_DOA_TRAIN scenes
-FIT_TRAIN, FIT_DEV, FIT_BZ, FIT_EPOCHS, FIT_DOA_TRAIN = 256, 8, 16, 2, 32
+FIT_TRAIN, FIT_DEV, FIT_BZ, FIT_EPOCHS, FIT_DOA_TRAIN = 192, 8, 16, 2, 32
 BWD_TOL = 1e-4                          # K2 vs plain, fp32 and bf16
 
 
@@ -280,15 +305,16 @@ def counted(counter, n, fn, *args, **kwargs):
     return out
 
 
-def phase_kernels(device):
-    """K1 against its plain version on the card, at the serve, one-shot
-    and 16-slot tick shapes and the edge cases. Returns the worst errors
-    by kernel and dtype, and the number of checks."""
+def phase_kernels(device, extra=()):
+    """K1 against its plain version on the card, at the serve, one-shot,
+    16-slot tick and `extra` shapes and the edge cases. Returns the worst
+    errors by kernel and dtype."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
     worst = {k: {"float32": 0.0, "bfloat16": 0.0, "bfloat16_ys": 0.0}
              for k in ("lstm_cluster", "lstm_fwd")}
-    cases = [(n, t, b, h) for n, t, b, h, _, _ in SHAPES + SLOT_SHAPES]
+    cases = [(n, t, b, h) for n, t, b, h, _, _ in
+             SHAPES + SLOT_SHAPES + list(extra)]
     cases += [("edge", t, b, h) for h in EDGE_H for b in EDGE_B
               for t in EDGE_T]
     cases += [("v2_h512", *V2_CASE)]
@@ -314,7 +340,7 @@ def phase_kernels(device):
                              L.lstm_fwd_bidir_plain(*both), worst))
             checks += 3
             if name != "edge":
-                log(f"  {kernel} {name:18s} T={t:3d} B={b:3d} H={h:3d} "
+                log(f"  {kernel} {name:18s} T={t:4d} B={b:4d} H={h:3d} "
                     f"{dtype:8s} max|diff| fwd/rev/bidir ys "
                     + "/".join(f"{e['ys']:.2e}" for e in errs) + " hT,cT "
                     + "/".join(f"{max(e['hT'], e['cT']):.2e}" for e in errs))
@@ -1371,10 +1397,11 @@ def serve_after_fit(model, log_dir, audio):
     return n_out, served
 
 
-def phase_fit(seed, device, card, step_ms):
+def phase_fit(seed, device, card, step_ms, work):
     """The user's training loop through the CLI, in-process on the card at
     full width: simulate, fit, test (latest and best) and serve fnssl from
-    the fit's best_model.tar; fit and test fnssl_doa."""
+    the fit's best_model.tar; fit and test fnssl_doa. The corpus and the
+    runs stay under `work` (work/data, work/runs) for phases 26 and 28."""
     from fnssl_tpu_torch.sim import native
 
     valid_batches = -(-FIT_DEV // FIT_BZ)
@@ -1388,41 +1415,40 @@ def phase_fit(seed, device, card, step_ms):
         raise AssertionError(f"the native ISM did not build: "
                              f"{native.build_error('ism')}")
     report = {"card": card}
-    with tempfile.TemporaryDirectory() as tmp:
-        data, runs = Path(tmp) / "data", Path(tmp) / "runs"
-        sims = []
-        for sub, num, seed_, extra in (("train", FIT_TRAIN, 1, []),
-                                       ("dev", FIT_DEV, 77, ["--compact"])):
-            sim, _, seconds = cli(["simulate", "--out", str(data / sub),
-                                   "--num", str(num), "--T", str(TRAIN_T_S),
-                                   "--seed", str(seed_), *extra])
-            sims.append(sim)
-            if sim["ism_engine"] != "native C++/OpenMP":
-                raise AssertionError(f"simulate {sub} ran the "
-                                     f"{sim['ism_engine']} ISM")
-            log(f"  simulate {sub}: {num} scenes of {TRAIN_T_S} s in "
-                f"{sim['seconds']:.2f} s, {sim['seconds'] / num:.3f} s a "
-                f"scene, ISM engine {sim['ism_engine']} ({sim['threads']} "
-                f"threads); {card}")
-        report["simulate"] = sims
-        launches = {}
-        fnssl, launches["fnssl"] = fit_and_test(
-            "fnssl", data, runs / "fnssl", FIT_EPOCHS, FIT_TRAIN, FIT_BZ,
-            seed, want(FIT_EPOCHS * (FIT_TRAIN // FIT_BZ),
-                       FIT_EPOCHS * valid_batches), want(0, valid_batches))
-        fnssl["test_best"], tested = test_best(
-            "fnssl", FIT_BZ, runs / "fnssl", data / "dev",
-            want(0, valid_batches))
-        launches["fnssl"] = [a + b for a, b in zip(launches["fnssl"], tested)]
-        fnssl["serve_lines"], launches["serve_after_fit"] = serve_after_fit(
-            "fnssl", runs / "fnssl", make_audio(seed + 200, 4))
-        report["fnssl"] = fnssl
-        report["fnssl_doa"], launches["fnssl_doa"] = fit_and_test(
-            "fnssl_doa", data, runs / "doa", 1, FIT_DOA_TRAIN, FIT_BZ, seed,
-            want(FIT_DOA_TRAIN // FIT_BZ, valid_batches),
-            want(0, valid_batches))
-        report["loader_stages_s"] = loader_stages(data / "train", FIT_BZ,
-                                                  device, data / "dev")
+    data, runs = work / "data", work / "runs"
+    sims = []
+    for sub, num, seed_, extra in (("train", FIT_TRAIN, 1, []),
+                                   ("dev", FIT_DEV, 77, ["--compact"])):
+        sim, _, seconds = cli(["simulate", "--out", str(data / sub),
+                               "--num", str(num), "--T", str(TRAIN_T_S),
+                               "--seed", str(seed_), *extra])
+        sims.append(sim)
+        if sim["ism_engine"] != "native C++/OpenMP":
+            raise AssertionError(f"simulate {sub} ran the "
+                                 f"{sim['ism_engine']} ISM")
+        log(f"  simulate {sub}: {num} scenes of {TRAIN_T_S} s in "
+            f"{sim['seconds']:.2f} s, {sim['seconds'] / num:.3f} s a "
+            f"scene, ISM engine {sim['ism_engine']} ({sim['threads']} "
+            f"threads); {card}")
+    report["simulate"] = sims
+    launches = {}
+    fnssl, launches["fnssl"] = fit_and_test(
+        "fnssl", data, runs / "fnssl", FIT_EPOCHS, FIT_TRAIN, FIT_BZ,
+        seed, want(FIT_EPOCHS * (FIT_TRAIN // FIT_BZ),
+                   FIT_EPOCHS * valid_batches), want(0, valid_batches))
+    fnssl["test_best"], tested = test_best(
+        "fnssl", FIT_BZ, runs / "fnssl", data / "dev",
+        want(0, valid_batches))
+    launches["fnssl"] = [a + b for a, b in zip(launches["fnssl"], tested)]
+    fnssl["serve_lines"], launches["serve_after_fit"] = serve_after_fit(
+        "fnssl", runs / "fnssl", make_audio(seed + 200, 4))
+    report["fnssl"] = fnssl
+    report["fnssl_doa"], launches["fnssl_doa"] = fit_and_test(
+        "fnssl_doa", data, runs / "doa", 1, FIT_DOA_TRAIN, FIT_BZ, seed,
+        want(FIT_DOA_TRAIN // FIT_BZ, valid_batches),
+        want(0, valid_batches))
+    report["loader_stages_s"] = loader_stages(data / "train", FIT_BZ,
+                                              device, data / "dev")
 
     warm = fnssl["epochs"][-1]
     ms = warm["steady_ms_per_step"]
@@ -2040,15 +2066,15 @@ def ipdnet2_batch(nb, seed):
                 np.float32).copy()}
 
 
-def ipdnet2_setup(seed, nb, device, precision="fp32"):
-    """(state, step, batch) of make_ipdnet2_task at SpatialNetConfig() on
-    `device`: weights from `seed`, AdamW 5e-4 / gamma 0.975 with a clip of
-    5, the bench batch on the device."""
+def ipdnet2_setup(seed, nb, device, precision="fp32", cfg=None):
+    """(state, step, batch) of make_ipdnet2_task at `cfg` (default
+    SpatialNetConfig()) on `device`: weights from `seed`, AdamW 5e-4 /
+    gamma 0.975 with a clip of 5, the bench batch on the device."""
     from fnssl_tpu_torch.models.spatialnet import SpatialNet
     from fnssl_tpu_torch.train import step as S
     from fnssl_tpu_torch.train import tasks as TK
 
-    task = TK.make_ipdnet2_task(precision=precision, device=device)
+    task = TK.make_ipdnet2_task(cfg, precision=precision, device=device)
     model = SpatialNet(task.cfg, device=device,
                        generator=torch.Generator().manual_seed(seed))
     tx = S.make_optimizer("adamw", I2_LR, 0.975, 1, grad_clip=5.0)
@@ -2873,6 +2899,442 @@ def phase_export(seed, device, tmp):
     return report, dict(zip(COUNTED, totals))
 
 
+# --------------------------------------------------------------------------
+# The last slice (phases 26-28): `cli locata` (FN-SSL on LOCATA, K1),
+# IPDnet2's MHSA and retention time modules, and `fit --profile` /
+# `--debug-nans`
+
+# phase 26: a synthetic LOCATA tree in the reference layout, (task,
+# recording) pairs of LOCATA_S s of 15-channel 48 kHz audio (dicit)
+LOCATA_TASKS, LOCATA_RECORDINGS, LOCATA_S = (3, 5), (1, 2), 20.0
+LOCATA_FS, LOCATA_SILENCE, LOCATA_BURST = 48000, 4800, 2400
+LOCATA_LAUNCHES = [LAUNCHES_PER_CHUNK, 0, 0, 0, 0, 0]  # a recording
+LOCATA_MICS = (8, 5)                  # `cli locata`'s default --mic-pick
+# phase 27: the time modules, each at SpatialNetConfig()'s width
+TIME_CONFIGS = (("mhsa(251)", False), ("mhsa(251)", "ALiBi"),
+                ("ret(2)", False), ("ret(2)", True))
+STREAM_TOL = {"mhsa": 2e-4, "ret": 2e-2}  # tests/test_spatialnet_attention
+TIME_STREAM_NT, TIME_CHUNK = 40, 5
+# retention alone at layer 0's shape in a train step: nb 16 x 16 bins left
+# after the frequency pools = 256 sequences of 201 frames (4 s), H 96
+RET_SHAPE = (256, 201, 96, 4)
+
+
+def _write_tsv(path, cols):
+    keys = list(cols)
+    rows = zip(*(cols[k] for k in keys))
+    path.write_text("\t".join(keys) + "\n" + "".join(
+        "\t".join(str(v) for v in row) + "\n" for row in rows))
+
+
+def write_locata(root, seed):
+    """A LOCATA tree under `root` (the form tests/test_locata.py writes):
+    per (task, recording) a static DICIT array at the origin (identity
+    rotation), one static talker 2 m away at its own azimuth whose noise
+    reaches each mic with its far-field delay, LOCATA_SILENCE samples of
+    leading silence and then a 1 kHz burst, the same on every mic and
+    recording (so that the silence strip, and the frame count, is the same
+    for all), and a VAD of alternating 2 s blocks."""
+    from fnssl_tpu_torch.data.arrays import dicit_array_setup
+    from fnssl_tpu_torch.utils.audio_io import write_audio
+
+    rng = np.random.default_rng(seed)
+    n, fs = int(LOCATA_S * LOCATA_FS), LOCATA_FS
+    mics = dicit_array_setup().mic_pos
+    npts = 21
+    ts = np.linspace(0, LOCATA_S, npts)
+    burst = 0.9 * np.sin(2 * np.pi * 1000 * np.arange(LOCATA_BURST) / fs)
+    vad = (np.arange(n) // (2 * fs)) % 2 == 0
+    pose = {"hour": [10] * npts, "minute": [0] * npts, "second": list(ts)}
+    for k, (task, rec) in enumerate(
+            (t, r) for t in LOCATA_TASKS for r in LOCATA_RECORDINGS):
+        d = root / f"task{task}" / f"recording{rec}" / "dicit"
+        d.mkdir(parents=True)
+        azi = np.radians(30.0 + 40.0 * k)
+        u = np.array([np.cos(azi), np.sin(azi), 0.0])
+        proj = mics @ u
+        delays = np.round((proj.max() - proj) / 343.0 * fs).astype(int)
+        src = rng.standard_normal(n + delays.max()).astype(np.float32) * 0.1
+        sig = np.stack([src[delays.max() - a: delays.max() - a + n]
+                        for a in delays], axis=1)
+        sig += rng.standard_normal(sig.shape).astype(np.float32) * 0.005
+        sig[:LOCATA_SILENCE] = 0.0
+        sig[LOCATA_SILENCE: LOCATA_SILENCE + LOCATA_BURST] = burst[:, None]
+        write_audio(str(d / "audio_array_dicit.wav"), sig, fs)
+        write_audio(str(d / "audio_source_talker1.wav"), src[:n], fs)
+        array = dict(pose, x=[0.0] * npts, y=[0.0] * npts, z=[0.0] * npts)
+        for i in range(3):
+            for j in range(3):
+                array[f"rotation_{i + 1}{j + 1}"] = [float(i == j)] * npts
+        _write_tsv(d / "position_array_dicit.txt", array)
+        _write_tsv(d / "required_time.txt", pose)
+        _write_tsv(d / "position_source_talker1.txt",
+                   {c: [2 * v] * npts for c, v in zip("xyz", u)})
+        _write_tsv(d / "VAD_dicit_talker1.txt", {"VAD": vad.astype(int)})
+
+
+def locata_frames(root):
+    """The STFT frame count FN-SSL sees for each recording of the tree (hop
+    256, window 512, center=False) after the reader's decimation and
+    silence strip; they must all be equal."""
+    from fnssl_tpu_torch.data import LocataDataset
+
+    ds = LocataDataset(str(root), tasks=LOCATA_TASKS,
+                       return_acoustic_scene=True)
+    frames = {1 + (len(ds[i][0]) - 512) // 256 for i in range(len(ds))}
+    if len(frames) != 1:
+        raise AssertionError(f"the LOCATA recordings give {frames} frames")
+    return frames.pop()
+
+
+def locata_shapes(frames):
+    """K1's shapes in `cli locata --model fnssl` (B = 1 recording): the
+    full-band BiLSTMs over 256 bins for every frame, the narrow-band LSTMs
+    over the frames for every bin."""
+    return [("locata_fullband", 256, frames, 128, 256, 2),
+            ("locata_narrowband", frames, 256, 256, 256, 1)]
+
+
+def locata_pred(root, log_dir, seed, idx, device):
+    """FN-SSL's raw output for recording idx as `cli locata` computes it on
+    `device` (the two picked mics' features, the latest weights of
+    log_dir)."""
+    from fnssl_tpu_torch.cli.main import load_model
+    from fnssl_tpu_torch.data import LocataDataset, Segmenting
+    from fnssl_tpu_torch.train.preprocess import stft_features
+
+    model = quiet(load_model, "fnssl", str(log_dir), seed, device,
+                  best=False)
+    mic, _ = LocataDataset(str(root), tasks=LOCATA_TASKS,
+                           transforms=[Segmenting()])[idx]
+    x = torch.as_tensor(mic[None][..., list(LOCATA_MICS)].astype(
+        np.float32), device=device)
+    with torch.no_grad():
+        return model(stft_features(x, ch_mode="MM")).float().cpu()
+
+
+def locata_spectra(pred):
+    """(1 track, frames, grid): the spatial spectrum `cli locata` decodes
+    `pred` on (the picked pair's grid), for `same_or_tie`."""
+    from fnssl_tpu_torch.data.arrays import dicit_array_setup
+    from fnssl_tpu_torch.eval.pred_doa import PredDOA
+
+    pos = dicit_array_setup().mic_pos
+    res = PredDOA(mic_location=tuple(pos[m] for m in LOCATA_MICS),
+                  device="cpu").predgt2doa(pred)[0]
+    return res["spatial_spectrum"].reshape(1, pred.shape[1], -1).numpy()
+
+
+def phase_locata(seed, device, root, runs, frames, card):
+    """`cli locata` on the synthetic tree: FN-SSL from phase 10's
+    best_model.tar on the card (6 K1 launches a recording, no other
+    kernel), the same command on the CPU (same metrics, every
+    recording's raw output within 1e-3 and est within 1e-3 degrees but at
+    exact decode ties), the model-free baseline, the npy
+    dumps and the plot (or, where matplotlib is not installed, `--plot`'s
+    refusal); then K1 at the locata shapes (as phase 5)."""
+    import importlib.util
+    import shutil
+
+    from fnssl_tpu_torch.models.fnssl import FNSSL
+    from fnssl_tpu_torch.train.convert import save_torch_tar
+
+    log_dir = runs / "locata_fnssl"
+    log_dir.mkdir(parents=True)
+    best = runs / "fnssl" / "best_model.tar"
+    if best.exists():
+        shutil.copy(best, log_dir / "best_model.tar")
+        weights = "phase 10's best_model.tar"
+    else:
+        save_torch_tar(str(log_dir / "best_model.tar"), FNSSL(
+            device="cpu", generator=torch.Generator().manual_seed(seed))
+            .state_dict())
+        weights = f"fresh weights from --seed {seed}"
+    n = len(LOCATA_TASKS) * len(LOCATA_RECORDINGS)
+    common = ["locata", "--locata-dir", str(root), "--tasks",
+              ",".join(map(str, LOCATA_TASKS)), "--log-dir", str(log_dir),
+              "--seed", str(seed)]
+    plot = importlib.util.find_spec("matplotlib") is not None
+    out = {k: runs / f"locata_{k}" for k in ("card", "cpu", "baseline")}
+    res, _, launched, secs = counted_cli(
+        common + ["--model", "fnssl", "--out", str(out["card"])]
+        + (["--plot"] if plot else []),
+        [k * n for k in LOCATA_LAUNCHES], f"locata fnssl ({weights})")
+    if not (res["recordings"] == n and np.isfinite(res["MAE"])
+            and np.isfinite(res["ACC"])):
+        raise AssertionError(f"locata fnssl: {res}")
+    dumps = [out["card"] / f"{i}_{f}.npy" for i in range(n)
+             for f in ("gt", "est", "vadgt")]
+    missing = [str(f) for f in dumps if not f.exists()]
+    if missing:
+        raise AssertionError(f"locata fnssl: no {missing}")
+    if plot:
+        if not (out["card"] / "locata_fig.jpg").stat().st_size:
+            raise AssertionError("locata --plot wrote no figure")
+        plotted = "written"
+    else:
+        try:
+            cli(common + ["--model", "fnssl", "--out", str(runs / "x"),
+                          "--plot"])
+        except SystemExit as e:
+            if "needs matplotlib" not in str(e):
+                raise
+        else:
+            raise AssertionError("locata --plot ran without matplotlib")
+        plotted = "refused: matplotlib is not installed on this machine"
+    cpu, _, _, cpu_secs = counted_cli(
+        common + ["--model", "fnssl", "--platform", "cpu", "--out",
+                  str(out["cpu"])], [0] * len(COUNTED),
+        "locata fnssl --platform cpu")
+    # the decoded DOAs are grid points (and a briefly trained model may
+    # decode every frame alike): hold every recording's raw output too,
+    # the card against the CPU (1e-3, as phase 22)
+    ties, est, out_err = 0, [], 0.0
+    for i in range(n):
+        cpu_pred = locata_pred(root, log_dir, seed, i, "cpu")
+        err = (locata_pred(root, log_dir, seed, i, device)
+               - cpu_pred).abs().max().item()
+        if not err <= 1e-3:
+            raise AssertionError(f"locata recording {i}: output max|diff| "
+                                 f"{err} vs the CPU > 1e-3")
+        out_err = max(out_err, err)
+        got = np.load(out["card"] / f"{i}_est.npy")[0]
+        want = np.load(out["cpu"] / f"{i}_est.npy")[0]
+        est.append(got[:, 1])
+        if not np.allclose(got, want, rtol=0, atol=1e-3):
+            ties += same_or_tie(f"locata recording {i}", got, want,
+                                locata_spectra(cpu_pred))
+    azimuths = np.unique(np.round(np.concatenate(est), 3)).tolist()
+    metric_diff = max(abs(res[k] - cpu[k]) for k in cpu)
+    if sorted(res) != sorted(cpu) or (ties == 0 and metric_diff > 1e-6):
+        raise AssertionError(f"locata fnssl: card {res}, CPU {cpu}")
+    base, _, _, base_secs = counted_cli(
+        ["locata", "--model", "ipd_baseline", "--locata-dir", str(root),
+         "--tasks", ",".join(map(str, LOCATA_TASKS)), "--out",
+         str(out["baseline"])], [0] * len(COUNTED), "locata ipd_baseline")
+    if not (base["recordings"] == n and np.isfinite(base["MAE"])):
+        raise AssertionError(f"locata ipd_baseline: {base}")
+    log(f"  locata fnssl on the card: {n} recordings of {LOCATA_S} s "
+        f"({frames} frames each), {secs:.2f} s (reads included), "
+        f"launches {launched}; on the CPU {cpu_secs:.2f} s; the {n} "
+        f"recordings' output max|diff| vs the CPU {out_err:.2e}; est equal but at {ties}"
+        f" exact ties, azimuths taken {azimuths[:8]}"
+        f"{' ...' if len(azimuths) > 8 else ''}; metrics card {res}, CPU "
+        f"{cpu}; plot "
+        f"{plotted}; ipd_baseline {base} in {base_secs:.2f} s; {card}")
+    log("  K1 at the locata shapes (one recording: 3 launches of each)")
+    rows = phase_times(device, locata_shapes(frames))
+    return ({"frames": frames, "weights": weights, "card": res, "cpu": cpu,
+             "output_max_abs_err": out_err, "ties": ties,
+             "azimuths": azimuths, "seconds": secs, "cpu_seconds": cpu_secs,
+             "baseline": base, "plot": plotted, "k1_rows": rows},
+            dict(zip(COUNTED, launched)))
+
+
+def time_setup(attention, rope, seed, nb, device):
+    """ipdnet2_setup with the time modules of (attention, rope) in
+    SpatialNetConfig()."""
+    from fnssl_tpu_torch.models.spatialnet import SpatialNetConfig
+
+    return ipdnet2_setup(seed, nb, device,
+                         cfg=SpatialNetConfig(attention=attention, rope=rope))
+
+
+def phase_time_modules(seed, device, mamba_step_ms, card):
+    """IPDnet2 with each of TIME_CONFIGS' time modules at full width: the
+    forward at bench.py:460-481's cell (nb 16, nt 200) on the card against
+    the CPU (1e-3) and timed (5 warm runs, peak memory); streaming on the
+    card (5-frame chunks over 40 frames) against its one-shot forward at
+    JAX's tolerances; one fp32 train step on the card against the CPU
+    (nb 2, phase 19's tolerances and gates); the train cell of
+    bench.py:138-176 (nb 16 x 4 s, 1 warm + 5 timed steps, peak memory)
+    beside phase 20's Mamba step; no launch of any kernel; then
+    retention's chunkwise mode against its parallel mode at layer 0's
+    shape."""
+    from fnssl_tpu_torch.models.retention import (
+        Retention, RetentionConfig, RetNetRelPos, retention_chunkwise,
+        retention_parallel)
+    from fnssl_tpu_torch.models.spatialnet import (
+        SpatialNet, SpatialNetConfig, init_spatialnet_state)
+
+    report = {}
+    counts = launch_counters()
+    for c in counts:
+        c.reset()
+    for attention, rope in TIME_CONFIGS:
+        name = f"{attention} rope={rope}"
+        cfg = SpatialNetConfig(attention=attention, rope=rope)
+        row = {}
+        host = SpatialNet(cfg, device="cpu", generator=torch.Generator()
+                          .manual_seed(seed)).eval()
+        net = SpatialNet(cfg, device=device).eval()
+        net.load_state_dict(host.state_dict())
+        x = torch.randn(I2_NB, 10, 256, I2_FWD_NT,
+                        generator=torch.Generator().manual_seed(seed))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            xd = x.to(device)
+            got = net(xd).cpu()
+            want = host(x)
+            row["forward_max_abs_err"] = (got - want).abs().max().item()
+            ms = []
+            for _ in range(1 + 5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net(xd)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            ms = np.array(ms[1:])
+            row.update(forward_ms_mean=float(ms.mean()),
+                       forward_ms_p90=float(np.percentile(ms, 90)),
+                       forward_peak_bytes=torch.cuda.max_memory_allocated())
+            xs = xd[:2, ..., :TIME_STREAM_NT]
+            oneshot = net(xs)
+            state = init_spatialnet_state(2, cfg, device)
+            outs = []
+            for lo in range(0, TIME_STREAM_NT, TIME_CHUNK):
+                o, state = net(xs[..., lo:lo + TIME_CHUNK], state=state,
+                               return_state=True)
+                outs.append(o)
+            row["stream_max_abs_err"] = (torch.cat(outs, 1) - oneshot
+                                         ).abs().max().item()
+        del host, net, x, xd
+        if not row["forward_max_abs_err"] <= 1e-3:
+            raise AssertionError(f"{name}: forward max|diff| vs the CPU "
+                                 f"{row['forward_max_abs_err']} > 1e-3")
+        tol = STREAM_TOL[cfg.time_kind]
+        if not row["stream_max_abs_err"] <= tol:
+            raise AssertionError(f"{name}: streamed max|diff| vs one-shot "
+                                 f"{row['stream_max_abs_err']} > {tol}")
+        log(f"  {name}: forward nb={I2_NB} nt={I2_FWD_NT} max|diff| vs CPU "
+            f"{row['forward_max_abs_err']:.2e}, {row['forward_ms_mean']:.2f}"
+            f" ms mean, p90 {row['forward_ms_p90']:.2f}, peak "
+            f"{row['forward_peak_bytes'] / 2**30:.2f} GiB; streamed "
+            f"{TIME_CHUNK}-frame chunks vs one-shot max|diff| "
+            f"{row['stream_max_abs_err']:.2e} (tol {tol}); {card}")
+        row["parity"] = phase_train_parity(
+            seed, device, functools.partial(time_setup, attention, rope,
+                                            seed, I2_PARITY_NB),
+            lr=I2_LR, want=[0] * len(COUNTED), gates=I2_GATES)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, step, batch = time_setup(attention, rope, seed, I2_NB,
+                                        device)
+        state, ms, losses = timed_steps(state, step, batch, None,
+                                        TIMED_STEPS)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{name}: losses {losses}")
+        row.update(step_ms_mean=float(ms.mean()),
+                   step_ms_p90=float(np.percentile(ms, 90)),
+                   step_ms=ms.tolist(),
+                   step_peak_bytes=torch.cuda.max_memory_allocated(),
+                   losses=losses)
+        del state, step, batch
+        log(f"  {name}: train nb={I2_NB} x {I2_T_S} s fp32 "
+            f"{row['step_ms_mean']:.2f} ms a step (p90 "
+            f"{row['step_ms_p90']:.2f}), peak "
+            f"{row['step_peak_bytes'] / 2**30:.2f} GiB; phase 20's Mamba "
+            f"step {mamba_step_ms:.2f} ms; {card}")
+        report[name] = row
+    launched = [c.value for c in counts]
+    if launched != [0] * len(COUNTED):
+        raise AssertionError(f"the time modules launched {COUNTED} "
+                             f"{launched}, expected none")
+    log(f"  launches {COUNTED} {launched}: MHSA and retention launch no "
+        "kernel of the port")
+    torch.cuda.empty_cache()
+    b, t, h, heads = RET_SHAPE
+    ret = Retention(RetentionConfig(h, heads), device=device,
+                    generator=torch.Generator().manual_seed(seed))
+    x = torch.randn(b, t, h, device=device)
+    pos = RetNetRelPos(h, heads, 20)
+    chunk_tab = pos(t, chunkwise_recurrent=True, device=device)
+    par_tab = pos(t, device=device)
+    with torch.no_grad():
+        report["retention_alone"] = {
+            "shape": {"B": b, "T": t, "H": h, "heads": heads},
+            "chunkwise_ms": cuda_ms(
+                lambda: retention_chunkwise(ret, x, chunk_tab), 20),
+            "parallel_ms": cuda_ms(
+                lambda: retention_parallel(ret, x, par_tab), 20)}
+    r = report["retention_alone"]
+    log(f"  retention alone at layer 0's shape (B={b}, T={t}, H={h}, "
+        f"{heads} heads, chunks of 20): chunkwise {r['chunkwise_ms']:.3f} "
+        f"ms, parallel {r['parallel_ms']:.3f} ms (CUDA events); {card}")
+    return report, dict(zip(COUNTED, launched))
+
+
+def phase_fit_flags(seed, device, data, runs, card):
+    """`fit --model fnssl` on phase 10's corpus at full width, 1 epoch
+    (FIT_TRAIN scenes): plain, with `--profile 1` (the trace
+    exists and names K1's and K2's kernels) and with `--debug-nans`
+    (finite losses; its ms a step beside the plain fit's); exact
+    launches."""
+    steps, valid = FIT_TRAIN // FIT_BZ, -(-FIT_DEV // FIT_BZ)
+    want = path_launches(LAUNCHES_PER_TRAIN_STEP, steps, valid)
+    report, total = {}, [0] * len(COUNTED)
+    for name, flags in (("plain", []), ("profile", ["--profile", "1"]),
+                        ("debug_nans", ["--debug-nans"])):
+        log_dir = runs / f"flags_{name}"
+        res, _, launched, secs = counted_cli(
+            ["fit", "--model", "fnssl", "--train-dir", str(data / "train"),
+             "--valid-dir", str(data / "dev"), "--bz", str(FIT_BZ),
+             "--epochs", "1", "--train-size", str(FIT_TRAIN), "--seed",
+             str(seed), "--log-dir", str(log_dir), *flags], want,
+            f"fit fnssl {' '.join(flags) or '(plain)'}")
+        total = [a + b for a, b in zip(total, launched)]
+        if not (np.isfinite(res["final_train"])
+                and np.isfinite(res["final_valid"])):
+            raise AssertionError(f"fit {flags}: losses {res}")
+        st = epoch_stats(log_dir)[0]
+        report[name] = {"fit": res, "seconds": secs, "epoch": st}
+        if name == "profile":
+            path = log_dir / "profile" / "trace.json"
+            names = {e.get("name", "") for e in
+                     json.loads(path.read_text())["traceEvents"]}
+            found = {k: sum(k in n for n in names) for k in TRACED[:4]}
+            if not (found[TRACED[0]] and found[TRACED[3]]):
+                raise AssertionError(f"the fit's trace names no K1 or K2 "
+                                     f"kernel: {found}")
+            report[name]["trace_bytes"] = path.stat().st_size
+            log(f"  the trace {path.name}: {path.stat().st_size / 2**20:.1f}"
+                f" MiB, {len(names)} event names; K1/K2 kernel names "
+                f"{found}")
+    plain = report["plain"]["epoch"]["steady_ms_per_step"]
+    for name in ("profile", "debug_nans"):
+        ms = report[name]["epoch"]["steady_ms_per_step"]
+        report[name]["slowdown"] = ms / plain
+    log(f"  a train step after the epoch's first batch ({steps} steps of bz "
+        f"{FIT_BZ}): plain {plain:.1f} ms, --profile "
+        f"{report['profile']['epoch']['steady_ms_per_step']:.1f} ms "
+        f"(x{report['profile']['slowdown']:.2f}), --debug-nans "
+        f"{report['debug_nans']['epoch']['steady_ms_per_step']:.1f} ms "
+        f"(x{report['debug_nans']['slowdown']:.2f}); {card}")
+    return report, dict(zip(COUNTED, total))
+
+
+def locata_k1(rows, frames):
+    """K1's numbers over one `locata --model fnssl` recording, fp32: 3
+    full-band BiLSTMs (one launch each) and 3 narrow-band LSTMs."""
+    full, narrow = rows
+    b = bound({k: 3 * (2 * full["bound_terms_float32"][k]
+                       + narrow["bound_terms_float32"][k])
+               for k in ("bytes", "operations")})
+    return {"ms": 3 * (full["fused_ms_float32"] + narrow["ms_float32"]),
+            "ms_bf16": 3 * (full["fused_ms_bfloat16"]
+                            + narrow["ms_bfloat16"]),
+            "plain_ms": 3 * (full["fused_plain_ms"] + narrow["plain_ms"]),
+            "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": 3 * (full["library_bidir_ms"]
+                               + narrow["library_ms"]),
+            "work": f"the recurrences of one LOCATA recording ({frames} "
+                    f"frames), fp32: 3 full-band BiLSTMs (T=256, "
+                    f"B={frames}, H=128) and 3 narrow-band LSTMs "
+                    f"(T={frames}, B=256, H=256)",
+            "launches_per_recording": LOCATA_LAUNCHES[0]}
+
+
 def per_train_step(rows, key):
     """A per-shape number summed over one train step's launches."""
     return PER_TRAIN_STEP * sum(r[key] for r in rows)
@@ -2923,9 +3385,21 @@ def main():
         log(f"  {name}: {len(spills)} kernel instances spill"
             + "".join(f"\n    {line}" for line in spills))
 
+    # the synthetic LOCATA tree of phase 26, written first: phase 3 holds K1
+    # at its frame count; phase 10's corpus and runs stay in `work` for
+    # phases 26 and 28
+    work_dir = tempfile.TemporaryDirectory()
+    work = Path(work_dir.name)
+    t0 = time.perf_counter()
+    write_locata(work / "locata", args.seed)
+    frames = locata_frames(work / "locata")
+    log(f"[locata tree] {len(LOCATA_TASKS) * len(LOCATA_RECORDINGS)} "
+        f"recordings of {LOCATA_S} s, 15 channels at {LOCATA_FS} Hz: "
+        f"{frames} frames each; {time.perf_counter() - t0:.1f} s")
+
     # 3. kernels against their plain versions
     log("[kernels] K1 against its plain version on the card")
-    worst = phase_kernels(device)
+    worst = phase_kernels(device, locata_shapes(frames))
 
     # 4. serve
     log("[serve] cli serve --model fnssl on the card, 3 TCP connections")
@@ -2958,7 +3432,7 @@ def main():
         f"{FIT_TRAIN}+{FIT_DEV} scenes of {TRAIN_T_S} s, bz {FIT_BZ}, fnssl "
         f"{FIT_EPOCHS} epochs, fnssl_doa 1")
     fit_report, fit_launches = phase_fit(args.seed, device, card,
-                                         train["fp32"]["ms_mean"])
+                                         train["fp32"]["ms_mean"], work)
 
     # 11-16. IPDnet
     log("[ipdnet kernels] K1 and K2 at IPDnet's shapes against their plain "
@@ -3045,6 +3519,22 @@ def main():
             "artifacts against their modules; serve --artifact")
         export_report, export_launches = phase_export(args.seed, device, tmp)
 
+    # 26-28. the last slice
+    log(f"[locata] cli locata --model fnssl on the card and the CPU, and "
+        f"ipd_baseline: {len(LOCATA_TASKS) * len(LOCATA_RECORDINGS)} "
+        f"recordings of {LOCATA_S} s")
+    locata_report, locata_launches = phase_locata(
+        args.seed, device, work / "locata", work / "runs", frames, card)
+    log("[time modules] IPDnet2 with MHSA and retention time modules: "
+        "forward, streaming, train parity and train cell")
+    time_report, time_launches = phase_time_modules(
+        args.seed, device, i2_train["fp32"]["ms_mean"], card)
+    log(f"[fit flags] fit --model fnssl on phase 10's corpus ({FIT_TRAIN} "
+        "scenes, one epoch): plain, --profile 1, --debug-nans")
+    flags_report, flags_launches = phase_fit_flags(
+        args.seed, device, work / "data", work / "runs", card)
+    work_dir.cleanup()
+
     # each kernel's work in one online chunk step, fp32: 3 BiLSTMs over
     # frequency and 3 LSTMs over time
     serve = {r["shape"]: r for r in rows if r["shape"] in PER_CHUNK}
@@ -3082,7 +3572,8 @@ def main():
              "ipdnet2_train": i2_train_launches,
              "ipdnet2_fit": i2_fit_launches, "predict": predict_launches,
              "stream": stream_launches, "serve_slots": slots_launches,
-             "export": export_launches}
+             "export": export_launches, "locata": locata_launches,
+             "time_modules": time_launches, "fit_flags": flags_launches}
     # and in one fixed-array IPDnet train step at nb=16, fp32: 2 full-band
     # BiLSTMs and 2 narrow-band LSTMs, forward (K1) and backward (K2)
     ipd_step_rows = ipd_train_rows[:2]
@@ -3136,6 +3627,7 @@ def main():
                     "LSTMs (T=12, B=256, H=128)",
             "launches_per_chunk_step": IPD_LAUNCHES,
             "chunk_steps": ipd_steps, **ipd_serve},
+        "locata_recording": locata_k1(locata_report["k1_rows"], frames),
     }, {
         "name": "lstm_fwd", "route": "cuda",
         "source": "fnssl_tpu_torch/kernels/csrc/lstm_fwd.cu",
@@ -3262,7 +3754,8 @@ def main():
               "plan_picks": picks, "ipdnet_train": ipd_train,
               "ipdnet_train_parity": ipd_parity, "ipdnet_fit": ipd_fit,
               "ipdnet2_train": i2_train, "ipdnet2_train_parity": i2_parity,
-              "ipdnet2_fit": i2_fit}
+              "ipdnet2_fit": i2_fit, "locata": locata_report,
+              "time_modules": time_report, "fit_flags": flags_report}
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -1,8 +1,8 @@
 """Microphone-array geometry: ``ArraySetup`` and the FN-SSL 2-mic array.
 
-Parity: FN-SSL/Dataset.py:85-118, and the Westlake 32-mic array that
-IPDnet2 trains on (RealMAN). The DICIT and linear arrays of the JAX
-module wait for the LOCATA port.
+Parity: FN-SSL/Dataset.py:85-118 (ArraySetup, dual-channel, the 15-mic
+DICIT array of LOCATA), IPDnet2/utils_.py:11-46 (circular generator, the
+Westlake 32-mic array that IPDnet2 trains on).
 
 Port of ``fnssl_tpu/data/arrays.py``, the same numpy code.
 """
@@ -30,6 +30,31 @@ def dualch_array_setup() -> ArraySetup:
         arrayType="planar", orV=np.array([0.0, 1.0, 0.0]),
         mic_scale=Parameter(1),
         mic_pos=np.array([(-0.04, 0.0, 0.0), (0.04, 0.0, 0.0)]),
+        mic_orV=None, mic_pattern="omni")
+
+
+def dicit_array_setup() -> ArraySetup:
+    """15-mic DICIT planar array (LOCATA)."""
+    x = np.array([0.96, 0.64, 0.32, 0.16, 0.08, 0.04, 0.00, 0.96,
+                  -0.04, -0.08, -0.16, -0.32, -0.64, -0.96, -0.96])
+    z = np.zeros(15)
+    z[7] = z[14] = 0.32
+    mic_pos = np.stack([x, np.zeros(15), z], axis=1)
+    return ArraySetup(
+        arrayType="planar", orV=np.array([0.0, 1.0, 0.0]),
+        mic_scale=Parameter(1), mic_pos=mic_pos,
+        mic_orV=np.tile(np.array([[0.0, 1.0, 0.0]]), (15, 1)),
+        mic_pattern="omni")
+
+
+def linear_array_setup(nmic: int = 2, spacing: float = 0.08
+                       ) -> ArraySetup:
+    """Generic centered linear array (IPDnet 'linear' arrayType)."""
+    x = (np.arange(nmic) - (nmic - 1) / 2) * spacing
+    return ArraySetup(
+        arrayType="linear", orV=np.array([0.0, 1.0, 0.0]),
+        mic_scale=Parameter(1),
+        mic_pos=np.stack([x, np.zeros(nmic), np.zeros(nmic)], axis=1),
         mic_orV=None, mic_pattern="omni")
 
 

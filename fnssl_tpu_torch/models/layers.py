@@ -15,6 +15,13 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     return x @ weight.T + bias
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted dtype of the two (JAX's promotion: a
+    float32 operand lifts a bfloat16 one)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: torch.Generator | None = None) -> torch.Tensor:
     """Inverted dropout (torch semantics). Identity when not training or
@@ -58,6 +65,30 @@ def uniform_(p: torch.Tensor, bound: float,
     with torch.no_grad():
         draw = torch.rand(p.shape, generator=generator, dtype=torch.float32)
         p.copy_(draw * (2 * bound) - bound)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis, eps 1e-5, weight ones, bias zeros."""
+
+    def __init__(self, dim: int, *, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones((dim,), device=device))
+        self.bias = nn.Parameter(torch.zeros((dim,), device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, x.shape[-1:], self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), 1e-5)
+
+
+class Params(nn.Module):
+    """A holder of named parameters, zeros of the given shapes (a torch
+    submodule's state-dict names, e.g. ``out_proj.weight``)."""
+
+    def __init__(self, device=None, **shapes):
+        super().__init__()
+        for name, shape in shapes.items():
+            setattr(self, name, nn.Parameter(torch.zeros(shape,
+                                                         device=device)))
 
 
 class Linear(nn.Module):

@@ -4,7 +4,8 @@ CUDA package (IPDnet2/IPDnet2.py:16-19).
 
   * ``mamba_step``: a chunk forward with the explicit (conv tail, SSM
     state) carry; ``mamba_apply``: the full sequence from zero state, the
-    JAX package's default sequential path (the same chunk forward).
+    JAX package's default sequential path (the same chunk forward); its
+    ``use_associative`` variant runs the same path.
   * The recurrence runs in ``SSMScan``, a ``torch.autograd.Function``:
     forward K3 (through the custom op ``kernels.ops.ssm_scan_fwd``, which
     ``torch.export`` traces as one node) and backward K4
@@ -32,7 +33,7 @@ from torch import nn
 
 from fnssl_tpu_torch.kernels.ops import ssm_scan_fwd
 from fnssl_tpu_torch.kernels.ssm_cuda import ssm_scan_bwd
-from fnssl_tpu_torch.models.layers import uniform_
+from fnssl_tpu_torch.models.layers import Params, matmul, uniform_
 
 
 class MambaConfig(NamedTuple):
@@ -62,23 +63,6 @@ def init_mamba_state(batch: int, cfg: MambaConfig, device=None
         torch.zeros((batch, cfg.d_inner, cfg.d_state), device=device))
 
 
-def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w.T`` in the promoted dtype of the two (JAX's promotion)."""
-    dt = torch.promote_types(x.dtype, w.dtype)
-    return x.to(dt) @ w.to(dt).T
-
-
-class _Params(nn.Module):
-    """A holder of named parameters (the state-dict names of mamba_ssm's
-    submodules)."""
-
-    def __init__(self, device, **shapes):
-        super().__init__()
-        for name, shape in shapes.items():
-            setattr(self, name, nn.Parameter(torch.empty(shape,
-                                                         device=device)))
-
-
 class Mamba(nn.Module):
     """mamba_ssm.Mamba's parameters, initialised as the JAX package's
     ``init_mamba_params`` (its rules, drawn from ``generator``)."""
@@ -90,13 +74,13 @@ class Mamba(nn.Module):
         super().__init__()
         self.cfg = cfg
         di, dm, dr, n = cfg.d_inner, cfg.d_model, cfg.dt_rank, cfg.d_state
-        self.in_proj = _Params(device, weight=(2 * di, dm))
-        self.conv1d = _Params(device, weight=(di, 1, cfg.d_conv), bias=(di,))
-        self.x_proj = _Params(device, weight=(dr + 2 * n, di))
-        self.dt_proj = _Params(device, weight=(di, dr), bias=(di,))
+        self.in_proj = Params(device, weight=(2 * di, dm))
+        self.conv1d = Params(device, weight=(di, 1, cfg.d_conv), bias=(di,))
+        self.x_proj = Params(device, weight=(dr + 2 * n, di))
+        self.dt_proj = Params(device, weight=(di, dr), bias=(di,))
         self.A_log = nn.Parameter(torch.empty((di, n), device=device))
         self.D = nn.Parameter(torch.ones((di,), device=device))
-        self.out_proj = _Params(device, weight=(dm, di))
+        self.out_proj = Params(device, weight=(dm, di))
         uniform_(self.in_proj.weight, 1.0 / math.sqrt(dm), generator)
         uniform_(self.conv1d.weight, 1.0 / math.sqrt(cfg.d_conv), generator)
         uniform_(self.conv1d.bias, 1.0 / math.sqrt(cfg.d_conv), generator)
@@ -124,9 +108,9 @@ def _ssm_inputs(p: Mamba, x: torch.Tensor):
     """Shared projections: x (B, L, d_inner) silu'd conv output →
     (deltaA (B,L,d,n), deltaBx (B,L,d,n), C (B,L,n))."""
     dr, n = p.cfg.dt_rank, p.cfg.d_state
-    x_dbl = _matmul(x, p.x_proj.weight)
+    x_dbl = matmul(x, p.x_proj.weight.T)
     delta, b, c = torch.split(x_dbl, [dr, n, n], dim=-1)
-    delta = F.softplus(_matmul(delta, p.dt_proj.weight) + p.dt_proj.bias)
+    delta = F.softplus(matmul(delta, p.dt_proj.weight.T) + p.dt_proj.bias)
     a = -torch.exp(p.A_log)                              # (d, n)
     delta_a = torch.exp(delta[..., None] * a)            # (B,L,d,n)
     delta_bx = (delta * x)[..., None] * b[..., None, :]
@@ -180,23 +164,23 @@ def ssm_scan(da, dbx, c, h0):
 def mamba_step(p: Mamba, u: torch.Tensor, state: MambaState
                ) -> tuple[torch.Tensor, MambaState]:
     """Chunk forward with carry. u: (B, L, d_model)."""
-    xz = _matmul(u, p.in_proj.weight)
+    xz = matmul(u, p.in_proj.weight.T)
     x, z = xz.chunk(2, dim=-1)
     x, conv_tail = _conv_silu(p, x, state.conv)
     delta_a, delta_bx, c = _ssm_inputs(p, x)
     y, h_last = ssm_scan(delta_a, delta_bx, c, state.ssm.float())
     y = y + p.D * x
     y = y * F.silu(z)
-    return _matmul(y, p.out_proj.weight), MambaState(conv_tail, h_last)
+    return matmul(y, p.out_proj.weight.T), MambaState(conv_tail, h_last)
 
 
 def mamba_apply(p: Mamba, u: torch.Tensor,
                 use_associative: bool = False) -> torch.Tensor:
     """Full-sequence forward from zero state, u: (B, L, d_model) → (B, L,
-    d_model): the JAX package's default sequential path (``mamba_step``
-    from ``init_mamba_state``)."""
-    if use_associative:
-        raise NotImplementedError("mamba_apply(use_associative=True): not "
-                                  "ported yet")
+    d_model): ``mamba_step`` from ``init_mamba_state``, so K3 for CUDA
+    tensors. ``use_associative`` names the JAX package's log-depth
+    variant of the same recurrence; it is accepted for its callers and
+    runs this same path, since K3 computes the same function."""
+    del use_associative
     out, _ = mamba_step(p, u, init_mamba_state(u.shape[0], p.cfg, u.device))
     return out

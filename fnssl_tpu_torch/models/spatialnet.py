@@ -1,76 +1,59 @@
-"""OnlineSpatialNet (IPDnet2), the Mamba flagship (port of
-``fnssl_tpu/models/spatialnet.py`` with ``attention="mamba"``).
+"""OnlineSpatialNet (IPDnet2) with selectable time modules (port of
+``fnssl_tpu/models/spatialnet.py``).
 
 IPDnet2/IPDnet2.py:23-431:
   * causal conv encoder (k=5) over each frequency's time stream;
   * 8 SpatialNetLayers: per layer {LN→grouped freq Conv1d→PReLU} ×2, a
     full-band module (squeeze 1×1 conv+SiLU → Linear over frequency →
-    unsqueeze+SiLU), and two Mamba blocks over time; layer 0 compresses
+    unsqueeze+SiLU), and two time modules; layer 0 compresses
     frequency 256→128→16 (pools of 2 between the fconvs and of 8 after)
     and is followed by a 5× time mean;
   * FreqInverse decoder (a 1×1 conv expanding 16 bands → 256 bins, tanh)
     → Linear(16,16) → the reference's output reshape chain to (nb, nt/5,
     2·nf, nmic-1, 2 tracks), copied op for op.
 
-Every Mamba block's recurrence runs ``models.mamba.SSMScan`` (K3 forward,
-K4 backward); the convolutions are ``F.conv1d`` in full float32 on the
-card, as the JAX package leaves them to XLA. The ``mhsa`` and ``ret`` time
-modules (MHSA, T-ConvFFN, retention) are not ported yet.
+Time modules, as the reference's ``attention=`` string selects them
+(IPDnet2.py:276; the flagship 'mamba(16,4)', run_IPDnet2.py:114):
+  * ``mamba(d_state,d_conv)``: both are Mamba blocks, whose recurrence
+    runs ``models.mamba.SSMScan`` (K3 forward, K4 backward);
+  * ``mhsa(scope)``: MHSA with ``get_causal_mask``'s bounded look-back of
+    ``scope`` frames (ALiBi when ``rope='ALiBi'``), then T-ConvFFN;
+  * ``ret(factor)``: multi-scale retention (chunkwise or parallel one-shot
+    mode by ``chunkwise_recurrent``, per-frame recurrent when streaming),
+    then T-ConvFFN.
+MHSA and retention are plain matrix products and launch no kernel of the
+port. The convolutions are ``F.conv1d`` in full float32 on the card, as
+the JAX package leaves them to XLA.
 
 State-dict names equal the JAX parameter paths (encoder.weight,
 layers.0.fconv1.1.weight, layers.0.mhsa.A_log, freq_inverse.trans2.bias,
 ...), so converted weights load strictly.
 
 Streaming: ``forward(x, state=..., return_state=True)`` carries the
-encoder's conv tail and both Mamba states of every layer; chunks must be
-multiples of the 5× time compression.
+encoder's conv tail and every time module's state (Mamba's conv tail and
+SSM state, MHSA's bounded input window, retention's rescaled kv state,
+T-ConvFFN's conv tail); chunks must be multiples of the 5× time
+compression.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fnssl_tpu_torch.models.layers import Conv1d, Linear
+from fnssl_tpu_torch.models.attention import (
+    MHSA, MHSAConfig, TConvFFN, TConvFFNConfig, causal_mask, init_mhsa_state,
+    init_tconvffn_state)
+from fnssl_tpu_torch.models.layers import Conv1d, LayerNorm, Linear
 from fnssl_tpu_torch.models.mamba import (Mamba, MambaConfig, MambaState,
                                           init_mamba_state)
+from fnssl_tpu_torch.models.retention import (
+    Retention, RetentionConfig, RetNetRelPos, retention_chunkwise,
+    retention_parallel, retention_recurrent_step)
 from fnssl_tpu_torch.utils.device import resolve_device
-
-
-class MHSAConfig(NamedTuple):
-    embed_dim: int
-    num_heads: int
-    attn_scope: int = 251     # 'mhsa(frames)' (IPDnet2.py:276)
-    alibi: bool = False       # rope == 'ALiBi' (IPDnet2.py:372-377)
-
-
-class TConvFFNConfig(NamedTuple):
-    dim_hidden: int
-    kernel_size: int = 3
-    groups: int = 8
-    factor: int = 2
-
-
-class RetentionConfig(NamedTuple):
-    embed_dim: int
-    num_heads: int
-    value_factor: int = 2
-    share_qk: bool = False
-    look_ahead: int = 0
-
-    @property
-    def value_dim(self):
-        return self.embed_dim * self.value_factor
-
-    @property
-    def head_dim(self):
-        return self.value_dim // self.num_heads
-
-    @property
-    def key_dim(self):
-        return self.embed_dim // self.num_heads
 
 
 class SpatialNetConfig(NamedTuple):
@@ -146,40 +129,41 @@ class SpatialNetConfig(NamedTuple):
                               self.t_conv_groups, self.tconvffn_factor)
 
 
+class RetentionState(NamedTuple):
+    kv: torch.Tensor     # (B·F, heads, key_dim, head_dim) rescaled kv
+    scale: torch.Tensor  # (heads,) running scale
+    pos: torch.Tensor    # () int32 absolute frame index (rotary phase)
+
+
 class SpatialNetState(NamedTuple):
     encoder_tail: torch.Tensor  # (B·F, dim_input, k-1)
-    time: tuple                 # ((MambaState, MambaState), ...) per layer
+    time: tuple                 # ((mod1_state, mod2_state), ...) per layer
 
 
 def init_spatialnet_state(nb: int, cfg: SpatialNetConfig = SpatialNetConfig(),
                           device=None) -> SpatialNetState:
-    _check_kind(cfg)
     batch = nb * (cfg.num_freqs // cfg.fre_compression_ratio)
+    kind, rc = cfg.time_kind, cfg.ret_cfg
+    states = []
+    for _ in range(cfg.num_layers):
+        if kind == "mamba":
+            states.append((init_mamba_state(batch, cfg.mamba_cfg, device),
+                           init_mamba_state(batch, cfg.mamba_cfg, device)))
+            continue
+        if kind == "mhsa":
+            s1 = init_mhsa_state(batch, cfg.mhsa_cfg, device)
+        else:
+            s1 = RetentionState(
+                torch.zeros((batch, rc.num_heads, rc.key_dim, rc.head_dim),
+                            device=device),
+                torch.zeros((rc.num_heads,), device=device),
+                torch.zeros((), dtype=torch.int32, device=device))
+        states.append((s1, init_tconvffn_state(batch, cfg.tconv_cfg,
+                                               device)))
     return SpatialNetState(
         torch.zeros((nb * cfg.num_freqs, cfg.dim_input,
                      cfg.encoder_kernel_size - 1), device=device),
-        tuple((init_mamba_state(batch, cfg.mamba_cfg, device),
-               init_mamba_state(batch, cfg.mamba_cfg, device))
-              for _ in range(cfg.num_layers)))
-
-
-def _check_kind(cfg: SpatialNetConfig) -> None:
-    if cfg.time_kind != "mamba":
-        raise NotImplementedError(f"SpatialNet time module "
-                                  f"{cfg.time_kind!r}: not ported yet")
-
-
-class LayerNorm(nn.Module):
-    """LayerNorm over the last axis, eps 1e-5, weight ones, bias zeros."""
-
-    def __init__(self, dim: int, *, device=None):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones((dim,), device=device))
-        self.bias = nn.Parameter(torch.zeros((dim,), device=device))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, x.shape[-1:], self.weight.to(x.dtype),
-                            self.bias.to(x.dtype), 1e-5)
+        tuple(states))
 
 
 class _ChannelPReLU(nn.Module):
@@ -222,8 +206,10 @@ def _pool_freq(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 class SpatialNetLayer(nn.Module):
-    """One OnlineSpatialNet layer with Mamba time modules; ``nfreq`` is the
-    frequency count its full-band Linear sees."""
+    """One OnlineSpatialNet layer; ``nfreq`` is the frequency count its
+    full-band Linear sees. The time modules sit under the reference's
+    names ``mhsa`` and ``tconvffn`` whatever their kind; ``norm_tconvffn``
+    exists for Mamba only (T-ConvFFN carries its LN as element 0)."""
 
     def __init__(self, cfg: SpatialNetConfig, nfreq: int, *, device,
                  generator):
@@ -239,9 +225,15 @@ class SpatialNetLayer(nn.Module):
             {"0": Conv1d(cfg.dim_squeeze, h, 1, **kw)})
         self.fconv2 = _fconv_layers(cfg, device, generator)
         self.norm_mhsa = LayerNorm(h, device=device)
-        self.mhsa = Mamba(cfg.mamba_cfg, **kw)
-        self.tconvffn = Mamba(cfg.mamba_cfg, **kw)
-        self.norm_tconvffn = LayerNorm(h, device=device)
+        kind = cfg.time_kind
+        if kind == "mamba":
+            self.mhsa = Mamba(cfg.mamba_cfg, **kw)
+            self.tconvffn = Mamba(cfg.mamba_cfg, **kw)
+            self.norm_tconvffn = LayerNorm(h, device=device)
+        else:
+            self.mhsa = (MHSA(cfg.mhsa_cfg, **kw) if kind == "mhsa"
+                         else Retention(cfg.ret_cfg, **kw))
+            self.tconvffn = TConvFFN(cfg.tconv_cfg, **kw)
 
     def full_band(self, x: torch.Tensor) -> torch.Tensor:
         """Full-band module (IPDnet2.py:235-253). x: (B, F, T, H)."""
@@ -266,15 +258,94 @@ def _mamba_block(norm: LayerNorm, mamba: Mamba, x: torch.Tensor,
     return y.to(x.dtype).reshape(nb, f, t, h), new_state
 
 
+def get_causal_mask(cfg: SpatialNetConfig, slen: int, device=None):
+    """The mask or relative-position tables of ``get_causal_mask``
+    (IPDnet2.py:370-399) for a sequence of ``slen`` frames.
+
+    mhsa → the additive (slen, slen) {0, -inf} window mask, or per-head
+    ALiBi (heads, slen, slen) when rope='ALiBi'; ret → RetNetRelPos's
+    decay/rotary tables in the chunkwise or parallel layout; mamba → None.
+    """
+    kind = cfg.time_kind
+    if kind == "mamba":
+        return None
+    if kind == "mhsa":
+        return torch.as_tensor(causal_mask(
+            slen, cfg.attn_scope, cfg.num_heads, alibi=cfg.rope == "ALiBi"),
+            device=device)
+    pos = RetNetRelPos(cfg.dim_hidden, cfg.num_heads,
+                       cfg.recurrent_chunk_size)
+    return pos(slen, chunkwise_recurrent=cfg.chunkwise_recurrent,
+               device=device)
+
+
+def _retention_stream(p: Retention, y: torch.Tensor, cfg: SpatialNetConfig,
+                      state: RetentionState):
+    """Per-frame recurrent retention over a chunk (a loop over its
+    frames), numerically the chunkwise/parallel one-shot modes (the
+    reference's per-step loop, IPDnet2.py:193-199 + retention.py:174-192).
+    """
+    pos_tab = RetNetRelPos(cfg.dim_hidden, cfg.num_heads,
+                           cfg.recurrent_chunk_size)
+    angle = torch.as_tensor(pos_tab.angle, dtype=torch.float32,
+                            device=y.device)
+    decay = torch.as_tensor(np.exp(pos_tab.decay), dtype=torch.float32,
+                            device=y.device)
+    rope = cfg.rope is True
+    kv, scale, pos = state
+    outs = []
+    for t in range(y.shape[1]):
+        ang = angle * pos.float()
+        out, new = retention_recurrent_step(
+            p, y[:, t: t + 1], ((torch.sin(ang), torch.cos(ang)), decay),
+            {"prev_key_value": kv, "scale": scale}, rope=rope)
+        kv, scale, pos = new["prev_key_value"], new["scale"], pos + 1
+        outs.append(out[:, 0])
+    return torch.stack(outs, dim=1), RetentionState(kv, scale, pos)
+
+
+def _time_block_1(layer: SpatialNetLayer, x: torch.Tensor,
+                  cfg: SpatialNetConfig, mask, state):
+    """First time module: Mamba / MHSA / retention on (B, F, T, H)."""
+    kind = cfg.time_kind
+    if kind == "mamba":
+        return _mamba_block(layer.norm_mhsa, layer.mhsa, x, state)
+    nb, f, t, h = x.shape
+    y = layer.norm_mhsa(x).reshape(nb * f, t, h)
+    if kind == "mhsa":
+        y, new_state = (layer.mhsa(y, mask), None) if state is None \
+            else layer.mhsa(y, state=state)
+    elif state is not None:
+        y, new_state = _retention_stream(layer.mhsa, y, cfg, state)
+    else:
+        retention = (retention_chunkwise if cfg.chunkwise_recurrent
+                     else retention_parallel)
+        y, new_state = retention(layer.mhsa, y, mask,
+                                 rope=cfg.rope is True), None
+    return y.reshape(nb, f, t, h), new_state
+
+
+def _time_block_2(layer: SpatialNetLayer, x: torch.Tensor,
+                  cfg: SpatialNetConfig, state):
+    """Second time module: Mamba (mamba mode) or T-ConvFFN (whose LN is
+    its own element 0, per the _tconvffn dispatch)."""
+    if cfg.time_kind == "mamba":
+        return _mamba_block(layer.norm_tconvffn, layer.tconvffn, x, state)
+    nb, f, t, h = x.shape
+    y = x.reshape(nb * f, t, h)
+    y, new_state = (layer.tconvffn(y), None) if state is None \
+        else layer.tconvffn(y, state)
+    return y.reshape(nb, f, t, h), new_state
+
+
 class SpatialNet(nn.Module):
-    """OnlineSpatialNet with Mamba time modules. ``device=None`` is the
-    first CUDA device; weights are the JAX package's inits drawn from
-    ``generator``."""
+    """OnlineSpatialNet with the time modules ``cfg.attention`` selects.
+    ``device=None`` is the first CUDA device; weights are the JAX
+    package's inits drawn from ``generator``."""
 
     def __init__(self, cfg: SpatialNetConfig = SpatialNetConfig(), *,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
-        _check_kind(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         h = cfg.dim_hidden
@@ -319,6 +390,7 @@ class SpatialNet(nn.Module):
         y = self.encoder(yin).transpose(1, 2)        # (B·F, T, H)
         x = y.reshape(nb, f, t, cfg.dim_hidden)
 
+        masks: dict[int, object] = {}
         new_time = []
         for i in range(cfg.num_layers):
             layer = self.layers[str(i)]
@@ -330,10 +402,14 @@ class SpatialNet(nn.Module):
             x = x + _fconv(layer.fconv2, x)
             if i == 0:
                 x = _pool_freq(x, cfg.fre_compression_ratio // 2)
-            d1, s1 = _mamba_block(layer.norm_mhsa, layer.mhsa, x, st[0])
+            # a fresh mask per distinct sequence length: after the time
+            # compression the reference's input-length mask is stale
+            t_now = x.shape[2]
+            if state is None and t_now not in masks:
+                masks[t_now] = get_causal_mask(cfg, t_now, x.device)
+            d1, s1 = _time_block_1(layer, x, cfg, masks.get(t_now), st[0])
             x = x + d1
-            d2, s2 = _mamba_block(layer.norm_tconvffn, layer.tconvffn, x,
-                                  st[1])
+            d2, s2 = _time_block_2(layer, x, cfg, st[1])
             x = x + d2
             new_time.append((s1, s2))
             if i == cfg.time_compression_layer \

@@ -66,6 +66,11 @@ def _resolve(model: str, module: nn.Module):
         # array's pair means have no causal streaming state: forward-only
         return (lambda m, x, state=None, return_state=False: m(x)), None
     if model == "ipdnet2":
+        if module.cfg.time_kind != "mamba":
+            # the JAX CLI serves and exports the Mamba flagship only
+            raise NotImplementedError(
+                f"serving or exporting a SpatialNet with "
+                f"attention={module.cfg.attention!r}: not ported yet")
         return apply_fn, lambda nb: init_spatialnet_state(
             nb, module.cfg, module.device)
     raise ValueError(f"export: unknown model {model!r}")

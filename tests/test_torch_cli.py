@@ -19,6 +19,8 @@ import torch
 
 from fnssl_tpu_torch.cli.main import (_apply_yaml_defaults, _batches,
                                       build_parser, main)
+from tests.test_torch_threads import torch_threads  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -230,6 +232,59 @@ def test_port_test_best_gives_jax_loss_and_metrics(workdir, capsys,
         assert abs(got[k] - want[k]) <= 1e-6, k
 
 
+def small_fnssl(monkeypatch):
+    """The port's FNSSLConfig at hidden 32 for the fit below."""
+    import fnssl_tpu_torch.models.fnssl as tfnssl
+
+    orig = tfnssl.FNSSLConfig
+    monkeypatch.setattr(tfnssl, "FNSSLConfig",
+                        lambda _o=orig, **kw: _o(hidden_size=32, **kw))
+
+
+def test_fit_profile_traces_the_first_epochs_then_continues(
+        workdir, capsys, monkeypatch):
+    """``--profile 1 --epochs 2``: a torch.profiler trace of epoch 0 in
+    <log-dir>/profile/trace.json (Chrome format, the model's LSTM and
+    matmul ops in it), then epoch 1 outside the trace."""
+    small_fnssl(monkeypatch)
+    capsys.readouterr()
+    fit("runs/profile", "--epochs", "2", "--profile", "1")
+    result = last_json(capsys)
+    assert np.isfinite(result["final_train"])
+    trace = json.load(open("runs/profile/profile/trace.json"))
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any("mm" in n for n in names), sorted(names)[:20]
+    epochs = [json.loads(line)["step"]
+              for line in open("runs/profile/metrics.jsonl")
+              if json.loads(line)["tag"] == "train/loss"]
+    assert epochs == [0, 1]
+
+
+def test_fit_debug_nans_runs_under_anomaly_mode(workdir, capsys,
+                                                monkeypatch):
+    """``--debug-nans``: every train epoch runs with autograd's anomaly
+    detection on; the mode is off again after the fit; losses finite."""
+    import fnssl_tpu_torch.train.learner as learner_mod
+
+    small_fnssl(monkeypatch)
+    seen = []
+    real = learner_mod.Learner.train_epoch
+
+    def spy(self, batches):
+        seen.append(torch.is_anomaly_enabled())
+        return real(self, batches)
+
+    monkeypatch.setattr(learner_mod.Learner, "train_epoch", spy)
+    capsys.readouterr()
+    fit("runs/nans", "--epochs", "1", "--debug-nans")
+    result = last_json(capsys)
+    assert np.isfinite(result["final_train"])
+    assert np.isfinite(result["final_valid"])
+    assert seen == [True] and not torch.is_anomaly_enabled()
+    fit("runs/no_nans", "--epochs", "1")
+    assert seen == [True, False]
+
+
 def test_config_yaml_sets_defaults_and_flags_win(workdir):
     ap = build_parser()
     args = ap.parse_args(["fit", "--config", str(ROOT / "configs" /
@@ -249,8 +304,8 @@ def test_config_yaml_sets_defaults_and_flags_win(workdir):
     (["fit", "--use-mesh"], "--use-mesh: not ported yet"),
     (["fit", "--coordinator", "h:1", "--num-processes", "2",
       "--process-id", "0"], "not ported yet"),
-    (["fit", "--profile", "1"], "--profile: not ported yet"),
-    (["fit", "--debug-nans"], "--debug-nans: not ported yet"),
+    (["fit", "--num-processes", "2"], "--num-processes: not ported yet"),
+    (["fit", "--process-id", "0"], "--process-id: not ported yet"),
     (["fit", "--model", "ipdnet2"], "ipdnet2 trains on RealMAN"),
     (["fit", "--model", "ipdnet2", "--realman-csv", "t.csv"],
      "pass --realman-csv and --realman-noise"),

@@ -25,6 +25,8 @@ from fnssl_tpu_torch.models.ipdnet import (IPDnet, IPDnetConfig,
                                            VariableIPDnetConfig)
 from fnssl_tpu_torch.models.spatialnet import SpatialNet, SpatialNetConfig
 from fnssl_tpu_torch.runtime.export import export_model, load_artifact
+from tests.test_torch_threads import torch_threads  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 HIDDEN = 32

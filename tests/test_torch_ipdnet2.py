@@ -33,6 +33,7 @@ from fnssl_tpu_torch.kernels import ssm_cuda
 from fnssl_tpu_torch.physics import dpipd as tdpipd
 from fnssl_tpu_torch.physics import targets as ttargets
 from fnssl_tpu_torch.runtime import streaming as tstreaming
+from fnssl_tpu_torch.runtime.export import _resolve
 from fnssl_tpu_torch.train.convert import params_to_state_dict
 from fnssl_tpu_torch.train.preprocess import stft_features
 
@@ -148,8 +149,12 @@ def test_mamba_apply_and_step_match_jax(mamba):
     for a, b in zip(st, jst):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
                                    atol=ATOL)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmamba.mamba_apply(model, torch.as_tensor(u), use_associative=True)
+    # the log-depth path: the same function as the sequential one
+    with torch.no_grad():
+        assoc = tmamba.mamba_apply(model, torch.as_tensor(u),
+                                   use_associative=True)
+    np.testing.assert_allclose(assoc.numpy(), got.numpy(), rtol=0,
+                               atol=ATOL)
 
 
 def test_mamba_init_follows_mamba_ssm_rules():
@@ -230,8 +235,10 @@ def test_config_properties_match_jax_and_unported_kinds_say_so():
         for prop in ("mamba_cfg", "mhsa_cfg", "ret_cfg", "tconv_cfg"):
             assert tuple(getattr(tcfg, prop)) == tuple(getattr(jcfg, prop))
         if tcfg.time_kind != "mamba":
+            # the model builds; serving and export take Mamba only
+            model = ts.SpatialNet(tcfg._replace(**SMALL), device="cpu")
             with pytest.raises(NotImplementedError, match="not ported yet"):
-                ts.SpatialNet(tcfg._replace(**SMALL), device="cpu")
+                _resolve("ipdnet2", model)
     assert ts.SpatialNetConfig().ret_cfg.key_dim == 24
 
 

@@ -37,6 +37,8 @@ from fnssl_tpu.data.realman import RealData as JRealData
 from fnssl_tpu_torch.cli.main import build_parser, build_server, main
 from fnssl_tpu_torch.data.realman import RealData, collate_realman
 from fnssl_tpu_torch.utils.audio_io import write_audio
+from tests.test_torch_threads import torch_threads  # noqa: F401
+
 
 FS, NCH = 16000, 9
 SMALL = {"dim_hidden": 16, "num_layers": 2}

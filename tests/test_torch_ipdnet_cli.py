@@ -34,6 +34,8 @@ import fnssl_tpu_torch.train.tasks as ttasks
 import fnssl_tpu_torch.utils.logging as tlogging
 from fnssl_tpu_torch.cli.main import _batches, build_parser, build_server, \
     main
+from tests.test_torch_threads import torch_threads  # noqa: F401
+
 
 HIDDEN, NSEG = 32, 24
 

@@ -14,6 +14,7 @@ of an Adam step's reach (2 steps × lr 5e-4): each step moves a parameter
 by ~lr·sign(g), and a gradient within float32 rounding of zero may take
 either sign (measured 2.5e-6 to 1.5e-5).
 """
+
 import jax
 import numpy as np
 import pytest
@@ -26,6 +27,8 @@ from fnssl_tpu.train import tasks as jtasks
 from fnssl_tpu_torch.train import step as tstep
 from fnssl_tpu_torch.train import tasks as ttasks
 from fnssl_tpu_torch.train.convert import params_to_state_dict
+from tests.test_torch_threads import torch_threads  # noqa: F401
+
 
 HIDDEN, NB, T_S = 32, 2, 0.5
 MICS_3 = np.array([[-0.06, 0.0, 0.0], [0.0, 0.0, 0.0], [0.06, 0.0, 0.0]])

@@ -107,11 +107,21 @@ def test_pd_decode_fills_missing_peaks_as_jax():
 
 @pytest.mark.parametrize("decode", ["idl", "pd"])
 def test_tracking_is_not_ported_yet(decode):
-    fn = getattr(tdecode, f"{decode}_decode")
-    z = torch.zeros(1, 1, 4, 1)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        fn(z, torch.ones(1, 3, 4, 1), torch.zeros(1), torch.zeros(3),
-           track=True)
+    """``track=True`` (once refused) reassociates the decoded tracks frame
+    to frame: JAX's DOAs exactly, its scores within 1e-6."""
+    rng = np.random.default_rng(8)
+    ipd = rng.uniform(-1, 1, (NB, NT, 8, 1)).astype(np.float32)
+    tmpl = rng.uniform(-1, 1, (3, 9, 8, 1)).astype(np.float32)
+    cand = (np.linspace(0, np.pi, 3).astype(np.float32),
+            np.linspace(0, 2 * np.pi, 9).astype(np.float32))
+    want = getattr(jdecode, f"{decode}_decode")(
+        ipd, tmpl, *cand, max_num_sources=3, track=True)
+    got = getattr(tdecode, f"{decode}_decode")(
+        torch.from_numpy(ipd), torch.from_numpy(tmpl),
+        *(torch.from_numpy(c) for c in cand), max_num_sources=3, track=True)
+    np.testing.assert_array_equal(got.doa.numpy(), np.asarray(want.doa))
+    np.testing.assert_allclose(got.vad.numpy(), np.asarray(want.vad),
+                               rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("method,ns,source_mode", [

@@ -46,6 +46,8 @@ from fnssl_tpu_torch.eval.pred_doa import PredDOA, ipd_baseline
 from fnssl_tpu_torch.train.convert import params_to_state_dict, \
     save_torch_tar
 from fnssl_tpu_torch.utils.audio_io import write_audio
+from tests.test_torch_threads import torch_threads  # noqa: F401
+
 
 jcli = importlib.import_module("fnssl_tpu.cli.main")
 FS = 16000

@@ -23,6 +23,8 @@ from fnssl_tpu_torch.runtime.streaming import (StreamingLocalizer,
                                                make_fnssl_stream_step)
 from fnssl_tpu_torch.train.convert import params_to_state_dict, save_torch_tar
 from fnssl_tpu_torch.train.preprocess import stft_features
+from tests.test_torch_threads import torch_threads  # noqa: F401
+
 
 ATOL = 1e-4
 SMALL = dict(win_len=64, hop=32, nfft=64)
@@ -161,12 +163,12 @@ def test_cli_serve_wiring(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["locata"], "locata: not ported yet"),
+    (["locata", "--model", "ipdnet2", "--locata-dir", "x"], "not wired"),
     (["predict", "--model", "variable_ipdnet", "--wav", "x.wav"],
      "not wired")])
 def test_cli_unported_paths_say_so(argv, message):
-    """locata is the one command left unported; predict refuses the models
-    JAX's predict does not wire, with JAX's message."""
+    """locata and predict refuse the models JAX's commands do not wire,
+    with JAX's message."""
     from fnssl_tpu_torch.cli.main import main
 
     with pytest.raises(SystemExit, match=message):
