@@ -30,6 +30,8 @@ that ``serve --artifact`` and ``stream --artifact`` read) and ``locata``
       --realman-ext wav --log-dir runs/ipdnet2
   python -m fnssl_tpu_torch.cli locata --model fnssl --locata-dir LOCATA/dev \
       --log-dir runs/fnssl [--tasks 3,5] [--mic-pick 8,5] [--plot]
+  python -m fnssl_tpu_torch.cli fit --model fnssl --train-dir data/train \
+      --valid-dir data/dev --bz 16 --log-dir runs/dp --spawn 2 [--platform cpu]
 
 ``simulate`` runs on the host (numpy, and the C++/OpenMP image-source
 engine when it builds). Every other command runs the model on the first
@@ -47,8 +49,20 @@ and a global-norm clip of 5 on the RealMAN reader (``--realman-*``, the
 mic subset ``--mic-ids``) and serves 5-channel audio in 5-frame chunk
 steps. ``fit --profile N`` writes a torch.profiler trace of its first N
 epochs to ``<log-dir>/profile/trace.json``; ``fit --debug-nans`` runs the
-fit under autograd's anomaly mode. The data-parallel options in
-``JAX_ONLY_FLAGS`` exit with "not ported yet".
+fit under autograd's anomaly mode.
+
+Data parallelism (JAX's multi-process DP): ``fit``/``test``
+``--num-processes N --process-id R --coordinator HOST:PORT`` runs rank R
+of an N-process world (rank 0 hosts the rendezvous; NCCL on the cards,
+one rank a card; gloo with ``--platform cpu``); each rank reads its
+``host_local_slice`` share at ``--bz`` rows (the global batch is bz × N).
+``fit --spawn N`` launches the whole world from one command: rank 0
+prints here, rank K writes ``<log-dir>/rankK.spawn.log``. ``--use-mesh``
+shards the global ``--bz`` over the host's cards, one rank each (bz / n
+rows a rank); with one card (``test`` always), or on the CPU, it runs
+here as a world of one. Under a world, or ``--use-mesh``, eval schedules
+are wrap-padded to a multiple of ``--bz`` (every rank runs the same
+batches).
 """
 from __future__ import annotations
 
@@ -73,10 +87,6 @@ IPDNET_MODELS = ("ipdnet", "ipdnet_offline", "variable_ipdnet")
 # the models that see future frames: `stream` and `serve` refuse them,
 # `predict` is not wired for them (as in JAX)
 NOT_CAUSAL = ("ipdnet_offline", "variable_ipdnet")
-# options of the JAX CLI that the port does not carry yet (data
-# parallelism)
-JAX_ONLY_FLAGS = ("--spawn", "--use-mesh", "--coordinator",
-                  "--num-processes", "--process-id")
 # the models `locata` evaluates (FN-SSL's restored weights, and the
 # model-free baseline), as JAX's cmd_locata
 LOCATA_MODELS = ("fnssl", "ipd_baseline")
@@ -101,6 +111,21 @@ def _add_common(p):
                    help="batch-assembly threads (0 = serial)")
     p.add_argument("--prefetch", type=int, default=2,
                    help="batches assembled ahead of the train step")
+    p.add_argument("--use-mesh", action="store_true",
+                   help="data parallelism over the host's cards: one rank "
+                        "a card, each with bz / n rows of the global batch "
+                        "(one card, test, or the CPU: a world of one here)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="rendezvous address of a multi-process world "
+                        "(the reference's DDP launch, Lightning/main.py:"
+                        "286-288); rank 0 hosts it (or file:///PATH, a "
+                        "file store every rank can reach)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="world size; every process runs this same command "
+                        "with its own --process-id (per-process --bz, "
+                        "global batch = bz x world)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank in [0, num-processes)")
 
 
 def _add_inference(p):
@@ -193,6 +218,13 @@ def build_parser():
     p.add_argument("--debug-nans", action="store_true",
                    help="run the fit under autograd's anomaly mode: a "
                         "backward that makes a NaN raises and names the op")
+    p.add_argument("--spawn", type=int, default=None, metavar="N",
+                   help="launch the whole N-process world from this one "
+                        "command (the Lightning auto-spawn analogue): "
+                        "re-runs this fit N times with --coordinator/"
+                        "--num-processes/--process-id filled in; rank 0 "
+                        "prints here, rank K logs to <log-dir>/rankK."
+                        "spawn.log")
     _add_realman(p, valid_csv=True)
 
     p = sub.add_parser("test", help="evaluate a checkpoint")
@@ -308,6 +340,166 @@ def _refuse_unported(args):
     if args.model == "ipdnet2" and not args.realman_csv:
         raise SystemExit("ipdnet2 tests on RealMAN: pass --realman-csv "
                          "(and --realman-noise)")
+    _refuse_world(args)
+
+
+def _refuse_world(args):
+    """The data-parallel options that cannot run, refused before anything
+    is written (JAX's ``_init_runtime`` checks and the port's own)."""
+    size = args.num_processes or 1
+    if getattr(args, "spawn", None) is not None:
+        if args.spawn < 1:
+            raise SystemExit("--spawn needs N >= 1")
+        if (args.num_processes is not None or args.process_id is not None
+                or args.coordinator):
+            raise SystemExit("--spawn launches the world itself: it fills "
+                             "in --coordinator, --num-processes and "
+                             "--process-id")
+    if size > 1 and (args.process_id is None or args.coordinator is None):
+        raise SystemExit("multi-process DP needs --coordinator and "
+                         "--process-id")
+    if args.process_id is not None and not 0 <= args.process_id < size:
+        raise SystemExit(f"--process-id {args.process_id} is outside "
+                         f"[0, {size}) (--num-processes {size})")
+    if args.coordinator and ":" not in args.coordinator:
+        raise SystemExit(f"--coordinator {args.coordinator!r}: HOST:PORT")
+
+
+def _init_runtime(args):
+    """Joins the data-parallel world that the options ask for (a world >
+    1 implies the mesh path, as in JAX; ``--use-mesh`` in this process is
+    a world of one): NCCL on the card, gloo with ``--platform cpu``; the
+    rank's card becomes the current device."""
+    from fnssl_tpu_torch.parallel.distributed import initialize
+
+    size = args.num_processes or 1
+    if size > 1:
+        args.use_mesh = True
+    initialize(args.coordinator, size, args.process_id,
+               platform="cpu" if args.platform == "cpu" else "cuda",
+               use_mesh=args.use_mesh)
+
+
+def _static_shapes(args) -> bool:
+    """Eval under a world or a mesh runs fixed-shape batches (JAX's
+    ``_static_shapes``)."""
+    return bool(args.use_mesh or (args.num_processes or 1) > 1)
+
+
+def _eval_schedule(sched, bz: int, static_shapes: bool):
+    """Eval must never silently lose samples (drop_last is a TRAIN
+    contract). Without static shapes the ragged final batch stays (the
+    eval mean weights each batch by its rows). Under a world or a mesh
+    every rank must run the same batches, so the schedule is wrap-padded
+    to a multiple of ``bz`` (DistributedSampler semantics: deterministic
+    duplicates, the same length on every rank) and the loader drops
+    nothing more. Returns (schedule, drop_last)."""
+    if not static_shapes:
+        return sched, False
+    if sched and len(sched) % bz:
+        import itertools
+
+        target = -(-len(sched) // bz) * bz
+        sched = list(itertools.islice(itertools.cycle(sched), target))
+    return sched, True
+
+
+def _mesh_ranks(args) -> int:
+    """The ranks ``fit --use-mesh`` launches: one a card on a host with
+    several (the global --bz split evenly), else 1 (a world of one
+    here)."""
+    if (not args.use_mesh or args.num_processes is not None
+            or args.platform == "cpu" or not torch.cuda.is_available()):
+        return 1
+    cards = torch.cuda.device_count()
+    if cards > 1 and args.bz % cards:
+        raise SystemExit(f"--use-mesh splits --bz {args.bz} over {cards} "
+                         f"cards: pass a multiple of {cards}")
+    return cards
+
+
+def _spawn_world(args, ranks: int, bz: int) -> None:
+    """One-command multi-process DP launch: re-runs this command ``ranks``
+    times with --coordinator/--num-processes/--process-id filled in and
+    ``--bz bz`` a rank, and waits for the world (the reference's Lightning
+    per-device auto-spawn, Lightning/main.py:286-288). The ranks meet at a
+    file store in a fresh temporary directory (no port to race for). Rank
+    0 inherits this terminal; rank K writes <log-dir>/rankK.spawn.log.
+    When a rank fails, the others are stopped, and this exits with the
+    first non-zero code."""
+    import subprocess
+    import sys
+    import tempfile
+
+    if args.platform != "cpu":
+        if not torch.cuda.is_available():
+            from fnssl_tpu_torch.utils.device import resolve_device
+
+            resolve_device()             # raises: no CUDA device
+        if ranks > torch.cuda.device_count():
+            raise SystemExit(f"--spawn {ranks}: a CUDA world needs one card "
+                             f"a rank and this host has "
+                             f"{torch.cuda.device_count()} (NCCL does not "
+                             "allow two ranks on one device)")
+    argv, skip = [], False
+    for a in args._argv:
+        if skip:
+            skip = False
+            continue
+        if a == "--spawn":
+            skip = True
+            continue
+        if a.startswith("--spawn="):
+            continue
+        argv.append(a)
+    env = dict(os.environ)
+    # the children must resolve fnssl_tpu_torch from a source tree too
+    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
+    if args.platform == "cpu":
+        # the host's cores shared out, not each rank taking them all
+        env.setdefault("OMP_NUM_THREADS",
+                       str(max(1, (os.cpu_count() or 1) // ranks)))
+    os.makedirs(args.log_dir, exist_ok=True)
+    store = tempfile.TemporaryDirectory()
+    procs, logs = [], []
+    try:
+        for rank in range(ranks):
+            cmd = [sys.executable, "-m", "fnssl_tpu_torch.cli", *argv,
+                   "--bz", str(bz),
+                   "--coordinator", f"file://{store.name}/store",
+                   "--num-processes", str(ranks), "--process-id", str(rank)]
+            if rank == 0:
+                procs.append(subprocess.Popen(cmd, env=env))
+                continue
+            logs.append(open(os.path.join(args.log_dir,
+                                          f"rank{rank}.spawn.log"), "w"))
+            procs.append(subprocess.Popen(cmd, env=env, stdout=logs[-1],
+                                          stderr=subprocess.STDOUT))
+        while True:
+            rcs = [p.poll() for p in procs]
+            if any(rcs) or None not in rcs:     # a rank failed, or all ended
+                break
+            time.sleep(0.2)
+        bad = next(((i, rc) for i, rc in enumerate(rcs) if rc), None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        store.cleanup()
+    if bad:
+        print(f"spawned rank {bad[0]} failed with code {bad[1]} (see "
+              f"{args.log_dir}/rankK.spawn.log)", file=sys.stderr)
+        raise SystemExit(bad[1])
 
 
 def _device(args) -> torch.device:
@@ -360,12 +552,13 @@ def _pad_tracks(task):
 
 def _batches(data_dir: str, bz: int, epoch: int, seed: int, shuffle: bool,
              workers: int = 2, prefetch: int = 2,
-             dataset_sz: int | None = None, pad_tracks: int | None = None):
-    """Deterministic per-epoch batches from a wav+npz (or compact npz)
-    dir, assembled on the prefetching loader so file reads and
-    segmenting overlap the device step. Train batches keep the
-    fixed-shape drop_last contract; eval keeps the ragged last batch, so
-    no sample is lost. ``pad_tracks`` pads each item's source axis
+             dataset_sz: int | None = None, pad_tracks: int | None = None,
+             static_shapes: bool = False):
+    """Deterministic per-epoch batches of the rank's share of a wav+npz
+    (or compact npz) dir, assembled on the prefetching loader so file
+    reads and segmenting overlap the device step. Train batches keep the
+    fixed-shape drop_last contract; eval loses no sample
+    (``_eval_schedule``). ``pad_tracks`` pads each item's source axis
     (``collate_segmented``)."""
     from fnssl_tpu_torch.data import (
         DataLoader, FixTrajectoryDataset, Segmenting, collate_segmented)
@@ -374,18 +567,21 @@ def _batches(data_dir: str, bz: int, epoch: int, seed: int, shuffle: bool,
     ds = FixTrajectoryDataset(data_dir, dataset_sz=dataset_sz,
                               transforms=[Segmenting()])
     sched = host_local_slice(len(ds), epoch, seed=seed, shuffle=shuffle)
+    drop_last = True
+    if not shuffle:
+        sched, drop_last = _eval_schedule(sched, bz, static_shapes)
     return DataLoader(lambda entry: ds[entry[0]], sched, bz,
                       functools.partial(collate_segmented,
                                         pad_tracks=pad_tracks),
                       num_workers=workers, prefetch=prefetch,
-                      drop_last=shuffle)
+                      drop_last=drop_last)
 
 
 def _realman_batches(args, bz: int, epoch: int, seed: int, shuffle: bool,
                      data_dir: str, csv: str | None = None):
-    """RealMAN on-the-fly batches for the ipdnet2 task (2 sources, the
-    ``--mic-ids`` subset), on the prefetching loader; eval keeps the
-    ragged last batch."""
+    """RealMAN on-the-fly batches of the rank's share for the ipdnet2 task
+    (2 sources, the ``--mic-ids`` subset), on the prefetching loader;
+    eval loses no sample (``_eval_schedule``)."""
     from fnssl_tpu_torch.data import DataLoader, RealData, collate_realman
     from fnssl_tpu_torch.parallel import host_local_slice
 
@@ -394,9 +590,12 @@ def _realman_batches(args, bz: int, epoch: int, seed: int, shuffle: bool,
                   use_mic_id=mic_ids, max_source=2, ext=args.realman_ext,
                   cache_dir=args.realman_cache)
     sched = host_local_slice(len(ds), epoch, seed=seed, shuffle=shuffle)
+    drop_last = True
+    if not shuffle:
+        sched, drop_last = _eval_schedule(sched, bz, _static_shapes(args))
     return DataLoader(lambda item: ds[item], sched, bz, collate_realman,
                       num_workers=args.workers, prefetch=args.prefetch,
-                      drop_last=shuffle)
+                      drop_last=drop_last)
 
 
 def _optimizer(model: str) -> dict:
@@ -443,8 +642,12 @@ def cmd_simulate(args):
 
 
 def _snapshot_config(args):
+    """config.json and git.out in the log dir (rank 0 of a world)."""
+    from fnssl_tpu_torch.parallel import is_primary
     from fnssl_tpu_torch.utils.logging import tag_and_log_git_status
 
+    if not is_primary():
+        return
     os.makedirs(args.log_dir, exist_ok=True)
     with open(os.path.join(args.log_dir, "config.json"), "w") as f:
         json.dump({k: v for k, v in vars(args).items()
@@ -454,10 +657,25 @@ def _snapshot_config(args):
 
 
 def cmd_fit(args):
+    from fnssl_tpu_torch.parallel.distributed import shutdown
+
+    _refuse_unported(args)
+    if args.spawn and args.spawn > 1:
+        return _spawn_world(args, args.spawn, args.bz)
+    ranks = _mesh_ranks(args)
+    if ranks > 1:
+        return _spawn_world(args, ranks, args.bz // ranks)
+    _init_runtime(args)
+    try:
+        _fit(args)
+    finally:
+        shutdown()
+
+
+def _fit(args):
     from fnssl_tpu_torch.train.learner import EarlyStopping, Learner
     from fnssl_tpu_torch.utils.logging import set_seed
 
-    _refuse_unported(args)
     device = _device(args)
     set_seed(args.seed)
     _snapshot_config(args)
@@ -481,7 +699,8 @@ def cmd_fit(args):
             return _realman_batches(args, args.bz, 0, args.seed, False,
                                     args.valid_dir, args.realman_valid_csv)
         return _batches(args.valid_dir, args.bz, 0, args.seed, False,
-                        args.workers, args.prefetch, pad_tracks=pad)
+                        args.workers, args.prefetch, pad_tracks=pad,
+                        static_shapes=_static_shapes(args))
 
     # The γ^epoch decay steps at EPOCH boundaries (torch ExponentialLR
     # semantics): the schedule must know the epoch length, or the decay
@@ -515,7 +734,7 @@ def _fit_epochs(args, learner, train_fn, valid_fn) -> dict:
     from fnssl_tpu_torch.utils.profiling import trace
 
     profiled = min(args.profile, args.epochs)
-    with trace(os.path.join(args.log_dir, "profile")):
+    with trace(os.path.join(learner.logger.log_dir, "profile")):
         history = learner.fit(train_fn, valid_fn, epochs=profiled,
                               valid_every=args.valid_every)
     if args.epochs > profiled and learner.epoch >= profiled:
@@ -601,9 +820,22 @@ def _metric_fn(model: str, device):
 
 
 def cmd_test(args):
-    from fnssl_tpu_torch.train.learner import Learner
+    """``test`` of the latest (or ``--best``) checkpoint; a rank of a
+    world evaluates its share (JAX's cmd_test per rank), the loss summed
+    over the world."""
+    from fnssl_tpu_torch.parallel.distributed import shutdown
 
     _refuse_unported(args)
+    _init_runtime(args)
+    try:
+        _test(args)
+    finally:
+        shutdown()
+
+
+def _test(args):
+    from fnssl_tpu_torch.train.learner import Learner
+
     device = _device(args)
     _snapshot_config(args)
     task = _make_task(args.model, args, device)
@@ -620,7 +852,8 @@ def cmd_test(args):
             metric_fn = _metric_fn(args.model, device)
         batches = _batches(args.data_dir, args.bz, 0, args.seed, False,
                            args.workers, args.prefetch,
-                           pad_tracks=_pad_tracks(task))
+                           pad_tracks=_pad_tracks(task),
+                           static_shapes=_static_shapes(args))
     learner = Learner(task.loss_fn, model, **_optimizer(args.model),
                       log_dir=args.log_dir, seed=args.seed, device=device,
                       metric_fn=metric_fn)
@@ -1035,16 +1268,14 @@ def cmd_locata(args):
 
 
 def main(argv=None):
+    import sys
+
     ap = build_parser()
-    args, rest = ap.parse_known_args(argv)
+    args = ap.parse_args(argv)
     if args.cmd in NOT_PORTED:
         raise SystemExit(f"{args.cmd}: not ported yet")
-    for flag in (a.split("=")[0] for a in rest):
-        if flag in JAX_ONLY_FLAGS:
-            raise SystemExit(f"{flag}: not ported yet")
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
     args = _apply_yaml_defaults(ap, args)
+    args._argv = list(argv) if argv is not None else sys.argv[1:]
     {"simulate": cmd_simulate, "fit": cmd_fit, "test": cmd_test,
      "predict": cmd_predict, "stream": cmd_stream, "serve": cmd_serve,
      "export": cmd_export, "locata": cmd_locata}[args.cmd](args)

@@ -1,4 +1,5 @@
-"""Batched multichannel STFT (port of ``fnssl_tpu/core/stft.py``).
+"""Batched multichannel STFT and its inverse (port of
+``fnssl_tpu/core/stft.py``).
 
   * FN-SSL / IPDnet convention: ``center=False``,
     ``nt = floor((nsample - win_len)/hop) + 1``.
@@ -67,3 +68,35 @@ def stft(signal: torch.Tensor, *, win_len: int = 512,
         frames = F.pad(frames, (lpad, nfft - win_len - lpad))
     spec = torch.fft.rfft(frames, n=nfft, dim=-1).to(torch.complex64)
     return spec.permute(0, 3, 2, 1)                   # (nb, nf, nt, nch)
+
+
+def istft(spec: torch.Tensor, *, win_len: int = 512,
+          win_shift_ratio: float = 0.5, nfft: int = 512) -> torch.Tensor:
+    """Inverse STFT with overlap-add, matching torch.istft(center=True).
+
+    Args:
+      spec: (nb, nf, nt, nch) complex.
+
+    Returns:
+      (nb, nsample, nch) float32 with nsample = (nt-1)*hop, the reference
+      ISTFT's crop (FN-SSL/Module.py:70-99).
+    """
+    nb, nf, nt, nch = spec.shape
+    hop = int(win_len * win_shift_ratio)
+    nsample = (nt - 1) * hop
+    x = spec.permute(0, 3, 2, 1)                      # (nb, nch, nt, nf)
+    window = hann_window(win_len, device=spec.device)
+    frames = torch.fft.irfft(x, n=nfft, dim=-1)[..., :win_len] * window
+    # overlap-add of every frame at its hop offset
+    idx = torch.as_tensor(
+        (np.arange(nt)[:, None] * hop + np.arange(win_len)[None, :]).ravel(),
+        device=spec.device)
+    total = (nt - 1) * hop + win_len
+    sig = torch.zeros(nb, nch, total, device=spec.device).index_add_(
+        -1, idx, frames.reshape(nb, nch, -1).float())
+    # window-envelope normalization (as torch.istft)
+    env = torch.zeros(total, device=spec.device).index_add_(
+        0, idx, (window ** 2).repeat(nt))
+    sig = sig / env.clamp_min(1e-11)
+    pad = nfft // 2                                   # center=True crop
+    return sig[:, :, pad:pad + nsample].permute(0, 2, 1)

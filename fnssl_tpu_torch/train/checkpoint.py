@@ -12,7 +12,10 @@ the epoch and its valid loss, all on the CPU) and ``index.json`` (kept
 epoch → valid loss). Every file is written to a temporary name, then
 ``os.replace``-d. With ``best_path``, the best epoch's weights are also
 written there in the reference ``.tar`` format
-(``train.convert.save_torch_tar``), the file ``cli serve`` reads.
+(``train.convert.save_torch_tar``), the file ``cli serve`` reads. The
+model's state dict is the unwrapped module's (no DDP ``module.``
+prefix). Under data parallelism every rank keeps the index and rank 0
+alone (``write=True``) writes and deletes the files.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import os
 
 import torch
 
+from fnssl_tpu_torch.parallel.mesh import unwrap
 from fnssl_tpu_torch.train.convert import save_torch_tar
 from fnssl_tpu_torch.train.step import TrainState
 
@@ -47,10 +51,11 @@ class CheckpointManager:
     """Epoch-keyed ``.tar`` checkpoints: top-k by valid loss + last."""
 
     def __init__(self, directory: str, keep_top_k: int = 5,
-                 best_path: str | None = None):
+                 best_path: str | None = None, write: bool = True):
         self.directory = os.path.abspath(directory)
         self.keep_top_k = keep_top_k
         self.best_path = best_path
+        self.write = write
         os.makedirs(self.directory, exist_ok=True)
         self._index: dict[int, float] = {}
         index = os.path.join(self.directory, "index.json")
@@ -68,19 +73,24 @@ class CheckpointManager:
         return (math.inf if math.isnan(loss) else loss, epoch)
 
     def save(self, epoch: int, state: TrainState, valid_loss: float):
-        payload = {"epoch": epoch, "valid_loss": float(valid_loss),
-                   "step": state.step,
-                   "model": _cpu(state.module.state_dict()),
-                   "optimizer": _cpu(state.optimizer.state_dict()),
-                   "scheduler": state.scheduler.state_dict()}
-        _replace_into(self.path(epoch), lambda p: torch.save(payload, p))
         self._index[epoch] = float(valid_loss)
         ranked = sorted(self._index.items(), key=self._rank)
         keep = {e for e, _ in ranked[:self.keep_top_k]} | {max(self._index)}
-        for e in set(self._index) - keep:
+        dropped = set(self._index) - keep
+        for e in dropped:
             del self._index[e]
+        if not self.write:
+            return
+        payload = {"epoch": epoch, "valid_loss": float(valid_loss),
+                   "step": state.step,
+                   "model": _cpu(unwrap(state.module).state_dict()),
+                   "optimizer": _cpu(state.optimizer.state_dict()),
+                   "scheduler": state.scheduler.state_dict()}
+        _replace_into(self.path(epoch), lambda p: torch.save(payload, p))
+        for e in dropped:
             if os.path.exists(self.path(e)):
                 os.remove(self.path(e))
+
         def write_index(p):
             with open(p, "w") as f:
                 json.dump({str(k): v for k, v in self._index.items()}, f)
@@ -122,7 +132,7 @@ class CheckpointManager:
             return None, None
         payload = torch.load(self.path(epoch), map_location="cpu",
                              weights_only=False)
-        state.module.load_state_dict(payload["model"], strict=True)
+        unwrap(state.module).load_state_dict(payload["model"], strict=True)
         state.optimizer.load_state_dict(payload["optimizer"])
         state.scheduler.load_state_dict(payload["scheduler"])
         return state._replace(step=payload["step"]), epoch

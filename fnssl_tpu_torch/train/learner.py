@@ -10,9 +10,21 @@ TensorBoard/JSONL metrics. Batches reach the card through
 ``torch.Generator`` on the device seeded from ``seed`` (JAX's dropout
 bits are not reproduced). Losses stay on the device and are fetched in
 stacks of up to ``fetch_chunk``; only the live TTY display fetches each
-step's loss. The JAX package's device-mesh data parallelism, its host-RSS
-restart and its stall watchdog (both work around TPU-client faults) are
-not carried over.
+step's loss. The JAX package's host-RSS restart and its stall watchdog
+(both work around TPU-client faults) are not carried over.
+
+Data parallelism (JAX's mesh path, ``fnssl_tpu/train/learner.py``): when
+a ``torch.distributed`` process group is up, the module runs under
+``DistributedDataParallel``, which averages the gradients over the ranks
+(with equal shards, the update on the global batch). The losses that
+decide anything are all-reduced: the train losses at each stacked fetch
+(every rank fetches them stacked, whether or not its stdout is a TTY, so
+every rank reaches each all-reduce at the same step) and the valid
+loss's weighted sum and count, so every rank logs, early-stops and ranks
+checkpoints on the same numbers. Eval metrics stay the rank's own, as in
+JAX. Rank 0 writes the checkpoints (the unwrapped module's state dict)
+and ``best_model.tar``; rank K > 0 logs to ``<log_dir>/rankK/`` without
+TensorBoard. Dropout draws from ``seed + rank``.
 """
 from __future__ import annotations
 
@@ -24,6 +36,9 @@ import numpy as np
 import torch
 
 from fnssl_tpu_torch.data.loader import prefetch_to_device
+from fnssl_tpu_torch.parallel.distributed import (all_reduce_sum,
+                                                  sync_global_devices)
+from fnssl_tpu_torch.parallel.mesh import data_parallel, unwrap, world
 from fnssl_tpu_torch.train.checkpoint import CheckpointManager
 from fnssl_tpu_torch.train.convert import load_torch_tar
 from fnssl_tpu_torch.train.step import (
@@ -73,14 +88,22 @@ class Learner:
         self.device = resolve_device(device)
         self.tx = make_optimizer(optimizer, lr, lr_gamma, steps_per_epoch,
                                  grad_clip)
-        self.state = init_train_state(module.to(self.device), self.tx)
+        self.rank, self.world = world()
+        module = module.to(self.device)
+        if torch.distributed.is_initialized():
+            module = data_parallel(module)
+        self.state = init_train_state(module, self.tx)
         self.train_step = make_train_step(loss_fn, self.tx)
         self.eval_step = make_eval_step(loss_fn)
-        self.logger = MetricLogger(log_dir)
+        self.logger = MetricLogger(
+            log_dir if self.rank == 0
+            else os.path.join(log_dir, f"rank{self.rank}"),
+            use_tensorboard=self.rank == 0)
         self.best_path = os.path.join(log_dir, "best_model.tar")
         self.ckpt = CheckpointManager(os.path.join(log_dir, "ckpt"),
                                       keep_top_k=keep_top_k,
-                                      best_path=self.best_path)
+                                      best_path=self.best_path,
+                                      write=self.rank == 0)
         self.metric_fn = metric_fn
         self.early_stopping = early_stopping or EarlyStopping()
         self.epoch = 0
@@ -88,7 +111,8 @@ class Learner:
         # long epochs (the reference's epochs reach ~10k steps)
         self.fetch_chunk = 512
         self.prefetch = 2
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            seed + self.rank)
 
     def _on_device(self, batches):
         return prefetch_to_device(batches, self.prefetch, self.device)
@@ -103,7 +127,7 @@ class Learner:
         restored, step = self.ckpt.restore(self.state, epoch=epoch)
         if restored is None and best and os.path.exists(self.best_path):
             state_dict, meta = load_torch_tar(self.best_path)
-            self.state.module.load_state_dict(state_dict, strict=True)
+            unwrap(self.state.module).load_state_dict(state_dict, strict=True)
             restored, step = self.state, int(meta.get("epoch", 0))
         if restored is not None:
             self.state = restored
@@ -126,15 +150,19 @@ class Learner:
         # Interactive runs fetch each loss for the live display; batch
         # runs keep the losses on the device and fetch them stacked, so
         # the host never waits for a step to finish before queuing the
-        # next one.
+        # next one. Under data parallelism every rank fetches stacked and
+        # all-reduces each stack (the live display shows the rank's own
+        # losses).
         live = progress.visible
+        deferred = not live or self.world > 1
         pending: list = []
         host_vals: list[float] = []
         steps, waited, first_wait = 0, 0.0, None
 
         def _flush():
             if pending:
-                host_vals.extend(torch.stack(pending).float().cpu().tolist())
+                summed = all_reduce_sum(torch.stack(pending).float())
+                host_vals.extend((summed / self.world).tolist())
                 pending.clear()
 
         stream = iter(self._on_device(batches))
@@ -152,14 +180,16 @@ class Learner:
             if live:
                 last = ema.update(float(loss))
                 progress.update(last)
-            else:
+            if deferred:
                 pending.append(loss)
                 if len(pending) >= self.fetch_chunk:
                     _flush()
         progress.close()
         _flush()
-        for v in host_vals:
-            last = ema.update(v)
+        if deferred:
+            ema = EmaLoss()
+            for v in host_vals:
+                last = ema.update(v)
         epoch_s = time.perf_counter() - t0
         self.logger.log("train/loss", last, self.epoch)
         self.logger.log("train/epoch_s", epoch_s, self.epoch)
@@ -194,15 +224,19 @@ class Learner:
         fetched = torch.stack(dev_losses).float().cpu().numpy()
         keep = [i for i, v in enumerate(fetched)
                 if not detect_infnan(float(v), f"{split}/loss")]
-        if not keep:
+        losses = fetched[keep]
+        w = np.asarray(weights)[keep]
+        # the weighted sum and count over the world's batches (every rank
+        # reaches the all-reduce, diverged batches or not)
+        total, count = all_reduce_sum(torch.tensor(
+            [np.sum(losses * w), np.sum(w)], dtype=torch.float64)).tolist()
+        if not count:
             # Every batch diverged: report NaN and keep training (the
             # filtering exists to survive divergence, not crash on it).
             return {"loss": float("nan")}
-        losses = fetched[keep]
-        w = np.asarray(weights)[keep]
         metrics_acc = ([metrics_acc[i] for i in keep] if metrics_acc
                        else metrics_acc)
-        out = {"loss": float(np.average(losses, weights=w))}
+        out = {"loss": total / count}
         if metrics_acc:
             for k in metrics_acc[0]:
                 # metric values may be vectors (e.g. multi-entry ae_mode):
@@ -251,6 +285,9 @@ class Learner:
             while self.epoch < epochs:
                 train_loss = self.train_epoch(train_batches_fn(self.epoch))
                 history["train"].append(train_loss)
+                # a signal on any rank stops every rank at this epoch
+                interrupted["flag"] = bool(all_reduce_sum(
+                    torch.tensor([float(interrupted["flag"])]))[0])
                 do_valid = (valid_every <= 1
                             or (self.epoch + 1) % valid_every == 0
                             or self.epoch + 1 >= epochs
@@ -264,6 +301,7 @@ class Learner:
                                    valid["loss"]
                                    if np.isfinite(valid["loss"])
                                    else float("inf"))
+                    sync_global_devices("ckpt")
                     stop = self.early_stopping.update(valid["loss"])
                     print(f"epoch {self.epoch}: train {train_loss:.5f} "
                           f"valid {valid['loss']:.5f}"
@@ -277,6 +315,15 @@ class Learner:
             for sig, handler in prev.items():
                 signal.signal(sig, handler)
         return history
+
+    def write_flops(self, example, **kw):
+        """FLOPs.yaml into the run dir (the reference's on_train_start
+        write_FLOPs hook, Lightning/main.py:146-147), counted on the
+        unwrapped module with ``example`` as its input."""
+        from fnssl_tpu_torch.utils.flops import write_flops
+
+        return write_flops(unwrap(self.state.module), example,
+                           self.logger.log_dir, **kw)
 
     def test(self, batches: Iterable) -> dict[str, float]:
         return self.eval_epoch(batches, split="test")

@@ -300,12 +300,15 @@ def test_config_yaml_sets_defaults_and_flags_win(workdir):
 @pytest.mark.parametrize("argv,match", [
     (["fit", "--rss-restart-gb", "10"], "TPU-client fault"),
     (["fit", "--stall-restart-s", "900"], "TPU-client fault"),
-    (["fit", "--spawn", "2"], "--spawn: not ported yet"),
-    (["fit", "--use-mesh"], "--use-mesh: not ported yet"),
+    (["fit", "--spawn", "2", "--num-processes", "2"],
+     "--spawn launches the world itself"),
+    (["fit", "--num-processes", "2", "--coordinator", "h:1"],
+     "needs --coordinator and --process-id"),
     (["fit", "--coordinator", "h:1", "--num-processes", "2",
-      "--process-id", "0"], "not ported yet"),
-    (["fit", "--num-processes", "2"], "--num-processes: not ported yet"),
-    (["fit", "--process-id", "0"], "--process-id: not ported yet"),
+      "--process-id", "2"], "--process-id 2 is outside"),
+    (["fit", "--num-processes", "2"], "needs --coordinator and --process-id"),
+    (["test", "--num-processes", "2", "--process-id", "0", "--coordinator",
+      "h"], "HOST:PORT"),
     (["fit", "--model", "ipdnet2"], "ipdnet2 trains on RealMAN"),
     (["fit", "--model", "ipdnet2", "--realman-csv", "t.csv"],
      "pass --realman-csv and --realman-noise"),

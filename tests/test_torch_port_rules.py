@@ -46,7 +46,9 @@ def test_port_imports_no_jax_and_no_fnssl_tpu():
                  "kernels.ops", "runtime.slots", "runtime.export",
                  "models.attention", "models.retention", "models.norms",
                  "data.locata", "data.segments", "eval.vis",
-                 "utils.profiling"):
+                 "utils.profiling", "parallel.mesh", "parallel.distributed",
+                 "core.gcc", "core.convs", "core.complexops",
+                 "utils.flops"):
         assert f"fnssl_tpu_torch.{name}" in out["modules"]
     assert len(out["modules"]) >= 69
 
