@@ -10,26 +10,8 @@ float32 matrix products and cuDNN calls run in full float32, never TF32:
 the input projection of every LSTM (``torch.matmul``) is held to the JAX
 package's float32 results.
 """
-import sys
-import types
-
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 __version__ = "0.1.0"
-
-
-class _CallableModule(types.ModuleType):
-    """A module that, called, calls its function of the same name. JAX's
-    package-level ``core.stft`` and ``models.lstm`` are functions, while
-    the port's callers import the modules of those names: this way
-    ``from fnssl_tpu_torch.core import stft`` is both."""
-
-    def __call__(self, *args, **kwargs):
-        return getattr(self, self.__name__.rpartition(".")[2])(*args,
-                                                               **kwargs)
-
-
-def _callable_module(name: str) -> None:
-    sys.modules[name].__class__ = _CallableModule

@@ -1,11 +1,9 @@
 """Signal front-end and array geometry (port of ``fnssl_tpu/core``): STFT
 and its inverse, complex helpers, microphone pairs, the forgetting norm,
 coordinates, GCC/SRP and the SRP-map CNN blocks, under the JAX package's
-names. ``stft`` is the module ``core/stft.py`` and, called, its ``stft``
-function."""
-from fnssl_tpu_torch import _callable_module
-from fnssl_tpu_torch.core import stft
-from fnssl_tpu_torch.core.stft import istft, hann_window, num_frames
+names. As in JAX, the package's ``stft`` is the function; the module is
+``fnssl_tpu_torch.core.stft``."""
+from fnssl_tpu_torch.core.stft import stft, istft, hann_window, num_frames
 from fnssl_tpu_torch.core.complexops import (
     complex_multiplication, complex_conjugate_multiplication,
     complex_cart2polar)
@@ -18,5 +16,3 @@ from fnssl_tpu_torch.core.coords import cart2sph, sph2cart
 from fnssl_tpu_torch.core.gcc import gcc, SRPMap
 from fnssl_tpu_torch.core.convs import (
     spheric_pad, caus_conv1d, caus_conv2d, caus_conv3d, caus_cnn_block)
-
-_callable_module(stft.__name__)

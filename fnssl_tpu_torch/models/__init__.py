@@ -10,12 +10,10 @@ is the apply (``*_apply``): ``init_lstm_params`` → ``LSTM``,
 ``init_spatialnet_params`` / ``spatialnet_apply`` → ``SpatialNet``,
 ``init_ipdnet_params`` / ``ipdnet_apply`` → ``IPDnet`` and
 ``init_variable_ipdnet_params`` / ``variable_ipdnet_apply`` →
-``VariableIPDnet``. Every other name is JAX's; ``lstm`` is the module
-``models/lstm.py`` and, called, its ``lstm`` function.
+``VariableIPDnet``. Every other name is JAX's; as in JAX, the package's
+``lstm`` is the function, and the module is ``fnssl_tpu_torch.models.lstm``.
 """
-from fnssl_tpu_torch import _callable_module
-from fnssl_tpu_torch.models import lstm
-from fnssl_tpu_torch.models.lstm import LSTM, LSTMState
+from fnssl_tpu_torch.models.lstm import lstm, LSTM, LSTMState
 from fnssl_tpu_torch.models.layers import (
     Linear, linear, dropout, avg_pool_time)
 from fnssl_tpu_torch.models.fnssl import (
@@ -36,5 +34,3 @@ from fnssl_tpu_torch.models.spatialnet import (
 from fnssl_tpu_torch.models.ipdnet import (
     IPDnet, IPDnetConfig, IPDnetState, init_ipdnet_state, VariableIPDnet,
     VariableIPDnetConfig)
-
-_callable_module(lstm.__name__)

@@ -15,7 +15,7 @@ written there in the reference ``.tar`` format
 (``train.convert.save_torch_tar``), the file ``cli serve`` reads. The
 model's state dict is the unwrapped module's (no DDP ``module.``
 prefix). Under data parallelism every rank keeps the index and rank 0
-alone (``write=True``) writes and deletes the files.
+alone (``parallel.is_primary``) writes and deletes the files.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import os
 
 import torch
 
+from fnssl_tpu_torch.parallel.distributed import is_primary
 from fnssl_tpu_torch.parallel.mesh import unwrap
 from fnssl_tpu_torch.train.convert import save_torch_tar
 from fnssl_tpu_torch.train.step import TrainState
@@ -51,11 +52,10 @@ class CheckpointManager:
     """Epoch-keyed ``.tar`` checkpoints: top-k by valid loss + last."""
 
     def __init__(self, directory: str, keep_top_k: int = 5,
-                 best_path: str | None = None, write: bool = True):
+                 best_path: str | None = None):
         self.directory = os.path.abspath(directory)
         self.keep_top_k = keep_top_k
         self.best_path = best_path
-        self.write = write
         os.makedirs(self.directory, exist_ok=True)
         self._index: dict[int, float] = {}
         index = os.path.join(self.directory, "index.json")
@@ -79,7 +79,7 @@ class CheckpointManager:
         dropped = set(self._index) - keep
         for e in dropped:
             del self._index[e]
-        if not self.write:
+        if not is_primary():
             return
         payload = {"epoch": epoch, "valid_loss": float(valid_loss),
                    "step": state.step,

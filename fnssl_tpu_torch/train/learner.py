@@ -102,8 +102,7 @@ class Learner:
         self.best_path = os.path.join(log_dir, "best_model.tar")
         self.ckpt = CheckpointManager(os.path.join(log_dir, "ckpt"),
                                       keep_top_k=keep_top_k,
-                                      best_path=self.best_path,
-                                      write=self.rank == 0)
+                                      best_path=self.best_path)
         self.metric_fn = metric_fn
         self.early_stopping = early_stopping or EarlyStopping()
         self.epoch = 0

@@ -13,13 +13,13 @@ import torch
 from fnssl_tpu.train.preprocess import stft_features as j_stft_features
 from fnssl_tpu_torch.core import norm as tnorm
 from fnssl_tpu_torch.core import pairs as tpairs
-from fnssl_tpu_torch.core import stft as tstft
 from fnssl_tpu_torch.train.preprocess import stft_features
 
-# fnssl_tpu.core re-exports functions under its modules' names
+# both packages' core re-exports functions under its modules' names
 jnorm = importlib.import_module("fnssl_tpu.core.norm")
 jpairs = importlib.import_module("fnssl_tpu.core.pairs")
 jstft = importlib.import_module("fnssl_tpu.core.stft")
+tstft = importlib.import_module("fnssl_tpu_torch.core.stft")
 
 REL = 1e-5
 

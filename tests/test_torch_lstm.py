@@ -7,6 +7,8 @@ another order); bf16 xg outputs within one bf16 rounding (atol 1e-2).
 tests/test_torch_kernels_cuda.py holds the Hopper kernel itself against
 the plain version on the card.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -183,7 +185,8 @@ def test_bidirectional_lstm_makes_one_recurrence_call(rng, monkeypatch):
     """A BiLSTM runs both directions through one lstm_fwd_bidir call (one
     launch on the card) and never through lstm_fwd; a one-direction LSTM
     makes one lstm_fwd call."""
-    from fnssl_tpu_torch.models import lstm as lstm_mod
+    # the package's ``lstm`` is the function, as in JAX
+    lstm_mod = importlib.import_module("fnssl_tpu_torch.models.lstm")
 
     calls = []
 

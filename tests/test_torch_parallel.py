@@ -4,10 +4,13 @@ device mesh, on the CPU.
 
 A 2-process gloo world (tests/torch_dp_worker.py, a file store, one
 torch thread a rank) checks rank gating, the broadcast and both
-barriers, and takes two DP train steps of FN-SSL (hidden 32, Adam) and of
-a small IPDnet2 (2 layers, hidden 16, AdamW with a clip of 5), dropout
-off, each rank on its half of a 2-scene global batch. Those steps are
-held against the port's single-process step on the global batch: the
+barriers, and takes two DP train steps of FN-SSL (hidden 32, Adam), of a
+small IPDnet2 (2 layers, hidden 16, AdamW with a clip of 5) and of the
+other models the CLI trains (fnssl_doa at hidden 256, the bin count its
+head needs, and ipdnet, ipdnet_offline and variable_ipdnet at hidden 32,
+all with Adam: DDP raises at their second step if a parameter got no
+gradient), dropout off, each rank on its half of a
+2-scene global batch. Those steps are held against the port's single-process step on the global batch: the
 world-mean loss of each step within 1e-6 relative, the first step's
 averaged gradients within 1e-5 of the model's largest gradient magnitude
 (float32 sums over ~1e4 positions split in two and in another order;
@@ -50,7 +53,8 @@ from tests.test_torch_threads import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 2
-LR = {"fnssl": 1e-3, "ipdnet2": 5e-4}
+LR = {"fnssl": 1e-3, "fnssl_doa": 1e-3, "ipdnet": 5e-4,
+      "ipdnet_offline": 5e-4, "variable_ipdnet": 5e-4, "ipdnet2": 5e-4}
 
 
 @pytest.mark.parametrize("shuffle", [True, False])
@@ -172,7 +176,7 @@ def single_process(name):
                            for k, v in model.state_dict().items()}
 
 
-@pytest.mark.parametrize("name", ["fnssl", "ipdnet2"])
+@pytest.mark.parametrize("name", list(LR))
 def test_dp_step_equals_the_single_process_step(world, name):
     _, arrays = world
     losses, grads, params = single_process(name)
