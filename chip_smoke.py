@@ -106,8 +106,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
                versions at every scan shape of the IPDnet2 paths (training
                B 256 at L 201 and 40, the forward cell's L 200, serve B 16
                at L 5 and 1, the 16-slot tick's B 256 at L 5 and 1, one
-               rank's step in phase 29 at B 128, L 201 and 40, d
-               192) and edge cases (B 1/3/13, L 0/1/2/7, d
+               rank's step in phase 29 at B 128 and in phase 30 at B 64, L
+               201 and 40, d 192) and edge cases (B 1/3/13, L 0/1/2/7, d
                32/192), fp32 and bf16 inputs.
  18. ipdnet2 serve — `cli serve --model ipdnet2` (SpatialNetConfig(),
                weights from --seed) on cuda:0, 3 TCP connections of 5 s of
@@ -206,6 +206,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
                launches a rank; ms a step of each beside the plain
                one's. NCCL runs a one-rank all-reduce without a kernel:
                the trace holds its host records (nccl:all_reduce).
+ 30. frequency parallelism — IPDnet2 over a 2-D (data x freq) mesh
+               (parallel.make_mesh_2d, SpatialNet(freq_mesh=...),
+               make_ipdnet2_task(feats_sharding=mesh), make_train_step(...,
+               mesh=mesh)). A NCCL world of one in this process, a 1 x 1
+               mesh: one step of phase 20's cell equal to the plain task's
+               (loss and gradients 1e-6 relative), 16 K3 and 16 K4
+               launches. Then four ranks on the one card as a 2 x 2 mesh
+               (gloo), each a process of its own (this script with
+               --fp-rank), 3 AdamW steps (clip 5) at full width on its 8
+               scenes x 128 bins of phase 29's global batch, against phase
+               29's 3 IPDnet2 steps in one process on all 16: world-mean
+               losses 1e-6 relative and equal on the ranks, the first
+               step's gradients 1e-5 of their largest, the parameters
+               lr/10, exactly 48 K3 and 48 K4 launches a rank; ms a step
+               of a rank beside the one process's, and the bytes the freq
+               collectives moved a step. Phase 17 holds K3 and K4 at a
+               rank's scan shapes (B 64 at L 201 and 40) and this phase
+               times them there.
 The line before the last is the kernels JSON line (each kernel's numbers
 over one train step's work, its launches over every path); the last line
 is
@@ -928,7 +946,8 @@ COUNTED = ("lstm_cluster", "lstm_fwd", "lstm_bwd", "lstm_bwd_cluster",
 # their kernels' names in a device trace, in the same order
 TRACED = ("lstm_cluster_kernel", "lstm_fwd_kernel", "lstm_bwd_kernel",
           "lstm_bwd_cluster_kernel", "ssm_fwd_kernel", "ssm_bwd_kernel")
-TRACE_GUARD = 256
+TRACE_GUARD = 2048
+TRACE_SETTLE_S = 0.1
 
 
 def launch_counters():
@@ -2096,19 +2115,21 @@ def ipdnet2_batch(nb, seed):
                 np.float32).copy()}
 
 
-def ipdnet2_setup(seed, nb, device, precision="fp32", cfg=None):
+def ipdnet2_setup(seed, nb, device, precision="fp32", cfg=None, mesh=None):
     """(state, step, batch) of make_ipdnet2_task at `cfg` (default
     SpatialNetConfig()) on `device`: weights from `seed`, AdamW 5e-4 /
-    gamma 0.975 with a clip of 5, the bench batch on the device."""
+    gamma 0.975 with a clip of 5, the bench batch on the device; sharded
+    over a 2-D `mesh` when one is given (the whole global batch)."""
     from fnssl_tpu_torch.models.spatialnet import SpatialNet
     from fnssl_tpu_torch.train import step as S
     from fnssl_tpu_torch.train import tasks as TK
 
-    task = TK.make_ipdnet2_task(cfg, precision=precision, device=device)
+    task = TK.make_ipdnet2_task(cfg, precision=precision, device=device,
+                                feats_sharding=mesh)
     model = SpatialNet(task.cfg, device=device,
                        generator=torch.Generator().manual_seed(seed))
     tx = S.make_optimizer("adamw", I2_LR, 0.975, 1, grad_clip=5.0)
-    step = S.make_train_step(task.loss_fn, tx)
+    step = S.make_train_step(task.loss_fn, tx, mesh=mesh)
     batch = {k: torch.as_tensor(v, device=device)
              for k, v in ipdnet2_batch(nb, seed).items()}
     return S.init_train_state(model, tx), step, batch
@@ -2531,13 +2552,17 @@ def traced_launches(fn, *args):
     and the kernels of COUNTED that the card ran, counted by name in the
     trace (CUPTI records every kernel node of a CUDA graph replay, which
     calls no wrapper and moves no launch counter). A trace may lose its
-    first records (seen on the H100; only ever a run of them at its head),
-    so the window opens with TRACE_GUARD spin kernels and fails unless
-    some of them were recorded: what was lost came before fn."""
+    first records (seen on the H100, only ever a run of them at its head:
+    one K1 of a tier-1 replay in three full runs, and once all 256 spin
+    kernels of an earlier, shorter guard), so the window opens
+    TRACE_SETTLE_S after the profiler starts, with TRACE_GUARD spin
+    kernels, and fails unless some of them were recorded: what was lost
+    came before fn. A loss is logged."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_SETTLE_S)
         for _ in range(TRACE_GUARD):
             torch.cuda._sleep(100)
         torch.cuda.synchronize()
@@ -2549,6 +2574,9 @@ def traced_launches(fn, *args):
     if not 0 < guard <= TRACE_GUARD:
         raise AssertionError(f"the trace kept {guard} of its "
                              f"{TRACE_GUARD} guard kernels")
+    if guard < TRACE_GUARD:
+        log(f"  (a trace lost its first {TRACE_GUARD - guard} records, "
+            f"guard kernels of {TRACE_GUARD})")
     return out, [sum(1 for n in names if re.search(rf"\b{k}\b", n))
                  for k in TRACED]
 
@@ -3357,6 +3385,11 @@ DP_RANK_SHAPES = [("dp_rank_fullband", 256, DP_NB // 2 * 298, 128, 256, 2),
                   ("dp_rank_narrowband", 298, DP_NB // 2 * 256, 256, 256, 1)]
 SSM_DP_SHAPES = [("dp_rank_layer0", DP_NB // 2 * 16, 201, 192),
                  ("dp_rank_layers1_7", DP_NB // 2 * 16, 40, 192)]
+# phase 30, frequency parallelism: a 2 x 2 mesh of ranks on the one card;
+# a rank's scans run its DP_NB / 2 scenes x 8 of the 16 bands
+FP_MESH = (2, 2)
+SSM_FP_SHAPES = [("fp_rank_layer0", DP_NB // 2 * 8, 201, 192),
+                 ("fp_rank_layers1_7", DP_NB // 2 * 8, 40, 192)]
 DP_CELLS = ("fnssl", "ipdnet2")
 DP_LR = {"fnssl": 1e-3, "ipdnet2": I2_LR}
 DP_STEP_LAUNCHES = {"fnssl": STEP_LAUNCHES, "ipdnet2": I2_STEP_LAUNCHES}
@@ -3598,7 +3631,235 @@ def phase_dp(seed, device, data, runs, card):
             f" once) against {np.mean(one['ms'][1:]):.1f} ms in one "
             f"process; launches {per_rank} a rank; {card}")
     log(f"  the two-rank world: {world_s:.1f} s, process start included")
-    return report, dict(zip(COUNTED, total))
+    return report, dict(zip(COUNTED, total)), ref["ipdnet2"]
+
+
+def fp_rank(rank, store, out, seed, backend="gloo"):
+    """One of the four ranks of phase 30, in a process of its own: a
+    `backend` world at the file store `store` (gloo: every rank on cuda:0;
+    nccl: rank r on cuda:r), a 2 x 2 mesh, DP_STEPS
+    sharded IPDnet2 steps on the rank's rows of phase 29's global batch,
+    with every launch counter and the freq traffic set to 0 just before
+    and read just after. Writes out/rank<R>.json and, rank 0, the
+    parameters after the steps and the first step's gradients
+    (out/ipdnet2.pt)."""
+    from fnssl_tpu_torch.parallel import (initialize, make_mesh_2d,
+                                          shard_batch, shutdown)
+    from fnssl_tpu_torch.parallel.freq import TRAFFIC, reset_traffic
+
+    device = initialize(f"file://{store}", FP_MESH[0] * FP_MESH[1], rank,
+                        backend=backend, timeout_s=600)
+    mesh = make_mesh_2d(*FP_MESH)
+    state, step, batch = ipdnet2_setup(seed, DP_NB, device, mesh=mesh)
+    local = shard_batch(batch, mesh=mesh)
+    counts = launch_counters()
+    for c in counts:
+        c.reset()
+    reset_traffic()
+    state, losses, ms, grads = dp_steps(state, step, local)
+    report = {"losses": losses, "ms": ms,
+              "launches": [c.value for c in counts],
+              "freq_bytes": TRAFFIC["bytes"], "freq_calls": TRAFFIC["calls"],
+              "grad_bytes": sum(p.numel() * p.element_size()
+                                for p in state.module.parameters()),
+              "coords": [mesh.data_index, mesh.freq_index],
+              "rows": len(local["mic_sig"])}
+    if rank == 0:
+        torch.save({"params": {k: v.cpu() for k, v in
+                               state.module.state_dict().items()},
+                    "grads": grads}, Path(out) / "ipdnet2.pt")
+    shutdown()
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps(report))
+
+
+def fp_world_of_one(seed, device):
+    """Phase 30 (a): one step of the sharded task on a 1 x 1 mesh in a
+    NCCL world of one against the plain task's step, both at phase 20's
+    cell from `seed`, beside a second plain step (the spread of two equal
+    runs: cuDNN's weight gradients may sum in another order). Returns
+    (report, launches)."""
+    from fnssl_tpu_torch.parallel import initialize, make_mesh_2d, shutdown
+
+    runs = {}
+    initialize(use_mesh=True)
+    try:
+        for name, mesh in (("plain", None), ("again", None),
+                           ("mesh", make_mesh_2d(1, 1))):
+            torch.cuda.empty_cache()
+            state, step, batch = ipdnet2_setup(seed, I2_NB, device,
+                                               mesh=mesh)
+            counts = launch_counters()
+            for c in counts:
+                c.reset()
+            state, loss = step(state, batch)
+            torch.cuda.synchronize()
+            runs[name] = {"loss": float(loss),
+                          "launches": [c.value for c in counts],
+                          "grads": {n: p.grad.detach().clone() for n, p in
+                                    state.module.named_parameters()}}
+            del state, step, batch
+    finally:
+        shutdown()
+    plain, mesh = runs["plain"], runs["mesh"]
+    scale = max(g.abs().max().item() for g in plain["grads"].values())
+
+    def rel(run):
+        return (abs(run["loss"] - plain["loss"]) / abs(plain["loss"]),
+                max((run["grads"][k] - g).abs().max().item()
+                    for k, g in plain["grads"].items()) / scale)
+
+    loss_rel, grad_rel = rel(mesh)
+    spread = rel(runs["again"])
+    if mesh["launches"] != I2_STEP_LAUNCHES:
+        raise AssertionError(f"the 1 x 1 mesh's step launched {COUNTED} "
+                             f"{mesh['launches']}, expected "
+                             f"{I2_STEP_LAUNCHES}")
+    if not (loss_rel <= 1e-6 and grad_rel <= 1e-6):
+        raise AssertionError(f"the 1 x 1 mesh's step against the plain "
+                             f"task's: loss rel {loss_rel:.2e}, gradients "
+                             f"max|diff| {grad_rel:.2e} of their largest")
+    log(f"  a 1 x 1 mesh in a NCCL world of one against the plain task, "
+        f"nb {I2_NB}: loss rel {loss_rel:.2e}, gradients max|diff| "
+        f"{grad_rel:.2e} of their largest (two plain steps: {spread[0]:.2e}"
+        f", {spread[1]:.2e}); launches {mesh['launches']}")
+    return ({"loss_rel": loss_rel, "grad_max_abs_diff_rel": grad_rel,
+             "plain_twice_loss_rel": spread[0],
+             "plain_twice_grad_max_abs_diff_rel": spread[1],
+             "bitwise": loss_rel == 0.0 and grad_rel == 0.0,
+             "launches": mesh["launches"]}, mesh["launches"])
+
+
+def phase_freq(seed, device, ref, ssm_rows, card):
+    """30. Frequency parallelism: (a) `fp_world_of_one`; (b) `fp_world`
+    over gloo, four ranks on the one card (NCCL refuses two ranks on one
+    device); K3/K4 at a rank's scan shapes (`ssm_rows`). Returns (report,
+    launches)."""
+    report, total = fp_world_of_one(seed, device)
+    torch.cuda.empty_cache()
+    mesh, launched = fp_world(seed, ref, card, "gloo")
+    return ({"world_of_one": report, "mesh_2x2": mesh,
+             "k3_k4_rank_shapes": ssm_rows},
+            dict(zip(COUNTED, [a + b for a, b in zip(total, launched)])))
+
+
+def fp_world(seed, ref, card, backend):
+    """Four ranks as a 2 x 2 mesh, each a process of its own (this
+    script with --fp-rank), DP_STEPS sharded steps of IPDnet2 at full
+    width on DP_NB / 2 scenes x 128 bins a rank, against `ref`, DP_STEPS
+    steps in one process on all DP_NB scenes (phase 29's): world-mean
+    losses within 1e-6 relative and equal on the ranks, the first step's
+    gradients within 1e-5 of their largest magnitude and the parameters
+    within lr/10 (phase 29's bounds), exact launches a rank. Prints ms a
+    step of a rank beside the one process's (over gloo four processes
+    share the card and gloo stages through the host: no claim) and the
+    bytes the freq collectives move a step. Returns (report, the ranks'
+    launches summed)."""
+    size = FP_MESH[0] * FP_MESH[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--seed",
+               str(seed), "--fp-store", f"{tmp}/store", "--fp-out", tmp,
+               "--fp-backend", backend, "--fp-rank"]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd + [str(r)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(size)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        world_s = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            if p.returncode:
+                raise AssertionError(f"freq rank {r} failed ({p.returncode})"
+                                     f":\n{text[-4000:]}")
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(size)]
+        got = torch.load(Path(tmp) / "ipdnet2.pt")
+    per_rank = [n * DP_STEPS for n in I2_STEP_LAUNCHES]
+    launched = [rk["launches"] for rk in ranks]
+    if launched != [per_rank] * size:
+        raise AssertionError(f"the 2 x 2 mesh launched {COUNTED} {launched}"
+                             f" a rank, expected {per_rank} each")
+    if any(rk["losses"] != ranks[0]["losses"] for rk in ranks):
+        raise AssertionError(f"the ranks' world losses differ: {ranks}")
+    lr = DP_LR["ipdnet2"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(ranks[0]["losses"], ref["losses"]))
+    dp = {k: (got["params"][k] - v).abs().max().item()
+          for k, v in ref["params"].items()}
+    worst = max(dp, key=dp.get)
+    scale = max(g.abs().max().item() for g in ref["grads"].values())
+    dg = {k: (got["grads"][k] - g).abs().max().item() / scale
+          for k, g in ref["grads"].items()}
+    worst_g = max(dg, key=dg.get)
+    if not (loss_rel <= 1e-6 and dg[worst_g] <= 1e-5
+            and dp[worst] <= lr / 10):
+        raise AssertionError(
+            f"the 2 x 2 mesh against one process: loss rel {loss_rel:.2e}, "
+            f"first step's gradients max|diff| {dg[worst_g]:.2e} of their "
+            f"largest ({worst_g}), params max|diff| {dp[worst]:.2e} "
+            f"({worst}; lr {lr})")
+    rank_ms = float(np.mean([np.mean(rk["ms"][1:]) for rk in ranks]))
+    one_ms = float(np.mean(ref["ms"][1:]))
+    freq_bytes = ranks[0]["freq_bytes"] / DP_STEPS
+    report = {
+        "backend": backend, "loss_rel": loss_rel, "grad_max_abs_diff_rel": dg[worst_g],
+        "grad_worst": worst_g, "grad_scale": scale,
+        "param_max_abs_diff": dp[worst], "param_worst": worst,
+        "losses_mesh": ranks[0]["losses"], "losses_one": ref["losses"],
+        "ms_rank": [rk["ms"] for rk in ranks], "ms_one": ref["ms"],
+        "ms_rank_mean": rank_ms, "ms_one_mean": one_ms,
+        "freq_bytes_a_step": freq_bytes,
+        "freq_calls_a_step": ranks[0]["freq_calls"] / DP_STEPS,
+        "grad_all_reduce_bytes_a_step": ranks[0]["grad_bytes"],
+        "launches_a_rank": per_rank, "rows_a_rank": ranks[0]["rows"],
+        "coords": [rk["coords"] for rk in ranks], "world_s": world_s,
+        "card": card}
+    where = ("4 gloo ranks on the card" if backend == "gloo"
+             else f"4 {backend} ranks, one a card")
+    log(f"  2 x 2 mesh, {where}, {ranks[0]['rows']} scenes "
+        f"x 128 bins a rank, against 1 x {DP_NB} scenes x 256 bins: losses "
+        f"rel {loss_rel:.2e}, first step's gradients max|diff| "
+        f"{dg[worst_g]:.2e} of their largest {scale:.3e} ({worst_g}), "
+        f"params max|diff| {dp[worst]:.2e} = {dp[worst] / lr * 100:.2f} "
+        f"lr/100 ({worst}); a step of a rank {rank_ms:.1f} ms (steps 2-"
+        f"{DP_STEPS}) against {one_ms:.1f} "
+        f"ms in one process; freq collectives {freq_bytes / 1e6:.3f} MB in "
+        f"{ranks[0]['freq_calls'] // DP_STEPS} calls a step a rank, the "
+        f"gradient all-reduce {ranks[0]['grad_bytes'] / 1e6:.3f} MB; "
+        f"launches {per_rank} a rank; the world {world_s:.1f} s, process "
+        f"start included; {card}")
+    return report, [sum(col) for col in zip(*launched)]
+
+
+def freq_cards(seed, out):
+    """--freq-cards: on a host of four cards, fp_world over NCCL (rank r
+    on cuda:r) against DP_STEPS one-process steps on cuda:0, and nothing
+    else; writes OUT/freq_cards.json. Not part of the smoke test, which
+    needs one card."""
+    from fnssl_tpu_torch.kernels import cuda_build
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        sys.exit("chip_smoke --freq-cards: needs four CUDA devices")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = "; ".join(smi.stdout.strip().splitlines())
+    log(card)
+    cuda_build.build(["ssm_scan"])
+    state, step, batch = dp_setup("ipdnet2", seed, torch.device("cuda", 0))
+    state, losses, ms, grads = dp_steps(state, step, batch)
+    ref = {"losses": losses, "ms": ms, "grads": grads,
+           "params": {k: v.cpu() for k, v in
+                      state.module.state_dict().items()}}
+    del state, step, batch
+    torch.cuda.empty_cache()
+    report, _ = fp_world(seed, ref, card, "nccl")
+    Path(out).mkdir(parents=True, exist_ok=True)
+    (Path(out) / "freq_cards.json").write_text(json.dumps(report, indent=1))
 
 
 def locata_k1(rows, frames):
@@ -3641,9 +3902,22 @@ def main():
                     help=argparse.SUPPRESS)     # phase 29's rank processes
     ap.add_argument("--dp-store", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp-out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--fp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)     # phase 30's rank processes
+    ap.add_argument("--fp-store", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--fp-out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--fp-backend", default="gloo", help=argparse.SUPPRESS)
+    ap.add_argument("--freq-cards", action="store_true",
+                    help="on four cards: phase 30's 2 x 2 mesh over NCCL, "
+                         "one rank a card, and nothing else")
     args = ap.parse_args()
     if args.dp_rank is not None:
         return dp_rank(args.dp_rank, args.dp_store, args.dp_out, args.seed)
+    if args.fp_rank is not None:
+        return fp_rank(args.fp_rank, args.fp_store, args.fp_out, args.seed,
+                       args.fp_backend)
+    if args.freq_cards:
+        return freq_cards(args.seed, args.out)
 
     # 1. device
     if not torch.cuda.is_available():
@@ -3770,7 +4044,8 @@ def main():
     # 17-21. IPDnet2
     log("[ipdnet2 kernels] K3 and K4 against their plain versions at every "
         "scan shape")
-    ssm_worst, ssm_checks = phase_ssm_kernels(device, SSM_DP_SHAPES)
+    ssm_worst, ssm_checks = phase_ssm_kernels(device, SSM_DP_SHAPES
+                                              + SSM_FP_SHAPES)
     log("[ipdnet2 serve] cli serve --model ipdnet2 on the card, 3 TCP "
         "connections of 5-channel audio")
     i2_launches, i2_steps, i2_serve = phase_serve(args.seed, device,
@@ -3831,9 +4106,18 @@ def main():
         f"2 gloo ranks on the card, {DP_STEPS} DDP steps of FN-SSL and "
         f"IPDnet2 at {DP_NB // 2} scenes a rank against one process at "
         f"{DP_NB}")
-    dp_report, dp_launches = phase_dp(args.seed, device, work / "data",
-                                      work / "runs", card)
+    dp_report, dp_launches, dp_ref = phase_dp(args.seed, device,
+                                              work / "data", work / "runs",
+                                              card)
     work_dir.cleanup()
+    log(f"[freq] a 1 x 1 mesh in a NCCL world of one; 4 gloo ranks on the "
+        f"card as a {FP_MESH[0]} x {FP_MESH[1]} mesh, {DP_STEPS} sharded "
+        f"IPDnet2 steps at {DP_NB // FP_MESH[0]} scenes x 128 bins a rank "
+        f"against phase 29's one process at {DP_NB}; K3/K4 at a rank's "
+        "scan shapes")
+    fp_ssm_rows = phase_ssm_times(device, SSM_FP_SHAPES)
+    fp_report, fp_launches = phase_freq(args.seed, device, dp_ref,
+                                        fp_ssm_rows, card)
 
     # each kernel's work in one online chunk step, fp32: 3 BiLSTMs over
     # frequency and 3 LSTMs over time
@@ -3874,7 +4158,7 @@ def main():
              "stream": stream_launches, "serve_slots": slots_launches,
              "export": export_launches, "locata": locata_launches,
              "time_modules": time_launches, "fit_flags": flags_launches,
-             "data_parallel": dp_launches}
+             "data_parallel": dp_launches, "freq_parallel": fp_launches}
     # and in one fixed-array IPDnet train step at nb=16, fp32: 2 full-band
     # BiLSTMs and 2 narrow-band LSTMs, forward (K1) and backward (K2)
     ipd_step_rows = ipd_train_rows[:2]
@@ -3977,7 +4261,7 @@ def main():
     kernels[-2]["plans"] = bwd_plans + ipd_bwd_plans
     # K3 and K4 over one IPDnet2 train step at nb=16 (2 scans at layer 0, T
     # 201, and 14 at T 40) and one serve chunk step (2 at L 5, 14 at L 1)
-    ssm = {r["shape"]: r for r in ssm_rows}
+    ssm = {r["shape"]: r for r in ssm_rows + fp_ssm_rows}
 
     def ssm_path(key, first, later):
         return 2 * ssm[first][key] + 14 * ssm[later][key]
@@ -3991,6 +4275,7 @@ def main():
             ("k3", "ssm_scan_fwd", "fnssl_tpu/models/mamba.py:145"),
             ("k4", "ssm_scan_bwd", "fnssl_tpu/models/mamba.py:189")):
         step_bound_ = ssm_path_bound(k, "train_layer0", "train_layers1_7")
+        fp_bound_ = ssm_path_bound(k, "fp_rank_layer0", "fp_rank_layers1_7")
         kernels.append({
             "name": name, "route": "cuda",
             "source": "fnssl_tpu_torch/kernels/csrc/ssm_scan.cu",
@@ -4011,7 +4296,17 @@ def main():
             "work": f"one IPDnet2 train step at nb={I2_NB} x {I2_T_S} s, fp32:"
                     " 2 scans at B=256, L=201, d=192 (layer 0) and 14 at "
                     "L=40; no PyTorch call computes a selective scan",
-            "per_shape": ssm_rows})
+            "per_shape": ssm_rows + fp_ssm_rows,
+            "freq_rank_step": {
+                "ms": ssm_path(f"{k}_ms_float32", "fp_rank_layer0",
+                               "fp_rank_layers1_7"),
+                "plain_ms": ssm_path(f"{k}_plain_ms", "fp_rank_layer0",
+                                     "fp_rank_layers1_7"),
+                "bound_ms": fp_bound_[0], "bound_by": fp_bound_[1],
+                "library_ms": None,
+                "work": "the scans of one rank's step on a 2 x 2 mesh: 2 "
+                        "at B=64, L=201, d=192 and 14 at L=40",
+                "launches_per_rank_step": I2_LAUNCHES}})
     serve_bound_ = ssm_path_bound("k3", "serve_layer0", "serve_layers1_7")
     kernels[-2]["serve_chunk_step"] = {
         "ms": ssm_path("k3_ms_float32", "serve_layer0", "serve_layers1_7"),
@@ -4057,7 +4352,7 @@ def main():
               "ipdnet2_train": i2_train, "ipdnet2_train_parity": i2_parity,
               "ipdnet2_fit": i2_fit, "locata": locata_report,
               "time_modules": time_report, "fit_flags": flags_report,
-              "data_parallel": dp_report}
+              "data_parallel": dp_report, "freq_parallel": fp_report}
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -77,7 +77,6 @@ import torch
 
 MODELS = ["fnssl", "fnssl_doa", "ipdnet", "ipdnet_offline",
           "variable_ipdnet", "ipdnet2", "ipd_baseline"]
-NOT_PORTED: list[str] = []
 # per-model (lr, gamma) of the ExponentialLR schedule (Train.py:94-117,
 # runIPDnetOn.py:44-58)
 LR_GAMMA = {"fnssl": (1e-3, 0.8988), "fnssl_doa": (1e-3, 0.8988),
@@ -304,8 +303,6 @@ def build_parser():
     p.add_argument("--plot", action="store_true",
                    help="12-panel GT-vs-EST figure <out>/locata_fig.jpg "
                         "(needs matplotlib)")
-    for name in NOT_PORTED:
-        sub.add_parser(name, help="not ported yet")
     return ap
 
 
@@ -1272,8 +1269,6 @@ def main(argv=None):
 
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.cmd in NOT_PORTED:
-        raise SystemExit(f"{args.cmd}: not ported yet")
     args = _apply_yaml_defaults(ap, args)
     args._argv = list(argv) if argv is not None else sys.argv[1:]
     {"simulate": cmd_simulate, "fit": cmd_fit, "test": cmd_test,

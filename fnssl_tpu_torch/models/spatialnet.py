@@ -29,6 +29,15 @@ State-dict names equal the JAX parameter paths (encoder.weight,
 layers.0.fconv1.1.weight, layers.0.mhsa.A_log, freq_inverse.trans2.bias,
 ...), so converted weights load strictly.
 
+Frequency parallelism: ``forward(x, freq_mesh=mesh)`` takes this rank's
+bins of a 2-D (data × freq) mesh (``parallel.make_mesh_2d``) and crosses
+frequency through ``parallel/freq.py`` where the JAX package leaves it to
+XLA's partitioner: the grouped frequency convs take a halo, the full-band
+Linear and the output gather the whole axis, and from the first pool
+whose windows straddle shards the net runs replicated on every freq rank.
+The encoder, the time modules and the FreqInverse decoder are per bin or
+band and run on the shard.
+
 Streaming: ``forward(x, state=..., return_state=True)`` carries the
 encoder's conv tail and every time module's state (Mamba's conv tail and
 SSM state, MHSA's bounded input window, retention's rescaled kv state,
@@ -47,12 +56,14 @@ from torch import nn
 from fnssl_tpu_torch.models.attention import (
     MHSA, MHSAConfig, TConvFFN, TConvFFNConfig, causal_mask, init_mhsa_state,
     init_tconvffn_state)
-from fnssl_tpu_torch.models.layers import Conv1d, LayerNorm, Linear
+from fnssl_tpu_torch.models.layers import (Conv1d, LayerNorm, Linear,
+                                           conv1d, linear)
 from fnssl_tpu_torch.models.mamba import (Mamba, MambaConfig, MambaState,
                                           init_mamba_state)
 from fnssl_tpu_torch.models.retention import (
     Retention, RetentionConfig, RetNetRelPos, retention_chunkwise,
     retention_parallel, retention_recurrent_step)
+from fnssl_tpu_torch.parallel.freq import FreqShard
 from fnssl_tpu_torch.utils.device import resolve_device
 
 
@@ -188,21 +199,34 @@ def _fconv_layers(cfg: SpatialNetConfig, device, generator) -> nn.ModuleDict:
         "2": _ChannelPReLU(h, device=device)})
 
 
-def _fconv(p: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
+def _fconv(p: nn.ModuleDict, x: torch.Tensor,
+           fx: FreqShard | None = None) -> torch.Tensor:
     """x: (B, F, T, H) → LN(H) → grouped conv over F → PReLU
-    (_fconv at IPDnet2.py:222-232)."""
+    (_fconv at IPDnet2.py:222-232). On a shard of F the conv's padding is
+    the neighbours' bins (zeros at the global edges)."""
     nb, f, t, h = x.shape
     y = p["0"](x).permute(0, 2, 3, 1).reshape(nb * t, h, f)
-    y = p["2"](p["1"](y))
+    conv = p["1"]
+    if fx is None:
+        y = conv(y)
+    else:
+        y = conv1d(fx.halo(y, *conv.padding), conv.weight, conv.bias,
+                   conv.groups)
+    y = p["2"](y)
     return y.reshape(nb, t, h, f).permute(0, 3, 1, 2)
 
 
-def _pool_freq(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Mean over groups of k frequencies; the last F % k are dropped."""
+def _pool_freq(x: torch.Tensor, k: int, fx: FreqShard | None = None):
+    """Mean over groups of k frequencies; the last F % k are dropped.
+    Returns (pooled, fx): on a shard whose bins the windows do not tile,
+    the shards are gathered first and fx becomes None (the rest runs
+    replicated)."""
+    if fx is not None and x.shape[1] % k:
+        x, fx = fx.gather(x, 1), None
     nb, f, t, h = x.shape
     y = x.permute(0, 2, 3, 1)                        # (B, T, H, F)
     y = y[..., : f // k * k].reshape(nb, t, h, f // k, k).mean(-1)
-    return y.permute(0, 3, 1, 2)
+    return y.permute(0, 3, 1, 2), fx
 
 
 class SpatialNetLayer(nn.Module):
@@ -235,12 +259,20 @@ class SpatialNetLayer(nn.Module):
                          else Retention(cfg.ret_cfg, **kw))
             self.tconvffn = TConvFFN(cfg.tconv_cfg, **kw)
 
-    def full_band(self, x: torch.Tensor) -> torch.Tensor:
-        """Full-band module (IPDnet2.py:235-253). x: (B, F, T, H)."""
+    def full_band(self, x: torch.Tensor,
+                  fx: FreqShard | None = None) -> torch.Tensor:
+        """Full-band module (IPDnet2.py:235-253). x: (B, F, T, H). On a
+        shard of F the Linear reads the gathered axis and writes this
+        shard's bins."""
         nb, f, t, h = x.shape
         y = self.norm_full(x).permute(0, 2, 3, 1).reshape(nb * t, h, f)
         y = F.silu(self.squeeze["0"](y))
-        y = self.full(y)                             # Linear over freq
+        if fx is None:
+            y = self.full(y)                         # Linear over freq
+        else:
+            rows = fx.block(f)
+            y = linear(fx.gather(y, -1), self.full.weight[rows],
+                       self.full.bias[rows])
         y = F.silu(self.unsqueeze["0"](y))
         return y.reshape(nb, t, h, f).permute(0, 3, 1, 2)
 
@@ -367,16 +399,28 @@ class SpatialNet(nn.Module):
 
     def forward(self, x: torch.Tensor, state: SpatialNetState | None = None,
                 return_state: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, freq_mesh=None):
         """Forward. x: (nb, dim_input, nf, nt), the run_IPDnet2 input layout.
 
         Returns (nb, nt/5, 2·nf, dim_output/4, 2), plus the new
         SpatialNetState when ``return_state``. With ``state``, x continues
         the previous chunk (nt a multiple of the time compression).
         ``generator`` is taken for the task interface; the model has no
-        dropout.
+        dropout. With a 2-D ``freq_mesh`` x holds this rank's nf/n_freq
+        bins (``parallel.freq_sharded_input``) and the output is whole
+        along frequency, the same on every rank of the freq group; it
+        takes no streaming state.
         """
         cfg = self.cfg
+        fx = FreqShard.of(freq_mesh)
+        if fx is not None:
+            if state is not None or return_state:
+                raise ValueError("a frequency-sharded forward carries no "
+                                 "streaming state")
+            if x.shape[2] * fx.size != cfg.num_freqs:
+                raise ValueError(f"{x.shape[2]} bins a shard of "
+                                 f"{fx.size} do not make the config's "
+                                 f"{cfg.num_freqs}")
         x = x.permute(0, 2, 3, 1)                    # (B, F, T, H0)
         nb, f, t, h0 = x.shape
         # encoder: causal conv over time per (batch, freq) stream
@@ -395,13 +439,13 @@ class SpatialNet(nn.Module):
         for i in range(cfg.num_layers):
             layer = self.layers[str(i)]
             st = state.time[i] if state is not None else (None, None)
-            x = x + _fconv(layer.fconv1, x)
+            x = x + _fconv(layer.fconv1, x, fx)
             if i == 0:
-                x = _pool_freq(x, 2)
-            x = x + layer.full_band(x)
-            x = x + _fconv(layer.fconv2, x)
+                x, fx = _pool_freq(x, 2, fx)
+            x = x + layer.full_band(x, fx)
+            x = x + _fconv(layer.fconv2, x, fx)
             if i == 0:
-                x = _pool_freq(x, cfg.fre_compression_ratio // 2)
+                x, fx = _pool_freq(x, cfg.fre_compression_ratio // 2, fx)
             # a fresh mask per distinct sequence length: after the time
             # compression the reference's input-length mask is stale
             t_now = x.shape[2]
@@ -431,6 +475,8 @@ class SpatialNet(nn.Module):
         z = z.permute(0, 1, 4, 2, 3).reshape(nb_, out_dim, f16 * cr, t_)
         z = torch.tanh(z.permute(0, 1, 3, 2))        # (B, out, T, F)
         z = self.decoder(z.permute(0, 3, 2, 1))      # (B, F, T, out)
+        if fx is not None:
+            z = fx.gather(z, 1)
 
         # output reshape chain (IPDnet2.py:360-364)
         bsz, f_, t2, _ = z.shape

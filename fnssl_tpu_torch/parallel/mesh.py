@@ -1,5 +1,5 @@
-"""Data parallelism over processes (port of the 1-D half of
-``fnssl_tpu/parallel/mesh.py``).
+"""Data parallelism over processes, and the 2-D data × frequency mesh
+(port of ``fnssl_tpu/parallel/mesh.py``).
 
 The reference's distributed story is data parallelism over NCCL (torch
 DDP, SURVEY.md §2.9). JAX expresses it as a 1-D mesh over the ``data``
@@ -18,12 +18,22 @@ backward. The JAX names and their counterparts here:
   ``host_local_slice`` → ``host_local_slice`` (the same schedule, draw for
       draw)
 
-``make_mesh_2d`` and ``freq_sharded_input`` (model parallelism over
-frequency) are not ported.
+  ``make_mesh_2d`` → ``make_mesh_2d`` (a ``Mesh2D``: this rank's
+      (data, freq) coordinates and the process groups of its row and
+      column of the mesh)
+  ``freq_sharded_input`` → ``freq_sharded_input`` (this rank's block of a
+      global (nb, C, nf, nt) input)
+
+Over a 2-D mesh the model's forward takes the mesh
+(``SpatialNet.forward(x, freq_mesh=mesh)``) and runs the collectives that
+XLA's partitioner inserts from ``parallel/freq.py``;
+``train.step.make_train_step(..., mesh=mesh)`` averages the gradients over
+the mesh's whole world.
 """
 from __future__ import annotations
 
 import inspect
+from dataclasses import dataclass
 from typing import Any, Mapping
 
 import numpy as np
@@ -69,11 +79,16 @@ def host_local_slice(num_items: int, epoch: int, seed: int = 2,
 
 
 def shard_batch(batch: Mapping[str, Any], process_index: int | None = None,
-                process_count: int | None = None) -> dict[str, Any]:
+                process_count: int | None = None, *,
+                mesh: "Mesh2D | None" = None) -> dict[str, Any]:
     """The rank's contiguous block of rows of every leaf of a global batch
     (rank r of w takes rows [r·n/w, (r+1)·n/w), the block of the data axis
     JAX's batch sharding gives device r). Refuses a batch the world does
-    not divide."""
+    not divide. With a 2-D ``mesh`` the rows are those of the rank's data
+    index among ``n_data`` (the ranks of one data index share them): the
+    process group's rank and size would count the freq axis too."""
+    if mesh is not None:
+        process_index, process_count = mesh.data_index, mesh.n_data
     rank, size = world()
     rank = rank if process_index is None else process_index
     size = size if process_count is None else process_count
@@ -118,3 +133,64 @@ def unwrap(module: torch.nn.Module) -> torch.nn.Module:
     if isinstance(module, torch.nn.parallel.DistributedDataParallel):
         return module.module
     return module
+
+
+DATA_AXIS, FREQ_AXIS = "data", "freq"
+
+
+@dataclass(frozen=True)
+class Mesh2D:
+    """This rank's place on a (data × freq) mesh of processes (JAX's 2-D
+    ``Mesh``). Ranks are laid out row-major, rank = d · n_freq + f, as
+    JAX's ``devices.reshape(n_data, n_freq)``. ``freq_group`` holds the
+    ranks of this rank's data index (its row: they share batch rows and
+    split the frequencies), ``data_group`` those of its freq index (its
+    column); both are None on a mesh of one process."""
+    axis_names: tuple[str, str]
+    n_data: int
+    n_freq: int
+    data_index: int
+    freq_index: int
+    freq_group: Any = None
+    data_group: Any = None
+
+    @property
+    def size(self) -> int:
+        return self.n_data * self.n_freq
+
+
+def make_mesh_2d(n_data: int, n_freq: int,
+                 axis_names: tuple[str, str] = (DATA_AXIS, FREQ_AXIS)
+                 ) -> Mesh2D:
+    """The (n_data × n_freq) mesh over the process group's world, which
+    must hold exactly n_data · n_freq ranks (1 × 1 works without a
+    group). Every rank creates every row's and column's group, in the
+    same order (``new_group`` is collective), and keeps its own two."""
+    if n_data < 1 or n_freq < 1:
+        raise ValueError(f"a mesh of {n_data} x {n_freq}")
+    rank, size = world()
+    if size != n_data * n_freq:
+        raise ValueError(f"a {n_data} x {n_freq} mesh needs a world of "
+                         f"{n_data * n_freq} ranks; this one has {size}")
+    d, f = divmod(rank, n_freq)
+    if not (dist.is_available() and dist.is_initialized()):
+        return Mesh2D(tuple(axis_names), n_data, n_freq, d, f)
+    rows = [dist.new_group([i * n_freq + j for j in range(n_freq)])
+            for i in range(n_data)]
+    cols = [dist.new_group([i * n_freq + j for i in range(n_data)])
+            for j in range(n_freq)]
+    return Mesh2D(tuple(axis_names), n_data, n_freq, d, f, rows[d], cols[f])
+
+
+def freq_sharded_input(mesh: Mesh2D, x):
+    """This rank's block (nb/n_data, C, nf/n_freq, nt) of a global
+    (nb, C, nf, nt) network input: rows of its data index, bins of its
+    freq index (the block JAX's ``P('data', None, 'freq', None)`` places
+    on its device). Refuses an input the mesh does not divide."""
+    nb, nf = x.shape[0], x.shape[2]
+    if nb % mesh.n_data or nf % mesh.n_freq:
+        raise ValueError(f"an input of {nb} rows and {nf} bins does not "
+                         f"split over a {mesh.n_data} x {mesh.n_freq} mesh")
+    b, f = nb // mesh.n_data, nf // mesh.n_freq
+    return x[mesh.data_index * b:(mesh.data_index + 1) * b, :,
+             mesh.freq_index * f:(mesh.freq_index + 1) * f]

@@ -17,6 +17,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from fnssl_tpu_torch.parallel.freq import average_gradients
+
 
 class OptimizerSpec(NamedTuple):
     """What ``make_optimizer`` chose; ``init_train_state`` builds it."""
@@ -80,19 +82,24 @@ def clip_by_global_norm(params, max_norm: float) -> None:
         g.div_(divisor).mul_(factor)
 
 
-def make_train_step(loss_fn: Callable, tx: OptimizerSpec):
+def make_train_step(loss_fn: Callable, tx: OptimizerSpec, mesh=None):
     """Build the update.
 
     ``loss_fn(module, batch, generator) -> scalar loss`` holds the whole
     preprocessing + forward + loss. Returns step(state, batch,
     generator=None) → (state, loss): zero the grads, loss, backward, clip,
-    optimizer and schedule step.
+    optimizer and schedule step. With a 2-D ``mesh`` (a loss_fn of
+    ``make_ipdnet2_task(feats_sharding=mesh)``) the gradients are averaged
+    over the mesh's whole world between the backward and the clip: the
+    psum over both axes that XLA inserts.
     """
     def step(state: TrainState, batch, generator=None):
         state.module.train()
         state.optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(state.module, batch, generator)
         loss.backward()
+        if mesh is not None:
+            average_gradients(state.module.parameters())
         if tx.grad_clip is not None:
             clip_by_global_norm(state.module.parameters(), tx.grad_clip)
         state.optimizer.step()

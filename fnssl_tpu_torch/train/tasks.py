@@ -20,6 +20,7 @@ from fnssl_tpu_torch.models.fnssl import FNSSLConfig
 from fnssl_tpu_torch.models.ipdnet import IPDnetConfig, VariableIPDnetConfig
 from fnssl_tpu_torch.data.arrays import audiowu_high_array_geometry
 from fnssl_tpu_torch.models.spatialnet import SpatialNetConfig
+from fnssl_tpu_torch.parallel.mesh import Mesh2D
 from fnssl_tpu_torch.physics.dpipd import DPIPD, DPIPD2
 from fnssl_tpu_torch.physics.targets import (bessel_nonsource_target,
                                              vad_gate_with_nonsource)
@@ -259,12 +260,21 @@ def make_ipdnet2_task(cfg=None, mic_location: np.ndarray | None = None,
       'mic_pos' (nb, nmic, 3) per-batch topology;
     moved to ``device`` (the first CUDA device unless given). ``remat``,
     ``precision`` and ``loss_fn``'s generator as in ``make_fnssl_task``
-    (the model has no dropout). ``feats_sharding`` (the JAX package's
-    frequency-sharded mesh) is not ported yet.
+    (the model has no dropout).
+
+    ``feats_sharding``, a 2-D mesh (``parallel.make_mesh_2d``), is the
+    JAX package's ``NamedSharding(mesh, P('data', None, 'freq', None))``:
+    ``loss_fn`` then takes the rank's rows of the global batch
+    (``shard_batch(batch, mesh=mesh)``), runs the preprocess whole along
+    frequency (the forgetting norm averages over all bins), gives the
+    model this rank's bins and computes the loss on the gathered output.
+    Train it with ``make_train_step(loss_fn, tx, mesh=mesh)``, which
+    averages the gradients over the mesh's world.
     """
-    if feats_sharding is not None:
-        raise NotImplementedError("make_ipdnet2_task(feats_sharding=...): "
-                                  "not ported yet")
+    if feats_sharding is not None and not isinstance(feats_sharding, Mesh2D):
+        raise TypeError("feats_sharding takes a 2-D mesh "
+                        "(parallel.make_mesh_2d)")
+    mesh = feats_sharding
     device = resolve_device(device)
     if mic_location is None:
         mic_location = audiowu_high_array_geometry()[list(IPDNET2_MIC_IDS)]
@@ -298,8 +308,14 @@ def make_ipdnet2_task(cfg=None, mic_location: np.ndarray | None = None,
         b = {k: torch.as_tensor(batch[k], device=device)
              for k in IPDNET2_KEYS}
         feats, gt = preprocess(*(b[k] for k in IPDNET2_KEYS))
+        kw = {}
+        if mesh is not None:         # the rows are the rank's already
+            n = feats.shape[2] // mesh.n_freq
+            feats = feats[:, :, mesh.freq_index * n:
+                          (mesh.freq_index + 1) * n]
+            kw["freq_mesh"] = mesh
         pred = apply_fn(dict(module.named_parameters()), feats,
-                        module=module, generator=generator)
+                        module=module, generator=generator, **kw)
         nt = min(pred.shape[1], gt["ipd"].shape[1])
         return pit_mse_loss(pred[:, :nt], gt["ipd"][:, :nt])
 
