@@ -102,20 +102,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
                8 K1 a test batch) and variable_ipdnet, 1 epoch each. Test
                loss = the restored epoch's valid loss (1e-6), finite
                ACC/MAE, exact launches.
- 17. ipdnet2 kernels — K3 and K4 (ssm_scan.cu) against their plain
-               versions at every scan shape of the IPDnet2 paths (training
-               B 256 at L 201 and 40, the forward cell's L 200, serve B 16
-               at L 5 and 1, the 16-slot tick's B 256 at L 5 and 1, one
-               rank's step in phase 29 at B 128 and in phase 30 at B 64, L
-               201 and 40, d 192) and edge cases (B 1/3/13, L 0/1/2/7, d
-               32/192), fp32 and bf16 inputs.
+ 17. ipdnet2 kernels — the fused selective scan, K3 and K4
+               (ssm_scan.cu: x, dt, dt_bias, A, B, C, D, h0 in; y, h_last
+               out, and every gradient back), against their plain versions
+               at every scan shape of the IPDnet2 paths (training B 256 at
+               L 201 and 40, the forward cell's L 200, serve B 16 at L 5
+               and 1, the 16-slot tick's B 256 at L 5 and 1, one rank's
+               step in phase 29 at B 128 and in phase 30 at B 64, L 201 and
+               40, d 192) and edge cases (B 1/3/13, L 0/1/2/7, d 13/32/192),
+               fp32 and bf16 inputs, one channel past the softplus
+               threshold.
  18. ipdnet2 serve — `cli serve --model ipdnet2` (SpatialNetConfig(),
                weights from --seed) on cuda:0, 3 TCP connections of 5 s of
                5-channel audio with fixed inter-mic delays: 16 K3 launches
                a chunk step and no K4, outputs within 1e-3 of the CPU,
                equal DOAs per track but at exact ties, eof.
  19. ipdnet2 times and parity — K3 and K4 a launch at each scan shape
-               (fp32 and bf16 inputs), their bound and plain versions; the
+               (fp32 and bf16 inputs; the card's time from a device trace,
+               beside the host's enqueue), their bound (bytes, float32
+               operations or exponentials on the SFU) and plain versions; the
                task's preprocess on the card against the CPU (features
                1e-5, targets 1e-4), then one fp32 train step (nb=2 x 4 s,
                AdamW with a clip of 5) on the card against the CPU at
@@ -236,6 +241,7 @@ import contextlib
 import functools
 import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -643,6 +649,27 @@ def enqueue_ms(fn, iters):
     return ms
 
 
+def device_ms(fn, iters):
+    """The card's time of one fn() call: the summed durations of the device
+    activity (kernels, memsets, copies) in a guarded trace
+    (`guarded_trace`) of `iters` warm calls, over iters. CUDA events
+    around back-to-back calls measure the host wherever its enqueue takes
+    longer than the kernel (IPDnet2's serve and slot scans); these
+    durations do not."""
+    for _ in range(2):
+        fn()
+
+    def calls():
+        for _ in range(iters):
+            fn()
+
+    _, events, _ = guarded_trace(calls, retry=lambda: None)
+    us = sum(e.time_range.end - e.time_range.start for e in events)
+    if not us:
+        raise AssertionError("device_ms: the profiler saw no device work")
+    return us / 1e3 / iters
+
+
 def bound_terms(t_steps, batch, hidden, itemsize):
     """The least time (ms) one recurrence needs for its bytes (each input
     read once, each output written once) and for its FLOPs."""
@@ -945,9 +972,11 @@ COUNTED = ("lstm_cluster", "lstm_fwd", "lstm_bwd", "lstm_bwd_cluster",
            "ssm_scan_fwd", "ssm_scan_bwd")
 # their kernels' names in a device trace, in the same order
 TRACED = ("lstm_cluster_kernel", "lstm_fwd_kernel", "lstm_bwd_kernel",
-          "lstm_bwd_cluster_kernel", "ssm_fwd_kernel", "ssm_bwd_kernel")
+          "lstm_bwd_cluster_kernel", "selective_fwd_kernel",
+          "selective_bwd_kernel")
 TRACE_GUARD = 2048
-TRACE_SETTLE_S = 0.1
+# the settling time of each try of a guarded trace
+TRACE_SETTLE_S = (0.1, 1.0, 2.0)
 
 
 def launch_counters():
@@ -1700,7 +1729,8 @@ def phase_ipdnet_parity(seed, device):
 
 
 KERNEL_GROUPS = (("K1", ("lstm_cluster",)), ("K2", ("lstm_bwd_cluster",)),
-                 ("K3", ("ssm_fwd_kernel",)), ("K4", ("ssm_bwd_kernel",)),
+                 ("K3", ("selective_fwd_kernel",)),
+                 ("K4", ("selective_bwd_kernel",)),
                  ("conv head", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
                                 "implicit", "winograd")),
                  ("GEMMs", ("gemm", "gemv", "cutlass", "xmma")),
@@ -1940,56 +1970,89 @@ I2_STEP_LAUNCHES = [0, 0, 0, 0, I2_LAUNCHES, I2_LAUNCHES]
 SSM_SHAPES = [("train_layer0", 256, 201, 192), ("train_layers1_7", 256, 40, 192),
               ("forward_layer0", 256, 200, 192),
               ("serve_layer0", 16, 5, 192), ("serve_layers1_7", 16, 1, 192)]
-SSM_EDGE_B, SSM_EDGE_L, SSM_EDGE_D = (1, 3, 13), (0, 1, 2, 7), (32, 192)
+# the edge cases: d 13 and 40 leave the last 32-channel slice ragged, L
+# 17 walks three of K4's 8-step checkpoint segments
+SSM_EDGE_B, SSM_EDGE_L, SSM_EDGE_D = ((1, 3, 13), (0, 1, 2, 7, 17),
+                                      (13, 32, 40, 192))
+# K4 launched SSM_REPEATS times at a ragged last slice over several
+# segments must give the same bits each time (no atomics, no shared
+# checkpoint)
+SSM_RAGGED = [(2, 17, 13), (3, 33, 40), (4, 201, 13), (64, 201, 200)]
+SSM_REPEATS = 5
 # K3/K4 against their plain versions: float32 outputs within 1e-5 relative
-# + 1e-4 (a fused multiply-add a step, the 16 states summed in another
-# order; the state decays); bf16 gradients within 1e-2 (one bf16 rounding
-# of float32 values that differ in their last bits)
+# + 1e-4 (fused multiply-adds, the 16 states and d's sums in another order,
+# the plain version's float32 exp(delta A) and delta x B tensors; the
+# state decays); the gradients summed over batch and time (d(A), d(D),
+# d(dt_bias): up to 51,456 terms of either sign) within 1e-5 of their
+# largest magnitude; bf16 gradients within 1e-2 (one bf16 rounding of
+# float32 values that differ in their last bits)
 SSM_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+SSM_SUMMED_TOL = 1e-5
+SSM_ARGS = ("x", "dt", "dt_bias", "a", "bm", "c", "d_skip", "h0")
+SSM_OUTPUTS = {"ssm_scan_fwd": ("y", "h_last"),
+               "ssm_scan_bwd": ("dx", "d(dt)", "d(dt_bias)", "d(A)", "d(B)",
+                                "d(C)", "d(D)", "d(h0)")}
+SSM_SUMMED = ("d(dt_bias)", "d(A)", "d(D)")
+# the SFU's exponentials (ex2 under expf, log1pf's lg2) on an H100 SXM: 16
+# a clock an SM (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) x 132 SMs x 1.98 GHz (the data
+# sheet's boost clock)
+SFU_OPS_S = 16 * 132 * 1.98e9
 # phase 21: RealMAN-layout recordings of 6 s (4 s crops), bz 8: 2 train
 # steps an epoch, 1 valid batch
 I2_FIT_TRAIN, I2_FIT_DEV, I2_FIT_BZ, I2_FIT_EPOCHS = 16, 8, 8, 2
 
 
 def ssm_inputs(batch, steps, dim, dtype, device, seed):
-    """Scan inputs on the device: da = exp(delta · a), a = -(1..16), delta
-    in [1e-3, 0.1] (IPDnet2's dt init range); the rest normal."""
+    """The fused scan's inputs on the device as IPDnet2's init gives them:
+    dt_bias the inverse softplus of a dt in [1e-3, 0.1] (channel 0 at 25,
+    past the softplus threshold), A = -(1..16), D = 1; x, dt (at 0.5), B,
+    C normal in `dtype`; h0, dy, dh_last float32."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=device) * scale
 
-    delta = torch.rand(batch, steps, dim, 1, generator=g,
-                       device=device) * 0.099 + 0.001
-    a = -torch.arange(1, 17, dtype=torch.float32, device=device)
-    return {"da": torch.exp(delta * a).to(dtype),
-            "dbx": randn(batch, steps, dim, 16, scale=0.1).to(dtype),
+    u = torch.rand(dim, generator=g, device=device)
+    dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    dt_bias[0] = 25.0
+    a = -torch.arange(1, 17, dtype=torch.float32,
+                      device=device).expand(dim, 16).contiguous()
+    return {"x": randn(batch, steps, dim).to(dtype),
+            "dt": randn(batch, steps, dim, scale=0.5).to(dtype),
+            "dt_bias": dt_bias, "a": a,
+            "bm": randn(batch, steps, 16).to(dtype),
             "c": randn(batch, steps, 16).to(dtype),
+            "d_skip": torch.ones(dim, device=device),
             "h0": randn(batch, dim, 16, scale=0.5),
             "dy": randn(batch, steps, dim),
             "dh_last": randn(batch, dim, 16, scale=0.5)}
 
 
-def ssm_held(what, got, want, worst, key):
-    """Max |kernel - plain| of each output against SSM_TOL (by the
-    output's dtype); folds them into worst[key], key the inputs' dtype.
-    Returns the largest."""
+def ssm_held(what, kernel, got, want, worst, key):
+    """Max |kernel - plain| of each output of `kernel` (SSM_OUTPUTS) against
+    SSM_TOL by the output's dtype, or SSM_SUMMED_TOL of the largest for the
+    gradients summed over batch and time; folds them into worst[key], key
+    the inputs' dtype. Returns the largest."""
     torch.cuda.synchronize()
     err = 0.0
-    for name, g, w in zip(("y/d(da)", "h/d(dbx)", "d(c)", "d(h0)"), got,
-                          want):
+    for name, g, w in zip(SSM_OUTPUTS[kernel], got, want):
         if g.dtype != w.dtype or g.shape != w.shape:
             raise AssertionError(f"{what} {name}: {g.dtype} {tuple(g.shape)}"
                                  f" vs plain {w.dtype} {tuple(w.shape)}")
         if not g.numel():
             continue
-        rtol, atol = SSM_TOL[g.dtype]
         diff = (g.float() - w.float()).abs()
-        bad = diff > atol + rtol * w.float().abs()
+        if name in SSM_SUMMED:
+            bad = diff > SSM_SUMMED_TOL * w.abs().max()
+        else:
+            rtol, atol = SSM_TOL[g.dtype]
+            bad = diff > atol + rtol * w.float().abs()
         if bad.any():
             raise AssertionError(f"{what} {name}: max|diff| "
-                                 f"{diff.max().item():.3e} beyond rtol "
-                                 f"{rtol} atol {atol}")
+                                 f"{diff.max().item():.3e} beyond the "
+                                 "tolerance")
         e = diff.max().item()
         worst[key] = max(worst[key], e)
         err = max(err, e)
@@ -1999,12 +2062,11 @@ def ssm_held(what, got, want, worst, key):
 def phase_ssm_kernels(device, extra=()):
     """K3 and K4 against their plain versions at every scan shape of the
     IPDnet2 paths (the 16-slot tick's too), at the `extra` shapes and at
-    edge cases (B 1/3/13, L 0/1/2/7, d 32/192), float32 and bfloat16
-    inputs. Returns the worst errors and the checks."""
+    edge cases (SSM_EDGE_*), float32 and bfloat16 inputs; and K4's bits
+    run to run at SSM_RAGGED. Returns the worst errors and the checks."""
     from fnssl_tpu_torch.kernels import ssm_cuda as S
 
-    worst = {k: {"float32": 0.0, "bfloat16": 0.0}
-             for k in ("ssm_scan_fwd", "ssm_scan_bwd")}
+    worst = {k: {"float32": 0.0, "bfloat16": 0.0} for k in SSM_OUTPUTS}
     shapes = SSM_SHAPES + SSM_SLOT_SHAPES + list(extra)
     cases = [(n, b, t, d) for n, b, t, d in shapes]
     cases += [("edge", b, t, d) for d in SSM_EDGE_D for b in SSM_EDGE_B
@@ -2014,53 +2076,82 @@ def phase_ssm_kernels(device, extra=()):
         for dtype in (torch.float32, torch.bfloat16):
             seed += 1
             x = ssm_inputs(b, t, d, dtype, device, seed)
-            args = (x["da"], x["dbx"], x["c"], x["h0"])
+            args = [x[k] for k in SSM_ARGS]
             n = 1 if t else 0
             key = str(dtype)[6:]
-            fwd = counted(S.launches_ssm_fwd, n, S.ssm_scan_fwd, *args)
-            e3 = ssm_held(f"ssm_scan_fwd {name} B={b} L={t} d={d} {key}",
-                          fwd, S.ssm_scan_fwd_plain(*args),
+            what = f"{name} B={b} L={t} d={d} {key}"
+            fwd = counted(S.launches_ssm_fwd, n, S.selective_scan_fwd, *args)
+            e3 = ssm_held(f"K3 {what}", "ssm_scan_fwd", fwd,
+                          S.selective_scan_fwd_plain(*args),
                           worst["ssm_scan_fwd"], key)
-            bwd = counted(S.launches_ssm_bwd, n, S.ssm_scan_bwd, *args,
+            bwd = counted(S.launches_ssm_bwd, n, S.selective_scan_bwd, *args,
                           x["dy"], x["dh_last"])
-            e4 = ssm_held(f"ssm_scan_bwd {name} B={b} L={t} d={d} {key}",
-                          bwd, S.ssm_scan_bwd_plain(*args, x["dy"],
-                                                    x["dh_last"]),
+            e4 = ssm_held(f"K4 {what}", "ssm_scan_bwd", bwd,
+                          S.selective_scan_bwd_plain(*args, x["dy"],
+                                                     x["dh_last"]),
                           worst["ssm_scan_bwd"], key)
             checks += 2
             if name != "edge":
                 log(f"  {name:16s} B={b:3d} L={t:3d} d={d:3d} {key:8s} "
                     f"max|diff| K3 {e3:.2e} K4 {e4:.2e}")
             del x, args, fwd, bwd
+    for b, t, d in SSM_RAGGED:
+        seed += 1
+        x = ssm_inputs(b, t, d, torch.float32, device, seed)
+        args = [x[k] for k in SSM_ARGS] + [x["dy"], x["dh_last"]]
+        first = S.selective_scan_bwd(*args)
+        for _ in range(SSM_REPEATS - 1):
+            for name, g, w in zip(SSM_OUTPUTS["ssm_scan_bwd"],
+                                  S.selective_scan_bwd(*args), first):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"K4 B={b} L={t} d={d} {name}: "
+                                         "other bits on another launch")
+        checks += 1
+        del x, args, first
     torch.cuda.empty_cache()
     log(f"  {checks} checks passed at {', '.join(n for n, *_ in shapes)}; "
         f"edge cases B {SSM_EDGE_B} x L {SSM_EDGE_L} x d {SSM_EDGE_D}; "
+        f"K4 the same bits in {SSM_REPEATS} launches at {SSM_RAGGED}; "
         f"worst {json.dumps(worst)}")
     return worst, checks
 
 
 def ssm_bound_terms(batch, steps, dim, itemsize):
-    """The least time (ms) of K3 and of K4 for the bytes each must move
-    (every input read once, every output written once) and for its float32
-    operations: K3 reads da, dbx, c, h0 and writes y, h_last, 4 FLOPs a
-    state a step (the recurrence's and the contraction's multiply-adds);
-    K4 reads those and dy, dh_last and writes d(da), d(dbx), d(c), d(h0),
-    8 FLOPs a state a step (the recurrence replayed, gh, d(da), d(c)'s
-    product and sum, the carry)."""
-    big = batch * steps * dim * 16
-    state, c, y = batch * dim * 16 * 4, batch * steps * 16, batch * steps * dim
-    k3 = ((2 * big + c) * itemsize + 2 * state + y * 4, 4 * big)
-    k4 = (2 * (2 * big + c) * itemsize + 3 * state + y * 4, 8 * big)
+    """The least time (ms) of K3 and of K4, the fused selective scan, for
+    the bytes each must move (every input read once, every output written
+    once), for its float32 operations and for its exponentials on the SFU
+    (SFU_OPS_S). K3 reads x, dt, B, C (`itemsize`), dt_bias, A, D, h0 and
+    writes y, h_last; per state a step it does exp(delta A), the
+    recurrence's multiply-add, delta x B's product and the contraction's
+    multiply-add (6 FLOPs and an exponential), per channel a step the
+    softplus (2 exponentials: exp and log1p), delta x and D x (3 FLOPs).
+    K4 reads those and dy, dh_last and writes dx, d(dt), d(B), d(C) and
+    the float32 d(dt_bias), d(A), d(D), d(h0); it must rebuild exp(delta
+    A) and h (an exponential and 4 FLOPs a state a step) and walk back
+    (gh, d(da) da, d(B), d(C), s_A, s_B, d(A), the carry: 14 FLOPs)."""
+    n = 16
+    big, chan = batch * steps * dim * n, batch * steps * dim
+    bc, state = batch * steps * n, batch * dim * n * 4
+    params = (2 * dim + dim * n) * 4
+    k3 = ((2 * chan + 2 * bc) * itemsize + params + state + chan * 4
+          + state, 6 * big + 3 * chan, big + 2 * chan)
+    k4 = ((2 * chan + 2 * bc) * itemsize + params + state + chan * 4 + state
+          + (2 * chan + 2 * bc) * itemsize + params + state,
+          18 * big + 6 * chan, big + 2 * chan)
     return tuple({"bytes": nbytes / HBM_BYTES_S * 1e3,
-                  "operations": flops / FP32_FLOP_S * 1e3}
-                 for nbytes, flops in (k3, k4))
+                  "operations": flops / FP32_FLOP_S * 1e3,
+                  "exponentials": exps / SFU_OPS_S * 1e3}
+                 for nbytes, flops, exps in (k3, k4))
 
 
 def phase_ssm_times(device, shapes=SSM_SHAPES):
-    """K3 and K4 at each scan shape of the IPDnet2 paths (CUDA events,
-    warm), float32 and bfloat16 inputs, beside their bound and their plain
-    versions (float32). No PyTorch call computes a selective scan: there
-    is no library time."""
+    """K3 and K4 at each scan shape of the IPDnet2 paths, float32 and
+    bfloat16 inputs: the card's time of a launch from a device trace
+    (device_ms; CUDA events around back-to-back calls would read the
+    host's enqueue at the serve and slot shapes), the host's enqueue
+    beside it, their bound and their plain versions (float32, CUDA
+    events). No PyTorch call computes a selective scan: there is no
+    library time."""
     from fnssl_tpu_torch.kernels import ssm_cuda as S
 
     rows = []
@@ -2068,29 +2159,36 @@ def phase_ssm_times(device, shapes=SSM_SHAPES):
         row = {"shape": name, "B": b, "L": t, "d": d}
         for dtype in (torch.float32, torch.bfloat16):
             x = ssm_inputs(b, t, d, dtype, device, 7)
-            args = (x["da"], x["dbx"], x["c"], x["h0"])
+            args = [x[k] for k in SSM_ARGS]
             key = str(dtype)[6:]
-            row[f"k3_ms_{key}"] = cuda_ms(lambda: S.ssm_scan_fwd(*args), 20)
-            row[f"k4_ms_{key}"] = cuda_ms(
-                lambda: S.ssm_scan_bwd(*args, x["dy"], x["dh_last"]), 20)
+            k3 = lambda: S.selective_scan_fwd(*args)          # noqa: E731
+            k4 = lambda: S.selective_scan_bwd(                # noqa: E731
+                *args, x["dy"], x["dh_last"])
+            row[f"k3_ms_{key}"] = device_ms(k3, 20)
+            row[f"k4_ms_{key}"] = device_ms(k4, 20)
+            row[f"k3_enqueue_ms_{key}"] = enqueue_ms(k3, 20)
+            row[f"k4_enqueue_ms_{key}"] = enqueue_ms(k4, 20)
             k3, k4 = ssm_bound_terms(b, t, d, dtype.itemsize)
             row[f"k3_bound_terms_{key}"], row[f"k4_bound_terms_{key}"] = \
                 k3, k4
             if dtype == torch.float32:
                 row["k3_plain_ms"] = cuda_ms(
-                    lambda: S.ssm_scan_fwd_plain(*args), 3)
-                row["k4_plain_ms"] = cuda_ms(lambda: S.ssm_scan_bwd_plain(
-                    *args, x["dy"], x["dh_last"]), 3)
+                    lambda: S.selective_scan_fwd_plain(*args), 3)
+                row["k4_plain_ms"] = cuda_ms(
+                    lambda: S.selective_scan_bwd_plain(
+                        *args, x["dy"], x["dh_last"]), 3)
             del x, args
         k3b, k4b = bound(row["k3_bound_terms_float32"]), bound(
             row["k4_bound_terms_float32"])
         row["k3_bound_ms"], row["k4_bound_ms"] = k3b[0], k4b[0]
         rows.append(row)
         log(f"  {name:16s} B={b:3d} L={t:3d} d={d}: K3 "
-            f"{row['k3_ms_float32']:.4f} ms ({row['k3_ms_bfloat16']:.4f}) "
-            f"bound {k3b[0]:.4f} ({k3b[1]}) plain {row['k3_plain_ms']:.2f};"
-            f" K4 {row['k4_ms_float32']:.4f} ({row['k4_ms_bfloat16']:.4f}) "
-            f"bound {k4b[0]:.4f} ({k4b[1]}) plain {row['k4_plain_ms']:.2f}")
+            f"{row['k3_ms_float32']:.4f} ms ({row['k3_ms_bfloat16']:.4f}; "
+            f"enqueue {row['k3_enqueue_ms_float32']:.4f}) bound "
+            f"{k3b[0]:.4f} ({k3b[1]}) plain {row['k3_plain_ms']:.2f}; K4 "
+            f"{row['k4_ms_float32']:.4f} ({row['k4_ms_bfloat16']:.4f}; "
+            f"enqueue {row['k4_enqueue_ms_float32']:.4f}) bound "
+            f"{k4b[0]:.4f} ({k4b[1]}) plain {row['k4_plain_ms']:.2f}")
     torch.cuda.empty_cache()
     return rows
 
@@ -2547,37 +2645,56 @@ def phase_stream(seed, device, tmp):
     return report, dict(zip(COUNTED, totals))
 
 
-def traced_launches(fn, *args):
-    """fn(*args) under torch.profiler, device activity only: its result
-    and the kernels of COUNTED that the card ran, counted by name in the
-    trace (CUPTI records every kernel node of a CUDA graph replay, which
-    calls no wrapper and moves no launch counter). A trace may lose its
-    first records (seen on the H100, only ever a run of them at its head:
-    one K1 of a tier-1 replay in three full runs, and once all 256 spin
-    kernels of an earlier, shorter guard), so the window opens
-    TRACE_SETTLE_S after the profiler starts, with TRACE_GUARD spin
-    kernels, and fails unless some of them were recorded: what was lost
-    came before fn. A loss is logged."""
+def guarded_trace(fn, *args, retry=None):
+    """fn(*args) under torch.profiler, device activity only: its result,
+    the device events (kernels, memsets, copies) it made and the records
+    the trace lost. A trace may lose its first records (seen on the H100,
+    only ever a run of them at its head: one K1 of a tier-1 replay in
+    three full runs, and once all 256 spin kernels of an earlier, shorter
+    guard), so the window opens TRACE_SETTLE_S[0] after the profiler starts,
+    with TRACE_GUARD spin kernels, and fails unless some of them were
+    recorded: what was lost came before fn. A trace that kept none of
+    them (seen once on the H100, all 2048, in a run of a few hundred
+    traces) says nothing of fn's records: with `retry`, a function that
+    undoes what fn changed, it is taken again after retry(), settling
+    longer each time, up to len(TRACE_SETTLE_S) tries in all."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(TRACE_SETTLE_S)
-        for _ in range(TRACE_GUARD):
-            torch.cuda._sleep(100)
+    for attempt, settle in enumerate(TRACE_SETTLE_S, 1):
         torch.cuda.synchronize()
-        out = fn(*args)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    guard = sum("spin_kernel" in n for n in names)
-    if not 0 < guard <= TRACE_GUARD:
-        raise AssertionError(f"the trace kept {guard} of its "
-                             f"{TRACE_GUARD} guard kernels")
-    if guard < TRACE_GUARD:
-        log(f"  (a trace lost its first {TRACE_GUARD - guard} records, "
-            f"guard kernels of {TRACE_GUARD})")
-    return out, [sum(1 for n in names if re.search(rf"\b{k}\b", n))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(settle)
+            for _ in range(TRACE_GUARD):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            out = fn(*args)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        guard = sum("spin_kernel" in e.name for e in events)
+        if 0 < guard <= TRACE_GUARD:
+            break
+        if guard or retry is None or attempt == len(TRACE_SETTLE_S):
+            raise AssertionError(f"the trace kept {guard} of its "
+                                 f"{TRACE_GUARD} guard kernels (try "
+                                 f"{attempt} of {len(TRACE_SETTLE_S)})")
+        log(f"  (a trace kept none of its {TRACE_GUARD} guard kernels; "
+            f"tracing again after {TRACE_SETTLE_S[attempt]} s)")
+        retry()
+    return (out, [e for e in events if "spin_kernel" not in e.name],
+            TRACE_GUARD - guard)
+
+
+def traced_launches(fn, *args, retry=None):
+    """fn(*args) in a guarded trace (`retry` as there): its result and the
+    kernels of COUNTED that the card ran, counted by name (CUPTI records
+    every kernel node of a CUDA graph replay, which calls no wrapper and
+    moves no launch counter). A loss at the trace's head is logged."""
+    out, events, lost = guarded_trace(fn, *args, retry=retry)
+    if lost:
+        log(f"  (a trace lost its first {lost} records, guard kernels of "
+            f"{TRACE_GUARD})")
+    return out, [sum(1 for e in events if re.search(rf"\b{k}\b", e.name))
                  for k in TRACED]
 
 
@@ -2604,11 +2721,15 @@ def tier_checks(stepper, rows, feat_shape, device, launches):
             stepper.step_slots(ids, feats, reset)
             ms.append((time.perf_counter() - t0) * 1e3)
         before = [leaf.clone() for leaf in stepper._state]
+
+        def restore():
+            for leaf, b in zip(stepper._state, before):
+                leaf.copy_(b)
+
         got, per_tick[s] = traced_launches(stepper.step_slots, ids, feats,
-                                           reset)
+                                           reset, retry=restore)
         after = [leaf.clone() for leaf in stepper._state]
-        for leaf, b in zip(stepper._state, before):
-            leaf.copy_(b)
+        restore()
         n0 = [c.value for c in counters]
         want = stepper._run_tier(
             s, torch.as_tensor(feats, device=device),
@@ -4263,13 +4384,18 @@ def main():
     # 201, and 14 at T 40) and one serve chunk step (2 at L 5, 14 at L 1)
     ssm = {r["shape"]: r for r in ssm_rows + fp_ssm_rows}
 
-    def ssm_path(key, first, later):
-        return 2 * ssm[first][key] + 14 * ssm[later][key]
+    def ssm_path(key, first, later, rows=ssm):
+        return 2 * rows[first][key] + 14 * rows[later][key]
 
-    def ssm_path_bound(k, first, later):
-        return bound({t: 2 * ssm[first][f"{k}_bound_terms_float32"][t]
-                      + 14 * ssm[later][f"{k}_bound_terms_float32"][t]
-                      for t in ("bytes", "operations")})
+    def ssm_path_bound(k, first, later, rows=ssm):
+        return bound({t: 2 * rows[first][f"{k}_bound_terms_float32"][t]
+                      + 14 * rows[later][f"{k}_bound_terms_float32"][t]
+                      for t in ("bytes", "operations", "exponentials")})
+
+    def bound_by(term):
+        """The contract's two words: the SFU's exponentials are
+        operations."""
+        return "bytes" if term == "bytes" else "operations"
 
     for k, name, replaces in (
             ("k3", "ssm_scan_fwd", "fnssl_tpu/models/mamba.py:145"),
@@ -4279,7 +4405,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda",
             "source": "fnssl_tpu_torch/kernels/csrc/ssm_scan.cu",
-            "replaces": replaces,
+            "replaces": replaces, "fuses": "fnssl_tpu/models/mamba.py:80",
             "launches": sum(v[name] for v in paths.values()),
             "launches_by_path": {p: v[name] for p, v in paths.items()},
             "max_abs_err": ssm_worst[name]["float32"],
@@ -4291,18 +4417,20 @@ def main():
                                 "train_layers1_7"),
             "plain_ms": ssm_path(f"{k}_plain_ms", "train_layer0",
                                  "train_layers1_7"),
-            "bound_ms": step_bound_[0], "bound_by": step_bound_[1],
+            "bound_ms": step_bound_[0],
+            "bound_by": bound_by(step_bound_[1]), "bound_term": step_bound_[1],
             "library_ms": None,
             "work": f"one IPDnet2 train step at nb={I2_NB} x {I2_T_S} s, fp32:"
-                    " 2 scans at B=256, L=201, d=192 (layer 0) and 14 at "
-                    "L=40; no PyTorch call computes a selective scan",
+                    " 2 fused scans at B=256, L=201, d=192 (layer 0) and 14 "
+                    "at L=40; no PyTorch call computes a selective scan",
             "per_shape": ssm_rows + fp_ssm_rows,
             "freq_rank_step": {
                 "ms": ssm_path(f"{k}_ms_float32", "fp_rank_layer0",
                                "fp_rank_layers1_7"),
                 "plain_ms": ssm_path(f"{k}_plain_ms", "fp_rank_layer0",
                                      "fp_rank_layers1_7"),
-                "bound_ms": fp_bound_[0], "bound_by": fp_bound_[1],
+                "bound_ms": fp_bound_[0],
+                "bound_by": bound_by(fp_bound_[1]),
                 "library_ms": None,
                 "work": "the scans of one rank's step on a 2 x 2 mesh: 2 "
                         "at B=64, L=201, d=192 and 14 at L=40",
@@ -4312,7 +4440,7 @@ def main():
         "ms": ssm_path("k3_ms_float32", "serve_layer0", "serve_layers1_7"),
         "plain_ms": ssm_path("k3_plain_ms", "serve_layer0",
                              "serve_layers1_7"),
-        "bound_ms": serve_bound_[0], "bound_by": serve_bound_[1],
+        "bound_ms": serve_bound_[0], "bound_by": bound_by(serve_bound_[1]),
         "work": "2 scans at B=16, L=5, d=192 and 14 at L=1",
         "launches_per_chunk_step": I2_LAUNCHES, "chunk_steps": i2_steps,
         **i2_serve}
@@ -4332,14 +4460,14 @@ def main():
                 "full-band BiLSTMs (T=256, B=192, H=128) and 3 narrow-band "
                 "LSTMs (T=12, B=4096, H=256)"}
     s3 = {r["shape"]: r for r in ssm_slot_rows}
-    l0, l1 = s3["slots16_layer0"], s3["slots16_layers1_7"]
+    slot_bound_ = ssm_path_bound("k3", "slots16_layer0",
+                                 "slots16_layers1_7", s3)
     kernels[-2]["slots16_tick"] = {
-        "ms": 2 * l0["k3_ms_float32"] + 14 * l1["k3_ms_float32"],
-        "plain_ms": 2 * l0["k3_plain_ms"] + 14 * l1["k3_plain_ms"],
-        **dict(zip(("bound_ms", "bound_by"), bound(
-            {k: 2 * l0["k3_bound_terms_float32"][k]
-             + 14 * l1["k3_bound_terms_float32"][k]
-             for k in ("bytes", "operations")}))),
+        "ms": ssm_path("k3_ms_float32", "slots16_layer0",
+                       "slots16_layers1_7", s3),
+        "plain_ms": ssm_path("k3_plain_ms", "slots16_layer0",
+                             "slots16_layers1_7", s3),
+        "bound_ms": slot_bound_[0], "bound_by": bound_by(slot_bound_[1]),
         "work": "the scans of one 16-slot IPDnet2 tick: 2 at B=256, L=5, "
                 "d=192 and 14 at L=1"}
     kernels[-2]["slots16"] = ssm_slot_rows

@@ -1,78 +1,98 @@
-// The selective scan of a Mamba block: K3 (forward) and K4 (backward).
+// The selective scan of a Mamba block, fused: K3 (forward) and K4
+// (backward).
 //
 // Replaces the sequential core of fnssl_tpu/models/mamba.py: ssm_scan, a
 // lax.scan behind a custom_vjp (_ssm_scan_ref, :145; its vjp _ssm_bwd,
-// :189), the slot of the reference's mamba_ssm CUDA kernels. Contract, in
-// the batch-major layout that _ssm_inputs produces (no time-major copy):
-//   da, dbx (B, L, d, n) and c (B, L, n) float32 or bfloat16; h0 (B, d, n)
-//   float32; n = d_state = 16.
-//   K3: h_t = da_t * h_{t-1} + dbx_t;  y_t = sum_n h_t * c_t.
-//       y (B, L, d) float32 and h_last (B, d, n) float32: bfloat16 inputs
-//       are widened to float32, as JAX promotes them against the float32
+// :189), together with the elementwise producers of its inputs in
+// _ssm_inputs (:80): the slot of the reference's mamba_ssm CUDA
+// selective_scan. Contract, batch-major:
+//   x, dt (B, L, d) and Bm, C (B, L, n) float32 or bfloat16 (one dtype);
+//   dt_bias (d), A (d, n), D (d) and h0 (B, d, n) float32; n = 16. dt is
+//   the dt_proj product before its bias and softplus.
+//   K3: per step, in registers: delta = softplus(dt + dt_bias) (torch's,
+//       threshold 20), da = exp(delta * A), dbx = delta * x * Bm,
+//       h = da * h + dbx;  y = sum_n h * C + D * x.
+//       y (B, L, d) and h_last (B, d, n) float32: bfloat16 inputs are
+//       widened to float32, as JAX promotes them against the float32
 //       state.
-//   K4: from dy (B, L, d) and dh_last (B, d, n) float32, walking back:
-//       gh = g + dy_t * c_t;  d(dbx_t) = gh;  d(da_t) = gh * h_{t-1};
-//       d(c_t) = sum_d dy_t * h_t;  g = gh * da_t;  d(h0) = g at t = 0.
-//       d(da), d(dbx), d(c) in the inputs' dtype (float32 sums, rounded at
-//       the store), d(h0) float32.
+//   K4: from dy (B, L, d) and dh_last (B, d, n) float32, walking back with
+//       g = dL/dh:  gh = g + dy * C;  d(C) = sum_d dy * h;
+//       d(Bm) = sum_d gh * delta * x;  s_B = sum_n gh * Bm;
+//       s_A = sum_n gh * h_prev * da * A;  dx = dy * D + delta * s_B;
+//       d(dt) = (s_A + x * s_B) * softplus'(dt + dt_bias);
+//       d(A) += gh * h_prev * da * delta;  d(D) += dy * x;
+//       d(dt_bias) += d(dt);  g = gh * da;  d(h0) = g at t = 0.
+//       dx, d(dt), d(Bm), d(C) in the inputs' dtype (float32 sums, rounded
+//       at the store); d(A), d(D), d(dt_bias), d(h0) float32.
+// No (B, L, d, n) tensor is written, forward or backward: exp(delta * A)
+// and delta * x * Bm live in registers for the step that uses them.
 //
-// What bounds it on an H100: bytes. The recurrence is one FMA per state a
-// step and the whole work is a few FLOPs per byte, far below the card's
-// ~20 FLOP/byte float32 balance; at IPDnet2's layer 0 in training (B=256,
-// L=201, d=192) da and dbx are 632 MB each. The serial walk over L is
-// short in work per step, so the design keeps enough loads in flight to
-// cover memory latency:
+// What bounds it on an H100. The bytes are few: x, dt and y are 12 bytes
+// a channel a step, Bm and C 128 bytes a batch row a step (at IPDnet2's
+// layer 0 in training, B 256, L 201, d 192: ~125 MB, 0.04 ms at 3.35
+// TB/s). The work is an exponential a state a step (16 a channel), on the
+// SFU's 16 a clock an SM (~0.04 ms there), beside ~10 float32 instructions
+// a state a step (the accurate expf's range reduction, the recurrence, the
+// contraction): both kernels are bound by instruction issue, K4 at about
+// four times K3 (it replays the forward, recomputes each decay twice and
+// reduces d(Bm), d(C) by shuffles). The design:
 //
-// K3: four threads a (b, d) channel, each holding 4 of the 16 states in
-// registers (float4 loads: a warp reads 512 contiguous bytes of da per
-// instruction). A thread loads the da, dbx and c of 8 steps before it
-// walks them (the loads do not depend on h), so 24 16-byte loads are in
-// flight per thread. y_t is the sum of the four threads' partial dot
-// products (two xor-shuffles). Blocks of 256 threads (64 channels) tile
-// the B x d channels. c is read by every channel of a batch row: the same
-// 64 bytes across a warp, served by one L1 broadcast.
+// Both kernels give a block of 128 threads one batch row's slice of 32
+// channels (a grid of B x ceil(d / 32) blocks: 384 at B 64, d 192), four
+// threads a (b, d) channel, each holding 4 of the 16 states (and of A) in
+// registers. Every 8 steps the block stages that group's inputs in shared
+// memory, coalesced: Bm and C (shared by every channel of the row), x, and
+// the softplus of dt + dt_bias, computed once a channel a step (and, in
+// K4, its derivative and dy); each thread then reads its channel's
+// scalars and its 4 states' Bm and C (one 16-byte read each, a broadcast
+// across the warp's 8 channels). Outputs a channel a step (y; dx, d(dt))
+// go through shared memory too and are written coalesced after the group.
+// This keeps the loads out of the serial walk and the registers few (K3
+// 40 a thread, K4 96). In a ragged last slice (d not a multiple of 32)
+// the spare threads walk the last channel on zeros, so that the four
+// threads of a channel all reach the shuffles, and store nothing.
 //
-// K4: one block per batch row b, 4 x d threads (d <= 192, a multiple of
-// 8), so that d(c_t), a sum over d, is reduced inside the block: each
-// warp reduces its channels by shuffles, writes its partial into shared
-// memory, and after a segment of 4 steps the block sums the warps' partial
-// sums (two __syncthreads a segment, a fixed order: deterministic). The
-// backward needs h_{t-1} and h_t in reverse order. Phase 1 replays the
-// forward and stores h at the start of every 4-step segment into a
-// scratch (B, ceil(L/4), d, n) float32 (a quarter of h), written and read
-// back by the same thread; phase 2 walks the segments backwards,
-// recomputing the segment's 4 states from its checkpoint in registers,
-// then walking them back. da and dbx are read twice (about 3.9 GB at
-// layer 0 against the 2.5 GB the function must move); a checkpoint
-// written by K3 in training would save phase 1 (ROADMAP, Queue 2).
+// K3: y_t is the sum of the four threads' partial dot products (two
+// xor-shuffles).
+//
+// K4: phase 1 replays the forward and stores h at the start of every
+// 8-step segment into a scratch (B, ceil(L/8), d, n) float32 (an eighth of
+// h, written and read back by the same thread).
+// Phase 2 walks the segments backwards: it recomputes the segment's 8
+// states from its checkpoint in registers, then walks them back,
+// recomputing each decay (an SFU operation instead of 32 registers). The
+// sums over the channel's 16 states (s_A, s_B) take two xor-shuffles each.
+// d(Bm) and d(C), sums over d, are reduced inside the block: the 8
+// channels of a warp by a butterfly that leaves each of the 32 lanes one of
+// the 32 sums (7 shuffles), the warps through shared memory after each
+// segment, and the block writes its slice's partial (B, L, slices, 32).
+// d(A), d(D) and d(dt_bias) are summed over L in registers and written per
+// batch row; the wrapper sums every partial in a fixed order: no atomics,
+// the same bits run to run.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <stdint.h>
 
 namespace {
 
 constexpr int kN = 16;                 // d_state
 constexpr int kQ = 4;                  // states a thread holds
 constexpr int kTpc = kN / kQ;          // threads a channel
-constexpr int kFwdThreads = 256;       // K3 block: 64 channels
-constexpr int kFwdUnroll = 8;          // K3 steps loaded before they are walked
-constexpr int kSeg = 4;                // K4 segment (checkpoint interval)
-constexpr int kBwdMaxDim = 192;        // K4: 4 x d threads a block
-constexpr int kBwdMaxWarps = kBwdMaxDim * kTpc / 32;
+constexpr int kGroup = 8;              // steps a staged group / K4 segment
+constexpr int kThreads = 128;          // a block: 32 channels
+constexpr int kCh = kThreads / kTpc;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
 
 __device__ __forceinline__ void load4(const float* p, float (&v)[kQ]) {
   const float4 q = __ldg(reinterpret_cast<const float4*>(p));
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p,
-                                      float (&v)[kQ]) {
-  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-  v[0] = __uint_as_float(q.x << 16);
-  v[1] = __uint_as_float(q.x & 0xffff0000u);
-  v[2] = __uint_as_float(q.y << 16);
-  v[3] = __uint_as_float(q.y & 0xffff0000u);
 }
 
 // a load of what this thread itself wrote in this launch: not through the
@@ -86,263 +106,398 @@ __device__ __forceinline__ void store4(float* p, const float (&v)[kQ]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p,
-                                       const float (&v)[kQ]) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 q;
-  q.x = *reinterpret_cast<unsigned int*>(&lo);
-  q.y = *reinterpret_cast<unsigned int*>(&hi);
-  *reinterpret_cast<uint2*>(p) = q;
-}
-
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// K3: y and h_last. Thread (channel, j) holds states 4j .. 4j+3.
-template <typename T>
-__global__ void __launch_bounds__(kFwdThreads)
-ssm_fwd_kernel(const T* __restrict__ da, const T* __restrict__ dbx,
-               const T* __restrict__ c, const float* __restrict__ h0,
-               float* __restrict__ y, float* __restrict__ h_last, int batch,
-               int steps, int dim) {
-  const long long channels = static_cast<long long>(batch) * dim;
-  long long ch = static_cast<long long>(blockIdx.x) * (kFwdThreads / kTpc)
-                 + threadIdx.x / kTpc;
-  const int j = threadIdx.x % kTpc;
-  // a ragged last block: its spare threads walk the last channel again
-  // (the four threads of a channel must all reach the shuffles) and store
-  // nothing
-  const bool valid = ch < channels;
-  if (!valid) ch = channels - 1;
-  const long long b = ch / dim;
-  const long long dd = ch % dim;
-  const long long step = static_cast<long long>(dim) * kN;
-  const long long off = b * steps * step + dd * kN + j * kQ;
-  const T* pa = da + off;
-  const T* pb = dbx + off;
-  const T* pc = c + b * steps * kN + j * kQ;
-  float* py = y + b * steps * dim + dd;
+// torch's softplus (beta 1, threshold 20) and its derivative
+__device__ __forceinline__ float softplus(float v) {
+  return v > 20.0f ? v : log1pf(expf(v));
+}
 
-  float h[kQ];
-  load4(h0 + ch * kN + j * kQ, h);
-  for (int t0 = 0; t0 < steps; t0 += kFwdUnroll) {
-    float a[kFwdUnroll][kQ], x[kFwdUnroll][kQ], cc[kFwdUnroll][kQ];
-#pragma unroll
-    for (int u = 0; u < kFwdUnroll; ++u) {
-      if (t0 + u < steps) {
-        const long long t = t0 + u;
-        load4(pa + t * step, a[u]);
-        load4(pb + t * step, x[u]);
-        load4(pc + t * kN, cc[u]);
+__device__ __forceinline__ void softplus_grad(float v, float& sp,
+                                              float& dsp) {
+  if (v > 20.0f) {
+    sp = v;
+    dsp = 1.0f;
+  } else {
+    const float z = expf(v);
+    sp = log1pf(z);
+    dsp = z / (z + 1.0f);
+  }
+}
+
+// Stages the inputs of steps t0 .. t0 + kk - 1 of batch row `row` (the
+// flat index of (b, t = 0)) for the block's channels d0 .. d0 + kCh - 1
+// in shared memory: Bm and C (s_bc[k] = Bm_t then C_t), x, delta and, with
+// kGrad, softplus' derivative and dy. Each channel's softplus is computed
+// once, by one thread; channels past d hold zeros.
+template <typename T, bool kGrad>
+__device__ __forceinline__ void stage(
+    const T* __restrict__ x, const T* __restrict__ dt,
+    const float* __restrict__ dt_bias, const T* __restrict__ bm,
+    const T* __restrict__ c, const float* __restrict__ dy, long long row,
+    int t0, int kk, int dim, int d0, bool with_c,
+    float (&s_bc)[kGroup][2 * kN], float (&s_x)[kGroup][kCh],
+    float (&s_dl)[kGroup][kCh], float (&s_dsp)[kGroup][kCh],
+    float (&s_dy)[kGroup][kCh]) {
+  const int per_step = with_c ? 2 * kN : kN;
+  for (int i = threadIdx.x; i < kk * per_step; i += kThreads) {
+    const int k = i / per_step, e = i % per_step;
+    const long long t = row + t0 + k;
+    s_bc[k][e] = e < kN ? ld1(bm + t * kN + e) : ld1(c + t * kN + e - kN);
+  }
+  for (int i = threadIdx.x; i < kk * kCh; i += kThreads) {
+    const int k = i / kCh, ch = i % kCh, dd = d0 + ch;
+    float xv = 0.0f, sp = 0.0f, dsp = 0.0f, gy = 0.0f;
+    if (dd < dim) {
+      const long long off = (row + t0 + k) * dim + dd;
+      xv = ld1(x + off);
+      const float v = ld1(dt + off) + __ldg(dt_bias + dd);
+      if (kGrad) {
+        softplus_grad(v, sp, dsp);
+        gy = __ldg(dy + off);
+      } else {
+        sp = softplus(v);
       }
     }
+    s_x[k][ch] = xv;
+    s_dl[k][ch] = sp;
+    if (kGrad) {
+      s_dsp[k][ch] = dsp;
+      s_dy[k][ch] = gy;
+    }
+  }
+}
+
+// K3: y and h_last. Block (b, slice) holds channels slice * 32 .. + 31 of
+// batch row b; thread (c, j) = (tid / 4, tid % 4) holds states 4j .. 4j+3
+// of its channel.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+selective_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                     const float* __restrict__ dt_bias,
+                     const float* __restrict__ A, const T* __restrict__ bm,
+                     const T* __restrict__ c, const float* __restrict__ D,
+                     const float* __restrict__ h0, float* __restrict__ y,
+                     float* __restrict__ h_last, int steps, int dim) {
+  __shared__ __align__(16) float s_bc[kGroup][2 * kN];
+  __shared__ float s_x[kGroup][kCh], s_dl[kGroup][kCh], s_y[kGroup][kCh];
+  const long long b = blockIdx.x;
+  const int tid = threadIdx.x, cl = tid / kTpc, j = tid % kTpc;
+  const int d0 = blockIdx.y * kCh;
+  const bool valid = d0 + cl < dim;    // else: zeros on the last channel
+  const int dd = valid ? d0 + cl : dim - 1;
+  const long long row = b * steps;
+  const long long state = (b * dim + dd) * kN + j * kQ;
+  const float dskip = __ldg(D + dd);
+  float a[kQ], h[kQ];
+  load4(A + dd * kN + j * kQ, a);
+  load4(h0 + state, h);
+  for (int t0 = 0; t0 < steps; t0 += kGroup) {
+    const int kk = min(kGroup, steps - t0);
+    __syncthreads();                   // the last group's s_* are read
+    stage<T, false>(x, dt, dt_bias, bm, c, nullptr, row, t0, kk, dim, d0,
+                    true, s_bc, s_x, s_dl, s_dl, s_dl);
+    __syncthreads();
 #pragma unroll
-    for (int u = 0; u < kFwdUnroll; ++u) {
-      if (t0 + u < steps) {            // the same for every thread
+    for (int k = 0; k < kGroup; ++k) {
+      if (k < kk) {                    // the same for every thread
+        const float delta = s_dl[k][cl], xv = s_x[k][cl];
+        const float4 bq = *reinterpret_cast<const float4*>(&s_bc[k][j * kQ]);
+        const float4 cq =
+            *reinterpret_cast<const float4*>(&s_bc[k][kN + j * kQ]);
+        const float bb[kQ] = {bq.x, bq.y, bq.z, bq.w};
+        const float cc[kQ] = {cq.x, cq.y, cq.z, cq.w};
+        const float du = delta * xv;
         float s = 0.0f;
 #pragma unroll
         for (int q = 0; q < kQ; ++q) {
-          h[q] = a[u][q] * h[q] + x[u][q];
-          s += h[q] * cc[u][q];
+          h[q] = expf(delta * a[q]) * h[q] + du * bb[q];
+          s += h[q] * cc[q];
         }
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        s += __shfl_xor_sync(0xffffffffu, s, 2);
-        if (valid && j == 0) py[static_cast<long long>(t0 + u) * dim] = s;
+        s += __shfl_xor_sync(kFull, s, 1);
+        s += __shfl_xor_sync(kFull, s, 2);
+        if (j == 0) s_y[k][cl] = s + dskip * xv;
       }
     }
+    __syncthreads();
+    for (int i = tid; i < kk * kCh; i += kThreads) {
+      const int k = i / kCh, ch = i % kCh;
+      if (d0 + ch < dim) y[(row + t0 + k) * dim + d0 + ch] = s_y[k][ch];
+    }
   }
-  if (valid) store4(h_last + ch * kN + j * kQ, h);
+  if (valid) store4(h_last + state, h);
 }
 
-// K4: one block per batch row, thread (dd, j) = (tid / 4, tid % 4).
+// K4: block (b, slice) holds channels slice * 32 .. + 31 of batch row b;
+// thread (c, j) = (tid / 4, tid % 4) holds states 4j .. 4j+3.
 template <typename T>
-__global__ void __launch_bounds__(kBwdMaxDim * kTpc, 1)
-ssm_bwd_kernel(const T* __restrict__ da, const T* __restrict__ dbx,
-               const T* __restrict__ c, const float* __restrict__ h0,
-               const float* __restrict__ dy,
-               const float* __restrict__ dh_last, T* __restrict__ dda,
-               T* __restrict__ ddbx, T* __restrict__ dc,
-               float* __restrict__ dh0, float* __restrict__ ck, int steps,
-               int dim, int nseg) {
-  __shared__ __align__(16) float red[kBwdMaxWarps * kSeg * kN];
+__global__ void __launch_bounds__(kThreads)
+selective_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                     const float* __restrict__ dt_bias,
+                     const float* __restrict__ A, const T* __restrict__ bm,
+                     const T* __restrict__ c, const float* __restrict__ D,
+                     const float* __restrict__ h0,
+                     const float* __restrict__ dy,
+                     const float* __restrict__ dh_last, T* __restrict__ dx,
+                     T* __restrict__ ddt, float* __restrict__ part_bc,
+                     float* __restrict__ part_a, float* __restrict__ part_d,
+                     float* __restrict__ part_bias, float* __restrict__ dh0,
+                     float* __restrict__ ck, int steps, int dim, int nseg) {
+  __shared__ __align__(16) float s_bc[kGroup][2 * kN];
+  __shared__ float s_x[kGroup][kCh], s_dl[kGroup][kCh];
+  __shared__ float s_dsp[kGroup][kCh], s_dy[kGroup][kCh];
+  __shared__ float s_dx[kGroup][kCh], s_ddt[kGroup][kCh];
+  __shared__ float red[kWarps][kGroup][2 * kN];
   const long long b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int dd = tid / kTpc, j = tid % kTpc;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const long long step = static_cast<long long>(dim) * kN;
-  const long long off = b * steps * step + dd * kN + j * kQ;
-  const T* pa = da + off;
-  const T* pb = dbx + off;
-  const T* pc = c + b * steps * kN + j * kQ;
-  const float* pdy = dy + b * steps * dim + dd;
-  T* pda = dda + off;
-  T* pdb = ddbx + off;
-  T* pdc = dc + b * steps * kN;
-  float* pck = ck + b * nseg * step + dd * kN + j * kQ;
+  const int slices = gridDim.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cl = tid / kTpc, j = tid % kTpc, cw = lane / kTpc;
+  const int d0 = blockIdx.y * kCh;
+  const bool valid = d0 + cl < dim;    // else: zeros on the last channel
+  const int dd = valid ? d0 + cl : dim - 1;
+  const long long row = b * steps;
   const long long state = (b * dim + dd) * kN + j * kQ;
+  const long long seg_stride = static_cast<long long>(dim) * kN;
+  float* pck = ck + b * nseg * seg_stride + dd * kN + j * kQ;
+  const float dskip = __ldg(D + dd);
+  float a[kQ];
+  load4(A + dd * kN + j * kQ, a);
 
   // phase 1: replay the forward; checkpoint h before every segment
   float h[kQ];
   load4(h0 + state, h);
   for (int s = 0; s < nseg; ++s) {
-    const int t0 = s * kSeg;
-    store4(pck + s * step, h);
-    float a[kSeg][kQ], x[kSeg][kQ];
+    const int t0 = s * kGroup, kk = min(kGroup, steps - t0);
+    // a spare thread shares the last channel's address: it must not write
+    if (valid) store4(pck + s * seg_stride, h);
+    __syncthreads();
+    stage<T, false>(x, dt, dt_bias, bm, c, nullptr, row, t0, kk, dim, d0,
+                    false, s_bc, s_x, s_dl, s_dsp, s_dy);
+    __syncthreads();
 #pragma unroll
-    for (int k = 0; k < kSeg; ++k) {
-      if (t0 + k < steps) {
-        load4(pa + static_cast<long long>(t0 + k) * step, a[k]);
-        load4(pb + static_cast<long long>(t0 + k) * step, x[k]);
-      }
-    }
+    for (int k = 0; k < kGroup; ++k) {
+      if (k < kk) {
+        const float delta = s_dl[k][cl];
+        const float du = delta * s_x[k][cl];
+        const float4 bq = *reinterpret_cast<const float4*>(&s_bc[k][j * kQ]);
+        const float bb[kQ] = {bq.x, bq.y, bq.z, bq.w};
 #pragma unroll
-    for (int k = 0; k < kSeg; ++k) {
-      if (t0 + k < steps) {
-#pragma unroll
-        for (int q = 0; q < kQ; ++q) h[q] = a[k][q] * h[q] + x[k][q];
+        for (int q = 0; q < kQ; ++q)
+          h[q] = expf(delta * a[q]) * h[q] + du * bb[q];
       }
     }
   }
 
   // phase 2: the segments backwards
-  float g[kQ];
+  float g[kQ], acc_a[kQ] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float acc_d = 0.0f, acc_bias = 0.0f;
   load4(dh_last + state, g);
   for (int s = nseg - 1; s >= 0; --s) {
-    const int t0 = s * kSeg;
-    const int kk = min(kSeg, steps - t0);
-    float hs[kSeg + 1][kQ];              // hs[k + 1] = h at step t0 + k
-    float a[kSeg][kQ], x[kSeg][kQ];
-    load4_rw(pck + s * step, hs[0]);
+    const int t0 = s * kGroup, kk = min(kGroup, steps - t0);
+    __syncthreads();                   // the last segment's s_* are read
+    stage<T, true>(x, dt, dt_bias, bm, c, dy, row, t0, kk, dim, d0, true,
+                   s_bc, s_x, s_dl, s_dsp, s_dy);
+    __syncthreads();
+    float hs[kGroup + 1][kQ];          // hs[k + 1] = h at step t0 + k
+    load4_rw(pck + s * seg_stride, hs[0]);
 #pragma unroll
-    for (int k = 0; k < kSeg; ++k) {
+    for (int k = 0; k < kGroup; ++k) {
       if (k < kk) {
-        load4(pa + static_cast<long long>(t0 + k) * step, a[k]);
-        load4(pb + static_cast<long long>(t0 + k) * step, x[k]);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kSeg; ++k) {
-      if (k < kk) {
+        const float delta = s_dl[k][cl];
+        const float du = delta * s_x[k][cl];
+        const float4 bq = *reinterpret_cast<const float4*>(&s_bc[k][j * kQ]);
+        const float bb[kQ] = {bq.x, bq.y, bq.z, bq.w};
 #pragma unroll
         for (int q = 0; q < kQ; ++q)
-          hs[k + 1][q] = a[k][q] * hs[k][q] + x[k][q];
+          hs[k + 1][q] = expf(delta * a[q]) * hs[k][q] + du * bb[q];
       }
     }
 #pragma unroll
-    for (int k = kSeg - 1; k >= 0; --k) {
+    for (int k = kGroup - 1; k >= 0; --k) {
       if (k < kk) {                     // the same for every thread
-        const long long t = t0 + k;
-        const float gy = __ldg(pdy + t * dim);
-        float cc[kQ], gh[kQ], part[kQ], ga[kQ];
-        load4(pc + t * kN, cc);
+        const float delta = s_dl[k][cl], xv = s_x[k][cl], gy = s_dy[k][cl];
+        const float4 bq = *reinterpret_cast<const float4*>(&s_bc[k][j * kQ]);
+        const float4 cq =
+            *reinterpret_cast<const float4*>(&s_bc[k][kN + j * kQ]);
+        const float bb[kQ] = {bq.x, bq.y, bq.z, bq.w};
+        const float cc[kQ] = {cq.x, cq.y, cq.z, cq.w};
+        const float du = delta * xv;
+        float v[2 * kQ], s_a = 0.0f, s_b = 0.0f;
 #pragma unroll
         for (int q = 0; q < kQ; ++q) {
-          gh[q] = g[q] + gy * cc[q];
-          ga[q] = gh[q] * hs[k][q];
-          part[q] = gy * hs[k + 1][q];
-          g[q] = gh[q] * a[k][q];
+          const float da = expf(delta * a[q]);
+          const float gh = g[q] + gy * cc[q];
+          const float gda = gh * hs[k][q] * da;
+          v[q] = valid ? gh * du : 0.0f;                // d(Bm), this channel's
+          v[kQ + q] = valid ? gy * hs[k + 1][q] : 0.0f;  // d(C), this channel's
+          s_a += gda * a[q];
+          s_b += gh * bb[q];
+          acc_a[q] += gda * delta;
+          g[q] = gh * da;
         }
-        store4(pda + t * step, ga);
-        store4(pdb + t * step, gh);
-        // the warp's 8 channels: lanes with the same j hold the same states
+        s_a += __shfl_xor_sync(kFull, s_a, 1);
+        s_b += __shfl_xor_sync(kFull, s_b, 1);
+        s_a += __shfl_xor_sync(kFull, s_a, 2);
+        s_b += __shfl_xor_sync(kFull, s_b, 2);
+        if (j == 0) {
+          const float gdt = (s_a + xv * s_b) * s_dsp[k][cl];
+          s_dx[k][cl] = gy * dskip + delta * s_b;
+          s_ddt[k][cl] = gdt;
+          acc_d += gy * xv;
+          acc_bias += gdt;
+        }
+        // d(Bm), d(C) over the warp's 8 channels: a butterfly that leaves
+        // lane (cw, j) the sum of entry e = 4 (cw & 1) + 2 (cw >> 1 & 1) +
+        // (cw >> 2 & 1) of the channels' v
+        float w4[kQ], w2[2];
+        bool hi = cw & 1;
 #pragma unroll
-        for (int q = 0; q < kQ; ++q) {
-          part[q] += __shfl_xor_sync(0xffffffffu, part[q], 4);
-          part[q] += __shfl_xor_sync(0xffffffffu, part[q], 8);
-          part[q] += __shfl_xor_sync(0xffffffffu, part[q], 16);
+        for (int e = 0; e < kQ; ++e) {
+          const float send = hi ? v[e] : v[e + kQ];
+          w4[e] = (hi ? v[e + kQ] : v[e]) +
+                  __shfl_xor_sync(kFull, send, kTpc);
         }
-        if (lane < kTpc)
-          store4(red + (warp * kSeg + k) * kN + lane * kQ, part);
+        hi = cw & 2;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float send = hi ? w4[e] : w4[e + 2];
+          w2[e] = (hi ? w4[e + 2] : w4[e]) +
+                  __shfl_xor_sync(kFull, send, 2 * kTpc);
+        }
+        hi = cw & 4;
+        const float send = hi ? w2[0] : w2[1];
+        const float sum = (hi ? w2[1] : w2[0]) +
+                          __shfl_xor_sync(kFull, send, 4 * kTpc);
+        const int e = 4 * (cw & 1) + 2 * ((cw >> 1) & 1) + ((cw >> 2) & 1);
+        // slots 0..15 d(Bm) of states 0..15, 16..31 d(C)
+        red[warp][k][(e / kQ) * kN + j * kQ + e % kQ] = sum;
       }
     }
     __syncthreads();
-    for (int i = tid; i < kk * kN; i += blockDim.x) {
-      const int k = i / kN;
+    for (int i = tid; i < kk * 2 * kN; i += kThreads) {
+      const int k = i / (2 * kN), e = i % (2 * kN);
       float sum = 0.0f;
-      for (int w = 0; w < nwarps; ++w) sum += red[(w * kSeg + k) * kN + i % kN];
-      store1(pdc + static_cast<long long>(t0) * kN + i, sum);
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum += red[w][k][e];
+      part_bc[((row + t0 + k) * slices + blockIdx.y) * 2 * kN + e] = sum;
     }
-    __syncthreads();
+    for (int i = tid; i < kk * kCh; i += kThreads) {
+      const int k = i / kCh, ch = i % kCh;
+      if (d0 + ch < dim) {
+        const long long off = (row + t0 + k) * dim + d0 + ch;
+        store1(dx + off, s_dx[k][ch]);
+        store1(ddt + off, s_ddt[k][ch]);
+      }
+    }
   }
-  store4(dh0 + state, g);
+  if (valid) {
+    store4(dh0 + state, g);
+    store4(part_a + state, acc_a);
+    if (j == 0) {
+      part_d[b * dim + dd] = acc_d;
+      part_bias[b * dim + dd] = acc_bias;
+    }
+  }
 }
 
 template <typename T>
-cudaError_t launch_fwd(const void* da, const void* dbx, const void* c,
-                       const float* h0, float* y, float* h_last, int batch,
-                       int steps, int dim, cudaStream_t s) {
-  const long long threads = static_cast<long long>(batch) * dim * kTpc;
-  const unsigned blocks =
-      static_cast<unsigned>((threads + kFwdThreads - 1) / kFwdThreads);
-  ssm_fwd_kernel<T><<<blocks, kFwdThreads, 0, s>>>(
-      static_cast<const T*>(da), static_cast<const T*>(dbx),
-      static_cast<const T*>(c), h0, y, h_last, batch, steps, dim);
+cudaError_t launch_fwd(const void* x, const void* dt, const float* dt_bias,
+                       const float* A, const void* bm, const void* c,
+                       const float* D, const float* h0, float* y,
+                       float* h_last, int batch, int steps, int dim,
+                       cudaStream_t s) {
+  const dim3 grid(batch, (dim + kCh - 1) / kCh);
+  selective_fwd_kernel<T><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dt), dt_bias, A,
+      static_cast<const T*>(bm), static_cast<const T*>(c), D, h0, y, h_last,
+      steps, dim);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_bwd(const void* da, const void* dbx, const void* c,
-                       const float* h0, const float* dy,
-                       const float* dh_last, void* dda, void* ddbx, void* dc,
-                       float* dh0, float* ck, int batch, int steps, int dim,
-                       cudaStream_t s) {
-  const int nseg = (steps + kSeg - 1) / kSeg;
-  ssm_bwd_kernel<T><<<batch, dim * kTpc, 0, s>>>(
-      static_cast<const T*>(da), static_cast<const T*>(dbx),
-      static_cast<const T*>(c), h0, dy, dh_last, static_cast<T*>(dda),
-      static_cast<T*>(ddbx), static_cast<T*>(dc), dh0, ck, steps, dim, nseg);
+cudaError_t launch_bwd(const void* x, const void* dt, const float* dt_bias,
+                       const float* A, const void* bm, const void* c,
+                       const float* D, const float* h0, const float* dy,
+                       const float* dh_last, void* dx, void* ddt,
+                       float* part_bc, float* part_a, float* part_d,
+                       float* part_bias, float* dh0, float* ck, int batch,
+                       int steps, int dim, cudaStream_t s) {
+  const int nseg = (steps + kGroup - 1) / kGroup;
+  const dim3 grid(batch, (dim + kCh - 1) / kCh);
+  selective_bwd_kernel<T><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dt), dt_bias, A,
+      static_cast<const T*>(bm), static_cast<const T*>(c), D, h0, dy, dh_last,
+      static_cast<T*>(dx), static_cast<T*>(ddt), part_bc, part_a, part_d,
+      part_bias, dh0, ck, steps, dim, nseg);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // K3. Returns a cudaError_t (0 on success).
-extern "C" int ssm_scan_fwd(const void* da, const void* dbx, const void* c,
-                            const void* h0, void* y, void* h_last, int batch,
-                            int steps, int dim, int d_state, int is_bf16,
-                            int device, void* stream) {
+extern "C" int selective_scan_fwd(const void* x, const void* dt,
+                                  const void* dt_bias, const void* A,
+                                  const void* bm, const void* c,
+                                  const void* D, const void* h0, void* y,
+                                  void* h_last, int batch, int steps,
+                                  int dim, int d_state, int is_bf16,
+                                  int device, void* stream) {
   if (d_state != kN || batch < 1 || steps < 1 || dim < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const float* bias = static_cast<const float*>(dt_bias);
+  const float* af = static_cast<const float*>(A);
+  const float* df = static_cast<const float*>(D);
   const float* h0f = static_cast<const float*>(h0);
   float* yf = static_cast<float*>(y);
   float* hf = static_cast<float*>(h_last);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = is_bf16 ? launch_fwd<__nv_bfloat16>(da, dbx, c, h0f, yf, hf, batch,
-                                            steps, dim, s)
-                : launch_fwd<float>(da, dbx, c, h0f, yf, hf, batch, steps,
-                                    dim, s);
+  err = is_bf16 ? launch_fwd<__nv_bfloat16>(x, dt, bias, af, bm, c, df, h0f,
+                                            yf, hf, batch, steps, dim, s)
+                : launch_fwd<float>(x, dt, bias, af, bm, c, df, h0f, yf, hf,
+                                    batch, steps, dim, s);
   return static_cast<int>(err);
 }
 
-// K4; ck is a float32 scratch of (batch, ceil(steps / 4), dim, 16).
-extern "C" int ssm_scan_bwd(const void* da, const void* dbx, const void* c,
-                            const void* h0, const void* dy,
-                            const void* dh_last, void* dda, void* ddbx,
-                            void* dc, void* dh0, void* ck, int batch,
-                            int steps, int dim, int d_state, int is_bf16,
-                            int device, void* stream) {
-  if (d_state != kN || batch < 1 || steps < 1 || dim < 8 || dim % 8 != 0 ||
-      dim > kBwdMaxDim)
+// K4. Scratch and partials, all float32: ck (batch, ceil(steps / 8), dim,
+// 16); part_bc (batch, steps, ceil(dim / 32), 32), d(Bm) then d(C); part_a
+// (batch, dim, 16); part_d and part_bias (batch, dim).
+extern "C" int selective_scan_bwd(
+    const void* x, const void* dt, const void* dt_bias, const void* A,
+    const void* bm, const void* c, const void* D, const void* h0,
+    const void* dy, const void* dh_last, void* dx, void* ddt, void* part_bc,
+    void* part_a, void* part_d, void* part_bias, void* dh0, void* ck,
+    int batch, int steps, int dim, int d_state, int is_bf16, int device,
+    void* stream) {
+  if (d_state != kN || batch < 1 || steps < 1 || dim < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const float* bias = static_cast<const float*>(dt_bias);
+  const float* af = static_cast<const float*>(A);
+  const float* df = static_cast<const float*>(D);
   const float* h0f = static_cast<const float*>(h0);
   const float* dyf = static_cast<const float*>(dy);
   const float* dhf = static_cast<const float*>(dh_last);
+  float* pbc = static_cast<float*>(part_bc);
+  float* pa = static_cast<float*>(part_a);
+  float* pd = static_cast<float*>(part_d);
+  float* pbias = static_cast<float*>(part_bias);
   float* dh0f = static_cast<float*>(dh0);
   float* ckf = static_cast<float*>(ck);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = is_bf16
-            ? launch_bwd<__nv_bfloat16>(da, dbx, c, h0f, dyf, dhf, dda, ddbx,
-                                        dc, dh0f, ckf, batch, steps, dim, s)
-            : launch_bwd<float>(da, dbx, c, h0f, dyf, dhf, dda, ddbx, dc,
-                                dh0f, ckf, batch, steps, dim, s);
+            ? launch_bwd<__nv_bfloat16>(x, dt, bias, af, bm, c, df, h0f,
+                                        dyf, dhf, dx, ddt, pbc, pa, pd, pbias,
+                                        dh0f, ckf, batch, steps, dim, s)
+            : launch_bwd<float>(x, dt, bias, af, bm, c, df, h0f, dyf, dhf, dx,
+                                ddt, pbc, pa, pd, pbias, dh0f, ckf, batch,
+                                steps, dim, s);
   return static_cast<int>(err);
 }
 

@@ -1,5 +1,5 @@
-"""K1 (the LSTM recurrence, both entry points) and K3 (the selective scan's
-forward) as ``torch.library`` custom ops.
+"""K1 (the LSTM recurrence, both entry points) and K3 (the fused selective
+scan's forward) as ``torch.library`` custom ops.
 
 A ``ctypes`` launch passes ``data_ptr()``s, which a ``torch.export`` trace
 cannot follow: there every tensor is a FakeTensor. As custom ops the
@@ -9,7 +9,7 @@ through the dispatcher when it is called:
 
 - the CUDA implementation is the wrapper's launch of the hand-written
   kernel (``lstm_cuda.lstm_fwd``/``lstm_fwd_bidir``: ``lstm_cluster.cu``,
-  or ``lstm_fwd.cu`` above H = 256; ``ssm_cuda.ssm_scan_fwd``:
+  or ``lstm_fwd.cu`` above H = 256; ``ssm_cuda.selective_scan_fwd``:
   ``ssm_scan.cu``), launch counters included;
 - the CPU implementation is the same wrapper on CPU tensors, which runs
   the plain version.
@@ -81,22 +81,24 @@ def _lstm_fwd_bidir_fake(xg, w_hh_t, h0, c0):
             torch.empty_like(h0), torch.empty_like(c0))
 
 
-@torch.library.custom_op(f"{NAMESPACE}::ssm_scan_fwd", mutates_args=(),
+@torch.library.custom_op(f"{NAMESPACE}::selective_scan_fwd",
+                         mutates_args=(),
                          device_types="cpu")
-def ssm_scan_fwd(da: Tensor, dbx: Tensor, c: Tensor,
-                 h0: Tensor) -> tuple[Tensor, Tensor]:
-    """K3 (contract of ``ssm_cuda.ssm_scan_fwd``): y (B, L, d) and h_last
-    (B, d, n), float32."""
-    return _unaliased(ssm_cuda.ssm_scan_fwd(da, dbx, c, h0), (h0,))
+def selective_scan_fwd(x: Tensor, dt: Tensor, dt_bias: Tensor, a: Tensor,
+                       bm: Tensor, c: Tensor, d_skip: Tensor,
+                       h0: Tensor) -> tuple[Tensor, Tensor]:
+    """K3, the fused selective scan (contract of
+    ``ssm_cuda.selective_scan_fwd``): y (B, L, d) and h_last (B, d, n),
+    float32."""
+    return _unaliased(ssm_cuda.selective_scan_fwd(x, dt, dt_bias, a, bm, c,
+                                                  d_skip, h0), (h0,))
 
 
-@ssm_scan_fwd.register_kernel("cuda")
-def _ssm_scan_fwd_cuda(da, dbx, c, h0):
-    return ssm_cuda.ssm_scan_fwd(da, dbx, c, h0)
+@selective_scan_fwd.register_kernel("cuda")
+def _selective_scan_fwd_cuda(x, dt, dt_bias, a, bm, c, d_skip, h0):
+    return ssm_cuda.selective_scan_fwd(x, dt, dt_bias, a, bm, c, d_skip, h0)
 
 
-@ssm_scan_fwd.register_fake
-def _ssm_scan_fwd_fake(da, dbx, c, h0):
-    batch, steps, dim, _ = da.shape
-    return (da.new_empty((batch, steps, dim), dtype=torch.float32),
-            torch.empty_like(h0))
+@selective_scan_fwd.register_fake
+def _selective_scan_fwd_fake(x, dt, dt_bias, a, bm, c, d_skip, h0):
+    return (x.new_empty(x.shape, dtype=torch.float32), torch.empty_like(h0))

@@ -6,12 +6,17 @@ CUDA package (IPDnet2/IPDnet2.py:16-19).
     state) carry; ``mamba_apply``: the full sequence from zero state, the
     JAX package's default sequential path (the same chunk forward); its
     ``use_associative`` variant runs the same path.
-  * The recurrence runs in ``SSMScan``, a ``torch.autograd.Function``:
-    forward K3 (through the custom op ``kernels.ops.ssm_scan_fwd``, which
-    ``torch.export`` traces as one node) and backward K4
-    (``kernels.ssm_cuda``) for CUDA tensors, their plain versions for CPU
-    ones. The projections around it are
-    torch matrix products, as the JAX package leaves them to XLA.
+  * The selective scan runs in ``SSMScan``, a ``torch.autograd.Function``
+    over the fused pair (mamba_ssm's ``selective_scan`` contract): it takes
+    x, dt (the dt_proj product before bias and softplus), dt_bias, A, B,
+    C, D and h0, forms exp(Δ·A) and Δ·x·B in registers, and keeps only
+    its inputs for the backward: forward K3 (through the custom op
+    ``kernels.ops.selective_scan_fwd``, which ``torch.export`` traces as
+    one node) and backward K4 (``kernels.ssm_cuda``) for CUDA tensors,
+    their plain versions for CPU ones. The JAX package's ``_ssm_inputs``
+    materialises both (B, L, d, n) tensors; here no path does. The
+    projections around it are torch matrix products, as the JAX package
+    leaves them to XLA.
 
 Parameter names follow mamba_ssm's state_dict (in_proj, conv1d, x_proj,
 dt_proj, A_log, D, out_proj), so converted checkpoints load strictly.
@@ -24,6 +29,7 @@ the block's output are float32 (the caller casts back).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -31,8 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fnssl_tpu_torch.kernels.ops import ssm_scan_fwd
-from fnssl_tpu_torch.kernels.ssm_cuda import ssm_scan_bwd
+from fnssl_tpu_torch.kernels.ops import selective_scan_fwd
+from fnssl_tpu_torch.kernels.ssm_cuda import selective_scan_bwd
 from fnssl_tpu_torch.models.layers import Params, matmul, uniform_
 
 
@@ -104,19 +110,6 @@ class Mamba(nn.Module):
         return mamba_step(self, u, state)
 
 
-def _ssm_inputs(p: Mamba, x: torch.Tensor):
-    """Shared projections: x (B, L, d_inner) silu'd conv output →
-    (deltaA (B,L,d,n), deltaBx (B,L,d,n), C (B,L,n))."""
-    dr, n = p.cfg.dt_rank, p.cfg.d_state
-    x_dbl = matmul(x, p.x_proj.weight.T)
-    delta, b, c = torch.split(x_dbl, [dr, n, n], dim=-1)
-    delta = F.softplus(matmul(delta, p.dt_proj.weight.T) + p.dt_proj.bias)
-    a = -torch.exp(p.A_log)                              # (d, n)
-    delta_a = torch.exp(delta[..., None] * a)            # (B,L,d,n)
-    delta_bx = (delta * x)[..., None] * b[..., None, :]
-    return delta_a, delta_bx, c
-
-
 def _conv_silu(p: Mamba, x: torch.Tensor, tail: torch.Tensor | None):
     """Depthwise causal conv + SiLU, x (B, L, d_inner); ``tail`` (B,
     d_inner, k-1) holds the inputs before x (zeros if None). Returns the
@@ -137,28 +130,51 @@ def _conv_silu(p: Mamba, x: torch.Tensor, tail: torch.Tensor | None):
 
 
 class SSMScan(torch.autograd.Function):
-    """The selective scan on K3 forward and K4 backward (their plain
-    versions for CPU tensors), batch-major: da, dbx (B, L, d, n), c (B, L,
-    n) float32 or bfloat16, h0 (B, d, n) float32 → y (B, L, d), h_last
-    (B, d, n) float32. The port's ``ssm_scan``; da, dbx, c and h0 are kept
-    for the backward, which replays h from them."""
+    """The fused selective scan on K3 forward and K4 backward (their plain
+    versions for CPU tensors), batch-major: x, dt (B, L, d), dt_bias (d),
+    a (d, n), bm, c (B, L, n), d_skip (d), h0 (B, d, n) → y = the scan's
+    contraction + D·x (B, L, d), h_last (B, d, n), float32
+    (``kernels.ssm_cuda``'s contract). The port's ``ssm_scan`` with
+    ``_ssm_inputs`` fused into it; only the inputs are kept for the
+    backward, which replays h from them."""
 
     @staticmethod
-    def forward(ctx, da, dbx, c, h0):
-        args = tuple(t.contiguous() for t in (da, dbx, c, h0))
-        y, h_last = ssm_scan_fwd(*args)
+    def forward(ctx, x, dt, dt_bias, a, bm, c, d_skip, h0):
+        args = tuple(t.contiguous() for t in (x, dt, dt_bias, a, bm, c,
+                                              d_skip, h0))
+        y, h_last = selective_scan_fwd(*args)
         ctx.save_for_backward(*args)
         return y, h_last
 
     @staticmethod
     def backward(ctx, dy, dh_last):
-        da, dbx, c, h0 = ctx.saved_tensors
-        return ssm_scan_bwd(da, dbx, c, h0, dy.float().contiguous(),
-                            dh_last.float().contiguous())
+        return selective_scan_bwd(*ctx.saved_tensors,
+                                  dy.float().contiguous(),
+                                  dh_last.float().contiguous())
 
 
-def ssm_scan(da, dbx, c, h0):
-    return SSMScan.apply(da, dbx, c, h0)
+def ssm_scan(x, dt, dt_bias, a, bm, c, d_skip, h0):
+    """``SSMScan`` on x, dt, bm, c in their promoted dtype and the
+    parameters and state in float32 (JAX's promotion against the float32
+    state: the same values)."""
+    dt_ = functools.reduce(torch.promote_types,
+                           (x.dtype, dt.dtype, bm.dtype, c.dtype))
+    return SSMScan.apply(*(t.to(dt_) for t in (x, dt)), dt_bias.float(),
+                         a.float(), *(t.to(dt_) for t in (bm, c)),
+                         d_skip.float(), h0.float())
+
+
+def selective_scan(p: Mamba, x: torch.Tensor, h0: torch.Tensor):
+    """The block between the conv and the gate: x (B, L, d_inner) silu'd
+    conv output, h0 (B, d_inner, n) → y = the scan + D·x (B, L, d_inner)
+    and h_last, float32. x_proj and dt_proj stay matrix products; what
+    ``_ssm_inputs`` did after them happens inside the scan."""
+    dr, n = p.cfg.dt_rank, p.cfg.d_state
+    x_dbl = matmul(x, p.x_proj.weight.T)
+    delta, b, c = torch.split(x_dbl, [dr, n, n], dim=-1)
+    dt = matmul(delta, p.dt_proj.weight.T)
+    a = -torch.exp(p.A_log)                              # (d, n)
+    return ssm_scan(x, dt, p.dt_proj.bias, a, b, c, p.D, h0)
 
 
 def mamba_step(p: Mamba, u: torch.Tensor, state: MambaState
@@ -167,9 +183,7 @@ def mamba_step(p: Mamba, u: torch.Tensor, state: MambaState
     xz = matmul(u, p.in_proj.weight.T)
     x, z = xz.chunk(2, dim=-1)
     x, conv_tail = _conv_silu(p, x, state.conv)
-    delta_a, delta_bx, c = _ssm_inputs(p, x)
-    y, h_last = ssm_scan(delta_a, delta_bx, c, state.ssm.float())
-    y = y + p.D * x
+    y, h_last = selective_scan(p, x, state.ssm)
     y = y * F.silu(z)
     return matmul(y, p.out_proj.weight.T), MambaState(conv_tail, h_last)
 

@@ -1,5 +1,5 @@
 """The port's IPDnet2 model path (fnssl_tpu_torch: kernels.ssm_cuda's plain
-selective scan, models.mamba, models.spatialnet, physics.dpipd's DPIPD2,
+scans, (da, dbx) and fused, models.mamba, models.spatialnet, physics.dpipd's DPIPD2,
 physics.targets' energy_vad, data.arrays' Westlake array and
 runtime.streaming's center=True front end with make_spatialnet_stream_step)
 against fnssl_tpu on the CPU. Inputs come from numpy seeds; the JAX weights
@@ -81,14 +81,14 @@ def test_plain_ssm_scan_matches_jax(steps):
     np.testing.assert_array_equal(np.asarray(jys), np.asarray(ys))
     grads = vjp((time_major(x["dy"]), jnp.asarray(x["dh_last"])))
     t = {k: torch.as_tensor(v) for k, v in x.items()}
-    y, h = ssm_cuda.ssm_scan_fwd(t["da"], t["dbx"], t["c"], t["h0"])
+    y, h = ssm_cuda.ssm_scan_fwd_plain(t["da"], t["dbx"], t["c"], t["h0"])
     assert y.shape == (2, steps, 8)
     np.testing.assert_allclose(y.numpy(), np.swapaxes(np.asarray(ys), 0, 1),
                                rtol=0, atol=2e-6)
     np.testing.assert_allclose(h.numpy(), np.asarray(h_last), rtol=0,
                                atol=2e-6)
-    got = ssm_cuda.ssm_scan_bwd(t["da"], t["dbx"], t["c"], t["h0"], t["dy"],
-                                t["dh_last"])
+    got = ssm_cuda.ssm_scan_bwd_plain(t["da"], t["dbx"], t["c"], t["h0"],
+                                      t["dy"], t["dh_last"])
     for name, g, want in zip(("da", "dbx", "c", "h0"), got, grads):
         want = np.asarray(want)
         if name != "h0":
@@ -99,21 +99,29 @@ def test_plain_ssm_scan_matches_jax(steps):
 
 
 def test_ssm_scan_autograd_is_the_plain_backward():
-    """``SSMScan``'s gradients (through torch autograd) equal the plain
-    backward's, and bfloat16 inputs give float32 y and state, with bf16
-    gradients of the inputs, as JAX's promotion."""
-    x = scan_inputs(3, 2, 5, 8)
+    """``SSMScan`` (the fused scan) gives, through torch autograd, the
+    plain fused backward's gradients of every input, and bfloat16 x, dt,
+    B, C give float32 y and state, with bf16 gradients of those inputs and
+    float32 ones of the parameters, as JAX's promotion."""
+    rng = np.random.default_rng(3)
+    shapes = {"x": (2, 5, 8), "dt": (2, 5, 8), "dt_bias": (8,),
+              "a": (8, 16), "bm": (2, 5, 16), "c": (2, 5, 16), "d": (8,),
+              "h0": (2, 8, 16)}
+    x = {k: rng.standard_normal(v) for k, v in shapes.items()}
+    x["a"] = -np.exp(x["a"])
+    dy, dh = rng.standard_normal((2, 5, 8)), rng.standard_normal((2, 8, 16))
     for dtype in (torch.float32, torch.bfloat16):
         t = {k: torch.tensor(v, dtype=torch.float32) for k, v in x.items()}
-        ins = [t[k].to(dtype).requires_grad_(k != "h0")
-               for k in ("da", "dbx", "c")] + [t["h0"]]
-        y, h = tmamba.ssm_scan(*ins)
+        ins = [t[k].to(dtype if k in ("x", "dt", "bm", "c") else
+                       torch.float32).requires_grad_() for k in shapes]
+        y, h = tmamba.SSMScan.apply(*ins)
         assert y.dtype == h.dtype == torch.float32
-        (y * t["dy"]).sum().add_((h * t["dh_last"]).sum()).backward()
-        want = ssm_cuda.ssm_scan_bwd_plain(*(i.detach() for i in ins),
-                                           t["dy"], t["dh_last"])
-        for i, w in zip(ins[:3], want):
-            assert i.grad.dtype == dtype
+        gy, gh = (torch.tensor(v, dtype=torch.float32) for v in (dy, dh))
+        (y * gy).sum().add_((h * gh).sum()).backward()
+        want = ssm_cuda.selective_scan_bwd_plain(
+            *(i.detach() for i in ins), gy, gh)
+        for i, w in zip(ins, want):
+            assert i.grad.dtype == i.dtype == w.dtype
             torch.testing.assert_close(i.grad, w, rtol=0, atol=0)
 
 

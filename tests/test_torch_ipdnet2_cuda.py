@@ -1,10 +1,17 @@
-"""The selective-scan kernels on the card: K3 (ssm_scan.cu's forward) and
-K4 (its backward) against their plain versions at IPDnet2's training
-shapes (nb=16 × 4 s: B=256, L=201 at layer 0 and 40 after it, d=192), its
-serve chunk step (B=16, L=5 and 1), and edge cases (L 0/1/2/7, ragged B,
-d 32), float32 and bfloat16 inputs; the exact launch counts of a
-SpatialNet chunk step (16 K3, no K4) and of an IPDnet2 train step (16 K3
-and 16 K4).
+"""The fused selective-scan kernels on the card: K3 (ssm_scan.cu's
+forward) and K4 (its backward) against their plain versions
+(``selective_scan_fwd_plain``, ``selective_scan_bwd_plain``) at every scan
+shape of IPDnet2's paths: training (nb=16 × 4 s: B=256, L=201 at layer 0
+and 40 after it, d=192), the forward cell (L 200), the serve chunk step
+(B=16, L=5 and 1), the 16-slot tick (B=256, L=5 and 1), one data-parallel
+rank (B=128) and one 2 × 2 mesh rank (B=64) at L 201 and 40; and edge
+cases (L 0/1/2/7, ragged B, d 13, 32, 40 and 200: d's last slice
+ragged, also over several of K4's 8-step segments: L 17, 33 and 201),
+float32 and bfloat16 inputs, nonzero h0 and dh_last, one channel
+whose dt + dt_bias passes the softplus threshold; K4's outputs the same
+bits run to run at the ragged shapes; the exact launch counts
+of a SpatialNet chunk step (16 K3, no K4) and of an IPDnet2 train step (16
+K3 and 16 K4).
 
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips where there is no CUDA device; the file imports only torch and the
@@ -12,12 +19,14 @@ port, so that it runs on the card's machine without JAX:
 
   python -m pytest tests/test_torch_ipdnet2_cuda.py -m cuda --noconftest
 
-Tolerances: float32 outputs (y, h_last, d(h0), and d(da), d(dbx), d(c) of
-float32 inputs) within 1e-5 relative + 1e-4 absolute (the kernel fuses
-each step's multiply-add and sums the 16 states in another order; the
-state decays, so the difference does not grow with L); bfloat16 gradients
-within 1e-2 relative (one bf16 rounding of float32 values that differ in
-their last bits may land one bf16 step apart).
+Tolerances (``TOL``): float32 outputs within 1e-5 relative + 1e-4
+absolute (the kernel fuses each step's multiply-adds, takes the 16 states'
+and d's sums in another order, and the plain version rounds exp(Δ·A) and
+Δ·x·B to float32 tensors; the state decays, so the difference does not
+grow with L); the gradients summed over batch and time (d(A), d(D),
+d(dt_bias); up to 51,456 terms of either sign) within 1e-5 of their
+largest magnitude; bfloat16 gradients within 1e-2 relative (one bf16
+rounding of float32 values that differ in their last bits).
 """
 import math
 
@@ -26,6 +35,11 @@ import pytest
 import torch
 
 from fnssl_tpu_torch.kernels import ssm_cuda
+
+OUTPUTS = ("y", "h_last")
+GRADS = ("dx", "d(dt)", "d(dt_bias)", "d(A)", "d(B)", "d(C)", "d(D)",
+         "d(h0)")
+SUMMED = ("d(dt_bias)", "d(A)", "d(D)")
 
 
 @pytest.fixture
@@ -36,34 +50,55 @@ def cuda():
 
 
 def inputs(batch, steps, dim, dtype, device, seed):
-    """da = exp(delta · a) with a = -(1..16) and delta in [1e-3, 0.1] (the
-    range of IPDnet2's dt init); the rest normal."""
+    """The fused scan's inputs as IPDnet2's init gives them: dt_bias the
+    inverse softplus of a dt in [1e-3, 0.1] (channel 0 at 25, past the
+    threshold), A = -(1..16), D = 1; x, dt, B, C normal (dt at 0.5)."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=device) * scale
 
-    delta = torch.rand(batch, steps, dim, 1, generator=gen,
-                       device=device) * 0.099 + 0.001
-    a = -torch.arange(1, 17, dtype=torch.float32, device=device)
-    return {"da": torch.exp(delta * a).to(dtype),
-            "dbx": randn(batch, steps, dim, 16, scale=0.1).to(dtype),
+    u = torch.rand(dim, generator=gen, device=device)
+    dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    dt_bias[0] = 25.0
+    a = -torch.arange(1, 17, dtype=torch.float32,
+                      device=device).expand(dim, 16).contiguous()
+    return {"x": randn(batch, steps, dim).to(dtype),
+            "dt": randn(batch, steps, dim, scale=0.5).to(dtype),
+            "dt_bias": dt_bias, "a": a,
+            "bm": randn(batch, steps, 16).to(dtype),
             "c": randn(batch, steps, 16).to(dtype),
+            "d_skip": torch.ones(dim, device=device),
             "h0": randn(batch, dim, 16, scale=0.5),
             "dy": randn(batch, steps, dim),
             "dh_last": randn(batch, dim, 16, scale=0.5)}
 
 
+ARGS = ("x", "dt", "dt_bias", "a", "bm", "c", "d_skip", "h0")
+
+
 def close(got, want, what):
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    if what in SUMMED:
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), (what, err)
+        return
     tol = (dict(rtol=1e-2, atol=1e-2) if got.dtype == torch.bfloat16
            else dict(rtol=1e-5, atol=1e-4))
     torch.testing.assert_close(got, want, msg=what, **tol)
 
 
-# (B, L, d): training layer 0 and layers 1-7 at nb=16, the serve chunk
-# step (5 frames, 1 after the time mean), and edge cases
-SHAPES = [(256, 201, 192), (256, 40, 192), (16, 5, 192), (16, 1, 192),
-          (3, 0, 192), (3, 1, 32), (13, 2, 32), (5, 7, 192), (1, 9, 32)]
+# (B, L, d): every scan shape of the IPDnet2 paths, and edge cases
+SHAPES = [(256, 201, 192), (256, 40, 192), (256, 200, 192), (16, 5, 192),
+          (16, 1, 192), (256, 5, 192), (256, 1, 192), (128, 201, 192),
+          (128, 40, 192), (64, 201, 192), (64, 40, 192), (3, 0, 192),
+          (3, 1, 32), (13, 2, 32), (5, 7, 192), (1, 9, 32), (2, 17, 40),
+          (3, 5, 13), (300, 3, 200), (2, 17, 13), (3, 33, 40),
+          (4, 201, 13)]
+# d's last slice ragged over several of K4's checkpoint segments
+RAGGED = [(2, 17, 13), (2, 17, 40), (3, 33, 40), (4, 201, 13),
+          (64, 201, 200)]
 
 
 @pytest.mark.cuda
@@ -72,47 +107,55 @@ SHAPES = [(256, 201, 192), (256, 40, 192), (16, 5, 192), (16, 1, 192),
 def test_k3_and_k4_match_their_plain_versions(cuda, shape, dtype):
     batch, steps, dim = shape
     x = inputs(batch, steps, dim, dtype, cuda, seed=batch + steps + dim)
+    args = [x[k] for k in ARGS]
     before = (ssm_cuda.launches_ssm_fwd.value,
               ssm_cuda.launches_ssm_bwd.value)
-    y, h = ssm_cuda.ssm_scan_fwd(x["da"], x["dbx"], x["c"], x["h0"])
-    grads = ssm_cuda.ssm_scan_bwd(x["da"], x["dbx"], x["c"], x["h0"],
-                                  x["dy"], x["dh_last"])
+    fwd = ssm_cuda.selective_scan_fwd(*args)
+    grads = ssm_cuda.selective_scan_bwd(*args, x["dy"], x["dh_last"])
     torch.cuda.synchronize()
     launched = 0 if steps == 0 else 1
     assert (ssm_cuda.launches_ssm_fwd.value,
             ssm_cuda.launches_ssm_bwd.value) == (before[0] + launched,
                                                  before[1] + launched)
-    want_y, want_h = ssm_cuda.ssm_scan_fwd_plain(x["da"], x["dbx"], x["c"],
-                                                 x["h0"])
-    assert y.dtype == h.dtype == torch.float32
-    close(y, want_y, "y")
-    close(h, want_h, "h_last")
-    want = ssm_cuda.ssm_scan_bwd_plain(x["da"], x["dbx"], x["c"], x["h0"],
-                                       x["dy"], x["dh_last"])
-    for name, g, w in zip(("d(da)", "d(dbx)", "d(c)", "d(h0)"), grads,
-                          want):
-        assert g.dtype == w.dtype and g.shape == w.shape, name
+    want = ssm_cuda.selective_scan_fwd_plain(*args)
+    for name, g, w in zip(OUTPUTS, fwd, want):
+        assert g.dtype == torch.float32, name
+        close(g, w, name)
+    want = ssm_cuda.selective_scan_bwd_plain(*args, x["dy"], x["dh_last"])
+    for name, g, w in zip(GRADS, grads, want):
         close(g, w, name)
 
 
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = inputs(2, 3, 32, torch.float32, cuda, seed=0)
+    args = [x[k] for k in ARGS]
     with pytest.raises(ValueError, match="d_state"):
-        ssm_cuda.ssm_scan_fwd(x["da"][..., :8].contiguous(),
-                              x["dbx"][..., :8].contiguous(),
-                              x["c"][..., :8].contiguous(),
-                              x["h0"][..., :8].contiguous())
+        ssm_cuda.selective_scan_fwd(
+            *args[:3], x["a"][:, :8].contiguous(),
+            x["bm"][..., :8].contiguous(), x["c"][..., :8].contiguous(),
+            x["d_skip"], x["h0"][..., :8].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
-        ssm_cuda.ssm_scan_fwd(x["da"].transpose(0, 1).contiguous()
-                              .transpose(0, 1), x["dbx"], x["c"], x["h0"])
-    big = inputs(2, 3, 200, torch.float32, cuda, seed=1)
-    with pytest.raises(ValueError, match="multiple of 8 up to 192"):
-        ssm_cuda.ssm_scan_bwd(big["da"], big["dbx"], big["c"], big["h0"],
-                              big["dy"], big["dh_last"])
+        ssm_cuda.selective_scan_fwd(
+            x["x"].transpose(0, 1).contiguous().transpose(0, 1), *args[1:])
     with pytest.raises(RuntimeError, match="SSMScan"):
-        ssm_cuda.ssm_scan_fwd(x["da"].requires_grad_(), x["dbx"], x["c"],
-                              x["h0"])
+        ssm_cuda.selective_scan_fwd(x["x"].requires_grad_(), *args[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RAGGED)
+def test_k4_gives_the_same_bits_run_to_run(cuda, shape):
+    """K4 writes its partials without atomics and each thread reads back
+    only its own checkpoints, so five launches on the same inputs give
+    the same bits, also where the spare threads of a ragged last slice
+    walk the last channel."""
+    x = inputs(*shape, torch.float32, cuda, seed=sum(shape))
+    args = [x[k] for k in ARGS] + [x["dy"], x["dh_last"]]
+    first = ssm_cuda.selective_scan_bwd(*args)
+    for _ in range(4):
+        for name, g, w in zip(GRADS, ssm_cuda.selective_scan_bwd(*args),
+                              first):
+            assert torch.equal(g, w), name
 
 
 @pytest.mark.cuda

@@ -140,9 +140,9 @@ def test_two_adamw_steps_with_clip_match_jax(tasks):
 
 def test_bf16_policy_loss_matches_jax(monkeypatch):
     """Under the bf16 policy the Mamba blocks take bf16 inputs but run
-    their scan on float32 da, dbx and c (the carried conv tail is float32,
-    so JAX promotes the conv output, as the port does); the loss agrees
-    with JAX's bf16 loss."""
+    their fused scan on float32 x, dt, B, C and parameters (the carried
+    conv tail is float32, so JAX promotes the conv output, as the port
+    does); the loss agrees with JAX's bf16 loss."""
     import fnssl_tpu_torch.models.mamba as tmamba
 
     jt = jtasks.make_ipdnet2_task(js.SpatialNetConfig(**SMALL),
@@ -154,13 +154,13 @@ def test_bf16_policy_loss_matches_jax(monkeypatch):
     b = batch(4)
     seen = []
 
-    def spy(da, dbx, c, h0):
-        seen.append((da.dtype, dbx.dtype, c.dtype, h0.dtype))
-        return scan(da, dbx, c, h0)
+    def spy(*args):
+        seen.append(tuple(t.dtype for t in args))
+        return scan(*args)
 
-    scan = tmamba.ssm_scan_fwd
-    monkeypatch.setattr(tmamba, "ssm_scan_fwd", spy)
+    scan = tmamba.selective_scan_fwd
+    monkeypatch.setattr(tmamba, "selective_scan_fwd", spy)
     loss = tt.loss_fn(model, b)
-    assert len(seen) == 4 and set(seen) == {(torch.float32,) * 4}
+    assert len(seen) == 4 and set(seen) == {(torch.float32,) * 8}
     assert float(loss.detach()) == pytest.approx(
         float(jt.loss_fn(params, b, None)), rel=2e-2)

@@ -150,7 +150,7 @@ def test_ssm_kernel_source_ships_with_the_package():
     from fnssl_tpu_torch.kernels import cuda_build, ssm_cuda
 
     text = (cuda_build.CSRC / "ssm_scan.cu").read_text()
-    for name in ("ssm_scan_fwd", "ssm_scan_bwd"):
+    for name in ("selective_scan_fwd", "selective_scan_bwd"):
         assert f'extern "C" int {name}(' in text
         assert name in ssm_cuda._ARGTYPES
     assert "fnssl_tpu/models/mamba.py: ssm_scan" in text
@@ -164,17 +164,20 @@ def test_ssm_wrappers_take_the_plain_version_on_the_cpu_only():
     from fnssl_tpu_torch.kernels import ssm_cuda
 
     gen = torch.Generator().manual_seed(0)
-    da = torch.rand(2, 3, 8, 16, generator=gen)
-    dbx, c = torch.randn(2, 3, 8, 16, generator=gen), torch.randn(2, 3, 16)
-    h0 = torch.randn(2, 8, 16, generator=gen)
+    x, dt = torch.randn(2, 3, 8, generator=gen), torch.randn(2, 3, 8)
+    bias, a = torch.randn(8), -torch.rand(8, 16, generator=gen)
+    bm, c = torch.randn(2, 3, 16, generator=gen), torch.randn(2, 3, 16)
+    d_skip, h0 = torch.ones(8), torch.randn(2, 8, 16, generator=gen)
+    args = (x, dt, bias, a, bm, c, d_skip, h0)
     before = (ssm_cuda.launches_ssm_fwd.value,
               ssm_cuda.launches_ssm_bwd.value)
-    y, h = ssm_cuda.ssm_scan_fwd(da, dbx, c, h0)
-    ssm_cuda.ssm_scan_bwd(da, dbx, c, h0, torch.ones_like(y), h)
+    y, h = ssm_cuda.selective_scan_fwd(*args)
+    ssm_cuda.selective_scan_bwd(*args, torch.ones_like(y), h)
     assert (ssm_cuda.launches_ssm_fwd.value,
             ssm_cuda.launches_ssm_bwd.value) == before
     assert y.shape == (2, 3, 8) and h.shape == (2, 8, 16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        ssm_cuda.ssm_scan_fwd(da.double(), dbx.double(), c.double(), h0)
+        ssm_cuda.selective_scan_fwd(x.double(), dt.double(), bias, a,
+                                    bm.double(), c.double(), d_skip, h0)
     with pytest.raises(ValueError, match="c must be"):
-        ssm_cuda.ssm_scan_fwd(da, dbx, c[:, :2], h0)
+        ssm_cuda.selective_scan_fwd(x, dt, bias, a, bm, c[:, :2], d_skip, h0)

@@ -3,7 +3,8 @@ slot pool's CUDA graphs and the exported artifacts, each running K1
 (``lstm_cluster.cu``) and K3 (``ssm_scan.cu``).
 
 - each custom op against its plain version and against the direct wrapper
-  (``lstm_cuda.lstm_fwd``/``lstm_fwd_bidir``, ``ssm_cuda.ssm_scan_fwd``),
+  (``lstm_cuda.lstm_fwd``/``lstm_fwd_bidir``,
+  ``ssm_cuda.selective_scan_fwd``),
   one launch a call;
 - a captured tier of the slot pool against the same tier run eagerly on
   the card, at tiers 1 and 4 (outputs and the pool state after the tick),
@@ -91,21 +92,23 @@ def test_lstm_bidir_op_matches_wrapper_and_plain(cuda, t, b, h):
 @pytest.mark.parametrize("batch,steps", [(16, 5), (16, 1), (256, 5),
                                          (256, 1)])
 def test_ssm_op_matches_wrapper_and_plain(cuda, batch, steps):
-    """ops.ssm_scan_fwd at IPDnet2's serve shapes (one stream: B 16; the
-    16-slot tier: B 256; L 5 at layer 0, 1 after it)."""
+    """ops.selective_scan_fwd at IPDnet2's serve shapes (one stream: B 16;
+    the 16-slot tier: B 256; L 5 at layer 0, 1 after it)."""
     gen = torch.Generator(device=cuda).manual_seed(batch + steps)
-    delta = torch.rand(batch, steps, 192, 1, generator=gen,
-                       device=cuda) * 0.099 + 0.001
-    a = -torch.arange(1, 17, dtype=torch.float32, device=cuda)
-    args = (torch.exp(delta * a), randn(gen, batch, steps, 192, 16,
-                                        scale=0.1),
-            randn(gen, batch, steps, 16), randn(gen, batch, 192, 16,
-                                                scale=0.5))
+    dim = 192
+    a = -torch.arange(1, 17, dtype=torch.float32,
+                      device=cuda).expand(dim, 16).contiguous()
+    args = (randn(gen, batch, steps, dim), randn(gen, batch, steps, dim,
+                                                 scale=0.5),
+            torch.full((dim,), -4.0, device=cuda), a,
+            randn(gen, batch, steps, 16), randn(gen, batch, steps, 16),
+            torch.ones(dim, device=cuda),
+            randn(gen, batch, dim, 16, scale=0.5))
     before = ssm_cuda.launches_ssm_fwd.value
-    got = ops.ssm_scan_fwd(*args)
+    got = ops.selective_scan_fwd(*args)
     assert ssm_cuda.launches_ssm_fwd.value == before + 1
-    direct = ssm_cuda.ssm_scan_fwd(*args)
-    plain = ssm_cuda.ssm_scan_fwd_plain(*args)
+    direct = ssm_cuda.selective_scan_fwd(*args)
+    plain = ssm_cuda.selective_scan_fwd_plain(*args)
     for g, d, p in zip(got, direct, plain):
         torch.testing.assert_close(g, d, rtol=0, atol=0)
         torch.testing.assert_close(g, p, rtol=1e-5, atol=1e-4)

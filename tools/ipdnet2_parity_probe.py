@@ -82,8 +82,8 @@ def main(argv=None):
     card = torch.device("cuda", 0)
     for label in ("K3/K4", "plain scans"):
         if label == "plain scans":
-            M.ssm_scan_fwd = S.ssm_scan_fwd_plain
-            M.ssm_scan_bwd = S.ssm_scan_bwd_plain
+            M.selective_scan_fwd = S.selective_scan_fwd_plain
+            M.selective_scan_bwd = S.selective_scan_bwd_plain
         got = grads(args.seed, card)
         worst = sorted(((rel(got, base, n), n) for n in base),
                        reverse=True)[:3]
