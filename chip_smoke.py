@@ -6,15 +6,24 @@
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device  — the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build   — nvcc builds every kernel from the sources in the checkout
-               (lstm_cluster.cu, lstm_fwd.cu, lstm_bwd.cu,
+               (lstm_cluster.cu, lstm_wave.cu, lstm_fwd.cu, lstm_bwd.cu,
                lstm_bwd_cluster.cu, ssm_scan.cu), one nvcc per source, all
                started together.
   3. kernels — each kernel against its plain PyTorch version on the card:
-               the cluster kernel through lstm_fwd (both directions) and
-               lstm_fwd_bidir at the main path's shapes, at the 16-slot
-               tick's (FN-SSL's and IPDnet's, phase 24) and at edge cases
-               (B 1/11/13/17, T 0/1/2/7, H 32/64/128/256), fp32 and bf16,
-               nonzero h0/c0; lstm_fwd.cu at H = 512, its only use.
+               K1 through lstm_fwd (both directions) and lstm_fwd_bidir,
+               each call on the kernel lstm_cuda.fwd_route gives its shape
+               (lstm_cluster.cu, lstm_wave.cu from the rule's rows at H =
+               256, lstm_fwd.cu above H = 256), with exact launches, at
+               the main path's shapes, at the 16-slot tick's (FN-SSL's and
+               IPDnet's, phase 24) and at edge cases (B 1/11/13/17, T
+               0/1/2/7, H 32/64/128/256), fp32 and bf16, nonzero h0/c0;
+               lstm_fwd.cu at H = 512, its only use. lstm_wave.cu also
+               at FN-SSL's narrow band in training (298, 4096, 256), in
+               the 16-slot tick (12, 4096, 256) and in a DP rank's step
+               (298, 2048, 256), at ragged B on both sides of each of the
+               rule's thresholds, forced onto it at its own edge cases (B
+               1/13/300, T 0/1/2/7, H 32-256) and with every plan it is
+               built for.
   4. serve   — `cli serve --model fnssl` at full width (fresh weights from
                --seed) on cuda:0 answers 3 TCP connections of 5 s of 2-channel
                16 kHz audio; launch counts (6 of lstm_cluster.cu a chunk
@@ -22,11 +31,22 @@ Phases, each fatal on failure (exit code != 0, no result line):
                agreement with the same pipeline on the CPU (plain versions)
                are checked.
   5. times   — each kernel at the main path's shapes (CUDA events, warm):
-               the cluster kernel one direction and, at full band, both in
-               one launch; lstm_fwd.cu; the plain version; the bound; and
-               torch.nn.LSTM (cuDNN, one- and bidirectional) as the library
-               yardstick (the port never calls it). Then every cluster plan
-               (N, Bt, KS) that fits at FN-SSL's and IPDnet's serve shapes.
+               the kernel the rule gives each shape, and each of
+               lstm_cluster.cu, lstm_wave.cu and lstm_fwd.cu, one direction
+               and, at full band, both in one launch; the plain version;
+               the bound; and torch.nn.LSTM (cuDNN, one- and
+               bidirectional, TF32 off, the port's float32, and on) as the
+               library yardstick (the port never calls it). Then every
+               cluster plan (N, Bt, KS) that fits at FN-SSL's and IPDnet's
+               serve shapes. Then lstm_wave.cu at FN-SSL's narrow band in
+               training and in the 16-slot tick beside lstm_cluster.cu,
+               lstm_fwd.cu, the bound and cuDNN (TF32 off and on), the
+               card's time from a trace (fails unless lstm_wave.cu is the
+               faster of the two there); and the sweep that sets the
+               rule: lstm_wave.cu against lstm_cluster.cu at B
+               256-4768 x H 128/256 x 1-2 directions x fp32/bf16 x T
+               12/298 (fails where the rule routes a point to lstm_wave.cu
+               that measured slower).
   6. backward — K2 (lstm_bwd_cluster.cu) against its plain version
                through lstm_bwd (both walks) and lstm_bwd_bidir: dgates,
                dh0, dc0 at the two training shapes and at edge cases (B
@@ -39,12 +59,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
   7. train parity — one make_train_step step (fp32, dropout off, nb=2 x
                4.79 s, full width, weights from --seed) on cuda:0 and on the
                CPU: loss, every gradient and every parameter after the Adam
-               step; exactly 6 K1 and 6 K2 launches a step, all K2
-               launches lstm_bwd_cluster.cu.
+               step; exactly 6 K1 and 6 K2 launches a step, K1 as the rule
+               splits it (lstm_cluster.cu at nb=2), all K2 launches
+               lstm_bwd_cluster.cu.
   8. train   — the reference cell (nb=16 x 4.79 s, FNSSLConfig(), Adam
                1e-3 / gamma 0.8988, dropout on from a seeded generator), fp32
                then the bf16 policy: 1 warm and 5 timed steps each; ms per
-               step, T-F frames/s, peak memory, finite losses, launches.
+               step, T-F frames/s, peak memory, finite losses, launches (3
+               K1 of lstm_cluster.cu and 3 of lstm_wave.cu, 6 K2 a step).
   9. train times — at the two training shapes (CUDA events, warm): K1 and
                cuDNN forward; K2's two sources in turns (lstm_bwd.cu,
                lstm_bwd_cluster.cu, lstm_bwd_cluster.cu, lstm_bwd.cu), its
@@ -62,8 +84,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
                ISM ran, finite losses, each test loss equal to the valid
                loss of the epoch it restored (1e-6), the checkpoint files,
                finite ACC/MAE, exact launch counts (6 K1 and 6 K2 a train
-               step, 6 K1 and no K2 an eval batch or a test batch, 6 K1 a
-               serve chunk step, none of lstm_fwd.cu or lstm_bwd.cu).
+               step, 6 K1 and no K2 an eval batch or a test batch, K1 split
+               between lstm_cluster.cu and lstm_wave.cu as the rule gives
+               the batch's shapes; 6 K1 of lstm_cluster.cu a serve chunk
+               step; none of lstm_fwd.cu or lstm_bwd.cu).
                Printed: the simulate seconds a scene and its engine, train
                seconds, the wait for the first batch and the loader wait
                after it a fit epoch, ms a train step after the warm epoch's
@@ -157,7 +181,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
                each tier equal to the tier run eagerly (1e-6), both running
                one chunk step's kernels;
                the ms a tick per tier, ticks, mean occupancy, aggregate
-               chunk steps a second, RTF per connection. Then K1 and K3 at
+               chunk steps a second, RTF per connection. Each tier's K1
+               kernels as the rule splits its shapes (FN-SSL's tier 16
+               runs its narrow band on lstm_wave.cu). Then K1 and K3 at
                the 16-slot tier's shapes (as phases 5 and 19).
  25. export  — `cli export --platforms cuda`: forward and stream artifacts
                of fnssl, ipdnet and ipdnet2 and a forward artifact of
@@ -192,8 +218,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
                shape (B 256, T 201, H 96, 4 heads).
  28. fit flags — `fit --model fnssl` on phase 10's corpus, 1
                epoch at bz 16: plain, `--profile 1` (the trace exists and
-               names K1's and K2's kernels) and `--debug-nans` (finite
-               losses, ms a step beside the plain fit's); exact launches.
+               names every K1 and K2 kernel a step launches) and
+               `--debug-nans` (finite losses, ms a step beside the plain
+               fit's); exact launches.
  29. data parallelism — `fit --use-mesh --profile 1` on the same epoch,
                a NCCL world of one in this process: its history against
                phase 28's plain fit (1e-6), exact launches, and NCCL's
@@ -278,9 +305,9 @@ PER_CHUNK = {"serve_fullband": 3, "serve_narrowband": 3}
 LAUNCHES_PER_CHUNK = 6
 # launches a serve chunk step by model, in COUNTED's order: K1 for FN-SSL's
 # 3 blocks and IPDnet's 2; K3 for IPDnet2's 8 layers x 2 Mamba blocks
-CHUNK_LAUNCHES = {"fnssl": [LAUNCHES_PER_CHUNK, 0, 0, 0, 0, 0],
-                  "ipdnet": [4, 0, 0, 0, 0, 0],
-                  "ipdnet2": [0, 0, 0, 0, 16, 0]}
+CHUNK_LAUNCHES = {"fnssl": [LAUNCHES_PER_CHUNK, 0, 0, 0, 0, 0, 0],
+                  "ipdnet": [4, 0, 0, 0, 0, 0, 0],
+                  "ipdnet2": [0, 0, 0, 0, 16, 0, 0]}
 SERVE_NCH = {"ipdnet2": 5}              # channels a connection, else 2
 EDGE_B, EDGE_T, EDGE_H = (1, 11, 13, 17), (0, 1, 2, 7), (32, 64, 128, 256)
 V2_CASE = (5, 13, 512)                  # (T, B, H): lstm_fwd.cu serves H > 256
@@ -355,14 +382,47 @@ def counted(counter, n, fn, *args, **kwargs):
     return out
 
 
-def phase_kernels(device, extra=()):
-    """K1 against its plain version on the card, at the serve, one-shot,
-    16-slot tick and `extra` shapes and the edge cases. Returns the worst
-    errors by kernel and dtype."""
+def k1_checks(name, t, b, h, dtype, device, seed, worst, route=None):
+    """K1 through lstm_fwd (both walks) and lstm_fwd_bidir against the
+    plain versions at one shape, each call on the kernel fwd_route gives
+    it (or on `route`), with exact launches; folded into worst[kernel].
+    Returns each call's errors and the kernels that ran."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
+    itemsize = getattr(torch, dtype).itemsize
+    both = lstm_inputs(t, b, h, getattr(torch, dtype), device, seed, ndir=2)
+    errs, kernels = [], []
+    for ndir, calls in ((1, (False, True)), (2, (None,))):
+        kernel, counter, per = k1_route(t, b, h, ndir, itemsize)
+        if route is not None:
+            kernel, counter, per = {"wave": ("lstm_wave", L.launches_wave, 1),
+                                    "cluster": ("lstm_cluster", L.launches,
+                                                1)}[route]
+        kernels.append(kernel)
+        for reverse in calls:
+            if reverse is None:
+                got = counted(counter, per, L.lstm_fwd_bidir, *both,
+                              route=route)
+                want = L.lstm_fwd_bidir_plain(*both)
+                what = f"{name} lstm_fwd_bidir"
+            else:
+                one = tuple(a[int(reverse)] for a in both)
+                got = counted(counter, per, L.lstm_fwd, *one,
+                              reverse=reverse, route=route)
+                want = L.lstm_fwd_plain(*one, reverse=reverse)
+                what = f"{name} lstm_fwd reverse={int(reverse)}"
+            errs.append(held(kernel, f"{what} T={t} B={b} H={h}", dtype, got,
+                             want, worst))
+    return errs, kernels
+
+
+def phase_kernels(device, extra=()):
+    """K1 against its plain version on the card, at the serve, one-shot,
+    16-slot tick and `extra` shapes and the edge cases, each call on the
+    kernel fwd_route gives it; then lstm_wave.cu (`wave_checks`). Returns
+    the worst errors by kernel and dtype."""
     worst = {k: {"float32": 0.0, "bfloat16": 0.0, "bfloat16_ys": 0.0}
-             for k in ("lstm_cluster", "lstm_fwd")}
+             for k in ("lstm_cluster", "lstm_wave", "lstm_fwd")}
     cases = [(n, t, b, h) for n, t, b, h, _, _ in
              SHAPES + SLOT_SHAPES + list(extra)]
     cases += [("edge", t, b, h) for h in EDGE_H for b in EDGE_B
@@ -370,33 +430,85 @@ def phase_kernels(device, extra=()):
     cases += [("v2_h512", *V2_CASE)]
     seed, checks = 0, 0
     for name, t, b, h in cases:
-        kernel = "lstm_fwd" if h > L.CLUSTER_MAX_HIDDEN else "lstm_cluster"
-        counter = L.launches_v2 if kernel == "lstm_fwd" else L.launches
         for dtype in ("float32", "bfloat16"):
             seed += 1
-            both = lstm_inputs(t, b, h, getattr(torch, dtype), device, seed,
-                               ndir=2)
-            errs = []
-            for reverse in (False, True):
-                one = tuple(a[int(reverse)] for a in both)
-                got = counted(counter, 1, L.lstm_fwd, *one, reverse=reverse)
-                errs.append(held(kernel, f"{name} lstm_fwd reverse="
-                                 f"{int(reverse)}", dtype, got,
-                                 L.lstm_fwd_plain(*one, reverse=reverse),
-                                 worst))
-            got = counted(counter, 1 if kernel == "lstm_cluster" else 2,
-                          L.lstm_fwd_bidir, *both)
-            errs.append(held(kernel, f"{name} lstm_fwd_bidir", dtype, got,
-                             L.lstm_fwd_bidir_plain(*both), worst))
+            errs, kernels = k1_checks(name, t, b, h, dtype, device, seed,
+                                      worst)
             checks += 3
             if name != "edge":
-                log(f"  {kernel} {name:18s} T={t:4d} B={b:4d} H={h:3d} "
-                    f"{dtype:8s} max|diff| fwd/rev/bidir ys "
+                log(f"  {'/'.join(kernels)} {name:18s} T={t:4d} B={b:4d} "
+                    f"H={h:3d} {dtype:8s} max|diff| fwd/rev/bidir ys "
                     + "/".join(f"{e['ys']:.2e}" for e in errs) + " hT,cT "
                     + "/".join(f"{max(e['hT'], e['cT']):.2e}" for e in errs))
     log(f"  {checks} checks passed; edge cases B {EDGE_B} x T {EDGE_T} x "
-        f"H {EDGE_H}; worst {json.dumps(worst)}")
+        f"H {EDGE_H}")
+    checks += wave_checks(device, worst)
+    log(f"  K1: {checks} checks in all; worst {json.dumps(worst)}")
     return worst
+
+
+def wave_cases():
+    """(name, T, B, H) at which phase 3 holds lstm_wave.cu (through the
+    rule's route): FN-SSL's narrow band in training, in the 16-slot tick
+    and in a DP rank's step, and B on both sides of each threshold of
+    fwd_route (ragged: not a multiple of any tile)."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    cases = [("train_narrowband", 298, TRAIN_NB * 256, 256),
+             ("slots16_narrowband", 12, SLOTS * 256, 256),
+             ("dp_rank_narrowband", 298, DP_NB // 2 * 256, 256)]
+    for (h, itemsize), rows in sorted(L.WAVE_MIN_ROWS.items()):
+        if itemsize == 4:
+            cases += [(f"threshold-{d}", 7, rows + d, h) for d in (-3, 3)]
+    return cases
+
+
+def wave_checks(device, worst):
+    """lstm_wave.cu against the plain versions: at `wave_cases` through
+    the rule's route (one direction, both walks; both in one launch);
+    forced onto it, at the edge cases (B 1/13/300, T 0/1/2/7, H
+    32/64/128/256) and at every plan it is built for, at H 128 and 256
+    (T 7, B 77); fp32 and bf16, nonzero h0/c0. Returns the checks."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    seed, checks = 5000, 0
+    for name, t, b, h in wave_cases():
+        for dtype in ("float32", "bfloat16"):
+            seed += 1
+            errs, kernels = k1_checks(name, t, b, h, dtype, device, seed,
+                                      worst)
+            checks += 3
+            log(f"  {'/'.join(kernels)} {name:18s} T={t:4d} B={b:4d} "
+                f"H={h:3d} {dtype:8s} plan {L.wave_plan(h, 4, b)} max|diff| "
+                "fwd/rev/bidir ys " + "/".join(f"{e['ys']:.2e}" for e in errs)
+                + " hT,cT " + "/".join(f"{max(e['hT'], e['cT']):.2e}"
+                                       for e in errs))
+    for h in EDGE_H:
+        for b in (1, 13, 300):
+            for t in EDGE_T:
+                for dtype in ("float32", "bfloat16"):
+                    seed += 1
+                    k1_checks("wave edge", t, b, h, dtype, device, seed,
+                              worst, route="wave")
+                    checks += 3
+    plans = 0
+    for h in (128, 256):
+        for dtype in ("float32", "bfloat16"):
+            itemsize = getattr(torch, dtype).itemsize
+            both = lstm_inputs(7, 77, h, getattr(torch, dtype), device,
+                               seed + h, ndir=2)
+            for plan in L.WAVE_ROWS:
+                if not L.wave_fits(h, itemsize, plan):
+                    continue
+                got = counted(L.launches_wave, 1, L.lstm_fwd_bidir, *both,
+                              route="wave", plan=plan)
+                held("lstm_wave", f"plan {plan} H={h}", dtype, got,
+                     L.lstm_fwd_bidir_plain(*both), worst)
+                plans += 1
+    log(f"  lstm_wave.cu: {checks} checks through fwd_route and at its edge "
+        f"cases (B 1/13/300 x T {EDGE_T} x H {EDGE_H}), {plans} of its "
+        f"plans; worst {json.dumps(worst['lstm_wave'])}")
+    return checks + plans
 
 
 def make_audio(seed, delay, nch=2):
@@ -688,28 +800,22 @@ def bound(terms):
     return terms[by], by
 
 
-def lstm_v2(args):
-    """lstm_fwd.cu at any H it takes (the wrappers reach it only above
-    H = 256), to time the earlier design at the main path's shapes."""
-    from fnssl_tpu_torch.kernels import lstm_cuda as L
-
-    xg, w = args[:2]
-    outs = L._outputs(xg, args[2], (*xg.shape[:2], w.shape[0]))
-    L._launch_v2(*args, outs, False)
-    return outs
+# the library yardstick (nn.LSTM, cuDNN) is timed with cuDNN's TF32 off,
+# the port's full float32 (what the port's order of work judges against),
+# and on, PyTorch's default for cuDNN (TF32 keeps ~3 digits)
+LIBRARY_TF32 = (False, True)
 
 
-# cuDNN's TF32 as this PyTorch sets it at start, which the library
-# yardstick keeps at every shape (an IPDnet Conv2d built on the card turns
-# it off for the process: the port's float32 is full float32)
-LIBRARY_TF32 = torch.backends.cudnn.allow_tf32
-
-
-def library_flags():
-    """The cuDNN flags the library yardstick (nn.LSTM) is timed under."""
+def library_flags(tf32):
+    """The cuDNN flags the library yardstick is timed under."""
     c = torch.backends.cudnn
     return c.flags(enabled=True, benchmark=c.benchmark,
-                   deterministic=c.deterministic, allow_tf32=LIBRARY_TF32)
+                   deterministic=c.deterministic, allow_tf32=tf32)
+
+
+def library_key(key, tf32):
+    """A row's key for a library time: `key` with TF32 off, key_tf32 on."""
+    return f"{key}_tf32" if tf32 else key
 
 
 def library_lstm(i, h, w_hh_t, bidirectional, device):
@@ -723,30 +829,42 @@ def library_lstm(i, h, w_hh_t, bidirectional, device):
 
 
 def phase_times(device, shapes=SHAPES):
-    """K1 at `shapes` (forward only); a BiLSTM (ndir 2) is also timed with
-    both directions in one launch."""
+    """K1 at `shapes` (forward only): the kernel fwd_route gives each
+    shape ("ms", what the path runs) and each of lstm_cluster.cu,
+    lstm_wave.cu and lstm_fwd.cu, one direction; a BiLSTM (ndir 2) also
+    with both directions in one launch; the plain version, the bound and
+    cuDNN with TF32 off and on."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
     rows = []
     for name, t, b, h, i, ndir in shapes:
         full = ndir == 2
-        row = {"shape": name, "T": t, "B": b, "H": h,
-               "plan": L.cluster_plan(h, 4, b, ndir)}
+        row = {"shape": name, "T": t, "B": b, "H": h, "ndir": ndir,
+               "route": L.fwd_route(t, b, h, 1, 4),
+               "plan": L.cluster_plan(h, 4, b, ndir),
+               "wave_plan": L.wave_plan(h, 4, b, ndir)}
+        if full:
+            row["fused_route"] = L.fwd_route(t, b, h, 2, 4)
         for dtype in ("float32", "bfloat16"):
             itemsize = 4 if dtype == "float32" else 2
             both = lstm_inputs(t, b, h, getattr(torch, dtype), device, 7,
                                ndir=2)
             one = tuple(a[0] for a in both)
-            row[f"ms_{dtype}"] = cuda_ms(lambda: L.lstm_fwd(*one), 20)
+            for route in ("cluster", "wave", "v2"):
+                row[f"{route}_ms_{dtype}"] = cuda_ms(
+                    lambda: L.lstm_fwd(*one, route=route), 20)
+            row[f"ms_{dtype}"] = row[f"{row['route']}_ms_{dtype}"]
             row[f"enqueue_ms_{dtype}"] = enqueue_ms(lambda: L.lstm_fwd(*one),
                                                     20)
-            row[f"v2_ms_{dtype}"] = cuda_ms(lambda: lstm_v2(one), 20)
             terms = bound_terms(t, b, h, itemsize)
             row[f"bound_terms_{dtype}"] = terms
             row[f"bound_ms_{dtype}"], row[f"bound_by_{dtype}"] = bound(terms)
             if full:
-                row[f"fused_ms_{dtype}"] = cuda_ms(
-                    lambda: L.lstm_fwd_bidir(*both), 20)
+                for route in ("cluster", "wave"):
+                    row[f"fused_{route}_ms_{dtype}"] = cuda_ms(
+                        lambda: L.lstm_fwd_bidir(*both, route=route), 20)
+                row[f"fused_ms_{dtype}"] = row[
+                    f"fused_{row['fused_route']}_ms_{dtype}"]
                 row[f"fused_bound_ms_{dtype}"], _ = bound(
                     {k: 2 * v for k, v in terms.items()})
         # the main path's launch (fused at full band) at T = 1: its cost
@@ -759,33 +877,45 @@ def phase_times(device, shapes=SHAPES):
         one = tuple(a[0] for a in both)
         row["plain_ms"] = cuda_ms(lambda: L.lstm_fwd_plain(*one), 3)
         x = torch.randn(b, t, i, device=device)
-        with torch.no_grad(), library_flags():
-            ref = library_lstm(i, h, both[1], False, device)
-            state = (one[2][None], one[3][None])
-            row["library_ms"] = cuda_ms(lambda: ref(x, state), 20)
+        with torch.no_grad():
             if full:
                 row["fused_plain_ms"] = cuda_ms(
                     lambda: L.lstm_fwd_bidir_plain(*both), 3)
-                ref2 = library_lstm(i, h, both[1], True, device)
-                row["library_bidir_ms"] = cuda_ms(
-                    lambda: ref2(x, (both[2], both[3])), 20)
+            ref = library_lstm(i, h, both[1], False, device)
+            ref2 = library_lstm(i, h, both[1], True, device) if full else None
+            state = (one[2][None], one[3][None])
+            for tf32 in LIBRARY_TF32:
+                with library_flags(tf32):
+                    row[library_key("library_ms", tf32)] = cuda_ms(
+                        lambda: ref(x, state), 20)
+                    if full:
+                        row[library_key("library_bidir_ms", tf32)] = cuda_ms(
+                            lambda: ref2(x, (both[2], both[3])), 20)
         rows.append(row)
-        log(f"  K1 {name:18s} T={t:3d} B={b:3d} H={h:3d} plan "
-            f"(N, Bt, KS)={row['plan']}: cluster fp32 {row['ms_float32']:.4f}"
-            f" ms (enqueue {row['enqueue_ms_float32']:.4f}, at T=1 "
-            f"{row['t1_ms_float32']:.4f}), bf16 "
-            f"{row['ms_bfloat16']:.4f} ms; lstm_fwd.cu fp32 "
-            f"{row['v2_ms_float32']:.4f} ms, bf16 {row['v2_ms_bfloat16']:.4f}"
-            f" ms; bound fp32 {row['bound_ms_float32']:.5f} ms "
-            f"({row['bound_by_float32']}); plain {row['plain_ms']:.3f} ms; "
-            f"nn.LSTM(cuDNN, I={i}) {row['library_ms']:.4f} ms")
+        log(f"  K1 {name:18s} T={t:3d} B={b:4d} H={h:3d} route "
+            f"{row['route']}: fp32 {row['ms_float32']:.4f} ms (enqueue "
+            f"{row['enqueue_ms_float32']:.4f}, at T=1 "
+            f"{row['t1_ms_float32']:.4f}), bf16 {row['ms_bfloat16']:.4f};"
+            f" lstm_cluster.cu (plan (N, Bt, KS)={row['plan']}) fp32 "
+            f"{row['cluster_ms_float32']:.4f}, bf16 "
+            f"{row['cluster_ms_bfloat16']:.4f}; lstm_wave.cu (plan "
+            f"{row['wave_plan']}) fp32 {row['wave_ms_float32']:.4f}, bf16 "
+            f"{row['wave_ms_bfloat16']:.4f}; lstm_fwd.cu fp32 "
+            f"{row['v2_ms_float32']:.4f}, bf16 {row['v2_ms_bfloat16']:.4f};"
+            f" bound fp32 {row['bound_ms_float32']:.5f} "
+            f"({row['bound_by_float32']}); plain {row['plain_ms']:.3f}; "
+            f"nn.LSTM (cuDNN, I={i}) TF32 off {row['library_ms']:.4f}, on "
+            f"{row['library_ms_tf32']:.4f} ms")
         if full:
-            log(f"  K1 {name:18s} both directions: fused fp32 "
-                f"{row['fused_ms_float32']:.4f} ms, bf16 "
-                f"{row['fused_ms_bfloat16']:.4f} ms; bound fp32 "
+            log(f"  K1 {name:18s} both directions, route "
+                f"{row['fused_route']}: fp32 {row['fused_ms_float32']:.4f} "
+                f"ms, bf16 {row['fused_ms_bfloat16']:.4f} (lstm_cluster.cu "
+                f"{row['fused_cluster_ms_float32']:.4f}, lstm_wave.cu "
+                f"{row['fused_wave_ms_float32']:.4f}); bound fp32 "
                 f"{row['fused_bound_ms_float32']:.5f} ms; plain "
-                f"{row['fused_plain_ms']:.3f} ms; nn.LSTM bidirectional "
-                f"{row['library_bidir_ms']:.4f} ms")
+                f"{row['fused_plain_ms']:.3f} ms; nn.LSTM bidirectional TF32 "
+                f"off {row['library_bidir_ms']:.4f}, on "
+                f"{row['library_bidir_ms_tf32']:.4f} ms")
     return rows
 
 
@@ -811,7 +941,8 @@ def phase_plans(device, shapes=SHAPES[:2], dtypes=("float32",), iters=20):
                                                   bt=bt, ks=ks)
                         except ValueError:
                             continue                 # does not fit
-                        ms = cuda_ms(lambda: fn(*args, plan=plan), iters)
+                        ms = cuda_ms(lambda: fn(*args, plan=plan,
+                                                route="cluster"), iters)
                         rows.append({"shape": name, "dtype": dtype, "N": n,
                                      "Bt": bt, "KS": ks, "ms": ms,
                                      "default": plan == default})
@@ -819,6 +950,121 @@ def phase_plans(device, shapes=SHAPES[:2], dtypes=("float32",), iters=20):
                             f"KS={ks:2d}: {ms:.4f} ms"
                             f"{' (default)' if plan == default else ''}")
             del args
+    return rows
+
+
+# phase 5's sweep of lstm_wave.cu against lstm_cluster.cu, which sets
+# fwd_route's thresholds: B (a direction) x H x directions x dtype x T
+SWEEP_B, SWEEP_H, SWEEP_T = (256, 512, 1024, 2048, 4096, 4768), (128, 256), \
+    (12, 298)
+
+
+def phase_wave_sweep(device):
+    """lstm_wave.cu (wave_plan's plan) against lstm_cluster.cu
+    (cluster_plan's) over the sweep, CUDA events, one launch of ndir
+    directions; each point's route by fwd_route beside the faster kernel.
+    Fails where the rule sends a shape to lstm_wave.cu that measured slower
+    there. Returns the rows."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    rows, against = [], []
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        for h in SWEEP_H:
+            for ndir in (1, 2):
+                for t in SWEEP_T:
+                    for b in SWEEP_B:
+                        args = lstm_inputs(t, b, h, tdt, device, 11,
+                                           ndir=2 if ndir == 2 else None)
+                        fn = L.lstm_fwd_bidir if ndir == 2 else L.lstm_fwd
+                        iters = 3 if t > 100 else 10
+                        ms = {r: cuda_ms(lambda: fn(*args, route=r), iters)
+                              for r in ("cluster", "wave")}
+                        del args
+                        route = L.fwd_route(t, b, h, ndir, tdt.itemsize)
+                        row = {"dtype": dtype, "T": t, "B": b, "H": h,
+                               "ndir": ndir, "route": route,
+                               "cluster_ms": ms["cluster"],
+                               "wave_ms": ms["wave"],
+                               "wave_plan": L.wave_plan(h, tdt.itemsize, b,
+                                                        ndir),
+                               "bound_ms": ndir * bound(bound_terms(
+                                   t, b, h, tdt.itemsize))[0]}
+                        rows.append(row)
+                        if route == "wave" and not ms["wave"] < ms["cluster"]:
+                            against.append(row)
+                    line = " ".join(
+                        f"{r['B']}:{r['cluster_ms']:.3f}/{r['wave_ms']:.3f}"
+                        f"{'*' if r['route'] == 'wave' else ''}"
+                        for r in rows[-len(SWEEP_B):])
+                    log(f"  {dtype:8s} H={h} ndir={ndir} T={t:3d} B: "
+                        f"cluster/wave ms ({'*'} routed to lstm_wave.cu) "
+                        + line)
+    if against:
+        raise AssertionError(f"fwd_route sends to lstm_wave.cu shapes where "
+                             f"it measured slower: {against}")
+    thresholds = {f"H={h} itemsize={i}": n
+                  for (h, i), n in L.WAVE_MIN_ROWS.items()}
+    log(f"  {len(rows)} points; fwd_route's thresholds (rows = B x ndir) "
+        f"{thresholds}: every routed point measured faster on lstm_wave.cu")
+    return rows
+
+
+def phase_wave_times(device):
+    """lstm_wave.cu at WAVE_TARGETS beside lstm_cluster.cu, lstm_fwd.cu,
+    the plain version, the bound and cuDNN (TF32 off and on), the card's
+    time of a launch from a device trace (device_ms), fp32 and bf16. Fails
+    unless lstm_wave.cu is the faster of it and lstm_cluster.cu at each.
+    Returns the rows."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    rows = []
+    for name, t, b, h in WAVE_TARGETS:
+        row = {"shape": name, "T": t, "B": b, "H": h,
+               "route": L.fwd_route(t, b, h, 1, 4),
+               "wave_plan": L.wave_plan(h, 4, b),
+               "cluster_plan": L.cluster_plan(h, 4, b)}
+        iters = 5 if t > 100 else 20
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            args = tuple(a[0] for a in lstm_inputs(t, b, h, tdt, device, 13,
+                                                   ndir=1))
+            for route in ("cluster", "wave", "v2"):
+                row[f"{route}_ms_{dtype}"] = device_ms(
+                    lambda: L.lstm_fwd(*args, route=route), iters)
+            row[f"bound_ms_{dtype}"], row[f"bound_by_{dtype}"] = bound(
+                bound_terms(t, b, h, tdt.itemsize))
+            if dtype == "float32":
+                row["plain_ms"] = cuda_ms(lambda: L.lstm_fwd_plain(*args), 1)
+                x = torch.randn(b, t, h, device=device)
+                ref = library_lstm(h, h, args[1][None], False, device)
+                with torch.no_grad():
+                    for tf32 in LIBRARY_TF32:
+                        with library_flags(tf32):
+                            row[library_key("library_ms", tf32)] = device_ms(
+                                lambda: ref(x, (args[2][None],
+                                                args[3][None])), iters)
+                del x, ref
+            del args
+        rows.append(row)
+        log(f"  {name:18s} T={t:3d} B={b} H={h} (device ms a launch, from a "
+            f"trace): lstm_wave.cu (plan {row['wave_plan']}) fp32 "
+            f"{row['wave_ms_float32']:.4f}, bf16 {row['wave_ms_bfloat16']:.4f}"
+            f"; lstm_cluster.cu fp32 {row['cluster_ms_float32']:.4f}, bf16 "
+            f"{row['cluster_ms_bfloat16']:.4f}; lstm_fwd.cu fp32 "
+            f"{row['v2_ms_float32']:.4f}, bf16 {row['v2_ms_bfloat16']:.4f}; "
+            f"bound {row['bound_ms_float32']:.4f} "
+            f"({row['bound_by_float32']}); plain {row['plain_ms']:.2f}; "
+            f"nn.LSTM (cuDNN) TF32 off {row['library_ms']:.4f}, on "
+            f"{row['library_ms_tf32']:.4f}")
+        for dtype in ("float32", "bfloat16"):
+            if not (row["route"] == "wave" and row[f"wave_ms_{dtype}"]
+                    < row[f"cluster_ms_{dtype}"]):
+                raise AssertionError(f"{name} {dtype}: route "
+                                     f"{row['route']}, lstm_wave.cu "
+                                     f"{row[f'wave_ms_{dtype}']} ms against "
+                                     f"lstm_cluster.cu "
+                                     f"{row[f'cluster_ms_{dtype}']}")
     return rows
 
 
@@ -926,24 +1172,10 @@ def phase_backward(device, worst, shapes):
     for name, t, b, h, _, _ in shapes:
         for dtype in ("float32", "bfloat16"):
             seed += 1
-            both = lstm_inputs(t, b, h, getattr(torch, dtype), device, seed,
-                               ndir=2)
-            errs = []
-            for reverse in (False, True):
-                one = tuple(a[int(reverse)] for a in both)
-                got = counted(L.launches, 1, L.lstm_fwd, *one,
-                              reverse=reverse)
-                errs.append(held("lstm_cluster", f"{name} lstm_fwd reverse="
-                                 f"{int(reverse)}", dtype, got,
-                                 L.lstm_fwd_plain(*one, reverse=reverse),
-                                 worst))
-            got = counted(L.launches, 1, L.lstm_fwd_bidir, *both)
-            errs.append(held("lstm_cluster", f"{name} lstm_fwd_bidir", dtype,
-                             got, L.lstm_fwd_bidir_plain(*both), worst))
-            del got, both
-            log(f"  lstm_cluster {name:16s} T={t:3d} B={b:4d} H={h:3d} "
-                f"{dtype:8s} plan (bidir) {L.cluster_plan(h, 4, b, 2)} "
-                "max|diff| fwd/rev/bidir ys "
+            errs, kernels = k1_checks(name, t, b, h, dtype, device, seed,
+                                      worst)
+            log(f"  {'/'.join(kernels)} {name:16s} T={t:3d} B={b:4d} "
+                f"H={h:3d} {dtype:8s} max|diff| fwd/rev/bidir ys "
                 + "/".join(f"{e['ys']:.2e}" for e in errs)
                 + " hT,cT " + "/".join(f"{max(e['hT'], e['cT']):.2e}"
                                        for e in errs))
@@ -969,11 +1201,11 @@ def train_setup(seed, device, nb, precision="fp32"):
 
 
 COUNTED = ("lstm_cluster", "lstm_fwd", "lstm_bwd", "lstm_bwd_cluster",
-           "ssm_scan_fwd", "ssm_scan_bwd")
+           "ssm_scan_fwd", "ssm_scan_bwd", "lstm_wave")
 # their kernels' names in a device trace, in the same order
 TRACED = ("lstm_cluster_kernel", "lstm_fwd_kernel", "lstm_bwd_kernel",
           "lstm_bwd_cluster_kernel", "selective_fwd_kernel",
-          "selective_bwd_kernel")
+          "selective_bwd_kernel", "lstm_wave_kernel")
 TRACE_GUARD = 2048
 # the settling time of each try of a guarded trace
 TRACE_SETTLE_S = (0.1, 1.0, 2.0)
@@ -985,12 +1217,49 @@ def launch_counters():
     from fnssl_tpu_torch.kernels import ssm_cuda as S
 
     return (L.launches, L.launches_v2, L.launches_bwd,
-            L.launches_bwd_cluster, S.launches_ssm_fwd, S.launches_ssm_bwd)
+            L.launches_bwd_cluster, S.launches_ssm_fwd, S.launches_ssm_bwd,
+            L.launches_wave)
 
 
-# launches of each kernel in one train step, in the order of COUNTED
-STEP_LAUNCHES = [LAUNCHES_PER_TRAIN_STEP, 0, 0, LAUNCHES_PER_TRAIN_STEP, 0,
-                 0]
+def k1_route(t_steps, batch, hidden, ndir, itemsize):
+    """(name in COUNTED, launch counter, launches a call) of the K1 kernel
+    that lstm_cuda.fwd_route gives a call of `ndir` directions at this
+    shape (lstm_fwd.cu takes one launch a direction)."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    route = L.fwd_route(t_steps, batch, hidden, ndir, itemsize)
+    return {"cluster": ("lstm_cluster", L.launches, 1),
+            "wave": ("lstm_wave", L.launches_wave, 1),
+            "v2": ("lstm_fwd", L.launches_v2, ndir)}[route]
+
+
+def k1_split(recurrences, itemsize=4):
+    """K1 launches in COUNTED's order of `recurrences`, (T, B, H, ndir, n)
+    each: n calls at that shape, each on the kernel fwd_route gives it."""
+    out = [0] * len(COUNTED)
+    for t_steps, batch, hidden, ndir, n in recurrences:
+        name, _, per = k1_route(t_steps, batch, hidden, ndir, itemsize)
+        out[COUNTED.index(name)] += n * per
+    return out
+
+
+def fnssl_k1(nb, nt=298, itemsize=4):
+    """K1 launches (COUNTED's order) of one FN-SSL forward (FNSSLConfig(),
+    3 blocks, 256 bins) of nb scenes of nt frames: a full-band BiLSTM (T
+    256, B nb nt, H 128) and a narrow-band LSTM (T nt, B nb 256, H 256) a
+    block."""
+    return k1_split([(256, nb * nt, 128, 2, 3), (nt, nb * 256, 256, 1, 3)],
+                    itemsize)
+
+
+def step_launches(nb, itemsize=4):
+    """Launches (COUNTED's order) of one FN-SSL train step of nb scenes of
+    4.79 s: fnssl_k1's forward and K2 (lstm_bwd_cluster.cu) for each of its
+    6 recurrences."""
+    out = fnssl_k1(nb, itemsize=itemsize)
+    out[COUNTED.index("lstm_bwd_cluster")] += LAUNCHES_PER_TRAIN_STEP
+    return out
+
 
 
 def gate_hooks(module, names, masks, record):
@@ -1017,11 +1286,12 @@ def gate_hooks(module, names, masks, record):
     return [subs[n].register_forward_hook(hook(n)) for n in names], changed
 
 
-def phase_train_parity(seed, device, setup=None, lr=1e-3,
-                       want=STEP_LAUNCHES, gates=()):
+def phase_train_parity(seed, device, setup=None, lr=1e-3, want=None,
+                       gates=()):
     """One fp32 train step, dropout off, on the card and on the CPU:
     `setup(device)` gives (state, step, batch), FN-SSL's at nb=PARITY_NB
-    by default; Adam at `lr`; `want` launches on the card. `gates` names
+    by default; Adam at `lr`; `want` launches on the card (FN-SSL's at
+    PARITY_NB by default). `gates` names
     the modules whose outputs pass a ReLU: the CPU step takes the card's
     ReLU gates there (`gate_hooks`), since an output within float32
     rounding of 0 may take either side, and one gate switched moves a
@@ -1030,6 +1300,7 @@ def phase_train_parity(seed, device, setup=None, lr=1e-3,
     counted and printed."""
     if setup is None:
         setup = functools.partial(train_setup, seed, nb=PARITY_NB)
+        want = step_launches(PARITY_NB)
     runs, masks, switched = [], {}, {}
     for k, dev in enumerate((device, torch.device("cpu"))):
         state, step, batch = setup(device=dev)
@@ -1122,14 +1393,17 @@ def phase_train(seed, device):
             f"{row['peak_bytes'] / 2**30:.2f} GiB; losses "
             + ", ".join(f"{v:.6f}" for v in losses))
         del state, step, batch
-    steps = 2 * (1 + TIMED_STEPS)
+    steps = 1 + TIMED_STEPS
+    per = {p: step_launches(TRAIN_NB, 4 if p == "fp32" else 2)
+           for p in ("fp32", "bf16")}
     launched = [c.value for c in counts]
-    want = [steps * n for n in STEP_LAUNCHES]
+    want = [steps * (a + b) for a, b in zip(per["fp32"], per["bf16"])]
     if launched != want:
         raise AssertionError(f"training launched {COUNTED} {launched} for "
-                             f"{steps} steps, expected {want}")
-    log(f"  launches {COUNTED} {launched} = {steps} steps x "
-        f"{STEP_LAUNCHES}")
+                             f"{steps} steps of each precision, expected "
+                             f"{want}")
+    log(f"  launches {COUNTED} {launched} = {steps} steps x {per['fp32']} "
+        f"(fp32) + {steps} x {per['bf16']} (bf16)")
     return rows, dict(zip(COUNTED, launched))
 
 
@@ -1174,7 +1448,9 @@ def phase_train_times(device, shapes=TRAIN_SHAPES):
     for name, t, b, h, i, ndir in shapes:
         bidir = ndir == 2
         row = {"shape": name, "T": t, "B": b, "H": h, "I": i, "ndir": ndir,
+               "k1_route": L.fwd_route(t, b, h, ndir, 4),
                "plan": L.cluster_plan(h, 4, b, ndir),
+               "wave_plan": L.wave_plan(h, 4, b, ndir),
                "k2_plan": L.bwd_cluster_plan(h, 4)}
         for dtype in ("float32", "bfloat16"):
             tdt = getattr(torch, dtype)
@@ -1184,14 +1460,18 @@ def phase_train_times(device, shapes=TRAIN_SHAPES):
                             if bidir else (L.lstm_fwd, L.lstm_fwd_plain))
             if not bidir:
                 args = tuple(a[0] for a in args)
-            row[f"k1_ms_{dtype}"] = cuda_ms(lambda: k1(*args), 5)
+            for route in ("cluster", "wave"):
+                row[f"k1_{route}_ms_{dtype}"] = cuda_ms(
+                    lambda: k1(*args, route=route), 5)
+            row[f"k1_ms_{dtype}"] = row[f"k1_{row['k1_route']}_ms_{dtype}"]
             terms = {k: ndir * v for k, v in
                      bound_terms(t, b, h, itemsize).items()}
             row[f"k1_bound_terms_{dtype}"] = terms
             if dtype == "float32":
                 row["k1_plain_ms"] = cuda_ms(lambda: k1_plain(*args), 1)
                 one = tuple(a[0] for a in args) if bidir else args
-                row["v2_ms"] = ndir * cuda_ms(lambda: lstm_v2(one), 3)
+                row["v2_ms"] = ndir * cuda_ms(
+                    lambda: L.lstm_fwd(*one, route="v2"), 3)
             # K2 rewrites g in place: each timed launch starts from the last
             # one's dgates, which costs the same work
             args = bwd_inputs((ndir,), t, b, h, tdt, device, 8)
@@ -1224,22 +1504,28 @@ def phase_train_times(device, shapes=TRAIN_SHAPES):
         # under no_grad, and forward+backward less forward with grads
         ref = torch.nn.LSTM(i, h, batch_first=True,
                             bidirectional=bidir).to(device)
-        with library_flags():
-            with torch.no_grad():
-                row["library_fwd_ms"] = cuda_ms(lambda: ref(x), 5)
-            fwd_grad = cuda_ms(lambda: ref(x), 3)
-            both = cuda_ms(lambda: torch.autograd.backward(ref(x)[0], gy),
-                           3)
-        row["library_bwd_ms"] = both - fwd_grad
+        for tf32 in LIBRARY_TF32:
+            with library_flags(tf32):
+                with torch.no_grad():
+                    row[library_key("library_fwd_ms", tf32)] = cuda_ms(
+                        lambda: ref(x), 5)
+                fwd_grad = cuda_ms(lambda: ref(x), 3)
+                both = cuda_ms(lambda: torch.autograd.backward(ref(x)[0],
+                                                               gy), 3)
+            row[library_key("library_bwd_ms", tf32)] = both - fwd_grad
         del ref, x, gy
         torch.cuda.empty_cache()
         rows.append(row)
-        log(f"  {name:16s} T={t} B={b} H={h} ndir={ndir}: K1 fp32 "
-            f"{row['k1_ms_float32']:.3f} ms, bf16 "
-            f"{row['k1_ms_bfloat16']:.3f} (bound "
+        log(f"  {name:16s} T={t} B={b} H={h} ndir={ndir}: K1 "
+            f"({row['k1_route']}) fp32 {row['k1_ms_float32']:.3f} ms, bf16 "
+            f"{row['k1_ms_bfloat16']:.3f} (lstm_cluster.cu "
+            f"{row['k1_cluster_ms_float32']:.3f}, lstm_wave.cu "
+            f"{row['k1_wave_ms_float32']:.3f}, lstm_fwd.cu "
+            f"{row['v2_ms']:.3f}; bound "
             f"{bound(row['k1_bound_terms_float32'])[0]:.3f}, plain "
-            f"{row['k1_plain_ms']:.1f}, lstm_fwd.cu {row['v2_ms']:.3f}, "
-            f"cuDNN fwd {row['library_fwd_ms']:.3f}); K2 (plan "
+            f"{row['k1_plain_ms']:.1f}, cuDNN fwd TF32 off "
+            f"{row['library_fwd_ms']:.3f}, on "
+            f"{row['library_fwd_ms_tf32']:.3f}); K2 (plan "
             f"{row['k2_plan']}) in turns "
             "lstm_bwd.cu/lstm_bwd_cluster.cu/lstm_bwd_cluster.cu/lstm_bwd.cu"
             " fp32 " + "/".join(f"{v:.3f}" for v in (
@@ -1254,7 +1540,8 @@ def phase_train_times(device, shapes=TRAIN_SHAPES):
             f"{bound(row['k2_bound_terms_float32'])[1]}, plain "
             f"{row['k2_plain_ms']:.1f}); whole LSTM backward "
             f"{row['port_bwd_ms']:.3f} ms (forward {row['port_fwd_ms']:.3f}),"
-            f" cuDNN backward {row['library_bwd_ms']:.3f}")
+            f" cuDNN backward TF32 off {row['library_bwd_ms']:.3f}, on "
+            f"{row['library_bwd_ms_tf32']:.3f}")
     return rows
 
 
@@ -1379,9 +1666,19 @@ def epoch_stats(log_dir):
 def path_launches(per, train_steps, eval_batches, extra_k1=0):
     """Launches in COUNTED's order of `train_steps` train steps and
     `eval_batches` eval forwards, `per` K1 (and K2 a train step) each, and
-    `extra_k1` more K1."""
+    `extra_k1` more K1, every K1 on lstm_cluster.cu (IPDnet's H 64 and
+    128, which fwd_route keeps there)."""
     return [per * (train_steps + eval_batches) + extra_k1, 0, 0,
-            per * train_steps, 0, 0]
+            per * train_steps, 0, 0, 0]
+
+
+def fnssl_path_launches(train_steps, eval_batches, nb_train=FIT_BZ,
+                        nb_eval=FIT_DEV):
+    """Launches in COUNTED's order of `train_steps` FN-SSL train steps of
+    nb_train scenes and `eval_batches` eval forwards of nb_eval (phase
+    10's corpus: 4.79 s scenes, FIT_DEV dev scenes in one batch)."""
+    step, fwd = step_launches(nb_train), fnssl_k1(nb_eval)
+    return [train_steps * a + eval_batches * b for a, b in zip(step, fwd)]
 
 
 def fit_and_test(model, data, log_dir, epochs, train_size, bz, seed,
@@ -1480,11 +1777,7 @@ def phase_fit(seed, device, card, step_ms, work):
     from fnssl_tpu_torch.sim import native
 
     valid_batches = -(-FIT_DEV // FIT_BZ)
-
-    def want(train_steps, eval_batches):
-        return path_launches(LAUNCHES_PER_TRAIN_STEP, train_steps,
-                             eval_batches)
-
+    want = fnssl_path_launches
     # the numpy ISM takes ~20x longer: fail before simulating with it
     if not native.native_available():
         raise AssertionError(f"the native ISM did not build: "
@@ -1568,7 +1861,7 @@ IPD_T_S, IPD_NB, IPD_PARITY_NB = 4.5, 16, 2
 IPD_VAR_NB, IPD_VAR_NCH = 8, 4
 IPD_LR = 5e-4
 IPD_LAUNCHES = 4            # K1 a forward, and K2 a train step: 2 blocks
-IPD_STEP_LAUNCHES = [IPD_LAUNCHES, 0, 0, IPD_LAUNCHES, 0, 0]
+IPD_STEP_LAUNCHES = [IPD_LAUNCHES, 0, 0, IPD_LAUNCHES, 0, 0, 0]
 # (name, T, B, H, I, ndir) of one train step: per block a BiLSTM over
 # frequency (H 64, B = rows*280) and an LSTM over time (H 128, B =
 # rows*256; both directions at H 64 offline); the first block's I
@@ -1603,20 +1896,8 @@ def phase_ipdnet_kernels(device, worst, worst_bwd, bwd_checks):
         for dtype in ("float32", "bfloat16"):
             seed += 1
             tdt = getattr(torch, dtype)
-            both = lstm_inputs(t, b, h, tdt, device, seed, ndir=2)
-            errs = []
-            for reverse in (False, True):
-                one = tuple(a[int(reverse)] for a in both)
-                got = counted(L.launches, 1, L.lstm_fwd, *one,
-                              reverse=reverse)
-                errs.append(held("lstm_cluster", f"{name} lstm_fwd reverse="
-                                 f"{int(reverse)}", dtype, got,
-                                 L.lstm_fwd_plain(*one, reverse=reverse),
-                                 worst))
-            got = counted(L.launches, 1, L.lstm_fwd_bidir, *both)
-            errs.append(held("lstm_cluster", f"{name} lstm_fwd_bidir", dtype,
-                             got, L.lstm_fwd_bidir_plain(*both), worst))
-            del got, both
+            errs, kernels = k1_checks(name, t, b, h, dtype, device, seed,
+                                      worst)
             checks += 3
             k2 = ""
             if (name, t, b, h, _, ndir) in IPD_TRAIN_SHAPES:
@@ -1634,8 +1915,8 @@ def phase_ipdnet_kernels(device, worst, worst_bwd, bwd_checks):
                 k2 = (f"; K2 plan {L.bwd_cluster_plan(h, tdt.itemsize)} "
                       f"max|diff| {err:.2e}")
                 del args, got
-            log(f"  {name:26s} T={t:3d} B={b:5d} H={h:3d} {dtype:8s} K1 plan "
-                f"{L.cluster_plan(h, tdt.itemsize, b, ndir)} max|diff| "
+            log(f"  {name:26s} T={t:3d} B={b:5d} H={h:3d} {dtype:8s} K1 "
+                f"{'/'.join(kernels)} max|diff| "
                 "fwd/rev/bidir ys " + "/".join(f"{e['ys']:.2e}" for e in errs)
                 + " hT,cT " + "/".join(f"{max(e['hT'], e['cT']):.2e}"
                                        for e in errs) + k2)
@@ -1728,7 +2009,8 @@ def phase_ipdnet_parity(seed, device):
     return out
 
 
-KERNEL_GROUPS = (("K1", ("lstm_cluster",)), ("K2", ("lstm_bwd_cluster",)),
+KERNEL_GROUPS = (("K1", ("lstm_cluster", "lstm_wave")),
+                 ("K2", ("lstm_bwd_cluster",)),
                  ("K3", ("selective_fwd_kernel",)),
                  ("K4", ("selective_bwd_kernel",)),
                  ("conv head", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
@@ -1962,7 +2244,7 @@ def phase_ipdnet_fit(seed, device, card):
 # gamma 0.975, clip 5) and bench.py:460-481 (forward, nb 16, nt 200)
 I2_T_S, I2_NB, I2_PARITY_NB, I2_LR, I2_FWD_NT = 4.0, 16, 2, 5e-4, 200
 I2_LAUNCHES = 16         # K3 a forward, K4 a train step: 8 layers x 2 blocks
-I2_STEP_LAUNCHES = [0, 0, 0, 0, I2_LAUNCHES, I2_LAUNCHES]
+I2_STEP_LAUNCHES = [0, 0, 0, 0, I2_LAUNCHES, I2_LAUNCHES, 0]
 # (name, B, L, d) of the scans: a train step at nb 16 (layer 0 at T 201,
 # layers 1-7 at 40 after the 5x time mean), the forward cell's layer 0 (T
 # 200) and a serve chunk step (5 frames at layer 0, then 1); each path runs
@@ -2401,7 +2683,7 @@ def phase_ipdnet2_fit(seed, device, card):
 
     def want(train, evals):
         return [0, 0, 0, 0, I2_LAUNCHES * (train + evals),
-                I2_LAUNCHES * train]
+                I2_LAUNCHES * train, 0]
 
     with tempfile.TemporaryDirectory() as tmp:
         train_csv = write_realman(Path(tmp) / "train", I2_FIT_TRAIN, seed)
@@ -2493,6 +2775,10 @@ SLOT_SHAPES = [("slots16_fullband", 256, 16 * 12, 128, 256, 2),
                ("slots16_narrowband", 12, 16 * 256, 256, 256, 1),
                ("ipdnet_slots16_fullband", 256, 16 * 12, 64, 4, 2),
                ("ipdnet_slots16_narrowband", 12, 16 * 256, 128, 132, 1)]
+# the shapes where lstm_wave.cu is held to beat lstm_cluster.cu (phase 5):
+# FN-SSL's narrow band (T, B, H) in training and in the 16-slot tick
+WAVE_TARGETS = [("train_narrowband", 298, TRAIN_NB * 256, 256),
+                ("slots16_narrowband", 12, SLOTS * 256, 256)]
 # and IPDnet2's scans of a 16-slot tick: B = 16 x 16 compressed bins
 SSM_SLOT_SHAPES = [("slots16_layer0", 256, 5, 192),
                    ("slots16_layers1_7", 256, 1, 192)]
@@ -2698,15 +2984,28 @@ def traced_launches(fn, *args, retry=None):
                  for k in TRACED]
 
 
+def tick_launches(model, slots):
+    """Launches (COUNTED's order) of one tick of `slots` streams: one
+    chunk step of each, batched (12 frames and 256 bins a stream; the
+    narrow band reaches lstm_wave.cu at FN-SSL's 16-slot tier)."""
+    if model == "fnssl":
+        return k1_split([(256, 12 * slots, 128, 2, 3),
+                         (12, 256 * slots, 256, 1, 3)])
+    if model == "ipdnet":
+        return k1_split([(256, 12 * slots, 64, 2, 2),
+                         (12, 256 * slots, 128, 1, 2)])
+    return CHUNK_LAUNCHES[model]
+
+
 def tier_checks(stepper, rows, feat_shape, device, launches):
     """Each tier of a warm pool: the ms a tick (host clock around
     step_slots: features up, one replay, outputs down; TIER_ITERS ticks of
     every slot of the tier active), and one replay, traced, against the
     same tier run eagerly on the card from the same pool state (outputs
-    and state within 1e-6). The traced replay must run `launches` (one
-    chunk step's, COUNTED's order), as many as the eager tier's wrappers
-    launched. Returns the tiers' numbers and each replay's traced
-    kernels."""
+    and state within 1e-6). The traced replay of tier s must run
+    `launches(s)` (one tick's, COUNTED's order), as many as the eager
+    tier's wrappers launched. Returns the tiers' numbers and each replay's
+    traced kernels."""
     rng = np.random.default_rng(0)
     out, per_tick = {}, {}
     counters = launch_counters()
@@ -2737,10 +3036,10 @@ def tier_checks(stepper, rows, feat_shape, device, launches):
             torch.zeros(s, dtype=torch.bool, device=device),
             torch.ones(s, dtype=torch.bool, device=device)).cpu()
         eager = [c.value - n for c, n in zip(counters, n0)]
-        if per_tick[s] != launches or eager != launches:
+        if per_tick[s] != launches(s) or eager != launches(s):
             raise AssertionError(f"tier {s}: a replay ran {per_tick[s]} "
                                  f"(trace), the eager tier {eager}, "
-                                 f"expected {launches}")
+                                 f"expected {launches(s)}")
         err = max([(got - want).abs().max().item()] + [
             (a - b).abs().max().item()
             for a, b in zip(after, stepper._state)])
@@ -2908,7 +3207,7 @@ def phase_slots(seed, device, model):
                            ss)
     rows = pool.rows
     tiers, per_tick = tier_checks(st, rows, pool._feats_shape[1:], device,
-                                  CHUNK_LAUNCHES[model])
+                                  functools.partial(tick_launches, model))
     want = [sum(per_tick[s][i] * replays[s] for s in st.tier_sizes)
             for i in range(len(COUNTED))]
     if launched != want:
@@ -3087,7 +3386,7 @@ def phase_export(seed, device, tmp):
 # recording) pairs of LOCATA_S s of 15-channel 48 kHz audio (dicit)
 LOCATA_TASKS, LOCATA_RECORDINGS, LOCATA_S = (3, 5), (1, 2), 20.0
 LOCATA_FS, LOCATA_SILENCE, LOCATA_BURST = 48000, 4800, 2400
-LOCATA_LAUNCHES = [LAUNCHES_PER_CHUNK, 0, 0, 0, 0, 0]  # a recording
+LOCATA_LAUNCHES = [LAUNCHES_PER_CHUNK, 0, 0, 0, 0, 0, 0]  # a recording
 LOCATA_MICS = (8, 5)                  # `cli locata`'s default --mic-pick
 # phase 27: the time modules, each at SpatialNetConfig()'s width
 TIME_CONFIGS = (("mhsa(251)", False), ("mhsa(251)", "ALiBi"),
@@ -3454,7 +3753,7 @@ def phase_fit_flags(seed, device, data, runs, card):
     (finite losses; its ms a step beside the plain fit's); exact
     launches."""
     steps, valid = FIT_TRAIN // FIT_BZ, -(-FIT_DEV // FIT_BZ)
-    want = path_launches(LAUNCHES_PER_TRAIN_STEP, steps, valid)
+    want = fnssl_path_launches(steps, valid)
     report, total = {}, [0] * len(COUNTED)
     for name, flags in (("plain", []), ("profile", ["--profile", "1"]),
                         ("debug_nans", ["--debug-nans"])):
@@ -3475,10 +3774,15 @@ def phase_fit_flags(seed, device, data, runs, card):
             path = log_dir / "profile" / "trace.json"
             names = {e.get("name", "") for e in
                      json.loads(path.read_text())["traceEvents"]}
-            found = {k: sum(k in n for n in names) for k in TRACED[:4]}
-            if not (found[TRACED[0]] and found[TRACED[3]]):
-                raise AssertionError(f"the fit's trace names no K1 or K2 "
-                                     f"kernel: {found}")
+            found = {k: sum(k in n for n in names) for k in TRACED
+                     if k != "selective_fwd_kernel"
+                     and k != "selective_bwd_kernel"}
+            # every K1 and K2 kernel a train step launches
+            launched = [TRACED[i] for i, n in enumerate(
+                step_launches(FIT_BZ)) if n]
+            if not all(found[k] for k in launched):
+                raise AssertionError(f"the fit's trace names {found} of the "
+                                     f"step's K1 and K2 kernels {launched}")
             report[name]["trace_bytes"] = path.stat().st_size
             log(f"  the trace {path.name}: {path.stat().st_size / 2**20:.1f}"
                 f" MiB, {len(names)} event names; K1/K2 kernel names "
@@ -3513,7 +3817,12 @@ SSM_FP_SHAPES = [("fp_rank_layer0", DP_NB // 2 * 8, 201, 192),
                  ("fp_rank_layers1_7", DP_NB // 2 * 8, 40, 192)]
 DP_CELLS = ("fnssl", "ipdnet2")
 DP_LR = {"fnssl": 1e-3, "ipdnet2": I2_LR}
-DP_STEP_LAUNCHES = {"fnssl": STEP_LAUNCHES, "ipdnet2": I2_STEP_LAUNCHES}
+
+
+def dp_step_launches(name, nb):
+    """Launches (COUNTED's order) of one train step of a DP cell on nb
+    scenes."""
+    return step_launches(nb) if name == "fnssl" else I2_STEP_LAUNCHES
 
 
 def fit_history(log_dir):
@@ -3628,7 +3937,7 @@ def phase_dp(seed, device, data, runs, card):
     all-reduce as the trace's host records. Prints each step's ms beside
     the plain one's."""
     steps, valid = FIT_TRAIN // FIT_BZ, -(-FIT_DEV // FIT_BZ)
-    want = path_launches(LAUNCHES_PER_TRAIN_STEP, steps, valid)
+    want = fnssl_path_launches(steps, valid)
     argv = ["fit", "--model", "fnssl", "--train-dir", str(data / "train"),
             "--valid-dir", str(data / "dev"), "--bz", str(FIT_BZ),
             "--epochs", "1", "--train-size", str(FIT_TRAIN), "--seed",
@@ -3706,12 +4015,15 @@ def phase_dp(seed, device, data, runs, card):
     report["two_ranks"] = {"world_s": world_s}
     for name in DP_CELLS:
         lr, one = DP_LR[name], ref[name]
-        per_rank = [n * DP_STEPS for n in DP_STEP_LAUNCHES[name]]
+        per_rank = [n * DP_STEPS for n in dp_step_launches(name,
+                                                             DP_NB // 2)]
+        per_one = [n * DP_STEPS for n in dp_step_launches(name, DP_NB)]
         got = [rk[name]["launches"] for rk in ranks]
-        if one["launches"] != per_rank or got != [per_rank, per_rank]:
+        if one["launches"] != per_one or got != [per_rank, per_rank]:
             raise AssertionError(f"DP {name} launched {COUNTED} {got} a "
                                  f"rank and {one['launches']} in one "
-                                 f"process, expected {per_rank} each")
+                                 f"process, expected {per_rank} a rank and "
+                                 f"{per_one} in one process")
         total = [a + b + c + d
                  for a, b, c, d in zip(total, one["launches"], *got)]
         if ranks[0][name]["losses"] != ranks[1][name]["losses"]:
@@ -4049,6 +4361,7 @@ def main():
         sys.exit(f"chip_smoke: fnssl_tpu_torch comes from "
                  f"{fnssl_tpu_torch.__file__}, not from this checkout")
     from fnssl_tpu_torch.kernels import cuda_build
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4064,8 +4377,8 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    reports = cuda_build.build(["lstm_cluster", "lstm_fwd", "lstm_bwd",
-                                "lstm_bwd_cluster", "ssm_scan"])
+    reports = cuda_build.build(["lstm_cluster", "lstm_wave", "lstm_fwd",
+                                "lstm_bwd", "lstm_bwd_cluster", "ssm_scan"])
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         spills = [line.strip() for line in report.splitlines()
@@ -4099,6 +4412,13 @@ def main():
     log("[plans] lstm_cluster plans at FN-SSL's and IPDnet's serve shapes, "
         "fp32")
     plans = phase_plans(device, SHAPES[:2] + IPD_FWD_SHAPES[:2])
+    log("[wave] lstm_wave.cu at FN-SSL's narrow band beside lstm_cluster.cu, "
+        "lstm_fwd.cu, the bound and cuDNN (TF32 off and on), the card's time "
+        "from a trace")
+    wave_rows = phase_wave_times(device)
+    log(f"[wave sweep] lstm_wave.cu against lstm_cluster.cu: B {SWEEP_B} x H "
+        f"{SWEEP_H} x 1-2 directions x fp32/bf16 x T {SWEEP_T}")
+    sweep_rows = phase_wave_sweep(device)
 
     # 6-9. training
     log("[backward] K2 against its plain version on the card; K1 at the "
@@ -4270,7 +4590,39 @@ def main():
                  "plain_ms": per_train_step(train_rows, "k1_plain_ms"),
                  "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
                  "library_ms": per_train_step(train_rows, "library_fwd_ms"),
+                 "library_tf32_ms": per_train_step(train_rows,
+                                                   "library_fwd_ms_tf32"),
                  "work": work}
+    # K1 in one train step as the rule splits it: all of it, and each
+    # kernel's share (the launches fwd_route gives it)
+    k1_train_step = {
+        "ms": per_train_step(train_rows, "k1_ms_float32"),
+        "ms_bf16": per_train_step(train_rows, "k1_ms_bfloat16"),
+        "cluster_only_ms": per_train_step(train_rows,
+                                          "k1_cluster_ms_float32"),
+        **k1_common}
+
+    def k1_share(route):
+        """A K1 kernel's numbers over the launches of one train step that
+        fwd_route gives it."""
+        mine = [r for r in train_rows if r["k1_route"] == route]
+        b = step_bound(mine, "k1_bound_terms_float32")
+        return {"ms": per_train_step(mine, f"k1_{route}_ms_float32"),
+                "ms_bf16": per_train_step(mine, f"k1_{route}_ms_bfloat16"),
+                "replaces": "fnssl_tpu/kernels/lstm_pallas.py:50",
+                "plain_ms": per_train_step(mine, "k1_plain_ms"),
+                "bound_ms": b[0], "bound_by": b[1],
+                "library_ms": per_train_step(mine, "library_fwd_ms"),
+                "library_tf32_ms": per_train_step(mine,
+                                                  "library_fwd_ms_tf32"),
+                "work": f"the {PER_TRAIN_STEP * len(mine)} launches of one "
+                        f"train step at nb={TRAIN_NB}, fp32, that fwd_route "
+                        "gives this kernel: " + ", ".join(
+                            f"{PER_TRAIN_STEP} x (T={r['T']}, B={r['B']}, "
+                            f"H={r['H']}, ndir={r['ndir']})" for r in mine)
+                        + "; library_ms is nn.LSTM (cuDNN) on the same "
+                        "shapes with TF32 off (the port's float32), "
+                        "library_tf32_ms with it on"}
     paths = {"serve": launches, "train": train_launches, "fit": fit_launches,
              "ipdnet_serve": ipd_launches, "ipdnet_train": ipd_train_launches,
              "ipdnet_fit": ipd_fit_launches, "ipdnet2_serve": i2_launches,
@@ -4299,8 +4651,7 @@ def main():
         "launches": sum(v["lstm_cluster"] for v in paths.values()),
         "launches_by_path": {k: v["lstm_cluster"] for k, v in paths.items()},
         "max_abs_err": worst["lstm_cluster"]["float32"],
-        "ms": per_train_step(train_rows, "k1_ms_float32"), **k1_common,
-        "ms_bf16": per_train_step(train_rows, "k1_ms_bfloat16"),
+        **k1_share("cluster"),
         "max_abs_err_bf16_ys": worst["lstm_cluster"]["bfloat16_ys"],
         "serve_chunk_step": {
             "ms": nf * full["fused_ms_float32"] + nn_ * narrow["ms_float32"],
@@ -4334,6 +4685,19 @@ def main():
             "launches_per_chunk_step": IPD_LAUNCHES,
             "chunk_steps": ipd_steps, **ipd_serve},
         "locata_recording": locata_k1(locata_report["k1_rows"], frames),
+    }, {
+        "name": "lstm_wave", "route": "cuda",
+        "source": "fnssl_tpu_torch/kernels/csrc/lstm_wave.cu",
+        "launches": sum(v["lstm_wave"] for v in paths.values()),
+        "launches_by_path": {k: v["lstm_wave"] for k, v in paths.items()},
+        "max_abs_err": worst["lstm_wave"]["float32"],
+        **k1_share("wave"),
+        "max_abs_err_bf16_ys": worst["lstm_wave"]["bfloat16_ys"],
+        "max_abs_err_bf16": worst["lstm_wave"]["bfloat16"],
+        "device_ms": wave_rows, "thresholds": {
+            f"H={h} itemsize={i}": n
+            for (h, i), n in L.WAVE_MIN_ROWS.items()},
+        "sweep": sweep_rows,
     }, {
         "name": "lstm_fwd", "route": "cuda",
         "source": "fnssl_tpu_torch/kernels/csrc/lstm_fwd.cu",
@@ -4448,17 +4812,42 @@ def main():
     # (K3), fp32
     srow = {r["shape"]: r for r in slot_rows}
     sf, sn = srow["slots16_fullband"], srow["slots16_narrowband"]
-    kernels[0]["slots16_tick"] = {
+    k1_tick = {
         "ms": nf * sf["fused_ms_float32"] + nn_ * sn["ms_float32"],
+        "cluster_only_ms": nf * sf["fused_cluster_ms_float32"]
+        + nn_ * sn["cluster_ms_float32"],
         "plain_ms": nf * sf["fused_plain_ms"] + nn_ * sn["plain_ms"],
         "library_ms": nf * sf["library_bidir_ms"] + nn_ * sn["library_ms"],
+        "library_tf32_ms": nf * sf["library_bidir_ms_tf32"]
+        + nn_ * sn["library_ms_tf32"],
         **dict(zip(("bound_ms", "bound_by"), bound(
             {k: 2 * nf * sf["bound_terms_float32"][k]
              + nn_ * sn["bound_terms_float32"][k]
              for k in ("bytes", "operations")}))),
+        "routes": [sf["fused_route"], sn["route"]],
         "work": "the recurrences of one 16-slot FN-SSL tick, fp32: 3 "
                 "full-band BiLSTMs (T=256, B=192, H=128) and 3 narrow-band "
-                "LSTMs (T=12, B=4096, H=256)"}
+                "LSTMs (T=12, B=4096, H=256), each on the kernel fwd_route "
+                "gives it (routes: full band, narrow band)"}
+    for kern in kernels[:2]:
+        share = {"lstm_cluster": "cluster", "lstm_wave": "wave"}[kern["name"]]
+        parts = [(nf, sf, "fused_", sf["fused_route"], 2),
+                 (nn_, sn, "", sn["route"], 1)]
+        parts = [p for p in parts if p[3] == share]
+        kern["slots16_tick"] = {
+            "ms": sum(n * r[f"{pre}ms_float32"] for n, r, pre, _, _ in parts),
+            "plain_ms": sum(n * r[f"{pre}plain_ms"]
+                            for n, r, pre, _, _ in parts),
+            "library_ms": sum(n * r["library_bidir_ms" if d == 2
+                                    else "library_ms"]
+                              for n, r, _, _, d in parts),
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                {k: sum(n * d * r["bound_terms_float32"][k]
+                        for n, r, _, _, d in parts)
+                 for k in ("bytes", "operations")}))),
+            "work": "this kernel's launches in one 16-slot FN-SSL tick: "
+                    + ", ".join(f"{n} x (T={r['T']}, B={r['B']}, H={r['H']},"
+                                f" ndir={d})" for n, r, _, _, d in parts)}
     s3 = {r["shape"]: r for r in ssm_slot_rows}
     slot_bound_ = ssm_path_bound("k3", "slots16_layer0",
                                  "slots16_layers1_7", s3)
@@ -4480,13 +4869,15 @@ def main():
               "ipdnet2_train": i2_train, "ipdnet2_train_parity": i2_parity,
               "ipdnet2_fit": i2_fit, "locata": locata_report,
               "time_modules": time_report, "fit_flags": flags_report,
-              "data_parallel": dp_report, "freq_parallel": fp_report}
+              "data_parallel": dp_report, "freq_parallel": fp_report,
+              "k1_train_step": k1_train_step, "k1_slots16_tick": k1_tick}
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(json.dumps({"kernels": [{k: v for k, v in kern.items()
                                   if k not in ("plans", "per_shape",
-                                               "slots16")}
+                                               "slots16", "sweep",
+                                               "device_ms")}
                                  for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,14 +1,27 @@
 """LSTM recurrence: the hand-written Hopper kernels and their plain version.
 
 K1, the forward, replaces ``fnssl_tpu/kernels/lstm_pallas.py:_lstm_kernel``
-(launched by ``_lstm_pallas_fwd``). Two CUDA C++ sources for ``sm_90a``,
-bound with ``ctypes``, chosen by shape:
+(launched by ``_lstm_pallas_fwd``). Three CUDA C++ sources for
+``sm_90a``, bound with ``ctypes``; ``fwd_route`` chooses one by shape:
 
 - ``csrc/lstm_cluster.cu`` for H a multiple of 32 up to 256 (every LSTM
-  of the JAX package): W_hh stays in a thread-block cluster's shared
-  memory, h is exchanged through distributed shared memory, and one launch
-  runs one or both directions. ``cluster_plan`` picks its cluster size,
-  batch tile and k-split.
+  of the JAX package), at every shape the rule does not give
+  lstm_wave.cu: W_hh stays in a thread-block cluster's shared memory, h
+  is exchanged through distributed shared memory, and one launch runs one
+  or both directions. ``cluster_plan`` picks its cluster size, batch tile
+  and k-split. Built for a step's latency at small B: at large B its
+  8-row tiles run in tens of waves.
+- ``csrc/lstm_wave.cu`` at H = 256 from ``WAVE_MIN_ROWS`` rows (B times
+  the directions) up: tiles of many rows, so that the grid fits in about
+  one wave, each step a register-tiled matrix tile with W_hh read from L2
+  and used for every row of the tile; one launch runs one or both
+  directions. ``wave_plan`` picks the rows a thread. It takes H 32 to 256
+  (dividing 256) by name (``route="wave"``); the rule gives it only what
+  ``chip_smoke.py``'s sweep measured at least 10% faster than
+  lstm_cluster.cu at every T and every larger B: FN-SSL's narrow band
+  (B = nb x 256 at H = 256) from 8 scenes up, in training, in
+  evaluation and in the 16-slot tick. At H = 128 it was faster at some B
+  and slower at larger ones (its tiles' waves), so no threshold there.
 - ``csrc/lstm_fwd.cu`` for H above 256 (up to 1024): one direction a
   launch, W_hh read through L2 on every step.
 
@@ -41,10 +54,11 @@ import torch
 from fnssl_tpu_torch.kernels.cuda_build import LaunchCounter, load_library
 
 # launches of each CUDA kernel (the plain version is not counted):
-# ``launches`` for lstm_cluster.cu, ``launches_v2`` for lstm_fwd.cu,
-# ``launches_bwd`` for lstm_bwd.cu, ``launches_bwd_cluster`` for
-# lstm_bwd_cluster.cu
+# ``launches`` for lstm_cluster.cu, ``launches_wave`` for lstm_wave.cu,
+# ``launches_v2`` for lstm_fwd.cu, ``launches_bwd`` for lstm_bwd.cu,
+# ``launches_bwd_cluster`` for lstm_bwd_cluster.cu
 launches = LaunchCounter()
+launches_wave = LaunchCounter()
 launches_v2 = LaunchCounter()
 launches_bwd = LaunchCounter()
 launches_bwd_cluster = LaunchCounter()
@@ -66,6 +80,15 @@ MAX_THREADS = {8: 512, 16: 256}   # threads a CTA may have, by tile
 CLUSTER_SIZES = (1, 2, 4, 8)      # 8 is the portable cluster limit
 SMS = 132                         # an H100 SXM's SMs
 TILES = (8, 16)                   # lstm_cluster.cu's tiles
+WAVE_THREADS = 256                # threads of a lstm_wave.cu CTA
+WAVE_ROWS = (32, 16, 8)           # rows a thread lstm_wave.cu is built for
+WAVE_PAD = 4                      # floats a row of its h is padded by
+# fwd_route's rule: lstm_wave.cu from this many rows (B x directions) up,
+# by (H, itemsize); H absent: never. Set from chip_smoke.py's sweep
+# (PERF.md): the fewest rows from which lstm_wave.cu measured at least 10%
+# faster than lstm_cluster.cu at every T of the sweep (12 and 298), every
+# larger B and both dtypes (at 1024 rows, T = 298: 7% in fp32, 13% in bf16)
+WAVE_MIN_ROWS = {(256, 4): 2048, (256, 2): 2048}
 
 
 def lstm_fwd_plain(xg: torch.Tensor, w_hh_t: torch.Tensor,
@@ -168,6 +191,85 @@ def cluster_plan(hidden: int, itemsize: int, batch: int, ndir: int = 1, *,
                     return m, b, k
     raise ValueError(f"lstm_cluster: no plan fits hidden={hidden}, "
                      f"itemsize={itemsize}, N={n}, Bt={bt}, KS={ks}")
+
+
+def wave_tile(hidden: int, rows: int) -> int:
+    """Batch rows of a lstm_wave.cu tile: each of its 256 threads owns one
+    hidden unit of ``rows`` rows."""
+    return WAVE_THREADS // hidden * rows
+
+
+def wave_smem(hidden: int, itemsize: int, tile: int) -> int:
+    """Shared memory (bytes) of one CTA of lstm_wave.cu with a tile of
+    ``tile`` rows: h (H x (tile + 4) float32), c (tile x H float32) and one
+    step's xg (tile x 4H in xg's dtype)."""
+    return (hidden * (tile + WAVE_PAD) * 4 + tile * hidden * 4
+            + tile * 4 * hidden * itemsize)
+
+
+def wave_ctas_per_sm(hidden: int, itemsize: int, rows: int) -> int:
+    """CTAs of lstm_wave.cu an SM holds at ``rows`` rows a thread: as its
+    registers are budgeted (``__launch_bounds__`` for the 4 x rows
+    accumulators: 3 at 8 rows, 2 at 16, 1 at 32), or fewer where the
+    shared memory does not take them."""
+    regs = 3 if rows <= 8 else 2 if rows <= 16 else 1
+    return min(regs, _ctas_per_sm(wave_smem(hidden, itemsize,
+                                            wave_tile(hidden, rows))))
+
+
+def wave_fits(hidden: int, itemsize: int, rows: int) -> bool:
+    """Whether lstm_wave.cu takes ``rows`` rows a thread at this H: rows it
+    is built for, H a multiple of 32 that divides 256 (the row groups of a
+    CTA: 32, 64, 128 or 256), and the CTA's shared memory within 227 KB."""
+    return (rows in WAVE_ROWS and 32 <= hidden <= WAVE_THREADS
+            and WAVE_THREADS % hidden == 0
+            and wave_smem(hidden, itemsize, wave_tile(hidden, rows))
+            <= SMEM_BYTES)
+
+
+@functools.lru_cache(maxsize=None)
+def wave_plan(hidden: int, itemsize: int, batch: int, ndir: int = 1) -> int:
+    """Rows a thread of lstm_wave.cu (its tile is rows x 256/H batch rows).
+
+    Of the rows that fit, the one whose grid (ndir x ceil(B / tile) CTAs)
+    puts the fewest rows on the busiest SM, counting each wave of the grid
+    (``wave_ctas_per_sm`` CTAs an SM) in turn; on a tie, the most rows a
+    thread (fewer CTAs, each reading W_hh once a step). At H = 256: B =
+    4096 is 128 CTAs of 32 rows, one wave; B = 2048, 128 of 16 (measured
+    9.50 ms at T = 298 against 15.41 for 64 CTAs of 32; PERF.md).
+    """
+    best = None
+    for rows in WAVE_ROWS:
+        if not wave_fits(hidden, itemsize, rows):
+            continue
+        tile = wave_tile(hidden, rows)
+        ctas = -(-batch // tile) * ndir
+        slots = SMS * wave_ctas_per_sm(hidden, itemsize, rows)
+        full, rest = divmod(ctas, slots)
+        busiest = (full * slots // SMS + -(-rest // SMS)) * tile
+        if best is None or busiest < best[0]:
+            best = (busiest, rows)
+    if best is None:
+        raise ValueError(f"lstm_wave: no plan fits hidden={hidden}, "
+                         f"itemsize={itemsize}")
+    return best[1]
+
+
+def fwd_route(t_steps: int, batch: int, hidden: int, ndir: int,
+              itemsize: int) -> str:
+    """K1's kernel for a shape, by shape alone: "v2" (lstm_fwd.cu) above
+    H = 256; "wave" (lstm_wave.cu) from ``WAVE_MIN_ROWS[(H, itemsize)]``
+    rows (B x ndir) up; else "cluster" (lstm_cluster.cu). The thresholds
+    come from chip_smoke.py's sweep over T in {12, 298}, B in {256 ..
+    4768}, H in {128, 256}, both directions and both dtypes; ``t_steps``
+    does not move them (both T of the sweep cross at the same B)."""
+    del t_steps
+    if hidden > CLUSTER_MAX_HIDDEN:
+        return "v2"
+    least = WAVE_MIN_ROWS.get((hidden, itemsize))
+    if least is not None and batch * ndir >= least:
+        return "wave"
+    return "cluster"
 
 
 def bwd_cluster_smem(hidden: int, itemsize: int, n: int, bt: int,
@@ -281,13 +383,17 @@ def _check(xg, w_hh_t, h0, c0, ndir: int | None = None):
 
 
 def lstm_fwd(xg: torch.Tensor, w_hh_t: torch.Tensor, h0: torch.Tensor,
-             c0: torch.Tensor, *, reverse: bool = False, plan=None):
+             c0: torch.Tensor, *, reverse: bool = False, plan=None,
+             route: str | None = None):
     """One LSTM direction over T steps (contract of ``lstm_fwd_plain``).
 
     CPU tensors take the plain version. CUDA tensors launch one kernel,
-    chosen by shape: lstm_cluster.cu for H up to 256 (``plan`` overrides
-    ``cluster_plan``'s (N, Bt, KS)), lstm_fwd.cu for H above 256 up to
-    1024. Any B; H must be a multiple of 32.
+    chosen by shape (``fwd_route``): lstm_cluster.cu or lstm_wave.cu for
+    H up to 256, lstm_fwd.cu for H above 256 up to 1024. ``route``
+    ("cluster", "wave" or "v2") names the kernel instead, to hold or time
+    one at any shape; ``plan`` overrides the route's plan (``cluster_plan``'s
+    (N, Bt, KS), ``wave_plan``'s rows a thread). Any B; H must be a
+    multiple of 32.
     """
     dims = _check(xg, w_hh_t, h0, c0)
     if dims is None:
@@ -296,15 +402,17 @@ def lstm_fwd(xg: torch.Tensor, w_hh_t: torch.Tensor, h0: torch.Tensor,
     outs = _outputs(xg, h0, (t_steps, batch, hidden))
     if batch == 0:
         return outs
-    if hidden <= CLUSTER_MAX_HIDDEN:
-        _launch_cluster(xg, w_hh_t, h0, c0, outs, 1, reverse, plan)
-    else:
+    route = _route(route, t_steps, batch, hidden, 1, xg.element_size())
+    if route == "v2":
         _launch_v2(xg, w_hh_t, h0, c0, outs, reverse)
+    else:
+        _LAUNCH[route](xg, w_hh_t, h0, c0, outs, 1, reverse, plan)
     return outs
 
 
 def lstm_fwd_bidir(xg: torch.Tensor, w_hh_t: torch.Tensor,
-                   h0: torch.Tensor, c0: torch.Tensor, *, plan=None):
+                   h0: torch.Tensor, c0: torch.Tensor, *, plan=None,
+                   route: str | None = None):
     """Both directions of a BiLSTM: direction 0 walks forward, direction 1
     walks t = T-1 .. 0 and writes ys[1, t] in place (no flip).
 
@@ -313,8 +421,10 @@ def lstm_fwd_bidir(xg: torch.Tensor, w_hh_t: torch.Tensor,
     hT, cT (2, B, H) float32 (contract of ``lstm_fwd_bidir_plain``).
 
     CPU tensors take the plain version. CUDA tensors with H up to 256 run
-    both directions in one launch of lstm_cluster.cu; H above 256 launches
-    lstm_fwd.cu once per direction (a choice by shape).
+    both directions in one launch of lstm_cluster.cu or lstm_wave.cu (as
+    ``fwd_route`` gives for 2 directions); H above 256 launches lstm_fwd.cu
+    once per direction (a choice by shape). ``route`` and ``plan`` as in
+    ``lstm_fwd``.
     """
     dims = _check(xg, w_hh_t, h0, c0, ndir=2)
     if dims is None:
@@ -323,12 +433,13 @@ def lstm_fwd_bidir(xg: torch.Tensor, w_hh_t: torch.Tensor,
     outs = _outputs(xg, h0, (2, t_steps, batch, hidden))
     if batch == 0:
         return outs
-    if hidden <= CLUSTER_MAX_HIDDEN:
-        _launch_cluster(xg, w_hh_t, h0, c0, outs, 2, False, plan)
-    else:
+    route = _route(route, t_steps, batch, hidden, 2, xg.element_size())
+    if route == "v2":
         for d in range(2):
             _launch_v2(xg[d], w_hh_t[d], h0[d], c0[d],
                        tuple(o[d] for o in outs), bool(d))
+    else:
+        _LAUNCH[route](xg, w_hh_t, h0, c0, outs, 2, False, plan)
     return outs
 
 
@@ -528,6 +639,39 @@ def _launch_cluster(xg, w_hh_t, h0, c0, outs, ndir, reverse, plan):
     launches.add()
 
 
+def _launch_wave(xg, w_hh_t, h0, c0, outs, ndir, reverse, plan):
+    t_steps, batch, four_h = xg.shape[-3:]
+    hidden = four_h // 4
+    rows = plan or wave_plan(hidden, xg.element_size(), batch, ndir)
+    if xg.data_ptr() % 16:
+        xg = xg.clone()            # the kernel's bulk copies take 16 B
+    lib = _library("lstm_wave")
+    ys, h_t, c_t = outs
+    err = lib.lstm_wave(
+        xg.data_ptr(), w_hh_t.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+        ys.data_ptr(), h_t.data_ptr(), c_t.data_ptr(), t_steps, batch,
+        hidden, ndir, int(reverse), int(xg.dtype == torch.bfloat16), rows,
+        xg.device.index, _stream(xg))
+    if err:
+        raise RuntimeError(f"lstm_wave launch failed (rows={rows}): "
+                           + lib.lstm_wave_error_string(err).decode())
+    launches_wave.add()
+
+
+_LAUNCH = {"cluster": _launch_cluster, "wave": _launch_wave}
+
+
+def _route(route, t_steps, batch, hidden, ndir, itemsize):
+    """The route asked for, or ``fwd_route``'s; a cluster or wave route
+    above H = 256 is refused."""
+    if route is None:
+        return fwd_route(t_steps, batch, hidden, ndir, itemsize)
+    if route not in ("cluster", "wave", "v2") or (
+            route != "v2" and hidden > CLUSTER_MAX_HIDDEN):
+        raise ValueError(f"lstm_fwd: no route {route!r} at hidden={hidden}")
+    return route
+
+
 def _launch_v2(xg, w_hh_t, h0, c0, outs, reverse):
     t_steps, batch, four_h = xg.shape
     lib = _library("lstm_fwd")
@@ -548,6 +692,8 @@ _ARGTYPES = {
     "lstm_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
     "lstm_cluster": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+    + [ctypes.c_void_p],
+    "lstm_wave": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
     # g cs w_hh c0 dys dhT dcT dh0 dc0, then the ints, then the stream
     "lstm_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7

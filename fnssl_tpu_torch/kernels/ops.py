@@ -8,8 +8,9 @@ from each op's ``register_fake``, and an exported program runs them
 through the dispatcher when it is called:
 
 - the CUDA implementation is the wrapper's launch of the hand-written
-  kernel (``lstm_cuda.lstm_fwd``/``lstm_fwd_bidir``: ``lstm_cluster.cu``,
-  or ``lstm_fwd.cu`` above H = 256; ``ssm_cuda.selective_scan_fwd``:
+  kernel (``lstm_cuda.lstm_fwd``/``lstm_fwd_bidir``: the kernel
+  ``lstm_cuda.fwd_route`` gives the shape, ``lstm_cluster.cu``,
+  ``lstm_wave.cu`` or ``lstm_fwd.cu``; ``ssm_cuda.selective_scan_fwd``:
   ``ssm_scan.cu``), launch counters included;
 - the CPU implementation is the same wrapper on CPU tensors, which runs
   the plain version.

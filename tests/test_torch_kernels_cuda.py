@@ -1,5 +1,6 @@
 """The Hopper LSTM kernels (kernels/csrc/lstm_cluster.cu for H up to 256,
-kernels/csrc/lstm_fwd.cu above, and the backward kernels/csrc/
+kernels/csrc/lstm_wave.cu for large batches at H 256, kernels/csrc/
+lstm_fwd.cu above H 256, and the backward kernels/csrc/
 lstm_bwd_cluster.cu and its earlier design kernels/csrc/lstm_bwd.cu)
 against their plain version, on the card; the autograd Function and one
 train step on the card.
@@ -160,6 +161,122 @@ def test_kernel_refuses_grad(cuda):
     s = torch.zeros(3, 32, device=cuda)
     with pytest.raises(RuntimeError, match="backward"):
         lstm_cuda.lstm_fwd(xg, w, s, s)
+
+
+# K1's large-batch kernel, kernels/csrc/lstm_wave.cu: fwd_route gives it
+# FN-SSL's narrow band (H 256) from WAVE_MIN_ROWS rows (B x directions) up.
+# The same tolerances as the cluster kernel's.
+
+
+def check_wave(args, dtype, reverse=None, plan=None, route=None):
+    """lstm_fwd (one direction, `reverse` given) or lstm_fwd_bidir (args
+    stacked for 2) on lstm_wave.cu: one launch of it, none of
+    lstm_cluster.cu, and the plain version's answer."""
+    before = (lstm_cuda.launches.value, lstm_cuda.launches_wave.value)
+    if reverse is None:
+        got = lstm_cuda.lstm_fwd_bidir(*args, plan=plan, route=route)
+        want = lstm_cuda.lstm_fwd_bidir_plain(*args)
+    else:
+        got = lstm_cuda.lstm_fwd(*args, reverse=reverse, plan=plan,
+                                 route=route)
+        want = lstm_cuda.lstm_fwd_plain(*args, reverse=reverse)
+    assert (lstm_cuda.launches.value,
+            lstm_cuda.launches_wave.value) == (before[0], before[1] + 1)
+    assert_close(got, want, dtype, ("lstm_wave", reverse, plan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(298, 4096, 256), (12, 4096, 256),
+                                   (298, 2048, 256)])
+def test_wave_kernel_at_the_rule_shapes(cuda, dtype, shape):
+    """FN-SSL's narrow band in training, in the 16-slot tick and in a DP
+    rank's step: the rule's route, both walks and both directions in one
+    launch, nonzero h0 and c0."""
+    t_steps, b, h = shape
+    args = inputs((2,), t_steps, b, h, dtype, cuda)
+    for reverse in (False, True):
+        check_wave(tuple(a[int(reverse)] for a in args), dtype, reverse)
+    check_wave(args, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden", [32, 64, 128, 256])
+def test_wave_kernel_edge_cases(cuda, dtype, hidden):
+    """lstm_wave.cu by name: ragged B (1, 13, 300: no tile's multiple),
+    short T (T = 0 returns h0, c0), both entry points and walks."""
+    seed = 100
+    for b in (1, 13, 300):
+        for t_steps in (0, 1, 2, 7):
+            seed += 1
+            args = inputs((2,), t_steps, b, hidden, dtype, cuda, seed)
+            check_wave(args, dtype, route="wave")
+            for reverse in (False, True):
+                check_wave(tuple(a[1] for a in args), dtype, reverse,
+                           route="wave")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wave_threshold_both_sides(cuda, dtype):
+    """Ragged B just under and over each threshold: lstm_cluster.cu below,
+    lstm_wave.cu from it up."""
+    itemsize = 4 if dtype == "float32" else 2
+    for (hidden, size), least in lstm_cuda.WAVE_MIN_ROWS.items():
+        if size != itemsize:
+            continue
+        below = inputs((), 7, least - 3, hidden, dtype, cuda, 7)
+        for reverse in (False, True):
+            check_one(below, dtype, reverse)
+            check_wave(inputs((), 7, least + 3, hidden, dtype, cuda, 8),
+                       dtype, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden", [128, 256])
+def test_wave_every_plan_matches_plain(cuda, dtype, hidden):
+    """Every plan lstm_wave.cu is built for gives the same answer."""
+    itemsize = 4 if dtype == "float32" else 2
+    args = inputs((2,), 9, 77, hidden, dtype, cuda)
+    plans = [p for p in lstm_cuda.WAVE_ROWS
+             if lstm_cuda.wave_fits(hidden, itemsize, p)]
+    assert plans
+    for plan in plans:
+        check_wave(args, dtype, plan=plan, route="wave")
+
+
+@pytest.mark.cuda
+def test_wave_custom_op_in_a_cuda_graph(cuda):
+    """The custom op (kernels/ops.py) at the 16-slot tick's narrow band,
+    captured in a CUDA graph after one eager call: a replay with new
+    inputs in the static buffers equals the plain version and moves no
+    launch counter (the kernel allocates nothing and never
+    synchronises)."""
+    from fnssl_tpu_torch.kernels import ops
+
+    static = list(inputs((), 12, 4096, 256, "float32", cuda, 3))
+    ops.lstm_fwd(*static)                       # eager: attributes set
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ops.lstm_fwd(*static)                   # warm-up on the stream
+        with torch.cuda.graph(graph, stream=stream):
+            outs = ops.lstm_fwd(*static)
+    torch.cuda.current_stream().wait_stream(stream)
+    fresh = inputs((), 12, 4096, 256, "float32", cuda, 4)
+    for buf, new in zip(static, fresh):
+        buf.copy_(new)
+    before = (lstm_cuda.launches.value, lstm_cuda.launches_wave.value)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (lstm_cuda.launches.value,
+            lstm_cuda.launches_wave.value) == before
+    assert_close(outs, lstm_cuda.lstm_fwd_plain(*fresh), "float32",
+                 "graph replay")
 
 
 # K2, the backward recurrence (kernels/csrc/lstm_bwd_cluster.cu, which
