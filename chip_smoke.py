@@ -6,9 +6,9 @@
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device  — the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build   — nvcc builds every kernel from the sources in the checkout
-               (lstm_cluster.cu, lstm_wave.cu, lstm_fwd.cu, lstm_bwd.cu,
-               lstm_bwd_cluster.cu, ssm_scan.cu), one nvcc per source, all
-               started together.
+               (lstm_cluster.cu, lstm_wave.cu, lstm_fwd.cu,
+               lstm_bwd_cluster.cu, lstm_bwd_wave.cu, ssm_scan.cu), one nvcc
+               per source, all started together.
   3. kernels — each kernel against its plain PyTorch version on the card:
                K1 through lstm_fwd (both directions) and lstm_fwd_bidir,
                each call on the kernel lstm_cuda.fwd_route gives its shape
@@ -42,42 +42,56 @@ Phases, each fatal on failure (exit code != 0, no result line):
                training and in the 16-slot tick beside lstm_cluster.cu,
                lstm_fwd.cu, the bound and cuDNN (TF32 off and on), the
                card's time from a trace (fails unless lstm_wave.cu is the
-               faster of the two there); and the sweep that sets the
+               faster of the two there; also at a DP rank's narrow band,
+               (298, 2048, 256)); and the sweep that sets the
                rule: lstm_wave.cu against lstm_cluster.cu at B
                256-4768 x H 128/256 x 1-2 directions x fp32/bf16 x T
                12/298 (fails where the rule routes a point to lstm_wave.cu
                that measured slower).
-  6. backward — K2 (lstm_bwd_cluster.cu) against its plain version
-               through lstm_bwd (both walks) and lstm_bwd_bidir: dgates,
-               dh0, dc0 at the two training shapes and at edge cases (B
-               1/11/13/17, T 1/2/7, H 32/64/128/256), fp32 and bf16, nonzero
-               c0/dhT/dcT; the earlier lstm_bwd.cu, which phase 9 times, at
-               the two training shapes; and K1 at the two training shapes,
-               which phase 3 never reaches. K1 and both K2 sources also at
-               the shapes of one rank's step in phase 29 (8 scenes: full
-               band B 2384, narrow band B 2048).
+  6. backward — K2 against its plain version through lstm_bwd (both
+               walks) and lstm_bwd_bidir, each call on the kernel
+               lstm_cuda.bwd_route gives its shape (lstm_bwd_cluster.cu, or
+               lstm_bwd_wave.cu from the rule's rows at H = 256), with exact
+               launches: dgates, dh0, dc0 at the two training shapes, at the
+               shapes of one rank's step in phase 29 (8 scenes: full band B
+               2384, narrow band B 2048) and at edge cases (B 1/11/13/17, T
+               1/2/7, H 32/64/128/256), fp32 and bf16, nonzero c0/dhT/dcT;
+               lstm_bwd_wave.cu also through the rule at B on both sides of
+               each threshold, forced onto it at the training and rank
+               shapes, at its edge cases (B 1/11/13/17 and one row past a
+               tile, T 1/2/7, H 32/64/128/256) and with every plan it is
+               built for; and K1 at the training and rank shapes, which
+               phase 3 never reaches.
   7. train parity — one make_train_step step (fp32, dropout off, nb=2 x
                4.79 s, full width, weights from --seed) on cuda:0 and on the
                CPU: loss, every gradient and every parameter after the Adam
-               step; exactly 6 K1 and 6 K2 launches a step, K1 as the rule
-               splits it (lstm_cluster.cu at nb=2), all K2 launches
-               lstm_bwd_cluster.cu.
+               step; exactly 6 K1 and 6 K2 launches a step, each as its
+               rule splits it (lstm_cluster.cu and lstm_bwd_cluster.cu at
+               nb=2).
   8. train   — the reference cell (nb=16 x 4.79 s, FNSSLConfig(), Adam
                1e-3 / gamma 0.8988, dropout on from a seeded generator), fp32
                then the bf16 policy: 1 warm and 5 timed steps each; ms per
                step, T-F frames/s, peak memory, finite losses, launches (3
-               K1 of lstm_cluster.cu and 3 of lstm_wave.cu, 6 K2 a step).
+               K1 of lstm_cluster.cu and 3 of lstm_wave.cu, 3 K2 of
+               lstm_bwd_cluster.cu and 3 of lstm_bwd_wave.cu a step, as the
+               rules give them).
   9. train times — at the two training shapes (CUDA events, warm): K1 and
-               cuDNN forward; K2's two sources in turns (lstm_bwd.cu,
-               lstm_bwd_cluster.cu, lstm_bwd_cluster.cu, lstm_bwd.cu), its
-               bound and plain version; the port's whole LSTM backward and
-               cuDNN's (forward+backward less forward). Then every plan
-               (N, Bt, KS, UPT) of lstm_bwd_cluster.cu that fits, fp32 and
-               bf16.
+               cuDNN forward; K2's two sources in turns (lstm_bwd_cluster.cu,
+               lstm_bwd_wave.cu, lstm_bwd_wave.cu, lstm_bwd_cluster.cu) and
+               the kernel bwd_route gives the shape, each the card's time
+               from a trace, its bound and plain version; the port's whole
+               LSTM backward and cuDNN's (forward+backward less forward, TF32
+               off and on). Fails unless lstm_bwd_wave.cu is the faster of
+               the two at (298, 4096, 256) fp32. Then every plan (N, Bt, KS,
+               UPT) of lstm_bwd_cluster.cu that fits, fp32 and bf16; and the
+               sweep that sets bwd_route's rule: lstm_bwd_wave.cu against
+               lstm_bwd_cluster.cu at T 298, B 1024-4768 x H 128/256 x 1-2
+               directions x fp32/bf16 (fails where the rule routes a point
+               to lstm_bwd_wave.cu that measured slower).
  10. fit     — the user's loop through the CLI (`main()` in this process)
-               on cuda:0 at full width: `simulate` 192 train scenes
+               on cuda:0 at full width: `simulate` 96 train scenes
                (wav+pickle) and 8 dev scenes (compact npz) of 4.79 s;
-               `fit --model fnssl --bz 16 --epochs 2` (12 steps an epoch),
+               `fit --model fnssl --bz 16 --epochs 2` (6 steps an epoch),
                `test`, `test --best`, then `serve` from the fit's
                best_model.tar (one TCP connection); `fit --model fnssl_doa
                --epochs 1 --train-size 32` and `test`. Checked: the native
@@ -86,8 +100,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
                finite ACC/MAE, exact launch counts (6 K1 and 6 K2 a train
                step, 6 K1 and no K2 an eval batch or a test batch, K1 split
                between lstm_cluster.cu and lstm_wave.cu as the rule gives
-               the batch's shapes; 6 K1 of lstm_cluster.cu a serve chunk
-               step; none of lstm_fwd.cu or lstm_bwd.cu).
+               the batch's shapes, K2 between lstm_bwd_cluster.cu and
+               lstm_bwd_wave.cu as bwd_route gives them; 6 K1 of
+               lstm_cluster.cu a serve chunk step; none of lstm_fwd.cu).
                Printed: the simulate seconds a scene and its engine, train
                seconds, the wait for the first batch and the loader wait
                after it a fit epoch, ms a train step after the warm epoch's
@@ -99,8 +114,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
                4096, offline narrow-band H 64 both directions, the variable
                cell's B 13440 and 12288), the serve chunk step and the
                offline model's 312-frame chunked test.
- 12. plans   — every lstm_cluster plan at IPDnet's and FN-SSL's training
-               shapes and every lstm_bwd_cluster plan at IPDnet's, fp32
+ 12. plans   — every lstm_cluster plan at IPDnet's training shapes and
+               FN-SSL's full band (its narrow band runs on lstm_wave.cu)
+               and every lstm_bwd_cluster plan at IPDnet's, fp32
                and bf16; each rule's pick against the fastest, both
                families.
  13. ipdnet serve — `cli serve --model ipdnet` (IPDnetConfig(), weights
@@ -195,7 +211,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
                one `serve --artifact` TCP connection against a dedicated
                stream.
  26. locata  — a synthetic LOCATA tree (task 3 and 5, recordings 1 and 2,
-               dicit: 15 channels of 20 s at 48 kHz, pose, time, source and
+               dicit: 15 channels of 12 s at 48 kHz, pose, time, source and
                VAD files; written before phase 3, which holds K1 at its
                frame count too): `cli locata --model fnssl` from phase 10's
                best_model.tar on the card (exactly 6 K1 launches a
@@ -322,10 +338,11 @@ PER_TRAIN_STEP = 3                      # launches of each shape a step
 LAUNCHES_PER_TRAIN_STEP = 6             # K1, and K2, each
 BWD_EDGE_T = (1, 2, 7)
 # phase 10, the user's loop through the CLI: scenes of TRAIN_T_S seconds,
-# bz 16, 2 epochs of fnssl (12 steps each, so that the loop reaches its
-# steady state after the first batch) and 1 of fnssl_doa on the first
-# FIT_DOA_TRAIN scenes
-FIT_TRAIN, FIT_DEV, FIT_BZ, FIT_EPOCHS, FIT_DOA_TRAIN = 192, 8, 16, 2, 32
+# bz 16, 2 epochs of fnssl (6 steps each, so that the loop reaches its
+# steady state after the first batch, and few enough for the script's time
+# limit: phases 28 and 29 take epochs of the same corpus) and 1 of
+# fnssl_doa on the first FIT_DOA_TRAIN scenes
+FIT_TRAIN, FIT_DEV, FIT_BZ, FIT_EPOCHS, FIT_DOA_TRAIN = 96, 8, 16, 2, 32
 BWD_TOL = 1e-4                          # K2 vs plain, fp32 and bf16
 STARTED = time.perf_counter()
 
@@ -1097,78 +1114,109 @@ def held_bwd(what, got, want, worst, dtype):
     return max(errs.values())
 
 
-def k2_source(name, *args, reverse=False, plan=None):
-    """K2 through the source `name` (lstm_bwd.cu or lstm_bwd_cluster.cu):
-    lstm_bwd's inputs for one direction (g 3-D) or lstm_bwd_bidir's for
-    both (g 4-D)."""
+def k2_checks(name, t, b, h, dtype, device, seed, worst_bwd, checks,
+              route=None, plan=None):
+    """K2 through lstm_bwd (both walks) and lstm_bwd_bidir against the
+    plain versions at one shape, each call on the kernel bwd_route gives it
+    (or on `route`, with `plan`), with exact launches; folded into
+    worst_bwd[kernel] and counted in checks[kernel]. Returns each call's
+    largest error and the kernels that ran."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
-    ndir = 2 if args[0].dim() == 4 else None
-    dims, dh_t, dc_t = L._check_bwd(*args, ndir=ndir)
-    return L._launch_bwd(name, *args[:4], dh_t, dc_t, dims, ndir or 1,
-                         reverse, plan)
+    tdt = getattr(torch, dtype)
+    both = bwd_inputs((2,), t, b, h, tdt, device, seed)
+    errs, kernels = [], []
+    for ndir, calls in ((1, (False, True)), (2, (None,))):
+        if route is None:
+            kernel, counter = k2_route(t, b, h, ndir, tdt.itemsize)
+        else:
+            kernel = L.BWD_SOURCES[route]
+            counter = L.BWD_COUNTERS[kernel]
+        kernels.append(kernel)
+        for reverse in calls:
+            if reverse is None:
+                fn, plain, args, kw = (L.lstm_bwd_bidir,
+                                       L.lstm_bwd_bidir_plain, both, {})
+                what = "lstm_bwd_bidir"
+            else:
+                fn, plain = L.lstm_bwd, L.lstm_bwd_plain
+                args = tuple(a[int(reverse)] for a in both)
+                kw = {"reverse": reverse}
+                what = f"lstm_bwd reverse={int(reverse)}"
+            got = counted(counter, 1, fn, args[0].clone(), *args[1:],
+                          route=route, plan=plan, **kw)
+            want = plain(args[0].clone(), *args[1:], **kw)
+            checks[kernel] += 1
+            errs.append(held_bwd(f"{kernel} {name} T={t} B={b} H={h} {what}",
+                                 got, want, worst_bwd[kernel], dtype))
+            del got, want
+    return errs, kernels
+
+
+def bwd_wave_cases(shapes):
+    """(name, T, B, H, route) at which phase 6 holds lstm_bwd_wave.cu
+    beyond the rule's calls at `shapes`: B on both sides of each threshold
+    of bwd_route (through the rule); forced onto it at `shapes` where the
+    rule keeps them on lstm_bwd_cluster.cu, and at its edge cases (B
+    1/11/13/17 and one row past a tile of 4 rows a thread, T 1/2/7, H
+    32-256)."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    cases = []
+    for (h, itemsize), rows in sorted(L.BWD_WAVE_MIN_ROWS.items()):
+        if itemsize == 4:
+            cases += [(f"threshold{d:+d}", 7, rows + d, h, None)
+                      for d in (-3, 3)]
+    cases += [(n, t, b, h, "wave") for n, t, b, h, _, ndir in shapes
+              if L.bwd_route(t, b, h, ndir, 4) != "wave"]
+    cases += [("wave edge", t, b, h, "wave") for h in EDGE_H
+              for b in EDGE_B + (L.bwd_wave_tile(h, 4) + 1,)
+              for t in BWD_EDGE_T]
+    return cases
 
 
 def phase_backward(device, worst, shapes):
     """K2 against its plain version on the card, through lstm_bwd and
-    lstm_bwd_bidir (lstm_bwd_cluster.cu) and, at `shapes` (the training
-    shapes and phase 29's rank shapes), through lstm_bwd.cu; and K1 at
-    `shapes` (folded into worst['lstm_cluster']). Returns K2's worst
-    errors by source and dtype, and its checks by source."""
+    lstm_bwd_bidir, each call on the kernel bwd_route gives it, at `shapes`
+    (the training shapes and phase 29's rank shapes) and the edge cases;
+    lstm_bwd_wave.cu at `bwd_wave_cases` and with every plan it is built
+    for (T 7, B 77, H 128 and 256); and K1 at `shapes` (folded into
+    worst). Returns K2's worst errors by source and dtype, and its checks
+    by source."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
     worst_bwd = {k: {"float32": 0.0, "bfloat16": 0.0}
                  for k in L.BWD_COUNTERS}
     checks = dict.fromkeys(L.BWD_COUNTERS, 0)
-    cases = [(n, t, b, h) for n, t, b, h, _, _ in shapes]
-    cases += [("edge", t, b, h) for h in EDGE_H for b in EDGE_B
+    cases = [(n, t, b, h, None) for n, t, b, h, _, _ in shapes]
+    cases += [("edge", t, b, h, None) for h in EDGE_H for b in EDGE_B
               for t in BWD_EDGE_T]
+    cases += bwd_wave_cases(shapes)
     seed = 1000
-
-    def check(kernel, fn, plain, args, what, dtype, **kw):
-        got = counted(L.BWD_COUNTERS[kernel], 1, fn, args[0].clone(),
-                      *args[1:], **kw)
-        want = plain(args[0].clone(), *args[1:], **kw)
-        checks[kernel] += 1
-        return held_bwd(f"{kernel} {what}", got, want, worst_bwd[kernel],
-                        dtype)
-
-    for name, t, b, h in cases:
+    for name, t, b, h, route in cases:
         for dtype in ("float32", "bfloat16"):
             seed += 1
-            both = bwd_inputs((2,), t, b, h, getattr(torch, dtype), device,
-                              seed)
-            what = f"{name} T={t} B={b} H={h}"
-            routes = [("lstm_bwd_cluster", L.lstm_bwd)]
-            if name != "edge":
-                routes.append(("lstm_bwd", functools.partial(k2_source,
-                                                             "lstm_bwd")))
-            errs = {}
-            for kernel, fn in routes:
-                for reverse in (False, True):
-                    errs.setdefault(kernel, []).append(check(
-                        kernel, fn, L.lstm_bwd_plain,
-                        tuple(a[int(reverse)] for a in both),
-                        f"{what} lstm_bwd reverse={int(reverse)}", dtype,
-                        reverse=reverse))
-            routes = [("lstm_bwd_cluster", L.lstm_bwd_bidir)]
-            if name != "edge":
-                routes.append(("lstm_bwd", functools.partial(k2_source,
-                                                             "lstm_bwd")))
-            for kernel, fn in routes:
-                errs.setdefault(kernel, []).append(check(
-                    kernel, fn, L.lstm_bwd_bidir_plain, both,
-                    f"{what} lstm_bwd_bidir", dtype))
-            del both
-            if name != "edge":
-                for kernel, e in errs.items():
-                    log(f"  {kernel:16s} {name:16s} T={t:3d} B={b:4d} "
-                        f"H={h:3d} {dtype:8s} max|diff| dgates/dh0/dc0 "
-                        "fwd/rev/bidir " + "/".join(f"{v:.2e}" for v in e))
+            errs, kernels = k2_checks(name, t, b, h, dtype, device, seed,
+                                      worst_bwd, checks, route)
+            if "edge" not in name:
+                log(f"  {'/'.join(kernels)} {name:16s} T={t:3d} B={b:4d} "
+                    f"H={h:3d} {dtype:8s} max|diff| dgates/dh0/dc0 "
+                    "fwd/rev/bidir " + "/".join(f"{v:.2e}" for v in errs))
+    plans = 0
+    for h in (128, 256):
+        for dtype in ("float32", "bfloat16"):
+            for plan in L.BWD_WAVE_ROWS:
+                if not L.bwd_wave_fits(h, getattr(torch, dtype).itemsize,
+                                       plan):
+                    continue
+                seed += 1
+                k2_checks(f"plan {plan}", 7, 77, h, dtype, device, seed,
+                          worst_bwd, checks, "wave", plan)
+                plans += 1
     log(f"  K2 checks passed by source {json.dumps(checks)} at "
-        f"{', '.join(n for n, *_ in shapes)}; edge cases B "
-        f"{EDGE_B} x T {BWD_EDGE_T} x H {EDGE_H}; worst "
-        f"{json.dumps(worst_bwd)}")
+        f"{', '.join(n for n, *_ in shapes)}, edge cases B {EDGE_B} x T "
+        f"{BWD_EDGE_T} x H {EDGE_H}, lstm_bwd_wave.cu also one row past a "
+        f"tile and with {plans} plans; worst {json.dumps(worst_bwd)}")
     for name, t, b, h, _, _ in shapes:
         for dtype in ("float32", "bfloat16"):
             seed += 1
@@ -1200,10 +1248,10 @@ def train_setup(seed, device, nb, precision="fp32"):
     return S.init_train_state(model, tx), step, batch
 
 
-COUNTED = ("lstm_cluster", "lstm_fwd", "lstm_bwd", "lstm_bwd_cluster",
+COUNTED = ("lstm_cluster", "lstm_fwd", "lstm_bwd_wave", "lstm_bwd_cluster",
            "ssm_scan_fwd", "ssm_scan_bwd", "lstm_wave")
 # their kernels' names in a device trace, in the same order
-TRACED = ("lstm_cluster_kernel", "lstm_fwd_kernel", "lstm_bwd_kernel",
+TRACED = ("lstm_cluster_kernel", "lstm_fwd_kernel", "lstm_bwd_wave_kernel",
           "lstm_bwd_cluster_kernel", "selective_fwd_kernel",
           "selective_bwd_kernel", "lstm_wave_kernel")
 TRACE_GUARD = 2048
@@ -1216,7 +1264,7 @@ def launch_counters():
     from fnssl_tpu_torch.kernels import lstm_cuda as L
     from fnssl_tpu_torch.kernels import ssm_cuda as S
 
-    return (L.launches, L.launches_v2, L.launches_bwd,
+    return (L.launches, L.launches_v2, L.launches_bwd_wave,
             L.launches_bwd_cluster, S.launches_ssm_fwd, S.launches_ssm_bwd,
             L.launches_wave)
 
@@ -1243,21 +1291,37 @@ def k1_split(recurrences, itemsize=4):
     return out
 
 
+def k2_route(t_steps, batch, hidden, ndir, itemsize):
+    """(name in COUNTED, launch counter) of the K2 kernel that
+    lstm_cuda.bwd_route gives a call of `ndir` directions at this shape
+    (one launch a call)."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    route = L.bwd_route(t_steps, batch, hidden, ndir, itemsize)
+    name = L.BWD_SOURCES[route]
+    return name, L.BWD_COUNTERS[name]
+
+
+def fnssl_recurrences(nb, nt=298):
+    """(T, B, H, ndir, n) of one FN-SSL forward (FNSSLConfig(), 3 blocks,
+    256 bins) of nb scenes of nt frames: a full-band BiLSTM (T 256, B nb
+    nt, H 128) and a narrow-band LSTM (T nt, B nb 256, H 256) a block."""
+    return [(256, nb * nt, 128, 2, 3), (nt, nb * 256, 256, 1, 3)]
+
+
 def fnssl_k1(nb, nt=298, itemsize=4):
-    """K1 launches (COUNTED's order) of one FN-SSL forward (FNSSLConfig(),
-    3 blocks, 256 bins) of nb scenes of nt frames: a full-band BiLSTM (T
-    256, B nb nt, H 128) and a narrow-band LSTM (T nt, B nb 256, H 256) a
-    block."""
-    return k1_split([(256, nb * nt, 128, 2, 3), (nt, nb * 256, 256, 1, 3)],
-                    itemsize)
+    """K1 launches (COUNTED's order) of one FN-SSL forward."""
+    return k1_split(fnssl_recurrences(nb, nt), itemsize)
 
 
 def step_launches(nb, itemsize=4):
     """Launches (COUNTED's order) of one FN-SSL train step of nb scenes of
-    4.79 s: fnssl_k1's forward and K2 (lstm_bwd_cluster.cu) for each of its
-    6 recurrences."""
+    4.79 s: fnssl_k1's forward and a K2 launch for each of its 6
+    recurrences, on the kernel bwd_route gives it."""
     out = fnssl_k1(nb, itemsize=itemsize)
-    out[COUNTED.index("lstm_bwd_cluster")] += LAUNCHES_PER_TRAIN_STEP
+    for t_steps, batch, hidden, ndir, n in fnssl_recurrences(nb):
+        name, _ = k2_route(t_steps, batch, hidden, ndir, itemsize)
+        out[COUNTED.index(name)] += n
     return out
 
 
@@ -1438,9 +1502,13 @@ def lstm_grad_case(t_steps, batch, hidden, in_size, ndir, device, seed):
     return params, x, gy
 
 
-def phase_train_times(device, shapes=TRAIN_SHAPES):
-    """K1, K2 (both sources, in turns) and the whole LSTM backward at the
-    training shapes."""
+def phase_train_times(device, shapes=TRAIN_SHAPES, k2_turns=True):
+    """K1, K2 and the whole LSTM backward at the training shapes. With
+    `k2_turns`, K2's two sources in turns (lstm_bwd_cluster.cu,
+    lstm_bwd_wave.cu, lstm_bwd_wave.cu, lstm_bwd_cluster.cu), each the
+    card's time of a launch from a trace (device_ms); else the kernel
+    bwd_route gives the shape alone, CUDA events. "k2_ms" is the kernel
+    bwd_route gives the shape."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
     from fnssl_tpu_torch.models.lstm import lstm
 
@@ -1451,7 +1519,8 @@ def phase_train_times(device, shapes=TRAIN_SHAPES):
                "k1_route": L.fwd_route(t, b, h, ndir, 4),
                "plan": L.cluster_plan(h, 4, b, ndir),
                "wave_plan": L.wave_plan(h, 4, b, ndir),
-               "k2_plan": L.bwd_cluster_plan(h, 4)}
+               "k2_plan": L.bwd_cluster_plan(h, 4),
+               "k2_wave_plan": L.bwd_wave_plan(h, 4, b, ndir)}
         for dtype in ("float32", "bfloat16"):
             tdt = getattr(torch, dtype)
             itemsize = tdt.itemsize
@@ -1475,18 +1544,23 @@ def phase_train_times(device, shapes=TRAIN_SHAPES):
             # K2 rewrites g in place: each timed launch starts from the last
             # one's dgates, which costs the same work
             args = bwd_inputs((ndir,), t, b, h, tdt, device, 8)
-            k2_plain = (L.lstm_bwd_bidir_plain if bidir
-                        else L.lstm_bwd_plain)
+            k2, k2_plain = ((L.lstm_bwd_bidir, L.lstm_bwd_bidir_plain)
+                            if bidir else (L.lstm_bwd, L.lstm_bwd_plain))
             if not bidir:
                 args = tuple(a[0] for a in args)
-            turns = {}
-            for src in ("lstm_bwd", "lstm_bwd_cluster", "lstm_bwd_cluster",
-                        "lstm_bwd"):
-                turns.setdefault(src, []).append(
-                    cuda_ms(lambda: k2_source(src, *args), 5))
-            for src, ms in turns.items():
-                row[f"k2_{src}_turns_{dtype}"] = ms
-                row[f"k2_{src}_ms_{dtype}"] = float(np.mean(ms))
+            route = L.bwd_route(t, b, h, ndir, itemsize)
+            row[f"k2_route_{dtype}"] = route
+            if k2_turns:
+                turns = {}
+                for r in ("cluster", "wave", "wave", "cluster"):
+                    turns.setdefault(r, []).append(
+                        device_ms(lambda: k2(*args, route=r), 3))
+                for r, ms in turns.items():
+                    row[f"k2_{r}_turns_{dtype}"] = ms
+                    row[f"k2_{r}_ms_{dtype}"] = float(np.mean(ms))
+            else:
+                row[f"k2_{route}_ms_{dtype}"] = cuda_ms(lambda: k2(*args), 5)
+            row[f"k2_ms_{dtype}"] = row[f"k2_{route}_ms_{dtype}"]
             row[f"k2_bound_terms_{dtype}"] = {
                 k: ndir * v for k, v in bwd_bound_terms(t, b, h,
                                                         itemsize).items()}
@@ -1525,17 +1599,22 @@ def phase_train_times(device, shapes=TRAIN_SHAPES):
             f"{bound(row['k1_bound_terms_float32'])[0]:.3f}, plain "
             f"{row['k1_plain_ms']:.1f}, cuDNN fwd TF32 off "
             f"{row['library_fwd_ms']:.3f}, on "
-            f"{row['library_fwd_ms_tf32']:.3f}); K2 (plan "
-            f"{row['k2_plan']}) in turns "
-            "lstm_bwd.cu/lstm_bwd_cluster.cu/lstm_bwd_cluster.cu/lstm_bwd.cu"
-            " fp32 " + "/".join(f"{v:.3f}" for v in (
-                row["k2_lstm_bwd_turns_float32"][0],
-                *row["k2_lstm_bwd_cluster_turns_float32"],
-                row["k2_lstm_bwd_turns_float32"][1])) + " ms, bf16 "
-            + "/".join(f"{v:.3f}" for v in (
-                row["k2_lstm_bwd_turns_bfloat16"][0],
-                *row["k2_lstm_bwd_cluster_turns_bfloat16"],
-                row["k2_lstm_bwd_turns_bfloat16"][1])) + " (bound "
+            f"{row['library_fwd_ms_tf32']:.3f}); K2 (route "
+            f"{row['k2_route_float32']}/{row['k2_route_bfloat16']}; plans "
+            f"{row['k2_plan']}, {row['k2_wave_plan']} rows) "
+            + (("device ms in turns lstm_bwd_cluster.cu/lstm_bwd_wave.cu/"
+                "lstm_bwd_wave.cu/lstm_bwd_cluster.cu fp32 " + "/".join(
+                    f"{v:.3f}" for v in (
+                        row["k2_cluster_turns_float32"][0],
+                        *row["k2_wave_turns_float32"],
+                        row["k2_cluster_turns_float32"][1])) + " ms, bf16 "
+                + "/".join(f"{v:.3f}" for v in (
+                    row["k2_cluster_turns_bfloat16"][0],
+                    *row["k2_wave_turns_bfloat16"],
+                    row["k2_cluster_turns_bfloat16"][1])))
+               if k2_turns else
+               f"fp32 {row['k2_ms_float32']:.3f} ms, bf16 "
+               f"{row['k2_ms_bfloat16']:.3f}") + " (bound "
             f"{bound(row['k2_bound_terms_float32'])[0]:.3f} "
             f"{bound(row['k2_bound_terms_float32'])[1]}, plain "
             f"{row['k2_plain_ms']:.1f}); whole LSTM backward "
@@ -1543,6 +1622,19 @@ def phase_train_times(device, shapes=TRAIN_SHAPES):
             f" cuDNN backward TF32 off {row['library_bwd_ms']:.3f}, on "
             f"{row['library_bwd_ms_tf32']:.3f}")
     return rows
+
+
+def check_k2_target(rows):
+    """Fails unless bwd_route gives FN-SSL's narrow band in training (298,
+    4096, 256) to lstm_bwd_wave.cu in float32 and it measured faster there
+    than lstm_bwd_cluster.cu (phase 9's device times)."""
+    row = next(r for r in rows if r["shape"] == "train_narrowband")
+    if not (row["k2_route_float32"] == "wave" and row["k2_wave_ms_float32"]
+            < row["k2_cluster_ms_float32"]):
+        raise AssertionError(
+            f"K2 at (298, 4096, 256) fp32: route {row['k2_route_float32']},"
+            f" lstm_bwd_wave.cu {row['k2_wave_ms_float32']} ms against "
+            f"lstm_bwd_cluster.cu {row['k2_cluster_ms_float32']}")
 
 
 def phase_bwd_plans(device, shapes=TRAIN_SHAPES):
@@ -1563,8 +1655,9 @@ def phase_bwd_plans(device, shapes=TRAIN_SHAPES):
                      for ks in (h // 16, h // 8) for upt in L.BWD_UPTS
                      if L.bwd_cluster_fits(h, tdt.itemsize, n, bt, ks, upt)]
             for plan in plans:
-                ms = cuda_ms(lambda: k2_source("lstm_bwd_cluster", *args,
-                                               plan=plan), 3)
+                fn = L.lstm_bwd_bidir if ndir == 2 else L.lstm_bwd
+                ms = cuda_ms(lambda: fn(*args, route="cluster", plan=plan),
+                             3)
                 rows.append({"shape": name, "dtype": dtype,
                              **dict(zip(("N", "Bt", "KS", "UPT"), plan)),
                              "ms": ms, "default": plan == default})
@@ -1573,6 +1666,75 @@ def phase_bwd_plans(device, shapes=TRAIN_SHAPES):
                     + (" (default)" if plan == default else ""))
             del args
     return rows
+
+
+# phase 9's sweep of lstm_bwd_wave.cu against lstm_bwd_cluster.cu, which
+# sets bwd_route's thresholds: B (a direction) x H x directions x dtype at T
+# BWD_SWEEP_T; the rule's margin: lstm_bwd_wave.cu at least this much faster
+BWD_SWEEP_B, BWD_SWEEP_H, BWD_SWEEP_T = (1024, 2048, 4096, 4768), (128, 256), \
+    298
+BWD_MARGIN = 0.9
+
+
+def phase_bwd_sweep(device):
+    """lstm_bwd_wave.cu (bwd_wave_plan's plan) against lstm_bwd_cluster.cu
+    (bwd_cluster_plan's) over the sweep, CUDA events, one launch of ndir
+    directions; each point's route by bwd_route beside the faster kernel.
+    Fails where the rule sends a shape to lstm_bwd_wave.cu that measured
+    slower there. Returns the rows and, by (H, itemsize), the fewest rows
+    (B x ndir) from which lstm_bwd_wave.cu measured at least 10% faster
+    at every point of as many rows or more (None: nowhere)."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    rows, against = [], []
+    t = BWD_SWEEP_T
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        for h in BWD_SWEEP_H:
+            for ndir in (1, 2):
+                for b in BWD_SWEEP_B:
+                    args = bwd_inputs((ndir,), t, b, h, tdt, device, 12)
+                    fn = L.lstm_bwd_bidir if ndir == 2 else L.lstm_bwd
+                    if ndir == 1:
+                        args = tuple(a[0] for a in args)
+                    ms = {r: cuda_ms(lambda: fn(*args, route=r), 3)
+                          for r in ("cluster", "wave")}
+                    del args
+                    route = L.bwd_route(t, b, h, ndir, tdt.itemsize)
+                    row = {"dtype": dtype, "T": t, "B": b, "H": h,
+                           "ndir": ndir, "route": route,
+                           "cluster_ms": ms["cluster"],
+                           "wave_ms": ms["wave"],
+                           "wave_plan": L.bwd_wave_plan(h, tdt.itemsize, b,
+                                                        ndir),
+                           "bound_ms": ndir * bound(bwd_bound_terms(
+                               t, b, h, tdt.itemsize))[0]}
+                    rows.append(row)
+                    if route == "wave" and not ms["wave"] < ms["cluster"]:
+                        against.append(row)
+                log(f"  {dtype:8s} H={h} ndir={ndir} T={t} B: cluster/wave "
+                    "ms (* routed to lstm_bwd_wave.cu) " + " ".join(
+                        f"{r['B']}:{r['cluster_ms']:.3f}/{r['wave_ms']:.3f}"
+                        f"{'*' if r['route'] == 'wave' else ''}"
+                        for r in rows[-len(BWD_SWEEP_B):]))
+    measured = {}
+    for dtype in ("float32", "bfloat16"):
+        for h in BWD_SWEEP_H:
+            pts = [r for r in rows if r["dtype"] == dtype and r["H"] == h]
+            wins = [r["B"] * r["ndir"] for r in pts if all(
+                q["wave_ms"] <= BWD_MARGIN * q["cluster_ms"] for q in pts
+                if q["B"] * q["ndir"] >= r["B"] * r["ndir"])]
+            measured[f"H={h} itemsize={getattr(torch, dtype).itemsize}"] = (
+                min(wins) if wins else None)
+    thresholds = {f"H={h} itemsize={i}": n
+                  for (h, i), n in L.BWD_WAVE_MIN_ROWS.items()}
+    log(f"  {len(rows)} points; bwd_route's thresholds (rows = B x ndir) "
+        f"{thresholds}; the sweep's (at least {1 - BWD_MARGIN:.0%} faster "
+        f"from these rows up) {measured}")
+    if against:
+        raise AssertionError(f"bwd_route sends to lstm_bwd_wave.cu shapes "
+                             f"where it measured slower: {against}")
+    return rows, measured
 
 
 def cli(argv):
@@ -1666,8 +1828,9 @@ def epoch_stats(log_dir):
 def path_launches(per, train_steps, eval_batches, extra_k1=0):
     """Launches in COUNTED's order of `train_steps` train steps and
     `eval_batches` eval forwards, `per` K1 (and K2 a train step) each, and
-    `extra_k1` more K1, every K1 on lstm_cluster.cu (IPDnet's H 64 and
-    128, which fwd_route keeps there)."""
+    `extra_k1` more K1, every K1 on lstm_cluster.cu and every K2 on
+    lstm_bwd_cluster.cu (IPDnet's H 64 and 128, which fwd_route and
+    bwd_route keep there)."""
     return [per * (train_steps + eval_batches) + extra_k1, 0, 0,
             per * train_steps, 0, 0, 0]
 
@@ -1906,14 +2069,13 @@ def phase_ipdnet_kernels(device, worst, worst_bwd, bwd_checks):
                 if ndir == 1:
                     args = tuple(a[0] for a in args)
                     fn, plain = L.lstm_bwd, L.lstm_bwd_plain
-                got = counted(L.launches_bwd_cluster, 1, fn,
-                              args[0].clone(), *args[1:])
-                err = held_bwd(f"lstm_bwd_cluster {name}", got,
+                kernel, counter = k2_route(t, b, h, ndir, tdt.itemsize)
+                got = counted(counter, 1, fn, args[0].clone(), *args[1:])
+                err = held_bwd(f"{kernel} {name}", got,
                                plain(args[0].clone(), *args[1:]),
-                               worst_bwd["lstm_bwd_cluster"], dtype)
-                bwd_checks["lstm_bwd_cluster"] += 1
-                k2 = (f"; K2 plan {L.bwd_cluster_plan(h, tdt.itemsize)} "
-                      f"max|diff| {err:.2e}")
+                               worst_bwd[kernel], dtype)
+                bwd_checks[kernel] += 1
+                k2 = f"; K2 {kernel} max|diff| {err:.2e}"
                 del args, got
             log(f"  {name:26s} T={t:3d} B={b:5d} H={h:3d} {dtype:8s} K1 "
                 f"{'/'.join(kernels)} max|diff| "
@@ -2766,9 +2928,10 @@ STREAM_BLOCK = int(FS * 0.192)            # `cli stream`'s default push
 # (25 chunk steps; 50 for IPDnet2), ticks timed a tier
 SLOTS, SLOT_MODELS, TIER_ITERS = 16, ("fnssl", "ipdnet", "ipdnet2"), 20
 # the same connections through the eager per-connection serve path, as the
-# yardstick of the pool's aggregate rate (IPDnet2's ~42 ms eager step
-# would add half a minute)
-EAGER_BASELINE = ("fnssl", "ipdnet")
+# yardstick of the pool's aggregate rate: FN-SSL's alone, for the script's
+# time limit (IPDnet's takes 13 s, IPDnet2's ~42 ms eager step would add
+# half a minute)
+EAGER_BASELINE = ("fnssl",)
 # the recurrences of a 16-slot tick: (name, T, B, H, I, ndir), B = 16 x
 # a stream's rows (12 frames full band, 256 bins narrow band)
 SLOT_SHAPES = [("slots16_fullband", 256, 16 * 12, 128, 256, 2),
@@ -2778,7 +2941,8 @@ SLOT_SHAPES = [("slots16_fullband", 256, 16 * 12, 128, 256, 2),
 # the shapes where lstm_wave.cu is held to beat lstm_cluster.cu (phase 5):
 # FN-SSL's narrow band (T, B, H) in training and in the 16-slot tick
 WAVE_TARGETS = [("train_narrowband", 298, TRAIN_NB * 256, 256),
-                ("slots16_narrowband", 12, SLOTS * 256, 256)]
+                ("slots16_narrowband", 12, SLOTS * 256, 256),
+                ("dp_rank_narrowband", 298, 8 * 256, 256)]  # DP_NB // 2
 # and IPDnet2's scans of a 16-slot tick: B = 16 x 16 compressed bins
 SSM_SLOT_SHAPES = [("slots16_layer0", 256, 5, 192),
                    ("slots16_layers1_7", 256, 1, 192)]
@@ -3383,8 +3547,9 @@ def phase_export(seed, device, tmp):
 # `--debug-nans`
 
 # phase 26: a synthetic LOCATA tree in the reference layout, (task,
-# recording) pairs of LOCATA_S s of 15-channel 48 kHz audio (dicit)
-LOCATA_TASKS, LOCATA_RECORDINGS, LOCATA_S = (3, 5), (1, 2), 20.0
+# recording) pairs of LOCATA_S s of 15-channel 48 kHz audio (dicit; as
+# short as the script's time limit asks: the CPU run scales with it)
+LOCATA_TASKS, LOCATA_RECORDINGS, LOCATA_S = (3, 5), (1, 2), 12.0
 LOCATA_FS, LOCATA_SILENCE, LOCATA_BURST = 48000, 4800, 2400
 LOCATA_LAUNCHES = [LAUNCHES_PER_CHUNK, 0, 0, 0, 0, 0, 0]  # a recording
 LOCATA_MICS = (8, 5)                  # `cli locata`'s default --mic-pick
@@ -4378,7 +4543,8 @@ def main():
     # 2. build
     t0 = time.perf_counter()
     reports = cuda_build.build(["lstm_cluster", "lstm_wave", "lstm_fwd",
-                                "lstm_bwd", "lstm_bwd_cluster", "ssm_scan"])
+                                "lstm_bwd_cluster", "lstm_bwd_wave",
+                                "ssm_scan"])
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         spills = [line.strip() for line in report.splitlines()
@@ -4433,8 +4599,13 @@ def main():
     train, train_launches = phase_train(args.seed, device)
     log("[train times] K1, K2 and the LSTM backward at the training shapes")
     train_rows = phase_train_times(device)
+    check_k2_target(train_rows)
     log("[bwd plans] lstm_bwd_cluster plans at the training shapes")
     bwd_plans = phase_bwd_plans(device)
+    log(f"[bwd sweep] lstm_bwd_wave.cu against lstm_bwd_cluster.cu: T "
+        f"{BWD_SWEEP_T}, B {BWD_SWEEP_B} x H {BWD_SWEEP_H} x 1-2 directions "
+        "x fp32/bf16")
+    bwd_sweep, bwd_measured = phase_bwd_sweep(device)
 
     # 10. the user's training loop through the CLI
     log(f"[fit] cli simulate -> fit -> test -> serve at full width: "
@@ -4454,9 +4625,10 @@ def main():
     ipd_plans = phase_plans(device, IPD_TRAIN_SHAPES,
                             ("float32", "bfloat16"), iters=5)
     ipd_bwd_plans = phase_bwd_plans(device, IPD_TRAIN_SHAPES)
-    log("  and every lstm_cluster plan at FN-SSL's training shapes")
-    train_plans = phase_plans(device, TRAIN_SHAPES, ("float32", "bfloat16"),
-                              iters=5)
+    log("  and every lstm_cluster plan at FN-SSL's training full band (its "
+        "narrow band runs on lstm_wave.cu)")
+    train_plans = phase_plans(device, TRAIN_SHAPES[:1],
+                              ("float32", "bfloat16"), iters=5)
     picks = {"serve_k1": plan_picks(plans, "K1"),
              "fnssl_train_k1": plan_picks(train_plans, "K1"),
              "fnssl_train_k2": plan_picks(bwd_plans, "K2"),
@@ -4468,7 +4640,8 @@ def main():
                                                      "ipdnet")
     log("[ipdnet times] K1 and K2 at IPDnet's shapes")
     ipd_rows = phase_times(device, IPD_FWD_SHAPES)
-    ipd_train_rows = phase_train_times(device, IPD_TRAIN_SHAPES)
+    ipd_train_rows = phase_train_times(device, IPD_TRAIN_SHAPES,
+                                       k2_turns=False)
     log(f"[ipdnet parity] one fp32 train step of each IPDnet task, "
         f"nb={IPD_PARITY_NB} x {IPD_T_S} s (variable: nch {IPD_VAR_NCH}, nb "
         f"1), dropout off: the card against the CPU")
@@ -4713,16 +4886,36 @@ def main():
             "ms": 2 * nf * full["v2_ms_float32"]
             + nn_ * narrow["v2_ms_float32"], **serve_common},
     }]
-    k2_common = {
-        "replaces": "fnssl_tpu/kernels/lstm_pallas.py:269",
-        "plain_ms": per_train_step(train_rows, "k2_plain_ms"),
-        "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-        "library_ms": per_train_step(train_rows, "library_bwd_ms"),
-        "work": work + "; library_ms is cuDNN's backward (forward+backward "
-                "less forward) of the same LSTMs, input gradients "
-                "included; ms is this source's time for all 6 launches",
-        "lstm_backward_ms": per_train_step(train_rows, "port_bwd_ms")}
-    for src in ("lstm_bwd_cluster", "lstm_bwd"):
+    def k2_share(route):
+        """A K2 kernel's numbers over the launches of one train step that
+        bwd_route gives it in fp32 (ms_bf16: the same launches in
+        bf16)."""
+        mine = [r for r in train_rows if r["k2_route_float32"] == route]
+        b = step_bound(mine, "k2_bound_terms_float32")
+        return {"ms": per_train_step(mine, f"k2_{route}_ms_float32"),
+                "ms_bf16": per_train_step(mine, f"k2_{route}_ms_bfloat16"),
+                "replaces": "fnssl_tpu/kernels/lstm_pallas.py:269",
+                "plain_ms": per_train_step(mine, "k2_plain_ms"),
+                "bound_ms": b[0], "bound_by": b[1],
+                "library_ms": per_train_step(mine, "library_bwd_ms"),
+                "library_tf32_ms": per_train_step(mine,
+                                                  "library_bwd_ms_tf32"),
+                "lstm_backward_ms": per_train_step(mine, "port_bwd_ms"),
+                "work": f"the {PER_TRAIN_STEP * len(mine)} launches of one "
+                        f"train step at nb={TRAIN_NB}, fp32, that bwd_route "
+                        "gives this kernel: " + ", ".join(
+                            f"{PER_TRAIN_STEP} x (T={r['T']}, B={r['B']}, "
+                            f"H={r['H']}, ndir={r['ndir']})" for r in mine)
+                        + "; ms is the card's time from a trace (ms_bf16: "
+                        "the same launches in bf16, where bwd_route may "
+                        "give the other kernel); library_ms"
+                        " is cuDNN's backward (forward+backward less "
+                        "forward) of the same LSTMs, input gradients "
+                        "included, TF32 off (the port's float32), "
+                        "library_tf32_ms with it on; lstm_backward_ms is "
+                        "the port's whole LSTM backward"}
+    for route, src in (("cluster", "lstm_bwd_cluster"),
+                       ("wave", "lstm_bwd_wave")):
         kernels.append({
             "name": src, "route": "cuda",
             "source": f"fnssl_tpu_torch/kernels/csrc/{src}.cu",
@@ -4730,19 +4923,26 @@ def main():
             "launches_by_path": {k: v[src] for k, v in paths.items()},
             "max_abs_err": worst_bwd[src]["float32"],
             "max_abs_err_bf16": worst_bwd[src]["bfloat16"],
-            "checks": bwd_checks[src],
-            "ms": per_train_step(train_rows, f"k2_{src}_ms_float32"),
-            "ms_bf16": per_train_step(train_rows, f"k2_{src}_ms_bfloat16"),
-            **k2_common,
-            "ipdnet_train_step": {
-                "ms": ipd_step(f"k2_{src}_ms_float32"),
-                "ms_bf16": ipd_step(f"k2_{src}_ms_bfloat16"),
-                "plain_ms": ipd_step("k2_plain_ms"),
-                "bound_ms": ipd_step_bound("k2_bound_terms_float32")[0],
-                "bound_by": ipd_step_bound("k2_bound_terms_float32")[1],
-                "library_ms": ipd_step("library_bwd_ms"),
-                "lstm_backward_ms": ipd_step("port_bwd_ms"),
-                "work": ipd_work}})
+            "checks": bwd_checks[src], **k2_share(route)})
+    kernels[-2]["ipdnet_train_step"] = {
+        "ms": ipd_step("k2_ms_float32"), "ms_bf16": ipd_step("k2_ms_bfloat16"),
+        "plain_ms": ipd_step("k2_plain_ms"),
+        "bound_ms": ipd_step_bound("k2_bound_terms_float32")[0],
+        "bound_by": ipd_step_bound("k2_bound_terms_float32")[1],
+        "library_ms": ipd_step("library_bwd_ms"),
+        "library_tf32_ms": ipd_step("library_bwd_ms_tf32"),
+        "lstm_backward_ms": ipd_step("port_bwd_ms"), "work": ipd_work,
+        "routes": [r["k2_route_float32"] for r in ipd_step_rows]}
+    kernels[-1].update({
+        "thresholds": {f"H={h} itemsize={i}": n
+                       for (h, i), n in L.BWD_WAVE_MIN_ROWS.items()},
+        "sweep_thresholds": bwd_measured, "sweep": bwd_sweep,
+        "k2_train_step": {
+            "ms": per_train_step(train_rows, "k2_ms_float32"),
+            "ms_bf16": per_train_step(train_rows, "k2_ms_bfloat16"),
+            "cluster_only_ms": per_train_step(train_rows,
+                                              "k2_cluster_ms_float32"),
+            "bound_ms": k2_bound[0], "bound_by": k2_bound[1]}})
     kernels[-2]["plans"] = bwd_plans + ipd_bwd_plans
     # K3 and K4 over one IPDnet2 train step at nb=16 (2 scans at layer 0, T
     # 201, and 14 at T 40) and one serve chunk step (2 at L 5, 14 at L 1)

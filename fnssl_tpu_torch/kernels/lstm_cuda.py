@@ -28,13 +28,26 @@ K1, the forward, replaces ``fnssl_tpu/kernels/lstm_pallas.py:_lstm_kernel``
 K2, the backward recurrence (H up to 256), replaces the sequential part
 of ``_lstm_backward``, K1's ``custom_vjp``: the replay of c and the
 reverse walk that turns the gate pre-activations into dgates, dh0 and dc0
-(``lstm_bwd``, ``lstm_bwd_bidir``). ``csrc/lstm_bwd_cluster.cu`` is K1's
-cluster design mirrored: each CTA keeps the W_hh columns of its hidden
-units in shared memory and dgates are exchanged through distributed
-shared memory; ``bwd_cluster_plan`` picks its plan. ``csrc/lstm_bwd.cu``
-(one block per 16-row tile, W_hh read through L2 at every step) is the
-earlier design, slower at both of FN-SSL's training shapes; no wrapper
-launches it, and ``chip_smoke.py`` times it beside the new one.
+(``lstm_bwd``, ``lstm_bwd_bidir``). Two CUDA C++ sources; ``bwd_route``
+chooses one by shape:
+
+- ``csrc/lstm_bwd_cluster.cu`` for H a multiple of 32 up to 256, at every
+  shape the rule does not give lstm_bwd_wave.cu: K1's cluster design
+  mirrored, each CTA keeping the W_hh columns of its hidden units in
+  shared memory and dgates exchanged through distributed shared memory;
+  ``bwd_cluster_plan`` picks its plan. Built for a step's latency: at
+  large B its 8-row tiles run in tens of waves.
+- ``csrc/lstm_bwd_wave.cu`` at H = 256 from ``BWD_WAVE_MIN_ROWS`` rows (B
+  times the directions) up: lstm_wave.cu's tile for the backward, a CTA
+  walking many rows through the replay and the walk, each step a
+  register-tiled (rows x 4H) @ (4H x H) product with W_hh read from L2;
+  the grid fits in about one wave. ``bwd_wave_plan`` gives its rows a
+  thread; a bfloat16 W_hh reaches it widened to float32. It takes H 32,
+  64, 128 and 256 by name (``route="wave"``); the rule gives it only what
+  ``chip_smoke.py``'s sweep measured at least 10% faster than
+  lstm_bwd_cluster.cu at that B and every larger one: FN-SSL's narrow
+  band (B = nb x 256 at H = 256) from 8 scenes up in float32, from 16 in
+  bfloat16. At H = 128 it was slower: no threshold.
 
 Each source's header comment says what bounds it on the card and how the
 design responds. Every wrapper runs the plain version for tensors on the
@@ -55,18 +68,18 @@ from fnssl_tpu_torch.kernels.cuda_build import LaunchCounter, load_library
 
 # launches of each CUDA kernel (the plain version is not counted):
 # ``launches`` for lstm_cluster.cu, ``launches_wave`` for lstm_wave.cu,
-# ``launches_v2`` for lstm_fwd.cu, ``launches_bwd`` for lstm_bwd.cu,
-# ``launches_bwd_cluster`` for lstm_bwd_cluster.cu
+# ``launches_v2`` for lstm_fwd.cu, ``launches_bwd_cluster`` for
+# lstm_bwd_cluster.cu, ``launches_bwd_wave`` for lstm_bwd_wave.cu
 launches = LaunchCounter()
 launches_wave = LaunchCounter()
 launches_v2 = LaunchCounter()
-launches_bwd = LaunchCounter()
 launches_bwd_cluster = LaunchCounter()
+launches_bwd_wave = LaunchCounter()
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 CLUSTER_MAX_HIDDEN = 256          # lstm_cluster.cu's H; lstm_fwd.cu above
-BWD_MAX_HIDDEN = 256              # lstm_bwd.cu's and lstm_bwd_cluster.cu's H
+BWD_MAX_HIDDEN = 256              # K2's H (both sources)
 BWD_MAX_THREADS = 512             # threads of a lstm_bwd_cluster.cu CTA
 BWD_UPTS = (2, 1)                 # units a thread sums in its product
 BWD_TILE = 8                      # batch rows of a lstm_bwd_cluster.cu tile
@@ -89,6 +102,16 @@ WAVE_PAD = 4                      # floats a row of its h is padded by
 # faster than lstm_cluster.cu at every T of the sweep (12 and 298), every
 # larger B and both dtypes (at 1024 rows, T = 298: 7% in fp32, 13% in bf16)
 WAVE_MIN_ROWS = {(256, 4): 2048, (256, 2): 2048}
+BWD_WAVE_THREADS = 256            # threads of a lstm_bwd_wave.cu CTA
+BWD_WAVE_UNITS = 4                # hidden units a thread of it owns
+BWD_WAVE_ROWS = (4, 5)            # rows a thread lstm_bwd_wave.cu is built for
+BWD_WAVE_PAD = 4                  # floats a row of its dgates is padded by
+# bwd_route's rule: lstm_bwd_wave.cu from this many rows (B x directions)
+# up, by (H, itemsize); H absent: never. Set from chip_smoke.py's sweep
+# (PERF.md): the fewest rows from which lstm_bwd_wave.cu measured at least
+# 10% faster than lstm_bwd_cluster.cu at T = 298 at every point of as many
+# rows or more (at H = 128 lstm_bwd_wave.cu was slower)
+BWD_WAVE_MIN_ROWS = {(256, 4): 2048, (256, 2): 4096}
 
 
 def lstm_fwd_plain(xg: torch.Tensor, w_hh_t: torch.Tensor,
@@ -243,10 +266,8 @@ def wave_plan(hidden: int, itemsize: int, batch: int, ndir: int = 1) -> int:
         if not wave_fits(hidden, itemsize, rows):
             continue
         tile = wave_tile(hidden, rows)
-        ctas = -(-batch // tile) * ndir
-        slots = SMS * wave_ctas_per_sm(hidden, itemsize, rows)
-        full, rest = divmod(ctas, slots)
-        busiest = (full * slots // SMS + -(-rest // SMS)) * tile
+        busiest = _busiest(tile, -(-batch // tile) * ndir,
+                           wave_ctas_per_sm(hidden, itemsize, rows))
         if best is None or busiest < best[0]:
             best = (busiest, rows)
     if best is None:
@@ -267,6 +288,91 @@ def fwd_route(t_steps: int, batch: int, hidden: int, ndir: int,
     if hidden > CLUSTER_MAX_HIDDEN:
         return "v2"
     least = WAVE_MIN_ROWS.get((hidden, itemsize))
+    if least is not None and batch * ndir >= least:
+        return "wave"
+    return "cluster"
+
+
+def bwd_wave_tile(hidden: int, rows: int) -> int:
+    """Batch rows of a lstm_bwd_wave.cu tile: its 256 threads own 4 hidden
+    units each, so 1024/H row groups of ``rows`` rows."""
+    return BWD_WAVE_THREADS * BWD_WAVE_UNITS // hidden * rows
+
+
+def bwd_wave_smem(hidden: int, itemsize: int, tile: int) -> int:
+    """Shared memory (bytes) of one CTA of lstm_bwd_wave.cu with a tile of
+    ``tile`` rows: dgates, which also take the step's G (tile x (4H + 4)
+    float32), c_{t-1} (tile x H float32) and dy_t (tile x H in ys's
+    dtype)."""
+    return (tile * (4 * hidden + BWD_WAVE_PAD) * 4 + tile * hidden * 4
+            + tile * hidden * itemsize)
+
+
+def bwd_wave_ctas_per_sm(hidden: int, itemsize: int, rows: int) -> int:
+    """CTAs of lstm_bwd_wave.cu an SM holds at ``rows`` rows a thread: two,
+    as its registers are budgeted (``__launch_bounds__(256, 2)``), or fewer
+    where the shared memory does not take them."""
+    return min(2, _ctas_per_sm(bwd_wave_smem(
+        hidden, itemsize, bwd_wave_tile(hidden, rows))))
+
+
+def bwd_wave_fits(hidden: int, itemsize: int, rows: int) -> bool:
+    """Whether lstm_bwd_wave.cu takes ``rows`` rows a thread at this H: rows
+    it is built for, H 32, 64, 128 or 256 (a warp's 8 lanes of 4 units,
+    1024/H row groups) and two CTAs' shared memory on an SM (5 rows: a
+    bfloat16 dy only, as the source is built)."""
+    return (rows in BWD_WAVE_ROWS and (rows == 4 or itemsize == 2)
+            and 32 <= hidden <= BWD_MAX_HIDDEN and hidden % 32 == 0
+            and BWD_WAVE_THREADS * BWD_WAVE_UNITS % hidden == 0
+            and _ctas_per_sm(bwd_wave_smem(
+                hidden, itemsize, bwd_wave_tile(hidden, rows))) >= 2)
+
+
+def _busiest(tile: int, ctas: int, per_sm: int) -> int:
+    """Rows on the busiest SM of a grid of ``ctas`` tiles of ``tile`` rows
+    at ``per_sm`` CTAs an SM, counting each wave of the grid in turn."""
+    slots = SMS * per_sm
+    full, rest = divmod(ctas, slots)
+    return (full * slots // SMS + -(-rest // SMS)) * tile
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_wave_plan(hidden: int, itemsize: int, batch: int,
+                  ndir: int = 1) -> int:
+    """Rows a thread of lstm_bwd_wave.cu (its tile is rows x 1024/H batch
+    rows), chosen as ``wave_plan`` chooses lstm_wave.cu's: of the rows that
+    fit, the one whose grid (ndir x ceil(B / tile) CTAs) puts the fewest
+    rows on the busiest SM; on a tie, 4 rows. At H = 256, B = 4096 is 256
+    CTAs of 16 rows, two an SM, in one wave; with a bfloat16 dy, B = 4768
+    is 239 CTAs of 20 rows in one wave (against 298 of 16 in two). 8 rows
+    (one CTA an SM) and 2 (three) were built and measured slower at every
+    B from 2048 to 4768 (PERF.md), and 5 rows at B = 4768 in both
+    directions, where it ties on rows.
+    """
+    best = None
+    for rows in BWD_WAVE_ROWS:
+        if not bwd_wave_fits(hidden, itemsize, rows):
+            continue
+        tile = bwd_wave_tile(hidden, rows)
+        busiest = _busiest(tile, -(-batch // tile) * ndir,
+                           bwd_wave_ctas_per_sm(hidden, itemsize, rows))
+        if best is None or busiest < best[0]:
+            best = (busiest, rows)
+    if best is None:
+        raise ValueError(f"lstm_bwd_wave: no plan fits hidden={hidden}, "
+                         f"itemsize={itemsize}")
+    return best[1]
+
+
+def bwd_route(t_steps: int, batch: int, hidden: int, ndir: int,
+              itemsize: int) -> str:
+    """K2's kernel for a shape, by shape alone: "wave" (lstm_bwd_wave.cu)
+    from ``BWD_WAVE_MIN_ROWS[(H, itemsize)]`` rows (B x ndir) up; else
+    "cluster" (lstm_bwd_cluster.cu). The thresholds come from chip_smoke.py's
+    sweep over B in {1024 .. 4768}, H in {128, 256}, both directions and
+    both dtypes at T = 298; ``t_steps`` does not move them."""
+    del t_steps
+    least = BWD_WAVE_MIN_ROWS.get((hidden, itemsize))
     if least is not None and batch * ndir >= least:
         return "wave"
     return "cluster"
@@ -546,69 +652,102 @@ def _check_bwd(g, w_hh, c0, dys, dh_t, dc_t, ndir: int | None = None):
 def lstm_bwd(g: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor,
              dys: torch.Tensor, dh_t: torch.Tensor | None = None,
              dc_t: torch.Tensor | None = None, *, reverse: bool = False,
-             plan=None):
+             plan=None, route: str | None = None):
     """One direction of K2 (contract of ``lstm_bwd_plain``): dgates
     written over g, and dh0, dc0.
 
-    CPU tensors take the plain version; CUDA tensors launch
-    lstm_bwd_cluster.cu once (``plan`` overrides ``bwd_cluster_plan``'s
-    (N, Bt, KS, UPT)). Any B; H a multiple of 32 up to 256.
+    CPU tensors take the plain version. CUDA tensors launch one kernel,
+    chosen by shape (``bwd_route``): lstm_bwd_cluster.cu or
+    lstm_bwd_wave.cu. ``route`` ("cluster" or "wave") names the kernel
+    instead, to hold or time one at any shape; ``plan`` overrides the
+    route's plan (``bwd_cluster_plan``'s (N, Bt, KS, UPT), ``bwd_wave_plan``'s
+    rows a thread). Any B; H a multiple of 32 up to 256 (32, 64, 128 or 256
+    on lstm_bwd_wave.cu).
     """
     dims, dh_t, dc_t = _check_bwd(g, w_hh, c0, dys, dh_t, dc_t)
     if dims is None:
         return lstm_bwd_plain(g, w_hh, c0, dys, dh_t, dc_t, reverse=reverse)
-    return _launch_bwd("lstm_bwd_cluster", g, w_hh, c0, dys, dh_t, dc_t,
-                       dims, 1, reverse, plan)
+    return _launch_bwd(_bwd_route(route, dims, 1, dys.element_size()), g,
+                       w_hh, c0, dys, dh_t, dc_t, dims, 1, reverse, plan)
 
 
 def lstm_bwd_bidir(g: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor,
                    dys: torch.Tensor, dh_t: torch.Tensor | None = None,
-                   dc_t: torch.Tensor | None = None, *, plan=None):
+                   dc_t: torch.Tensor | None = None, *, plan=None,
+                   route: str | None = None):
     """Both directions of K2 in one launch: direction 0 walked forward,
     direction 1 walked t = T-1 .. 0 (as ``lstm_fwd_bidir``).
 
     g (2, T, B, 4H) float32; w_hh (2, 4H, H) and dys (2, T, B, H) in ys's
     dtype; c0, dh_t, dc_t (2, B, H) float32 (dh_t/dc_t None: zeros).
     Returns (g holding dgates, dh0, dc0) (contract of
-    ``lstm_bwd_bidir_plain``). CUDA tensors launch lstm_bwd_cluster.cu
-    once for both directions (``plan`` as in ``lstm_bwd``).
+    ``lstm_bwd_bidir_plain``). CUDA tensors launch the kernel ``bwd_route``
+    gives two directions once for both (``route`` and ``plan`` as in
+    ``lstm_bwd``).
     """
     dims, dh_t, dc_t = _check_bwd(g, w_hh, c0, dys, dh_t, dc_t, ndir=2)
     if dims is None:
         return lstm_bwd_bidir_plain(g, w_hh, c0, dys, dh_t, dc_t)
-    return _launch_bwd("lstm_bwd_cluster", g, w_hh, c0, dys, dh_t, dc_t,
-                       dims, 2, False, plan)
+    return _launch_bwd(_bwd_route(route, dims, 2, dys.element_size()), g,
+                       w_hh, c0, dys, dh_t, dc_t, dims, 2, False, plan)
 
 
-BWD_COUNTERS = {"lstm_bwd": launches_bwd,
-                "lstm_bwd_cluster": launches_bwd_cluster}
+BWD_COUNTERS = {"lstm_bwd_cluster": launches_bwd_cluster,
+                "lstm_bwd_wave": launches_bwd_wave}
+BWD_SOURCES = {"cluster": "lstm_bwd_cluster", "wave": "lstm_bwd_wave"}
 
 
-def _launch_bwd(name, g, w_hh, c0, dys, dh_t, dc_t, dims, ndir, reverse,
+def _bwd_route(route, dims, ndir, itemsize):
+    """The route asked for, or ``bwd_route``'s; another name is refused."""
+    if route is None:
+        return bwd_route(*dims, ndir, itemsize)
+    if route not in BWD_SOURCES:
+        raise ValueError(f"lstm_bwd: no route {route!r}")
+    return route
+
+
+def _aligned(t):
+    """t itself when its data is 16-byte aligned (lstm_bwd_wave.cu's bulk
+    copies and 16-byte loads), else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_bwd(route, g, w_hh, c0, dys, dh_t, dc_t, dims, ndir, reverse,
                 plan=None):
-    """One launch of K2's kernel ``name`` (lstm_bwd_cluster or the earlier
-    lstm_bwd) on checked CUDA inputs; ``plan`` is taken by
-    lstm_bwd_cluster only."""
+    """One launch of K2's kernel on `route` ("cluster" or "wave") on
+    checked CUDA inputs, with that kernel's ``plan`` or its rule's."""
     t_steps, batch, hidden = dims
+    name = BWD_SOURCES[route]
     dh0, dc0 = torch.empty_like(c0), torch.empty_like(c0)
     if batch == 0:
         return g, dh0, dc0
+    work = g
+    if route == "wave":
+        plan = (plan or bwd_wave_plan(hidden, dys.element_size(), batch,
+                                      ndir),)
+        work = _aligned(g)
+        # a float32 W_hh: each value feeds 4 FMAs there, too few to widen
+        # a bfloat16 one in the kernel's loop
+        w_hh = w_hh.float()
+        w_hh, c0, dys, dh_t, dc_t = map(_aligned, (w_hh, c0, dys, dh_t, dc_t))
+        what = "(rows={})"
+    else:
+        plan = plan or bwd_cluster_plan(hidden, dys.element_size())
+        what = "(N={}, Bt={}, KS={}, UPT={})"
     cs = torch.empty(dys.shape, dtype=torch.float32, device=g.device)
     lib = _library(name)
-    args = [g.data_ptr(), cs.data_ptr(), w_hh.data_ptr(), c0.data_ptr(),
-            dys.data_ptr(), dh_t.data_ptr(), dc_t.data_ptr(), dh0.data_ptr(),
-            dc0.data_ptr(), t_steps, batch, hidden, ndir, int(reverse),
-            int(dys.dtype == torch.bfloat16)]
-    what = f"{name} launch failed"
-    if name == "lstm_bwd_cluster":
-        plan = plan or bwd_cluster_plan(hidden, dys.element_size())
-        args += list(plan)
-        what += " (N={}, Bt={}, KS={}, UPT={})".format(*plan)
-    err = getattr(lib, name)(*args, g.device.index, _stream(g))
+    err = getattr(lib, name)(
+        work.data_ptr(), cs.data_ptr(), w_hh.data_ptr(), c0.data_ptr(),
+        dys.data_ptr(), dh_t.data_ptr(), dc_t.data_ptr(), dh0.data_ptr(),
+        dc0.data_ptr(), t_steps, batch, hidden, ndir, int(reverse),
+        int(dys.dtype == torch.bfloat16), *plan, g.device.index, _stream(g))
     if err:
-        raise RuntimeError(f"{what}: " + getattr(
-            lib, f"{name}_error_string")(err).decode())
+        raise RuntimeError(f"{name} launch failed {what.format(*plan)}: "
+                           + getattr(lib, f"{name}_error_string")(err)
+                           .decode())
     BWD_COUNTERS[name].add()
+    if work is not g:
+        g.copy_(work)
     return g, dh0, dc0
 
 
@@ -696,9 +835,9 @@ _ARGTYPES = {
     "lstm_wave": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
     # g cs w_hh c0 dys dhT dcT dh0 dc0, then the ints, then the stream
-    "lstm_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-    + [ctypes.c_void_p],
     "lstm_bwd_cluster": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+    + [ctypes.c_void_p],
+    "lstm_bwd_wave": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
 }
 

@@ -21,7 +21,7 @@ import torch
 from fnssl_tpu_torch.kernels import lstm_cuda
 
 COUNTERS = (lstm_cuda.launches, lstm_cuda.launches_v2,
-            lstm_cuda.launches_bwd, lstm_cuda.launches_bwd_cluster)
+            lstm_cuda.launches_bwd_wave, lstm_cuda.launches_bwd_cluster)
 BWD_TOL = 1e-4
 
 

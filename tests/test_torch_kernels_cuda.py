@@ -1,9 +1,9 @@
 """The Hopper LSTM kernels (kernels/csrc/lstm_cluster.cu for H up to 256,
 kernels/csrc/lstm_wave.cu for large batches at H 256, kernels/csrc/
 lstm_fwd.cu above H 256, and the backward kernels/csrc/
-lstm_bwd_cluster.cu and its earlier design kernels/csrc/lstm_bwd.cu)
-against their plain version, on the card; the autograd Function and one
-train step on the card.
+lstm_bwd_cluster.cu and, for large batches, kernels/csrc/
+lstm_bwd_wave.cu) against their plain version, on the card; the autograd
+Function and one train step on the card.
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips where there is no CUDA device. The file imports only torch and the
 port, so that it runs on a machine without JAX (``--noconftest`` skips
@@ -279,8 +279,9 @@ def test_wave_custom_op_in_a_cuda_graph(cuda):
                  "graph replay")
 
 
-# K2, the backward recurrence (kernels/csrc/lstm_bwd_cluster.cu, which
-# lstm_bwd and lstm_bwd_bidir launch, and the earlier lstm_bwd.cu).
+# K2, the backward recurrence (kernels/csrc/lstm_bwd_cluster.cu and
+# kernels/csrc/lstm_bwd_wave.cu, which lstm_bwd and lstm_bwd_bidir launch as
+# bwd_route gives them or as route= names them).
 # Tolerance: fp32 and bf16 dgates, dh0 and dc0 within 1e-4 of the plain
 # version (the same float32 arithmetic on the same bf16 values, summed in
 # another order).
@@ -302,10 +303,9 @@ def bwd_inputs(lead, t_steps, b, h, dtype, device, seed=0):
 
 
 def check_bwd(fn, plain, args, what, counter=lstm_cuda.launches_bwd_cluster,
-              plan=None, **kw):
+              plan=None, route="cluster", **kw):
     before = counter.value
-    got = fn(args[0].clone(), *args[1:], **kw, **({"plan": plan} if plan
-                                                   else {}))
+    got = fn(args[0].clone(), *args[1:], route=route, plan=plan, **kw)
     assert counter.value == before + 1
     want = plain(args[0].clone(), *args[1:], **kw)
     torch.cuda.synchronize()
@@ -315,13 +315,17 @@ def check_bwd(fn, plain, args, what, counter=lstm_cuda.launches_bwd_cluster,
         assert err <= BWD_TOL, (what, name, err)
 
 
-def earlier_bwd(g, w_hh, c0, dys, dh_t, dc_t, reverse=False):
-    """lstm_bwd.cu, the earlier K2, on one direction or (g 4-D) both."""
-    ndir = 2 if g.dim() == 4 else None
-    dims, dh_t, dc_t = lstm_cuda._check_bwd(g, w_hh, c0, dys, dh_t, dc_t,
-                                            ndir=ndir)
-    return lstm_cuda._launch_bwd("lstm_bwd", g, w_hh, c0, dys, dh_t, dc_t,
-                                 dims, ndir or 1, reverse)
+def check_bwd_wave(args, what, plan=None):
+    """lstm_bwd_wave.cu through both entry points: both directions in one
+    launch, and each direction alone with its own walk."""
+    kw = {"counter": lstm_cuda.launches_bwd_wave, "plan": plan,
+          "route": "wave"}
+    check_bwd(lstm_cuda.lstm_bwd_bidir, lstm_cuda.lstm_bwd_bidir_plain, args,
+              what, **kw)
+    for reverse in (False, True):
+        check_bwd(lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_plain,
+                  tuple(a[int(reverse)] for a in args), (what, reverse),
+                  reverse=reverse, **kw)
 
 
 @pytest.mark.cuda
@@ -345,16 +349,65 @@ def test_bwd_kernel_matches_plain(cuda, dtype, hidden):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hidden", [32, 128, 256])
-def test_earlier_bwd_kernel_matches_plain(cuda, dtype, hidden):
-    """lstm_bwd.cu, both directions in one launch and one reversed walk."""
-    for seed, (b, t_steps) in enumerate(((1, 1), (13, 2), (17, 7))):
-        args = bwd_inputs((2,), t_steps, b, hidden, dtype, cuda, seed)
-        check_bwd(earlier_bwd, lstm_cuda.lstm_bwd_bidir_plain, args,
-                  (b, t_steps), counter=lstm_cuda.launches_bwd)
-        check_bwd(earlier_bwd, lstm_cuda.lstm_bwd_plain,
-                  tuple(a[1] for a in args), (b, t_steps, True),
-                  counter=lstm_cuda.launches_bwd, reverse=True)
+@pytest.mark.parametrize("hidden", [32, 64, 128, 256])
+def test_bwd_wave_kernel_edge_cases(cuda, dtype, hidden):
+    """lstm_bwd_wave.cu at ragged B (and one row past a tile of 4 rows a
+    thread), short T, both entry points, both walks, nonzero c0/dhT/dcT."""
+    seed = 100
+    for b in (1, 11, 13, 17, lstm_cuda.bwd_wave_tile(hidden, 4) + 1):
+        for t_steps in (1, 2, 7):
+            seed += 1
+            check_bwd_wave(bwd_inputs((2,), t_steps, b, hidden, dtype,
+                                      cuda, seed), (b, t_steps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden", [32, 64, 128, 256])
+def test_bwd_wave_every_plan_matches_plain(cuda, dtype, hidden):
+    """Every rows-a-thread lstm_bwd_wave.cu takes gives the same answer
+    (5 rows with a bfloat16 dy only)."""
+    itemsize = 4 if dtype == "float32" else 2
+    args = bwd_inputs((2,), 9, 77, hidden, dtype, cuda, 3)
+    plans = [r for r in lstm_cuda.BWD_WAVE_ROWS
+             if lstm_cuda.bwd_wave_fits(hidden, itemsize, r)]
+    assert plans == ([4] if dtype == "float32" else [4, 5])
+    for plan in plans:
+        check_bwd_wave(args, plan, plan=plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(256, 16 * 298, 128, 2),
+                                   (298, 16 * 256, 256, 1),
+                                   (298, 8 * 256, 256, 1)])
+def test_bwd_wave_kernel_at_training_shapes(cuda, dtype, shape):
+    """lstm_bwd_wave.cu at FN-SSL's training shapes (nb=16) and a DP rank's
+    narrow band (nb=8), forced onto it where the rule keeps a shape on
+    lstm_bwd_cluster.cu."""
+    t_steps, b, h, ndir = shape
+    args = bwd_inputs((ndir,), t_steps, b, h, dtype, cuda, 5)
+    kw = {"counter": lstm_cuda.launches_bwd_wave, "route": "wave"}
+    if ndir == 2:
+        check_bwd(lstm_cuda.lstm_bwd_bidir, lstm_cuda.lstm_bwd_bidir_plain,
+                  args, shape, **kw)
+    else:
+        check_bwd(lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_plain,
+                  tuple(a[0] for a in args), shape, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_wave_gives_the_same_bits_run_to_run(cuda, dtype):
+    """No atomics: the same inputs give the same dgates, dh0 and dc0 bits
+    on every launch, at a ragged B of several tiles."""
+    args = bwd_inputs((2,), 11, 4099, 256, dtype, cuda, 7)
+    outs = [lstm_cuda.lstm_bwd_bidir(args[0].clone(), *args[1:],
+                                     route="wave") for _ in range(3)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        for got, want in zip(out, outs[0]):
+            assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -383,16 +436,20 @@ def test_bwd_every_plan_matches_plain(cuda, dtype, hidden):
 @pytest.mark.parametrize("shape", [(256, 16 * 298, 128, 2),
                                    (298, 16 * 256, 256, 1)])
 def test_bwd_kernel_at_training_shapes(cuda, shape):
-    """FN-SSL's two training shapes at nb=16, fp32: a BiLSTM over
-    frequency (one launch) and an LSTM over time."""
+    """FN-SSL's two training shapes at nb=16, fp32, on the kernel bwd_route
+    gives each: a BiLSTM over frequency (one launch) and an LSTM over
+    time."""
     t_steps, b, h, ndir = shape
     args = bwd_inputs((ndir,), t_steps, b, h, "float32", cuda)
+    route = lstm_cuda.bwd_route(t_steps, b, h, ndir, 4)
+    counter = lstm_cuda.BWD_COUNTERS[lstm_cuda.BWD_SOURCES[route]]
+    kw = {"counter": counter, "route": None}
     if ndir == 2:
         check_bwd(lstm_cuda.lstm_bwd_bidir, lstm_cuda.lstm_bwd_bidir_plain,
-                  args, shape)
+                  args, shape, **kw)
     else:
         check_bwd(lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_plain,
-                  tuple(a[0] for a in args), shape)
+                  tuple(a[0] for a in args), shape, **kw)
 
 
 @pytest.mark.cuda
@@ -400,7 +457,7 @@ def test_bwd_plan_that_does_not_fit_is_refused(cuda):
     """A plan lstm_bwd_cluster.cu does not take raises, never runs another
     way, and counts no launch."""
     args = bwd_inputs((2,), 3, 4, 256, "float32", cuda)
-    before = (lstm_cuda.launches_bwd.value,
+    before = (lstm_cuda.launches_bwd_wave.value,
               lstm_cuda.launches_bwd_cluster.value)
     with pytest.raises(RuntimeError, match="lstm_bwd_cluster launch failed"):
         lstm_cuda.lstm_bwd_bidir(*args, plan=(4, 8, 16, 1))  # 1024 threads
@@ -408,7 +465,11 @@ def test_bwd_plan_that_does_not_fit_is_refused(cuda):
         lstm_cuda.lstm_bwd_bidir(*args, plan=(8, 16, 16, 1))  # 16-row tiles
     with pytest.raises(RuntimeError, match="lstm_bwd_cluster launch failed"):
         lstm_cuda.lstm_bwd_bidir(*args, plan=(4, 8, 16, 2))  # 352 KB fp32
-    assert (lstm_cuda.launches_bwd.value,
+    with pytest.raises(RuntimeError, match="lstm_bwd_wave launch failed"):
+        lstm_cuda.lstm_bwd_bidir(*args, route="wave", plan=8)  # not built
+    with pytest.raises(RuntimeError, match="lstm_bwd_wave launch failed"):
+        lstm_cuda.lstm_bwd_bidir(*args, route="wave", plan=5)  # fp32 dy
+    assert (lstm_cuda.launches_bwd_wave.value,
             lstm_cuda.launches_bwd_cluster.value) == before
 
 
@@ -469,7 +530,7 @@ def test_train_step_launch_counts(cuda):
     train = step.make_train_step(tasks.make_fnssl_task(cfg).loss_fn, tx)
     batch = tasks.synthetic_fnssl_batch(nb=1, t_s=0.4, seed=1)
     counters = (lstm_cuda.launches, lstm_cuda.launches_v2,
-                lstm_cuda.launches_bwd, lstm_cuda.launches_bwd_cluster)
+                lstm_cuda.launches_bwd_wave, lstm_cuda.launches_bwd_cluster)
     before = [c.value for c in counters]
     state, loss = train(state, batch,
                         torch.Generator(device=cuda).manual_seed(1))
@@ -486,9 +547,9 @@ def test_backward_above_256_is_refused(cuda):
 
     layer = LSTM(4, 512, device=cuda)
     out, _ = layer(torch.randn(2, 3, 4, device=cuda))
-    before = (lstm_cuda.launches_bwd.value,
+    before = (lstm_cuda.launches_bwd_wave.value,
               lstm_cuda.launches_bwd_cluster.value)
     with pytest.raises(ValueError, match="up to 256"):
         out.sum().backward()
-    assert (lstm_cuda.launches_bwd.value,
+    assert (lstm_cuda.launches_bwd_wave.value,
             lstm_cuda.launches_bwd_cluster.value) == before

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where a launch of K2 spends its time on the card, for both of its
-sources: fnssl_tpu_torch/kernels/csrc/lstm_bwd_cluster.cu and the earlier
-lstm_bwd.cu.
+sources: fnssl_tpu_torch/kernels/csrc/lstm_bwd_cluster.cu and
+lstm_bwd_wave.cu.
 
-  python3 tools/lstm_bwd_breakdown.py [--source lstm_bwd_cluster|lstm_bwd]
+  python3 tools/lstm_bwd_breakdown.py [--source lstm_bwd_cluster|lstm_bwd_wave]
+      [--rows R]
 
 Builds each source and copies of it with one part cut out, into
 fnssl_tpu_torch/_build/variants/, and times them all on the same inputs
@@ -21,8 +22,12 @@ turns (base, variants, variants reversed, base). The cuts:
   loads_cached — lstm_bwd_cluster.cu: every walk step loads the operands
                of the same time step, which stay in cache (no HBM latency
                for the loads issued a step ahead);
-  w_in_l1    — lstm_bwd.cu: every column of the product reads the same
-               four rows of W_hh, which stay in L1 (no L2 traffic).
+  dg_row0    — lstm_bwd_wave.cu: the product reads the thread's first
+               row of dgates for each of its rows (one shared-memory load
+               a block instead of R, the same FMAs);
+  w_in_l1    — lstm_bwd_wave.cu: every block of the product reads the same
+               four rows of W_hh, which stay in L1 (no L2 traffic, the
+               same loads).
 The variants compute wrong gradients: they only time what is left. Prints
 one JSON line per source and shape.
 """
@@ -61,13 +66,14 @@ CUTS = {
                          "const int t = 1 + 0 * s;\n"
                          "    const int t_prev = 1;"),
     },
-    "lstm_bwd": {
-        "no_product": ("for (int col = col_begin; col < col_begin + k_len;",
-                       "for (int col = col_begin; col < col_begin;"),
+    "lstm_bwd_wave": {
+        "no_product": ("for (int kk = 0; kk < hidden; kk += 2 * kBlock) {",
+                       "for (int kk = 0; kk < 0; kk += 2 * kBlock) {"),
         "no_replay": ("for (int s = 0; s < t_steps; ++s) {",
                       "for (int s = 0; s < 0; ++s) {"),
-        "w_in_l1": ("w_hh + static_cast<size_t>(col) * hidden + j;",
-                    "w_hh + j;"),
+        "dg_row0": ("dgrow + i * row_stride + k0", "dgrow + k0"),
+        "w_in_l1": ("w_hh + static_cast<size_t>(k0 + e) * hidden + u0",
+                    "w_hh + static_cast<size_t>(e) * hidden + u0"),
     },
 }
 
@@ -103,6 +109,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", choices=list(CUTS), action="append",
                     help="the sources to break down (default: both)")
+    ap.add_argument("--rows", type=int, default=None,
+                    help="lstm_bwd_wave.cu's rows a thread (default: "
+                         "bwd_wave_plan's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("lstm_bwd_breakdown: no CUDA device")
@@ -128,7 +137,9 @@ def main():
             dh0, dc0 = torch.empty_like(c0), torch.empty_like(c0)
             stream = torch.cuda.current_stream(device).cuda_stream
             plan = (lstm_cuda.bwd_cluster_plan(hidden, 4)
-                    if source == "lstm_bwd_cluster" else ())
+                    if source == "lstm_bwd_cluster" else
+                    (args.rows or lstm_cuda.bwd_wave_plan(hidden, 4, batch,
+                                                          ndir),))
 
             def launch(lib):
                 err = getattr(lib, source)(
