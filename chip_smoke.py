@@ -399,11 +399,12 @@ def counted(counter, n, fn, *args, **kwargs):
     return out
 
 
-def k1_checks(name, t, b, h, dtype, device, seed, worst, route=None):
+def k1_checks(name, t, b, h, dtype, device, seed, worst, route=None,
+              plan=None):
     """K1 through lstm_fwd (both walks) and lstm_fwd_bidir against the
     plain versions at one shape, each call on the kernel fwd_route gives
-    it (or on `route`), with exact launches; folded into worst[kernel].
-    Returns each call's errors and the kernels that ran."""
+    it (or on `route`, with `plan`), with exact launches; folded into
+    worst[kernel]. Returns each call's errors and the kernels that ran."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
     itemsize = getattr(torch, dtype).itemsize
@@ -419,13 +420,13 @@ def k1_checks(name, t, b, h, dtype, device, seed, worst, route=None):
         for reverse in calls:
             if reverse is None:
                 got = counted(counter, per, L.lstm_fwd_bidir, *both,
-                              route=route)
+                              route=route, plan=plan)
                 want = L.lstm_fwd_bidir_plain(*both)
                 what = f"{name} lstm_fwd_bidir"
             else:
                 one = tuple(a[int(reverse)] for a in both)
                 got = counted(counter, per, L.lstm_fwd, *one,
-                              reverse=reverse, route=route)
+                              reverse=reverse, route=route, plan=plan)
                 want = L.lstm_fwd_plain(*one, reverse=reverse)
                 what = f"{name} lstm_fwd reverse={int(reverse)}"
             errs.append(held(kernel, f"{what} T={t} B={b} H={h}", dtype, got,
@@ -484,8 +485,9 @@ def wave_checks(device, worst):
     """lstm_wave.cu against the plain versions: at `wave_cases` through
     the rule's route (one direction, both walks; both in one launch);
     forced onto it, at the edge cases (B 1/13/300, T 0/1/2/7, H
-    32/64/128/256) and at every plan it is built for, at H 128 and 256
-    (T 7, B 77); fp32 and bf16, nonzero h0/c0. Returns the checks."""
+    32/64/128/256; at H 128 also one row past the full band's tile) and at
+    every plan it is built for, at H 128 (the 128-thread tiles too) and
+    256 (T 7, B 77); fp32 and bf16, nonzero h0/c0. Returns the checks."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
     seed, checks = 5000, 0
@@ -500,21 +502,23 @@ def wave_checks(device, worst):
                 "fwd/rev/bidir ys " + "/".join(f"{e['ys']:.2e}" for e in errs)
                 + " hT,cT " + "/".join(f"{max(e['hT'], e['cT']):.2e}"
                                        for e in errs))
-    for h in EDGE_H:
-        for b in (1, 13, 300):
-            for t in EDGE_T:
-                for dtype in ("float32", "bfloat16"):
-                    seed += 1
-                    k1_checks("wave edge", t, b, h, dtype, device, seed,
-                              worst, route="wave")
-                    checks += 3
+    full = L.wave_plan(128, 4, TRAIN_NB * 298, 2)   # the full band's tile
+    edges = [(h, b, None) for h in EDGE_H for b in (1, 13, 300)]
+    edges += [(128, L.wave_tile(128, full) + 1, full)]
+    for h, b, plan in edges:
+        for t in EDGE_T:
+            for dtype in ("float32", "bfloat16"):
+                seed += 1
+                k1_checks("wave edge", t, b, h, dtype, device, seed, worst,
+                          route="wave", plan=plan)
+                checks += 3
     plans = 0
     for h in (128, 256):
         for dtype in ("float32", "bfloat16"):
             itemsize = getattr(torch, dtype).itemsize
             both = lstm_inputs(7, 77, h, getattr(torch, dtype), device,
                                seed + h, ndir=2)
-            for plan in L.WAVE_ROWS:
+            for plan in L.WAVE_ROWS + (L.WAVE128_ROWS if h == 128 else ()):
                 if not L.wave_fits(h, itemsize, plan):
                     continue
                 got = counted(L.launches_wave, 1, L.lstm_fwd_bidir, *both,
@@ -971,103 +975,142 @@ def phase_plans(device, shapes=SHAPES[:2], dtypes=("float32",), iters=20):
 
 
 # phase 5's sweep of lstm_wave.cu against lstm_cluster.cu, which sets
-# fwd_route's thresholds: B (a direction) x H x directions x dtype x T
+# fwd_route's thresholds: B (a direction) x H x directions x dtype x T, and
+# (T, B, H, ndir) points beside it: VariableIPDnet's narrow band (8 scenes
+# x 6 mic pairs x 256 bins), the most rows any path gives H = 128
 SWEEP_B, SWEEP_H, SWEEP_T = (256, 512, 1024, 2048, 4096, 4768), (128, 256), \
     (12, 298)
+SWEEP_EXTRA = ((280, 12288, 128, 1),)
+# the rule's margin: the wave kernels at least this much faster
+WAVE_MARGIN = 0.9
+
+
+def sweep_thresholds(rows):
+    """By (H, itemsize), the fewest rows (B x ndir) from which the wave
+    kernel measured at least 10% faster than the cluster kernel at every
+    point of as many rows or more, at every T (None: nowhere)."""
+    measured = {}
+    for dtype in ("float32", "bfloat16"):
+        for h in sorted({r["H"] for r in rows}):
+            pts = [r for r in rows if r["dtype"] == dtype and r["H"] == h]
+            wins = [r["B"] * r["ndir"] for r in pts if all(
+                q["wave_ms"] <= WAVE_MARGIN * q["cluster_ms"] for q in pts
+                if q["B"] * q["ndir"] >= r["B"] * r["ndir"])]
+            measured[f"H={h} itemsize={getattr(torch, dtype).itemsize}"] = (
+                min(wins) if wins else None)
+    return measured
 
 
 def phase_wave_sweep(device):
     """lstm_wave.cu (wave_plan's plan) against lstm_cluster.cu
-    (cluster_plan's) over the sweep, CUDA events, one launch of ndir
-    directions; each point's route by fwd_route beside the faster kernel.
-    Fails where the rule sends a shape to lstm_wave.cu that measured slower
-    there. Returns the rows."""
+    (cluster_plan's) over the sweep and SWEEP_EXTRA, CUDA events, one
+    launch of ndir directions; each point's route by fwd_route beside the
+    faster kernel. Fails where the rule sends a shape to lstm_wave.cu that
+    measured slower there. Returns the rows and the thresholds the points
+    give (`sweep_thresholds`)."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
     rows, against = [], []
-    for dtype in ("float32", "bfloat16"):
+
+    def point(dtype, t, b, h, ndir):
         tdt = getattr(torch, dtype)
+        args = lstm_inputs(t, b, h, tdt, device, 11,
+                           ndir=2 if ndir == 2 else None)
+        fn = L.lstm_fwd_bidir if ndir == 2 else L.lstm_fwd
+        iters = 3 if t > 100 else 10
+        ms = {r: cuda_ms(lambda: fn(*args, route=r), iters)
+              for r in ("cluster", "wave")}
+        del args
+        route = L.fwd_route(t, b, h, ndir, tdt.itemsize)
+        row = {"dtype": dtype, "T": t, "B": b, "H": h, "ndir": ndir,
+               "route": route, "cluster_ms": ms["cluster"],
+               "wave_ms": ms["wave"],
+               "wave_plan": L.wave_plan(h, tdt.itemsize, b, ndir),
+               "bound_ms": ndir * bound(bound_terms(
+                   t, b, h, tdt.itemsize))[0]}
+        rows.append(row)
+        if route == "wave" and not ms["wave"] < ms["cluster"]:
+            against.append(row)
+        return row
+
+    def line(pts):
+        return " ".join(f"{r['B']}:{r['cluster_ms']:.3f}/{r['wave_ms']:.3f}"
+                        f"{'*' if r['route'] == 'wave' else ''}" for r in pts)
+
+    for dtype in ("float32", "bfloat16"):
         for h in SWEEP_H:
             for ndir in (1, 2):
                 for t in SWEEP_T:
-                    for b in SWEEP_B:
-                        args = lstm_inputs(t, b, h, tdt, device, 11,
-                                           ndir=2 if ndir == 2 else None)
-                        fn = L.lstm_fwd_bidir if ndir == 2 else L.lstm_fwd
-                        iters = 3 if t > 100 else 10
-                        ms = {r: cuda_ms(lambda: fn(*args, route=r), iters)
-                              for r in ("cluster", "wave")}
-                        del args
-                        route = L.fwd_route(t, b, h, ndir, tdt.itemsize)
-                        row = {"dtype": dtype, "T": t, "B": b, "H": h,
-                               "ndir": ndir, "route": route,
-                               "cluster_ms": ms["cluster"],
-                               "wave_ms": ms["wave"],
-                               "wave_plan": L.wave_plan(h, tdt.itemsize, b,
-                                                        ndir),
-                               "bound_ms": ndir * bound(bound_terms(
-                                   t, b, h, tdt.itemsize))[0]}
-                        rows.append(row)
-                        if route == "wave" and not ms["wave"] < ms["cluster"]:
-                            against.append(row)
-                    line = " ".join(
-                        f"{r['B']}:{r['cluster_ms']:.3f}/{r['wave_ms']:.3f}"
-                        f"{'*' if r['route'] == 'wave' else ''}"
-                        for r in rows[-len(SWEEP_B):])
+                    pts = [point(dtype, t, b, h, ndir) for b in SWEEP_B]
                     log(f"  {dtype:8s} H={h} ndir={ndir} T={t:3d} B: "
-                        f"cluster/wave ms ({'*'} routed to lstm_wave.cu) "
-                        + line)
-    if against:
-        raise AssertionError(f"fwd_route sends to lstm_wave.cu shapes where "
-                             f"it measured slower: {against}")
+                        f"cluster/wave ms (* routed to lstm_wave.cu) "
+                        + line(pts))
+        for t, b, h, ndir in SWEEP_EXTRA:
+            log(f"  {dtype:8s} H={h} ndir={ndir} T={t:3d} B: cluster/wave ms "
+                + line([point(dtype, t, b, h, ndir)]))
+    measured = sweep_thresholds(rows)
     thresholds = {f"H={h} itemsize={i}": n
                   for (h, i), n in L.WAVE_MIN_ROWS.items()}
     log(f"  {len(rows)} points; fwd_route's thresholds (rows = B x ndir) "
-        f"{thresholds}: every routed point measured faster on lstm_wave.cu")
-    return rows
+        f"{thresholds}; the sweep's (at least {1 - WAVE_MARGIN:.0%} faster "
+        f"from these rows up) {measured}")
+    if against:
+        raise AssertionError(f"fwd_route sends to lstm_wave.cu shapes where "
+                             f"it measured slower: {against}")
+    return rows, measured
 
 
 def phase_wave_times(device):
     """lstm_wave.cu at WAVE_TARGETS beside lstm_cluster.cu, lstm_fwd.cu,
     the plain version, the bound and cuDNN (TF32 off and on), the card's
-    time of a launch from a device trace (device_ms), fp32 and bf16. Fails
-    unless lstm_wave.cu is the faster of it and lstm_cluster.cu at each.
-    Returns the rows."""
+    time of a launch of ndir directions from a device trace (device_ms),
+    fp32 and bf16. Fails unless fwd_route gives each target to
+    lstm_wave.cu in float32, and lstm_wave.cu is the faster of it and
+    lstm_cluster.cu wherever the rule gives it a target. Returns the
+    rows."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
     rows = []
-    for name, t, b, h in WAVE_TARGETS:
-        row = {"shape": name, "T": t, "B": b, "H": h,
-               "route": L.fwd_route(t, b, h, 1, 4),
-               "wave_plan": L.wave_plan(h, 4, b),
-               "cluster_plan": L.cluster_plan(h, 4, b)}
+    for name, t, b, h, ndir in WAVE_TARGETS:
+        row = {"shape": name, "T": t, "B": b, "H": h, "ndir": ndir,
+               "route": L.fwd_route(t, b, h, ndir, 4),
+               "wave_plan": L.wave_plan(h, 4, b, ndir),
+               "cluster_plan": L.cluster_plan(h, 4, b, ndir)}
         iters = 5 if t > 100 else 20
+        fn = L.lstm_fwd_bidir if ndir == 2 else L.lstm_fwd
         for dtype in ("float32", "bfloat16"):
             tdt = getattr(torch, dtype)
-            args = tuple(a[0] for a in lstm_inputs(t, b, h, tdt, device, 13,
-                                                   ndir=1))
+            args = lstm_inputs(t, b, h, tdt, device, 13, ndir=ndir)
+            if ndir == 1:
+                args = tuple(a[0] for a in args)
             for route in ("cluster", "wave", "v2"):
                 row[f"{route}_ms_{dtype}"] = device_ms(
-                    lambda: L.lstm_fwd(*args, route=route), iters)
+                    lambda: fn(*args, route=route), iters)
             row[f"bound_ms_{dtype}"], row[f"bound_by_{dtype}"] = bound(
-                bound_terms(t, b, h, tdt.itemsize))
+                {k: ndir * v for k, v in bound_terms(
+                    t, b, h, tdt.itemsize).items()})
             if dtype == "float32":
-                row["plain_ms"] = cuda_ms(lambda: L.lstm_fwd_plain(*args), 1)
+                plain = L.lstm_fwd_bidir_plain if ndir == 2 \
+                    else L.lstm_fwd_plain
+                row["plain_ms"] = cuda_ms(lambda: plain(*args), 1)
                 x = torch.randn(b, t, h, device=device)
-                ref = library_lstm(h, h, args[1][None], False, device)
+                w = args[1] if ndir == 2 else args[1][None]
+                ref = library_lstm(h, h, w, ndir == 2, device)
+                state = tuple(a if ndir == 2 else a[None]
+                              for a in args[2:])
                 with torch.no_grad():
                     for tf32 in LIBRARY_TF32:
                         with library_flags(tf32):
                             row[library_key("library_ms", tf32)] = device_ms(
-                                lambda: ref(x, (args[2][None],
-                                                args[3][None])), iters)
+                                lambda: ref(x, state), iters)
                 del x, ref
             del args
         rows.append(row)
-        log(f"  {name:18s} T={t:3d} B={b} H={h} (device ms a launch, from a "
-            f"trace): lstm_wave.cu (plan {row['wave_plan']}) fp32 "
-            f"{row['wave_ms_float32']:.4f}, bf16 {row['wave_ms_bfloat16']:.4f}"
-            f"; lstm_cluster.cu fp32 {row['cluster_ms_float32']:.4f}, bf16 "
+        log(f"  {name:18s} T={t:3d} B={b} H={h} ndir={ndir} (device ms a "
+            f"launch, from a trace): lstm_wave.cu (plan {row['wave_plan']}) "
+            f"fp32 {row['wave_ms_float32']:.4f}, bf16 "
+            f"{row['wave_ms_bfloat16']:.4f}; lstm_cluster.cu fp32 "
+            f"{row['cluster_ms_float32']:.4f}, bf16 "
             f"{row['cluster_ms_bfloat16']:.4f}; lstm_fwd.cu fp32 "
             f"{row['v2_ms_float32']:.4f}, bf16 {row['v2_ms_bfloat16']:.4f}; "
             f"bound {row['bound_ms_float32']:.4f} "
@@ -1075,10 +1118,13 @@ def phase_wave_times(device):
             f"nn.LSTM (cuDNN) TF32 off {row['library_ms']:.4f}, on "
             f"{row['library_ms_tf32']:.4f}")
         for dtype in ("float32", "bfloat16"):
-            if not (row["route"] == "wave" and row[f"wave_ms_{dtype}"]
+            route = L.fwd_route(t, b, h, ndir, getattr(torch, dtype).itemsize)
+            row[f"route_{dtype}"] = route
+            if (dtype == "float32" and route != "wave") or (
+                    route == "wave" and not row[f"wave_ms_{dtype}"]
                     < row[f"cluster_ms_{dtype}"]):
-                raise AssertionError(f"{name} {dtype}: route "
-                                     f"{row['route']}, lstm_wave.cu "
+                raise AssertionError(f"{name} {dtype}: route {route}, "
+                                     f"lstm_wave.cu "
                                      f"{row[f'wave_ms_{dtype}']} ms against "
                                      f"lstm_cluster.cu "
                                      f"{row[f'cluster_ms_{dtype}']}")
@@ -1154,23 +1200,32 @@ def k2_checks(name, t, b, h, dtype, device, seed, worst_bwd, checks,
 
 
 def bwd_wave_cases(shapes):
-    """(name, T, B, H, route) at which phase 6 holds lstm_bwd_wave.cu
-    beyond the rule's calls at `shapes`: B on both sides of each threshold
-    of bwd_route (through the rule); forced onto it at `shapes` where the
-    rule keeps them on lstm_bwd_cluster.cu, and at its edge cases (B
-    1/11/13/17 and one row past a tile of 4 rows a thread, T 1/2/7, H
-    32-256)."""
+    """(name, T, B, H, route, plan) at which phase 6 holds
+    lstm_bwd_wave.cu beyond the rule's calls at `shapes`: B on both sides
+    of each threshold of bwd_route (through the rule); forced onto it at
+    `shapes` where the rule keeps them on lstm_bwd_cluster.cu, and at its
+    edge cases (B 1/11/13/17, T 1/2/7, H 32-256; one row past the largest
+    tile of each width, on that tile; one row past the full band's H = 128
+    tile, on it)."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
     cases = []
     for (h, itemsize), rows in sorted(L.BWD_WAVE_MIN_ROWS.items()):
         if itemsize == 4:
-            cases += [(f"threshold{d:+d}", 7, rows + d, h, None)
+            cases += [(f"threshold{d:+d}", 7, rows + d, h, None, None)
                       for d in (-3, 3)]
-    cases += [(n, t, b, h, "wave") for n, t, b, h, _, ndir in shapes
+    cases += [(n, t, b, h, "wave", None) for n, t, b, h, _, ndir in shapes
               if L.bwd_route(t, b, h, ndir, 4) != "wave"]
-    cases += [("wave edge", t, b, h, "wave") for h in EDGE_H
-              for b in EDGE_B + (L.bwd_wave_tile(h, 4) + 1,)
+    cases += [("wave edge", t, b, h, "wave", None) for h in EDGE_H
+              for b in EDGE_B for t in BWD_EDGE_T]
+    # one row past the largest tile of each width, on that tile
+    for h in EDGE_H:
+        plan = max(L.bwd_wave_plans(h, 4))
+        cases += [("wave edge", t, L.bwd_wave_tile(h, plan) + 1, h, "wave",
+                   plan) for t in BWD_EDGE_T]
+    # one row past the H = 128 tile of FN-SSL's full band, on that tile
+    full = L.bwd_wave_plan(128, 4, TRAIN_NB * 298, 2)
+    cases += [("wave edge", t, full + 1, 128, "wave", full)
               for t in BWD_EDGE_T]
     return cases
 
@@ -1180,7 +1235,8 @@ def phase_backward(device, worst, shapes):
     lstm_bwd_bidir, each call on the kernel bwd_route gives it, at `shapes`
     (the training shapes and phase 29's rank shapes) and the edge cases;
     lstm_bwd_wave.cu at `bwd_wave_cases` and with every plan it is built
-    for (T 7, B 77, H 128 and 256); and K1 at `shapes` (folded into
+    for (T 7, B 77, H 128 and 256; every tile of the H = 128 kernel); and
+    K1 at `shapes` (folded into
     worst). Returns K2's worst errors by source and dtype, and its checks
     by source."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
@@ -1188,16 +1244,16 @@ def phase_backward(device, worst, shapes):
     worst_bwd = {k: {"float32": 0.0, "bfloat16": 0.0}
                  for k in L.BWD_COUNTERS}
     checks = dict.fromkeys(L.BWD_COUNTERS, 0)
-    cases = [(n, t, b, h, None) for n, t, b, h, _, _ in shapes]
-    cases += [("edge", t, b, h, None) for h in EDGE_H for b in EDGE_B
+    cases = [(n, t, b, h, None, None) for n, t, b, h, _, _ in shapes]
+    cases += [("edge", t, b, h, None, None) for h in EDGE_H for b in EDGE_B
               for t in BWD_EDGE_T]
     cases += bwd_wave_cases(shapes)
     seed = 1000
-    for name, t, b, h, route in cases:
+    for name, t, b, h, route, plan in cases:
         for dtype in ("float32", "bfloat16"):
             seed += 1
             errs, kernels = k2_checks(name, t, b, h, dtype, device, seed,
-                                      worst_bwd, checks, route)
+                                      worst_bwd, checks, route, plan)
             if "edge" not in name:
                 log(f"  {'/'.join(kernels)} {name:16s} T={t:3d} B={b:4d} "
                     f"H={h:3d} {dtype:8s} max|diff| dgates/dh0/dc0 "
@@ -1205,10 +1261,7 @@ def phase_backward(device, worst, shapes):
     plans = 0
     for h in (128, 256):
         for dtype in ("float32", "bfloat16"):
-            for plan in L.BWD_WAVE_ROWS:
-                if not L.bwd_wave_fits(h, getattr(torch, dtype).itemsize,
-                                       plan):
-                    continue
+            for plan in L.bwd_wave_plans(h, getattr(torch, dtype).itemsize):
                 seed += 1
                 k2_checks(f"plan {plan}", 7, 77, h, dtype, device, seed,
                           worst_bwd, checks, "wave", plan)
@@ -1257,6 +1310,16 @@ TRACED = ("lstm_cluster_kernel", "lstm_fwd_kernel", "lstm_bwd_wave_kernel",
 TRACE_GUARD = 2048
 # the settling time of each try of a guarded trace
 TRACE_SETTLE_S = (0.1, 1.0, 2.0)
+
+
+def traced_index(name):
+    """The index in TRACED of the kernel that a device trace's event
+    `name` ran (a kernel's H = 128 tile, `<kernel>_h128`, counts as that
+    kernel), or None."""
+    for i, k in enumerate(TRACED):
+        if re.search(rf"\b{k}(?:_h128)?\b", name):
+            return i
+    return None
 
 
 def launch_counters():
@@ -1624,17 +1687,29 @@ def phase_train_times(device, shapes=TRAIN_SHAPES, k2_turns=True):
     return rows
 
 
+# the training shapes where lstm_bwd_wave.cu is held to beat
+# lstm_bwd_cluster.cu (phase 9): FN-SSL's narrow band (298, 4096, 256) and
+# full band (256, 4768, 128, both directions)
+K2_TARGETS = ("train_narrowband", "train_fullband")
+
+
 def check_k2_target(rows):
-    """Fails unless bwd_route gives FN-SSL's narrow band in training (298,
-    4096, 256) to lstm_bwd_wave.cu in float32 and it measured faster there
-    than lstm_bwd_cluster.cu (phase 9's device times)."""
-    row = next(r for r in rows if r["shape"] == "train_narrowband")
-    if not (row["k2_route_float32"] == "wave" and row["k2_wave_ms_float32"]
-            < row["k2_cluster_ms_float32"]):
-        raise AssertionError(
-            f"K2 at (298, 4096, 256) fp32: route {row['k2_route_float32']},"
-            f" lstm_bwd_wave.cu {row['k2_wave_ms_float32']} ms against "
-            f"lstm_bwd_cluster.cu {row['k2_cluster_ms_float32']}")
+    """Fails unless bwd_route gives each of K2_TARGETS to lstm_bwd_wave.cu
+    in float32, and lstm_bwd_wave.cu measured faster than
+    lstm_bwd_cluster.cu wherever the rule gives it a target (phase 9's
+    device times)."""
+    for name in K2_TARGETS:
+        row = next(r for r in rows if r["shape"] == name)
+        for dtype in ("float32", "bfloat16"):
+            route = row[f"k2_route_{dtype}"]
+            if (dtype == "float32" and route != "wave") or (
+                    route == "wave" and not row[f"k2_wave_ms_{dtype}"]
+                    < row[f"k2_cluster_ms_{dtype}"]):
+                raise AssertionError(
+                    f"K2 at {name} {dtype}: route {route}, "
+                    f"lstm_bwd_wave.cu {row[f'k2_wave_ms_{dtype}']} ms "
+                    f"against lstm_bwd_cluster.cu "
+                    f"{row[f'k2_cluster_ms_{dtype}']}")
 
 
 def phase_bwd_plans(device, shapes=TRAIN_SHAPES):
@@ -1670,66 +1745,62 @@ def phase_bwd_plans(device, shapes=TRAIN_SHAPES):
 
 # phase 9's sweep of lstm_bwd_wave.cu against lstm_bwd_cluster.cu, which
 # sets bwd_route's thresholds: B (a direction) x H x directions x dtype at T
-# BWD_SWEEP_T; the rule's margin: lstm_bwd_wave.cu at least this much faster
+# BWD_SWEEP_T, and phase 5's SWEEP_EXTRA points
 BWD_SWEEP_B, BWD_SWEEP_H, BWD_SWEEP_T = (1024, 2048, 4096, 4768), (128, 256), \
     298
-BWD_MARGIN = 0.9
 
 
 def phase_bwd_sweep(device):
     """lstm_bwd_wave.cu (bwd_wave_plan's plan) against lstm_bwd_cluster.cu
-    (bwd_cluster_plan's) over the sweep, CUDA events, one launch of ndir
-    directions; each point's route by bwd_route beside the faster kernel.
-    Fails where the rule sends a shape to lstm_bwd_wave.cu that measured
-    slower there. Returns the rows and, by (H, itemsize), the fewest rows
-    (B x ndir) from which lstm_bwd_wave.cu measured at least 10% faster
-    at every point of as many rows or more (None: nowhere)."""
+    (bwd_cluster_plan's) over the sweep and SWEEP_EXTRA, CUDA events, one
+    launch of ndir directions; each point's route by bwd_route beside the
+    faster kernel. Fails where the rule sends a shape to lstm_bwd_wave.cu
+    that measured slower there. Returns the rows and the thresholds the
+    points give (`sweep_thresholds`)."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
     rows, against = [], []
+
+    def point(dtype, t, b, h, ndir):
+        tdt = getattr(torch, dtype)
+        args = bwd_inputs((ndir,), t, b, h, tdt, device, 12)
+        fn = L.lstm_bwd_bidir if ndir == 2 else L.lstm_bwd
+        if ndir == 1:
+            args = tuple(a[0] for a in args)
+        ms = {r: cuda_ms(lambda: fn(*args, route=r), 3)
+              for r in ("cluster", "wave")}
+        del args
+        route = L.bwd_route(t, b, h, ndir, tdt.itemsize)
+        row = {"dtype": dtype, "T": t, "B": b, "H": h, "ndir": ndir,
+               "route": route, "cluster_ms": ms["cluster"],
+               "wave_ms": ms["wave"],
+               "wave_plan": L.bwd_wave_plan(h, tdt.itemsize, b, ndir),
+               "bound_ms": ndir * bound(bwd_bound_terms(
+                   t, b, h, tdt.itemsize))[0]}
+        rows.append(row)
+        if route == "wave" and not ms["wave"] < ms["cluster"]:
+            against.append(row)
+        return row
+
+    def line(pts):
+        return " ".join(f"{r['B']}:{r['cluster_ms']:.3f}/{r['wave_ms']:.3f}"
+                        f"{'*' if r['route'] == 'wave' else ''}" for r in pts)
+
     t = BWD_SWEEP_T
     for dtype in ("float32", "bfloat16"):
-        tdt = getattr(torch, dtype)
         for h in BWD_SWEEP_H:
             for ndir in (1, 2):
-                for b in BWD_SWEEP_B:
-                    args = bwd_inputs((ndir,), t, b, h, tdt, device, 12)
-                    fn = L.lstm_bwd_bidir if ndir == 2 else L.lstm_bwd
-                    if ndir == 1:
-                        args = tuple(a[0] for a in args)
-                    ms = {r: cuda_ms(lambda: fn(*args, route=r), 3)
-                          for r in ("cluster", "wave")}
-                    del args
-                    route = L.bwd_route(t, b, h, ndir, tdt.itemsize)
-                    row = {"dtype": dtype, "T": t, "B": b, "H": h,
-                           "ndir": ndir, "route": route,
-                           "cluster_ms": ms["cluster"],
-                           "wave_ms": ms["wave"],
-                           "wave_plan": L.bwd_wave_plan(h, tdt.itemsize, b,
-                                                        ndir),
-                           "bound_ms": ndir * bound(bwd_bound_terms(
-                               t, b, h, tdt.itemsize))[0]}
-                    rows.append(row)
-                    if route == "wave" and not ms["wave"] < ms["cluster"]:
-                        against.append(row)
+                pts = [point(dtype, t, b, h, ndir) for b in BWD_SWEEP_B]
                 log(f"  {dtype:8s} H={h} ndir={ndir} T={t} B: cluster/wave "
-                    "ms (* routed to lstm_bwd_wave.cu) " + " ".join(
-                        f"{r['B']}:{r['cluster_ms']:.3f}/{r['wave_ms']:.3f}"
-                        f"{'*' if r['route'] == 'wave' else ''}"
-                        for r in rows[-len(BWD_SWEEP_B):]))
-    measured = {}
-    for dtype in ("float32", "bfloat16"):
-        for h in BWD_SWEEP_H:
-            pts = [r for r in rows if r["dtype"] == dtype and r["H"] == h]
-            wins = [r["B"] * r["ndir"] for r in pts if all(
-                q["wave_ms"] <= BWD_MARGIN * q["cluster_ms"] for q in pts
-                if q["B"] * q["ndir"] >= r["B"] * r["ndir"])]
-            measured[f"H={h} itemsize={getattr(torch, dtype).itemsize}"] = (
-                min(wins) if wins else None)
+                    "ms (* routed to lstm_bwd_wave.cu) " + line(pts))
+        for te, b, h, ndir in SWEEP_EXTRA:
+            log(f"  {dtype:8s} H={h} ndir={ndir} T={te} B: cluster/wave ms "
+                + line([point(dtype, te, b, h, ndir)]))
+    measured = sweep_thresholds(rows)
     thresholds = {f"H={h} itemsize={i}": n
                   for (h, i), n in L.BWD_WAVE_MIN_ROWS.items()}
     log(f"  {len(rows)} points; bwd_route's thresholds (rows = B x ndir) "
-        f"{thresholds}; the sweep's (at least {1 - BWD_MARGIN:.0%} faster "
+        f"{thresholds}; the sweep's (at least {1 - WAVE_MARGIN:.0%} faster "
         f"from these rows up) {measured}")
     if against:
         raise AssertionError(f"bwd_route sends to lstm_bwd_wave.cu shapes "
@@ -1825,14 +1896,36 @@ def epoch_stats(log_dir):
     return [stats[e] for e in sorted(stats)]
 
 
-def path_launches(per, train_steps, eval_batches, extra_k1=0):
-    """Launches in COUNTED's order of `train_steps` train steps and
-    `eval_batches` eval forwards, `per` K1 (and K2 a train step) each, and
-    `extra_k1` more K1, every K1 on lstm_cluster.cu and every K2 on
-    lstm_bwd_cluster.cu (IPDnet's H 64 and 128, which fwd_route and
-    bwd_route keep there)."""
-    return [per * (train_steps + eval_batches) + extra_k1, 0, 0,
-            per * train_steps, 0, 0, 0]
+def ipd_recurrences(rows, nt=280, online=True, nf=256):
+    """(T, B, H, ndir, n) of one IPDnet forward (IPDnetConfig(),
+    VariableIPDnetConfig(): 2 blocks) on `rows` utterances (nb, or nb x
+    mic pairs for the variable model) of nt frames: a full-band BiLSTM (T
+    nf, B rows nt, H 64) and a narrow-band LSTM (T nt, B rows nf; H 128
+    online, H 64 both directions offline) a block."""
+    narrow = (nt, rows * nf, 128, 1, 2) if online else \
+        (nt, rows * nf, 64, 2, 2)
+    return [(nf, rows * nt, 64, 2, 2), narrow]
+
+
+def ipd_step_launches(rows, online=True, itemsize=4):
+    """Launches (COUNTED's order) of one IPDnet train step on `rows`
+    utterances of 4.5 s: K1 of its forward and a K2 launch for each of
+    its recurrences, each on the kernel the rule gives it."""
+    recs = ipd_recurrences(rows, online=online)
+    out = k1_split(recs, itemsize)
+    for t_steps, batch, hidden, ndir, n in recs:
+        name, _ = k2_route(t_steps, batch, hidden, ndir, itemsize)
+        out[COUNTED.index(name)] += n
+    return out
+
+
+def path_launches(train, train_steps, evals, eval_batches, extra=None):
+    """Launches in COUNTED's order of `train_steps` train steps of `train`
+    launches each (a step's launches, COUNTED's order), `eval_batches`
+    eval forwards of `evals` each, and `extra` more (both lists too)."""
+    extra = extra or [0] * len(COUNTED)
+    return [train_steps * a + eval_batches * b + c
+            for a, b, c in zip(train, evals, extra)]
 
 
 def fnssl_path_launches(train_steps, eval_batches, nb_train=FIT_BZ,
@@ -2024,7 +2117,6 @@ IPD_T_S, IPD_NB, IPD_PARITY_NB = 4.5, 16, 2
 IPD_VAR_NB, IPD_VAR_NCH = 8, 4
 IPD_LR = 5e-4
 IPD_LAUNCHES = 4            # K1 a forward, and K2 a train step: 2 blocks
-IPD_STEP_LAUNCHES = [IPD_LAUNCHES, 0, 0, IPD_LAUNCHES, 0, 0, 0]
 # (name, T, B, H, I, ndir) of one train step: per block a BiLSTM over
 # frequency (H 64, B = rows*280) and an LSTM over time (H 128, B =
 # rows*256; both directions at H 64 offline); the first block's I
@@ -2127,6 +2219,12 @@ def variable_mics(nch):
     return mic
 
 
+def ipd_pairs(which, nch):
+    """Mic pairs an utterance gives the batch axis: the variable model's
+    all pairs of `nch` mics, else one."""
+    return nch * (nch - 1) // 2 if which == "variable_ipdnet" else 1
+
+
 def ipdnet_setup(seed, which, nb, device, precision="fp32", nch=None):
     """(state, step, batch) of an IPDnet task at its published width on
     `device`: weights from `seed`, Adam 5e-4 / gamma 0.975, the bench
@@ -2166,13 +2264,15 @@ def phase_ipdnet_parity(seed, device):
         log(f"  {which}, nb={nb}:")
         out[which] = phase_train_parity(
             seed, device, functools.partial(ipdnet_setup, seed, which, nb),
-            lr=IPD_LR, want=IPD_STEP_LAUNCHES,
+            lr=IPD_LR, want=ipd_step_launches(
+                nb * ipd_pairs(which, IPD_VAR_NCH),
+                online=which != "ipdnet_offline"),
             gates=("conv.conv1", "conv.conv2"))
     return out
 
 
 KERNEL_GROUPS = (("K1", ("lstm_cluster", "lstm_wave")),
-                 ("K2", ("lstm_bwd_cluster",)),
+                 ("K2", ("lstm_bwd_cluster", "lstm_bwd_wave")),
                  ("K3", ("selective_fwd_kernel",)),
                  ("K4", ("selective_bwd_kernel",)),
                  ("conv head", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
@@ -2252,9 +2352,11 @@ def phase_ipdnet_train(seed, device):
     counts = launch_counters()
     for c in counts:
         c.reset()
-    steps, fwd_launches = 0, 0
+    want = [0] * len(COUNTED)
     for which, nb in (("ipdnet", IPD_NB), ("variable_ipdnet", IPD_VAR_NB)):
+        rows_in = nb * ipd_pairs(which, IPD_VAR_NCH)
         for precision in ("fp32", "bf16"):
+            itemsize = 2 if precision == "bf16" else 4
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             state, step, batch = ipdnet_setup(seed, which, nb, device,
@@ -2262,7 +2364,10 @@ def phase_ipdnet_train(seed, device):
             gen = torch.Generator(device=device).manual_seed(seed)
             state, ms, losses = timed_steps(state, step, batch, gen,
                                             TIMED_STEPS)
-            steps += 1 + TIMED_STEPS
+            want = path_launches(ipd_step_launches(rows_in,
+                                                   itemsize=itemsize),
+                                 1 + TIMED_STEPS, [0] * len(COUNTED), 0,
+                                 want)
             row = {"ms_mean": float(ms.mean()),
                    "ms_p90": float(np.percentile(ms, 90)),
                    "ms": ms.tolist(),
@@ -2286,7 +2391,10 @@ def phase_ipdnet_train(seed, device):
                     # cuda_ms: 2 warm calls and TIMED_STEPS timed
                     row["fwd_ms"] = cuda_ms(lambda: fwd(
                         params, feats, module=model, npair=6), TIMED_STEPS)
-                fwd_launches += IPD_LAUNCHES * (2 + TIMED_STEPS)
+                want = path_launches(
+                    [0] * len(COUNTED), 0,
+                    k1_split(ipd_recurrences(rows_in), itemsize),
+                    2 + TIMED_STEPS, want)
                 row["fwd_audio_s_per_s"] = nb * IPD_T_S / (row["fwd_ms"] /
                                                            1e3)
                 extra = f"; forward {row['fwd_ms']:.2f} ms"
@@ -2299,14 +2407,14 @@ def phase_ipdnet_train(seed, device):
                 f"{extra}; losses " + ", ".join(f"{v:.6f}" for v in losses))
             del state, step, batch
     launched = [c.value for c in counts]
-    want = [steps * n for n in IPD_STEP_LAUNCHES]
-    want[0] += fwd_launches
     if launched != want:
         raise AssertionError(f"IPDnet training launched {COUNTED} "
-                             f"{launched} for {steps} steps and the "
-                             f"forwards, expected {want}")
-    log(f"  launches {COUNTED} {launched} = {steps} steps x "
-        f"{IPD_STEP_LAUNCHES} and {fwd_launches} K1 of the timed forwards")
+                             f"{launched} for its steps and the forwards, "
+                             f"expected {want} (the rule's kernel at each "
+                             "recurrence)")
+    log(f"  launches {COUNTED} {launched}: {1 + TIMED_STEPS} steps of each "
+        f"cell and precision (each recurrence on the kernel the rule gives "
+        f"it) and the timed variable forwards")
     torch.cuda.empty_cache()
     state, step, batch = ipdnet_setup(seed, "ipdnet", IPD_NB, device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -2364,17 +2472,24 @@ def phase_ipdnet_fit(seed, device, card):
                 ("ipdnet", "mixed", 2, IPD_FIT_TRAIN),
                 ("ipdnet_offline", "mixed", 1, IPD_FIT_TRAIN),
                 ("variable_ipdnet", "single", 1, IPD_FIT_SINGLE)):
+            # the simulated array has 2 mics: one pair for the variable
+            # model; eval batches of IPD_FIT_DEV scenes
+            online = model != "ipdnet_offline"
+            step = ipd_step_launches(IPD_NB, online)
+            evals = k1_split(ipd_recurrences(IPD_FIT_DEV, online=online))
             # the offline test also runs the chunked inference a batch
-            chunked = IPD_LAUNCHES * valid if model == "ipdnet_offline" else 0
+            chunked = ([valid * n for n in k1_split(ipd_recurrences(
+                IPD_FIT_DEV, online=False))] if model == "ipdnet_offline"
+                else None)
             report[model], launches[model] = fit_and_test(
                 model, data / corpus, runs / model, epochs, train, IPD_NB,
-                seed, path_launches(IPD_LAUNCHES, epochs * (train // IPD_NB),
+                seed, path_launches(step, epochs * (train // IPD_NB), evals,
                                     epochs * valid),
-                path_launches(IPD_LAUNCHES, 0, valid, chunked))
+                path_launches(step, 0, evals, valid, chunked))
             if model == "ipdnet":
                 report[model]["test_best"], tested = test_best(
                     model, IPD_NB, runs / model, data / corpus / "dev",
-                    path_launches(IPD_LAUNCHES, 0, valid))
+                    path_launches(step, 0, evals, valid))
                 launches[model] = [a + b for a, b in zip(launches[model],
                                                          tested)]
                 report[model]["serve_lines"], launches["serve_after_fit"] = \
@@ -2940,9 +3055,10 @@ SLOT_SHAPES = [("slots16_fullband", 256, 16 * 12, 128, 256, 2),
                ("ipdnet_slots16_narrowband", 12, 16 * 256, 128, 132, 1)]
 # the shapes where lstm_wave.cu is held to beat lstm_cluster.cu (phase 5):
 # FN-SSL's narrow band (T, B, H) in training and in the 16-slot tick
-WAVE_TARGETS = [("train_narrowband", 298, TRAIN_NB * 256, 256),
-                ("slots16_narrowband", 12, SLOTS * 256, 256),
-                ("dp_rank_narrowband", 298, 8 * 256, 256)]  # DP_NB // 2
+WAVE_TARGETS = [("train_narrowband", 298, TRAIN_NB * 256, 256, 1),
+                ("slots16_narrowband", 12, SLOTS * 256, 256, 1),
+                ("dp_rank_narrowband", 298, 8 * 256, 256, 1),  # DP_NB // 2
+                ("train_fullband", 256, TRAIN_NB * 298, 128, 2)]
 # and IPDnet2's scans of a 16-slot tick: B = 16 x 16 compressed bins
 SSM_SLOT_SHAPES = [("slots16_layer0", 256, 5, 192),
                    ("slots16_layers1_7", 256, 1, 192)]
@@ -3144,8 +3260,12 @@ def traced_launches(fn, *args, retry=None):
     if lost:
         log(f"  (a trace lost its first {lost} records, guard kernels of "
             f"{TRACE_GUARD})")
-    return out, [sum(1 for e in events if re.search(rf"\b{k}\b", e.name))
-                 for k in TRACED]
+    counts = [0] * len(TRACED)
+    for e in events:
+        i = traced_index(e.name)
+        if i is not None:
+            counts[i] += 1
+    return out, counts
 
 
 def tick_launches(model, slots):
@@ -3939,7 +4059,8 @@ def phase_fit_flags(seed, device, data, runs, card):
             path = log_dir / "profile" / "trace.json"
             names = {e.get("name", "") for e in
                      json.loads(path.read_text())["traceEvents"]}
-            found = {k: sum(k in n for n in names) for k in TRACED
+            hits = [traced_index(n) for n in names]
+            found = {k: hits.count(i) for i, k in enumerate(TRACED)
                      if k != "selective_fwd_kernel"
                      and k != "selective_bwd_kernel"}
             # every K1 and K2 kernel a train step launches
@@ -4102,7 +4223,9 @@ def phase_dp(seed, device, data, runs, card):
     all-reduce as the trace's host records. Prints each step's ms beside
     the plain one's."""
     steps, valid = FIT_TRAIN // FIT_BZ, -(-FIT_DEV // FIT_BZ)
-    want = fnssl_path_launches(steps, valid)
+    # under a mesh the eval schedule is wrap-padded to whole batches of
+    # FIT_BZ scenes (cli/main.py: _eval_schedule)
+    want = fnssl_path_launches(steps, valid, nb_eval=FIT_BZ)
     argv = ["fit", "--model", "fnssl", "--train-dir", str(data / "train"),
             "--valid-dir", str(data / "dev"), "--bz", str(FIT_BZ),
             "--epochs", "1", "--train-size", str(FIT_TRAIN), "--seed",
@@ -4584,7 +4707,7 @@ def main():
     wave_rows = phase_wave_times(device)
     log(f"[wave sweep] lstm_wave.cu against lstm_cluster.cu: B {SWEEP_B} x H "
         f"{SWEEP_H} x 1-2 directions x fp32/bf16 x T {SWEEP_T}")
-    sweep_rows = phase_wave_sweep(device)
+    sweep_rows, sweep_measured = phase_wave_sweep(device)
 
     # 6-9. training
     log("[backward] K2 against its plain version on the card; K1 at the "
@@ -4777,8 +4900,11 @@ def main():
 
     def k1_share(route):
         """A K1 kernel's numbers over the launches of one train step that
-        fwd_route gives it."""
+        fwd_route gives it; where it gives it none, over the same step's
+        recurrences forced onto it (timed beside the routed kernel)."""
         mine = [r for r in train_rows if r["k1_route"] == route]
+        forced = not mine
+        mine = mine or train_rows
         b = step_bound(mine, "k1_bound_terms_float32")
         return {"ms": per_train_step(mine, f"k1_{route}_ms_float32"),
                 "ms_bf16": per_train_step(mine, f"k1_{route}_ms_bfloat16"),
@@ -4788,9 +4914,14 @@ def main():
                 "library_ms": per_train_step(mine, "library_fwd_ms"),
                 "library_tf32_ms": per_train_step(mine,
                                                   "library_fwd_ms_tf32"),
-                "work": f"the {PER_TRAIN_STEP * len(mine)} launches of one "
-                        f"train step at nb={TRAIN_NB}, fp32, that fwd_route "
-                        "gives this kernel: " + ", ".join(
+                "work": (f"no launch of one train step at nb={TRAIN_NB}, "
+                         "fp32, where fwd_route gives another kernel every "
+                         f"recurrence; these numbers are that step's "
+                         f"{PER_TRAIN_STEP * len(mine)} launches forced onto "
+                         "this kernel: " if forced else
+                         f"the {PER_TRAIN_STEP * len(mine)} launches of one "
+                         f"train step at nb={TRAIN_NB}, fp32, that fwd_route "
+                         "gives this kernel: ") + ", ".join(
                             f"{PER_TRAIN_STEP} x (T={r['T']}, B={r['B']}, "
                             f"H={r['H']}, ndir={r['ndir']})" for r in mine)
                         + "; library_ms is nn.LSTM (cuDNN) on the same "
@@ -4870,7 +5001,7 @@ def main():
         "device_ms": wave_rows, "thresholds": {
             f"H={h} itemsize={i}": n
             for (h, i), n in L.WAVE_MIN_ROWS.items()},
-        "sweep": sweep_rows,
+        "sweep": sweep_rows, "sweep_thresholds": sweep_measured,
     }, {
         "name": "lstm_fwd", "route": "cuda",
         "source": "fnssl_tpu_torch/kernels/csrc/lstm_fwd.cu",
@@ -4889,8 +5020,11 @@ def main():
     def k2_share(route):
         """A K2 kernel's numbers over the launches of one train step that
         bwd_route gives it in fp32 (ms_bf16: the same launches in
-        bf16)."""
+        bf16); where it gives it none, over the same step's recurrences
+        forced onto it (timed in turns with the routed kernel)."""
         mine = [r for r in train_rows if r["k2_route_float32"] == route]
+        forced = not mine
+        mine = mine or train_rows
         b = step_bound(mine, "k2_bound_terms_float32")
         return {"ms": per_train_step(mine, f"k2_{route}_ms_float32"),
                 "ms_bf16": per_train_step(mine, f"k2_{route}_ms_bfloat16"),
@@ -4901,9 +5035,14 @@ def main():
                 "library_tf32_ms": per_train_step(mine,
                                                   "library_bwd_ms_tf32"),
                 "lstm_backward_ms": per_train_step(mine, "port_bwd_ms"),
-                "work": f"the {PER_TRAIN_STEP * len(mine)} launches of one "
-                        f"train step at nb={TRAIN_NB}, fp32, that bwd_route "
-                        "gives this kernel: " + ", ".join(
+                "work": (f"no launch of one train step at nb={TRAIN_NB}, "
+                         "fp32, where bwd_route gives another kernel every "
+                         f"recurrence; these numbers are that step's "
+                         f"{PER_TRAIN_STEP * len(mine)} launches forced onto "
+                         "this kernel: " if forced else
+                         f"the {PER_TRAIN_STEP * len(mine)} launches of one "
+                         f"train step at nb={TRAIN_NB}, fp32, that bwd_route "
+                         "gives this kernel: ") + ", ".join(
                             f"{PER_TRAIN_STEP} x (T={r['T']}, B={r['B']}, "
                             f"H={r['H']}, ndir={r['ndir']})" for r in mine)
                         + "; ms is the card's time from a trace (ms_bf16: "

@@ -98,8 +98,25 @@
 // float32 FMAs outside the tensor cores, for both dtypes; a bfloat16 dy is
 // widened as it is read from shared memory. sigmoid and tanh use the fast exp
 // (__expf, __fdividef), as in the sibling kernels (about 1e-7 from the exact
-// functions). At H = 256, the width the rule routes here, H is a compile-time
-// constant (the loads' offsets become immediates).
+// functions). At H = 256 H is a compile-time constant (the loads' offsets
+// become immediates).
+// At H = 128 (FN-SSL's full band in training, B = 4768 both directions:
+// 9536 rows, 72.2 an SM if spread evenly; bound 4.78 ms of FMAs) the tiles
+// above would be 32 rows: 298 CTAs, two waves, 96 rows on the busiest SM
+// (23.4 ms, slower than lstm_bwd_cluster.cu's 18.5; slower at every H = 128
+// shape measured). So H = 128 has a kernel of its own, the only one this
+// source runs at that width (lstm_bwd_wave_kernel_h128, below): tiles of
+// any even row count up to 40, so that the full band is 252 CTAs of 38 rows
+// in one wave, 76 rows on the busiest SM, and dgates alone in shared
+// memory, so that two CTAs of 38 rows share an SM in float32. Measured on
+// an H100 80GB HBM3 at 700 W (chip_smoke.py phase 9,
+// tools/lstm_h128_variants.py, tools/lstm_bwd_breakdown.py; PERF.md):
+// 13.0 ms at the full band in float32 and bfloat16, 37% of the FMA bound,
+// against 18.4 and 16.2-16.8 on lstm_bwd_cluster.cu. Without W_hh's loads it
+// takes 10.6 ms, without the replay 11.6 (the replay moves 5 GB at the HBM
+// rate); deeper W_hh pipelines (a ring of 4 register blocks, a TMA ring in
+// shared memory), L2 prefetches of the next step's rows and a warp a row
+// group of up to 10 rows all measured slower.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -499,6 +516,256 @@ lstm_bwd_wave_kernel(float* __restrict__ g, float* __restrict__ cs,
   }
 }
 
+// ---- H = 128: tiles of any even row count from 10 to 40 ----
+//
+// A warp is 16 unit lanes x 2 row groups (64 units of 2 rows), so two warps
+// cover H = 128 and the CTA's 8 warps are 4 warp-rows of 2 row groups: 8 row
+// groups. Thread (row group rg, unit lane) owns units u0 .. u0+3 of the rows
+// rg, rg + 8, .., rg + 8 (R-1) of the tile; the last of them only in the
+// first `xr` warp-rows, so that a tile is 8 (R-1) + 2 xr rows: any even count
+// from 10 to 40, which lets the grid spread B evenly over the SMs (FN-SSL's
+// full band, 2 x 4768 rows, is 252 tiles of 38, at most 76 rows an SM where
+// 32-row tiles put 96). Which slot count a warp has is the same for all its
+// lanes, so a warp of R-1 rows runs a product built for R-1 rows. Shared
+// memory holds only the step's dgates (BT x (4H + 4) float32, 78.4 KB at 38
+// rows, two CTAs an SM in float32 and bfloat16 alike): the cell part loads
+// its G_t, c_{t-1} and dy_t into registers straight from memory, and each
+// step has two barriers (dgates in place; every read of them done), and at
+// R = 5 (tiles of 34-40 rows, FN-SSL's full band) four more, one after each
+// gate block of the product, which keep the CTA's warps on the same rows of
+// W_hh: 0.8-2.1% faster at the full band in four calls, while at R = 3
+// (VariableIPDnet's 24-row tiles) the same barriers measured 2% slower and
+// at R = 2 no faster (tools/lstm_h128_variants.py; PERF.md). W_hh comes
+// from L2 into register blocks a block ahead, as at the other widths.
+constexpr int kRowGroups128 = 8;  // row groups of a CTA at H = 128
+
+// shared memory of one CTA at H = 128: dgates [BT][4H + pad] float32
+__host__ __device__ constexpr size_t smem_bytes128(int tile) {
+  return static_cast<size_t>(tile) * (4 * 128 + kPad) * 4;
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  return widen(*reinterpret_cast<const uint2*>(p));
+}
+
+// acc[i][u] += dgates[row i][k0 + e] * w[e].u for the first N of the R rows
+template <int N, int R>
+__device__ __forceinline__ void fma_rows(float (&acc)[R][kUnits],
+                                         const float4 (&w)[kBlock],
+                                         const float* dgrow, int k0,
+                                         int row_stride) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float4 d4 =
+        *reinterpret_cast<const float4*>(dgrow + i * row_stride + k0);
+    const float dv[kBlock] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+    for (int e = 0; e < kBlock; ++e) {
+      acc[i][0] = fmaf(dv[e], w[e].x, acc[i][0]);
+      acc[i][1] = fmaf(dv[e], w[e].y, acc[i][1]);
+      acc[i][2] = fmaf(dv[e], w[e].z, acc[i][2]);
+      acc[i][3] = fmaf(dv[e], w[e].w, acc[i][3]);
+    }
+  }
+}
+
+// dh = dgates_t @ W_hh for the first N of the thread's R rows, over k = 0 ..
+// 4H-1 (W_hh in register blocks a block ahead; the last loads the next
+// step's first). At R = 5 the CTA's warps meet after each gate block, on a
+// non-aligned barrier: warps of R and of R - 1 rows reach it from different
+// branches, where an aligned one (__syncthreads) is undefined.
+template <int N, int R>
+__device__ __forceinline__ void product128(float (&acc)[R][kUnits],
+                                           float4 (&w0)[kBlock],
+                                           float4 (&w1)[kBlock],
+                                           const float* w_hh,
+                                           const float* dgrow, int u0) {
+  constexpr int four_h = 4 * 128, stride = kRowGroups128 * (four_h + kPad);
+#pragma unroll 1
+  for (int kg = 0; kg < four_h; kg += 2 * kBlock) {
+    load_block(w1, w_hh, kg + kBlock, u0, 128);
+    fma_rows<N>(acc, w0, dgrow, kg, stride);
+    load_block(w0, w_hh, kg + 2 * kBlock < four_h ? kg + 2 * kBlock : 0, u0,
+               128);
+    fma_rows<N>(acc, w1, dgrow, kg + kBlock, stride);
+    if (R == 5 && (kg + 2 * kBlock) % 128 == 0)
+      asm volatile("barrier.sync 0;\n" ::: "memory");
+  }
+}
+
+template <typename T_in, int R>
+__global__ void __launch_bounds__(kThreads, 2)
+lstm_bwd_wave_kernel_h128(float* __restrict__ g, float* __restrict__ cs,
+                          const float* __restrict__ w_hh,
+                          const float* __restrict__ c0,
+                          const T_in* __restrict__ dys,
+                          const float* __restrict__ dh_t,
+                          const float* __restrict__ dc_t,
+                          float* __restrict__ dh0, float* __restrict__ dc0,
+                          int t_steps, int batch, int tile, int reverse) {
+  constexpr int hidden = 128, four_h = 4 * hidden, pitch = four_h + kPad;
+  constexpr int groups = kRowGroups128;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int u0 = ((warp % 2) * 16 + lane % 16) * kUnits;
+  const int wrow = warp / 2;                   // warp-row 0 .. 3
+  const int rg = wrow * 2 + lane / 16;         // rows rg + 8 i
+  const bool full = 2 * wrow < tile - groups * (R - 1);  // owns slot R-1
+  const int dir = blockIdx.y;
+  const int b0 = blockIdx.x * tile;
+  const int valid = min(tile, batch - b0);  // rows of the tile inside B
+  const bool backward = (reverse ^ dir) != 0;  // the forward's walk
+  const size_t gate_step = static_cast<size_t>(batch) * four_h;  // g per t
+  const size_t unit_step = static_cast<size_t>(batch) * hidden;  // cs per t
+
+  g += static_cast<size_t>(dir) * t_steps * gate_step +
+       static_cast<size_t>(b0) * four_h;
+  const size_t rows_off = static_cast<size_t>(dir) * t_steps * unit_step +
+                          static_cast<size_t>(b0) * hidden;
+  cs += rows_off;
+  dys += rows_off;
+  w_hh += static_cast<size_t>(dir) * four_h * hidden;
+  const size_t state_off = (static_cast<size_t>(dir) * batch + b0) * hidden;
+  c0 += state_off;
+  dh_t += state_off;
+  dc_t += state_off;
+  dh0 += state_off;
+  dc0 += state_off;
+
+  extern __shared__ float4 smem_v4[];
+  float* dg = reinterpret_cast<float*>(smem_v4);  // [BT][pitch]
+
+  auto time_of = [&](int s) { return backward ? t_steps - 1 - s : s; };
+  auto owns = [&](int i) {  // slot i of the thread holds a row of B
+    return (i < R - 1 || full) && rg + groups * i < valid;
+  };
+
+  // the replay of c, in the forward's walk order, for the thread's pairs
+  float ct[R][kUnits];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const float4 v = owns(i) ? load4(c0 + (rg + groups * i) * hidden + u0)
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    ct[i][0] = v.x;
+    ct[i][1] = v.y;
+    ct[i][2] = v.z;
+    ct[i][3] = v.w;
+  }
+  for (int s = 0; s < t_steps; ++s) {
+    const float* gt = g + static_cast<size_t>(time_of(s)) * gate_step;
+    float* c_out = cs + static_cast<size_t>(time_of(s)) * unit_step;
+    float4 gv[R][3];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (owns(i)) {
+        const float* p = gt + (rg + groups * i) * four_h + u0;
+        gv[i][0] = __ldg(reinterpret_cast<const float4*>(p));
+        gv[i][1] = __ldg(reinterpret_cast<const float4*>(p + hidden));
+        gv[i][2] = __ldg(reinterpret_cast<const float4*>(p + 2 * hidden));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (owns(i)) {
+#pragma unroll
+        for (int u = 0; u < kUnits; ++u)
+          ct[i][u] = sigmoid_f(get(gv[i][1], u)) * ct[i][u] +
+                     sigmoid_f(get(gv[i][0], u)) * tanh_f(get(gv[i][2], u));
+        *reinterpret_cast<float4*>(c_out + (rg + groups * i) * hidden + u0) =
+            make_float4(ct[i][0], ct[i][1], ct[i][2], ct[i][3]);
+      }
+    }
+  }
+
+  // the walk's carries: dh (the product's sums) and dc, from dhT and dcT
+  float acc[R][kUnits], dc[R][kUnits];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int o = (rg + groups * i) * hidden + u0;
+    const bool ok = owns(i);
+    const float4 h4 = ok ? load4(dh_t + o) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4 c4 = ok ? load4(dc_t + o) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) {
+      acc[i][u] = get(h4, u);
+      dc[i][u] = get(c4, u);
+    }
+  }
+  // (the walk reads back only the thread's own cs: no barrier)
+  const float* dgrow = dg + rg * pitch;  // the thread's first row
+  float4 w0[kBlock], w1[kBlock];
+  load_block(w0, w_hh, 0, u0, hidden);
+  for (int k = 0; k < t_steps; ++k) {
+    const int s = t_steps - 1 - k;  // the walk step being undone
+    const int t = time_of(s);
+    float* g_t = g + static_cast<size_t>(t) * gate_step;
+    const float* c_prev =
+        s > 0 ? cs + static_cast<size_t>(time_of(s - 1)) * unit_step : c0;
+    const T_in* dy_t = dys + static_cast<size_t>(t) * unit_step;
+
+    // 1. the cell part: dgates over dg in shared memory and over g
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (i == R - 1 && !full) break;
+      const int row = rg + groups * i;
+      float o[kUnits][4];  // [unit][gate]
+      if (row < valid) {
+        const float* p = g_t + row * four_h + u0;
+        const float4 gi = load4(p), gf = load4(p + hidden),
+                     gc = load4(p + 2 * hidden), go = load4(p + 3 * hidden);
+        const float4 cp = load4(c_prev + row * hidden + u0);
+        const float4 dy = load4(dy_t + row * hidden + u0);
+#pragma unroll
+        for (int u = 0; u < kUnits; ++u)
+          cell(get(gi, u), get(gf, u), get(gc, u), get(go, u), get(cp, u),
+               get(dy, u), acc[i][u], dc[i][u], ct[i][u], o[u]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < kUnits; ++u) {
+          dc[i][u] = 0.0f;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[u][e] = 0.0f;
+        }
+      }
+      float* d = dg + row * pitch + u0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 v = make_float4(o[0][e], o[1][e], o[2][e], o[3][e]);
+        *reinterpret_cast<float4*>(d + e * hidden) = v;
+        if (row < valid)
+          *reinterpret_cast<float4*>(g_t + row * four_h + u0 + e * hidden) = v;
+      }
+    }
+    __syncthreads();  // the tile's dgates in place
+
+    // 2. dh = dgates_t @ W_hh
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) acc[i][u] = 0.0f;
+    if (full)
+      product128<R>(acc, w0, w1, w_hh, dgrow, u0);
+    else
+      product128<R - 1>(acc, w0, w1, w_hh, dgrow, u0);
+    __syncthreads();  // every read of dgates done
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (owns(i)) {
+      const int o = (rg + groups * i) * hidden + u0;
+      *reinterpret_cast<float4*>(dh0 + o) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(dc0 + o) =
+          make_float4(dc[i][0], dc[i][1], dc[i][2], dc[i][3]);
+    }
+  }
+}
+
 struct Args {
   float* g;
   float* cs;
@@ -540,6 +807,40 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 }
 
 template <typename T_in, int R>
+cudaError_t launch128(const Args& a, int tile, cudaStream_t stream) {
+  const auto kernel = lstm_bwd_wave_kernel_h128<T_in, R>;
+  {
+    static std::mutex mu;
+    static std::set<int> raised;
+    std::lock_guard<std::mutex> lock(mu);
+    if (!raised.count(a.device)) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem_bytes128(kRowGroups128 * R)));
+      if (err != cudaSuccess) return err;
+      raised.insert(a.device);
+    }
+  }
+  const dim3 grid((a.batch + tile - 1) / tile, a.ndir);
+  kernel<<<grid, kThreads, smem_bytes128(tile), stream>>>(
+      a.g, a.cs, static_cast<const float*>(a.w_hh), a.c0,
+      static_cast<const T_in*>(a.dys), a.dh_t, a.dc_t, a.dh0, a.dc0,
+      a.t_steps, a.batch, tile, a.reverse);
+  return cudaGetLastError();
+}
+
+// a tile of `tile` rows at H = 128 (even, 10 .. 40): R = ceil(tile / 8)
+template <typename T_in>
+cudaError_t by_tile128(const Args& a, int tile, cudaStream_t s) {
+  switch ((tile + kRowGroups128 - 1) / kRowGroups128) {
+    case 2: return launch128<T_in, 2>(a, tile, s);
+    case 3: return launch128<T_in, 3>(a, tile, s);
+    case 4: return launch128<T_in, 4>(a, tile, s);
+    default: return launch128<T_in, 5>(a, tile, s);
+  }
+}
+
+template <typename T_in, int R>
 cudaError_t by_width(const Args& a, cudaStream_t s) {
   return a.hidden == 256 ? launch<T_in, R, 256>(a, s)
                          : launch<T_in, R, 0>(a, s);
@@ -554,8 +855,9 @@ bool aligned16(const void* p) {
 // Plain C entry point (bound with ctypes). Every tensor carries `ndir`
 // directions stacked in front; direction d's forward walked t = T-1 .. 0
 // when reverse ^ d is 1; `is_bf16` gives dys' dtype (w_hh is float32).
-// `rows` (4, or 5 with a bfloat16 dy) batch rows of the tile a thread, on
-// `stream` of device
+// `rows` is, at H 32, 64 and 256, the batch rows of the tile a thread (4, or
+// 5 with a bfloat16 dy), and at H = 128 the tile's rows (even, 10 to 40: the
+// H = 128 kernel, the only one at that width); on `stream` of device
 // `device`; does not synchronise, allocates nothing, and returns the
 // cudaError_t of the launch (0 on success). H must be 32, 64, 128 or 256 (a
 // warp's 8 lanes of 4 units, 1024/H row groups) and every array 16-byte
@@ -567,16 +869,20 @@ extern "C" int lstm_bwd_wave(void* g, void* cs, const void* w_hh,
                              void* dc0, int t_steps, int batch, int hidden,
                              int ndir, int reverse, int is_bf16, int rows,
                              int device, void* stream) {
+  // at H = 128, `rows` is a tile of that many rows
+  const bool h128 = hidden == 128;
   if (hidden < 32 || hidden > 256 || hidden % 32 != 0 ||
       (kThreads * kUnits) % hidden != 0 || batch < 1 || t_steps < 0 ||
       (ndir != 1 && ndir != 2) ||
-      !(rows == kRows || (rows == kRowsWide && is_bf16)))
+      !(h128 ? rows >= 10 && rows <= 40 && rows % 2 == 0
+             : rows == kRows || (rows == kRowsWide && is_bf16)))
     return static_cast<int>(cudaErrorInvalidValue);
   const void* arrays[] = {g, cs, w_hh, c0, dys, dh_t, dc_t, dh0, dc0};
   for (const void* p : arrays)
     if (!aligned16(p)) return static_cast<int>(cudaErrorMisalignedAddress);
   const int tile = kThreads * kUnits / hidden * rows;
-  if (smem_bytes(hidden, tile, is_bf16 ? 2 : 4) > kMaxSmem - kBarrierSmem)
+  if (!h128 &&
+      smem_bytes(hidden, tile, is_bf16 ? 2 : 4) > kMaxSmem - kBarrierSmem)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -596,6 +902,9 @@ extern "C" int lstm_bwd_wave(void* g, void* cs, const void* w_hh,
                reverse,
                device};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (h128)
+    return static_cast<int>(is_bf16 ? by_tile128<__nv_bfloat16>(a, rows, s)
+                                    : by_tile128<float>(a, rows, s));
   err = !is_bf16              ? by_width<float, kRows>(a, s)
         : rows == kRowsWide ? by_width<__nv_bfloat16, kRowsWide>(a, s)
                             : by_width<__nv_bfloat16, kRows>(a, s);

@@ -6,7 +6,8 @@
 // launched by _lstm_pallas_fwd) where the batch is large: lstm_cuda.fwd_route
 // sends a shape here only where it measured faster than lstm_cluster.cu
 // (FN-SSL's narrow band, B = nb nf = 4096 rows at H = 256, in training and in
-// the 16-slot tick). Same contract as lstm_cluster.cu, per direction d of ndir
+// the 16-slot tick; its full band in training, B = nb nt = 4768 at H = 128 in
+// both directions). Same contract as lstm_cluster.cu, per direction d of ndir
 // (1 or 2):
 //   xg (ndir, T, B, 4H) float32 or bfloat16, the input gates x @ W_ih^T + b;
 //   w_hh_t (ndir, H, 4H) in the dtype of xg;  h0, c0 (ndir, B, H) float32.
@@ -66,7 +67,22 @@
 // R (rows a thread: 32, 16 or 8, a compile-time length; 128, 64 or 32
 // accumulators, so 1, 2 or 3 CTAs an SM) sets the tile: the wrapper
 // (lstm_cuda.wave_plan) picks it from B and H so that the grid puts the
-// fewest rows on the busiest SM. The ragged edge of B is masked, never padded
+// fewest rows on the busiest SM.
+// At H = 128 (FN-SSL's full band in training, B = 4768 both directions:
+// 9536 rows, 72.2 an SM if spread evenly; bound 4.78 ms of FMAs) the tiles
+// of 256/H = 2 row groups put 80 to 128 rows on the busiest SM, and a step
+// is half the FMAs a thread does at H = 256 for the same barriers and waits.
+// So H = 128 has its own tile, lstm_wave_kernel_h128: a CTA of 128 threads
+// (one row group) of R = 37 rows, 148 accumulators a thread and 2 CTAs an SM
+// (232 registers, no spills), so that the full band is 258 CTAs in one wave,
+// 74 rows on the busiest SM, each W_hh value loaded feeding 37 FMAs. Its
+// shared memory holds only h, double-buffered (one barrier a step), and c:
+// the step's xg goes from memory straight into the accumulators (4R loads a
+// thread, coalesced). Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py
+// phase 5, tools/lstm_h128_variants.py; PERF.md): 9.85 ms at the full band
+// in float32, 48% of the FMA bound, 9.6 in bfloat16, against 13.5 and 16.7
+// on lstm_cluster.cu; a bulk L2 prefetch of the next step's xg cost 0.5 ms,
+// a 24-row tile at 3 CTAs an SM ran 12.7 (16.1 in bfloat16). The ragged edge of B is masked, never padded
 // by the caller: the copy brings only the valid rows, and a masked row is
 // computed on zeros and never stored. All arithmetic is float32 FMAs outside
 // the tensor cores, for both xg dtypes; a bfloat16 W_hh halves the L2 reads
@@ -341,6 +357,156 @@ lstm_wave_kernel(const T_in* __restrict__ xg, const T_in* __restrict__ w_hh_t,
   }
 }
 
+// ---- H = 128: a tile of R rows a CTA of 128 threads (one row group) ----
+//
+// Thread j owns unit j of the tile's R rows, 2 CTAs an SM. The CTA's shared
+// memory holds only h (two buffers, [H][R + pad]) and c ([R][H]): the
+// step's xg is loaded by each thread straight into its accumulators (4R
+// values, coalesced across the warp) at the top of the step. h is
+// double-buffered, so the step has one barrier.
+constexpr int kThreads128 = 128;  // threads a CTA at H = 128
+constexpr int kRows128 = 37;      // its rows: 2 CTAs an SM (232 registers)
+
+__host__ __device__ constexpr int pitch128(int rows) {
+  return (rows + 3) / 4 * 4 + kPad;  // floats a row of h, 16-byte aligned
+}
+
+// shared memory of one CTA: two h buffers [H][pitch] and c [R][H], float32
+__host__ __device__ constexpr size_t smem_bytes128(int rows) {
+  return (2 * static_cast<size_t>(128) * pitch128(rows) +
+          static_cast<size_t>(rows) * 128) * 4;
+}
+
+// acc[r][g] += h[k0 + e][r] * w[e].g for the kBlock k's of one block, for
+// the R rows (a multiple of 4 or not: the last 16-byte load's spare rows
+// are padding, never summed)
+template <int R>
+__device__ __forceinline__ void fma_block128(float (&acc)[R][4],
+                                             const float4 (&w)[kBlock],
+                                             const float* hs, int k0) {
+  constexpr int pitch = pitch128(R);
+#pragma unroll
+  for (int e = 0; e < kBlock; ++e) {
+    const float* hk = hs + (k0 + e) * pitch;
+#pragma unroll
+    for (int q = 0; q < (R + 3) / 4; ++q) {
+      const float4 h4 = *reinterpret_cast<const float4*>(hk + 4 * q);
+      const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        if (4 * q + v < R) {
+          float* a = acc[4 * q + v];
+          a[0] = fmaf(hv[v], w[e].x, a[0]);
+          a[1] = fmaf(hv[v], w[e].y, a[1]);
+          a[2] = fmaf(hv[v], w[e].z, a[2]);
+          a[3] = fmaf(hv[v], w[e].w, a[3]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T_in, int R>
+__global__ void __launch_bounds__(kThreads128, 2)
+lstm_wave_kernel_h128(const T_in* __restrict__ xg,
+                      const T_in* __restrict__ w_hh_t,
+                      const float* __restrict__ h0,
+                      const float* __restrict__ c0, T_in* __restrict__ ys,
+                      float* __restrict__ h_t, float* __restrict__ c_t,
+                      int t_steps, int batch, int reverse) {
+  constexpr int hidden = 128, four_h = 4 * hidden, pitch = pitch128(R);
+  const int j = threadIdx.x;  // this thread's unit
+  const int dir = blockIdx.y;
+  const int b0 = blockIdx.x * R;
+  const int valid = min(R, batch - b0);  // rows of the tile inside B
+  const bool backward = (reverse ^ dir) != 0;
+  const size_t step_len = static_cast<size_t>(batch) * four_h;  // xg per t
+
+  xg += static_cast<size_t>(dir) * t_steps * step_len +
+        static_cast<size_t>(b0) * four_h;
+  ys += static_cast<size_t>(dir) * t_steps * batch * hidden +
+        static_cast<size_t>(b0) * hidden + j;
+  w_hh_t += static_cast<size_t>(dir) * hidden * four_h;
+  const size_t state_off =
+      (static_cast<size_t>(dir) * batch + b0) * hidden + j;
+  h0 += state_off;
+  c0 += state_off;
+  h_t += state_off;
+  c_t += state_off;
+
+  extern __shared__ float4 smem4[];
+  float* hs = reinterpret_cast<float*>(smem4);  // [2][H][pitch]
+  float* cs = hs + 2 * hidden * pitch;           // [R][H]
+
+  // h0, c0 of the thread's rows; masked rows start from zeros
+#pragma unroll 4
+  for (int r = 0; r < R; ++r) {
+    const bool ok = r < valid;
+    hs[j * pitch + r] = ok ? h0[r * hidden] : 0.0f;
+    cs[r * hidden + j] = ok ? c0[r * hidden] : 0.0f;
+  }
+  __syncthreads();
+
+  float4 w0[kBlock], w1[kBlock];
+  load_block(w0, w_hh_t, 0, j, hidden);
+  for (int s = 0; s < t_steps; ++s) {
+    const int t = backward ? t_steps - 1 - s : s;
+    const T_in* x = xg + t * step_len + j;
+    float acc[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        acc[r][g] = r < valid ? load_f(x + r * four_h + g * hidden) : 0.0f;
+
+    const float* h_in = hs + (s & 1) * hidden * pitch;
+#pragma unroll 1
+    for (int k0 = 0; k0 < hidden; k0 += 2 * kBlock) {
+      load_block(w1, w_hh_t, k0 + kBlock, j, hidden);
+      fma_block128<R>(acc, w0, h_in, k0);
+      load_block(w0, w_hh_t, k0 + 2 * kBlock < hidden ? k0 + 2 * kBlock : 0,
+                 j, hidden);
+      fma_block128<R>(acc, w1, h_in, k0 + kBlock);
+    }
+
+    // the cell update; the new h goes to the other buffer, which no thread
+    // reads before the barrier
+    float* h_out = hs + ((s + 1) & 1) * hidden * pitch + j * pitch;
+    T_in* ys_t = ys + static_cast<size_t>(t) * batch * hidden;
+#pragma unroll
+    for (int q = 0; q < (R + 3) / 4; ++q) {
+      float hv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int r = 4 * q + v;
+        if (r < R) {
+          const float ig = sigmoid_f(acc[r][0]);
+          const float fg = sigmoid_f(acc[r][1]);
+          const float gg = tanh_f(acc[r][2]);
+          const float og = sigmoid_f(acc[r][3]);
+          float* cp = cs + r * hidden + j;
+          const float c = fg * *cp + ig * gg;
+          *cp = c;
+          hv[v] = og * tanh_f(c);
+          if (r < valid) store_f(ys_t + r * hidden, hv[v]);
+        }
+      }
+      *reinterpret_cast<float4*>(h_out + 4 * q) =
+          make_float4(hv[0], hv[1], hv[2], hv[3]);
+    }
+    __syncthreads();  // the new h in place; every read of the old done
+  }
+
+  const float* h_last = hs + (t_steps & 1) * hidden * pitch + j * pitch;
+#pragma unroll 4
+  for (int r = 0; r < R; ++r) {
+    if (r < valid) {
+      h_t[r * hidden] = h_last[r];
+      c_t[r * hidden] = cs[r * hidden + j];
+    }
+  }
+}
+
 struct Args {
   const void* xg;
   const void* w_hh_t;
@@ -380,6 +546,29 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T_in, int R>
+cudaError_t launch128(const Args& a, cudaStream_t stream) {
+  const auto kernel = lstm_wave_kernel_h128<T_in, R>;
+  {
+    static std::mutex mu;
+    static std::set<int> raised;
+    std::lock_guard<std::mutex> lock(mu);
+    if (!raised.count(a.device)) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem_bytes128(R)));
+      if (err != cudaSuccess) return err;
+      raised.insert(a.device);
+    }
+  }
+  const dim3 grid((a.batch + R - 1) / R, a.ndir);
+  kernel<<<grid, kThreads128, smem_bytes128(R), stream>>>(
+      static_cast<const T_in*>(a.xg), static_cast<const T_in*>(a.w_hh_t), a.h0,
+      a.c0, static_cast<T_in*>(a.ys), a.h_t, a.c_t, a.t_steps, a.batch,
+      a.reverse);
+  return cudaGetLastError();
+}
+
 template <typename T_in, int HC>
 cudaError_t by_rows(const Args& a, int rows, cudaStream_t s) {
   switch (rows) {
@@ -391,6 +580,7 @@ cudaError_t by_rows(const Args& a, int rows, cudaStream_t s) {
 
 template <typename T_in>
 cudaError_t by_width(const Args& a, int rows, cudaStream_t s) {
+  if (rows == kRows128) return launch128<T_in, kRows128>(a, s);
   return a.hidden == 256 ? by_rows<T_in, 256>(a, rows, s)
                          : by_rows<T_in, 0>(a, rows, s);
 }
@@ -398,8 +588,9 @@ cudaError_t by_width(const Args& a, int rows, cudaStream_t s) {
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Runs ndir directions (1 or 2) of
-// one recurrence in one launch, `rows` (8, 16 or 32) batch rows a thread, on
-// `stream` of device `device`; does not synchronise, allocates nothing, and
+// one recurrence in one launch, `rows` (8, 16 or 32; at H = 128 also 37, the
+// 128-thread tile) batch rows a thread, on `stream` of device `device`;
+// does not synchronise, allocates nothing, and
 // returns the cudaError_t of the launch (0 on success). H must be a multiple
 // of 32 that divides 256 (32, 64, 128 or 256: the row groups of a CTA) and xg
 // 16-byte aligned (the bulk copies); other arguments are refused with an
@@ -409,13 +600,15 @@ extern "C" int lstm_wave(const void* xg, const void* w_hh_t, const void* h0,
                          int t_steps, int batch, int hidden, int ndir,
                          int reverse, int is_bf16, int rows, int device,
                          void* stream) {
+  const bool h128 = hidden == 128 && rows == kRows128;
   if (hidden < 32 || hidden > kThreads || kThreads % hidden != 0 ||
       batch < 1 || t_steps < 0 || (ndir != 1 && ndir != 2) ||
-      (rows != 8 && rows != 16 && rows != 32) ||
+      (rows != 8 && rows != 16 && rows != 32 && !h128) ||
       reinterpret_cast<uintptr_t>(xg) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tile = kThreads / hidden * rows;
-  if (smem_bytes(hidden, tile, is_bf16 ? 2 : 4) > kMaxSmem - kBarrierSmem)
+  if (!h128 &&
+      smem_bytes(hidden, tile, is_bf16 ? 2 : 4) > kMaxSmem - kBarrierSmem)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

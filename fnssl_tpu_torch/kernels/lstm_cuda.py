@@ -11,17 +11,21 @@ K1, the forward, replaces ``fnssl_tpu/kernels/lstm_pallas.py:_lstm_kernel``
   or both directions. ``cluster_plan`` picks its cluster size, batch tile
   and k-split. Built for a step's latency at small B: at large B its
   8-row tiles run in tens of waves.
-- ``csrc/lstm_wave.cu`` at H = 256 from ``WAVE_MIN_ROWS`` rows (B times
-  the directions) up: tiles of many rows, so that the grid fits in about
-  one wave, each step a register-tiled matrix tile with W_hh read from L2
-  and used for every row of the tile; one launch runs one or both
-  directions. ``wave_plan`` picks the rows a thread. It takes H 32 to 256
-  (dividing 256) by name (``route="wave"``); the rule gives it only what
-  ``chip_smoke.py``'s sweep measured at least 10% faster than
-  lstm_cluster.cu at every T and every larger B: FN-SSL's narrow band
-  (B = nb x 256 at H = 256) from 8 scenes up, in training, in
-  evaluation and in the 16-slot tick. At H = 128 it was faster at some B
-  and slower at larger ones (its tiles' waves), so no threshold there.
+- ``csrc/lstm_wave.cu`` from ``WAVE_MIN_ROWS`` rows (B times the
+  directions) up: tiles of many rows, so that the grid fits in about one
+  wave, each step a register-tiled matrix tile with W_hh read from L2 and
+  used for every row of the tile; one launch runs one or both directions.
+  ``wave_plan`` picks the rows a thread; at H = 128 also a tile of its
+  own (128 threads, 37 rows, 2 CTAs an SM: 74 rows on the busiest SM at
+  FN-SSL's full band). It takes H 32 to 256 (dividing 256) by name
+  (``route="wave"``); the rule gives it only what ``chip_smoke.py``'s
+  sweep measured at least 10% faster than lstm_cluster.cu at every T and
+  every larger B: at H = 256 from 2048 rows (FN-SSL's narrow band, B = nb
+  x 256, from 8 scenes up, in training, in evaluation and in the 16-slot
+  tick), at H = 128 from 8192 rows in float32 and 4096 in bfloat16
+  (FN-SSL's full band in training, B = nb x 298 in both directions, from
+  14 scenes up in float32 and 7 in bfloat16; VariableIPDnet's narrow
+  band; IPDnet's in bfloat16).
 - ``csrc/lstm_fwd.cu`` for H above 256 (up to 1024): one direction a
   launch, W_hh read through L2 on every step.
 
@@ -37,17 +41,21 @@ chooses one by shape:
   shared memory and dgates exchanged through distributed shared memory;
   ``bwd_cluster_plan`` picks its plan. Built for a step's latency: at
   large B its 8-row tiles run in tens of waves.
-- ``csrc/lstm_bwd_wave.cu`` at H = 256 from ``BWD_WAVE_MIN_ROWS`` rows (B
-  times the directions) up: lstm_wave.cu's tile for the backward, a CTA
-  walking many rows through the replay and the walk, each step a
-  register-tiled (rows x 4H) @ (4H x H) product with W_hh read from L2;
-  the grid fits in about one wave. ``bwd_wave_plan`` gives its rows a
-  thread; a bfloat16 W_hh reaches it widened to float32. It takes H 32,
-  64, 128 and 256 by name (``route="wave"``); the rule gives it only what
-  ``chip_smoke.py``'s sweep measured at least 10% faster than
-  lstm_bwd_cluster.cu at that B and every larger one: FN-SSL's narrow
-  band (B = nb x 256 at H = 256) from 8 scenes up in float32, from 16 in
-  bfloat16. At H = 128 it was slower: no threshold.
+- ``csrc/lstm_bwd_wave.cu`` from ``BWD_WAVE_MIN_ROWS`` rows (B times the
+  directions) up: lstm_wave.cu's tile for the backward, a CTA walking many
+  rows through the replay and the walk, each step a register-tiled (rows
+  x 4H) @ (4H x H) product with W_hh read from L2; the grid fits in about
+  one wave. ``bwd_wave_plan`` gives its rows a thread, and at H = 128,
+  where the source runs a kernel of its own and no other, a tile of any
+  even row count from 10 to 40 (38 at FN-SSL's full band: 76 rows on the
+  busiest SM); a bfloat16 W_hh reaches it
+  widened to float32. It takes H 32, 64, 128 and 256 by name
+  (``route="wave"``); the rule gives it only what ``chip_smoke.py``'s
+  sweep measured at least 10% faster than lstm_bwd_cluster.cu at that B
+  and every larger one: at H = 256 FN-SSL's narrow band from 8 scenes up
+  in float32, from 16 in bfloat16; at H = 128 from 4768 rows in float32
+  (FN-SSL's full band in training and in a DP rank's step), 8192 in
+  bfloat16 (the full band in training), and VariableIPDnet's narrow band.
 
 Each source's header comment says what bounds it on the card and how the
 design responds. Every wrapper runs the plain version for tensors on the
@@ -96,22 +104,41 @@ TILES = (8, 16)                   # lstm_cluster.cu's tiles
 WAVE_THREADS = 256                # threads of a lstm_wave.cu CTA
 WAVE_ROWS = (32, 16, 8)           # rows a thread lstm_wave.cu is built for
 WAVE_PAD = 4                      # floats a row of its h is padded by
+# lstm_wave.cu's H = 128 tile: a CTA of 128 threads (one row group) of 37
+# rows, 2 CTAs an SM (FN-SSL's full band, 2 x 4768 rows, in 258 tiles: 74
+# rows an SM). A 24-row tile, 3 CTAs an SM, measured no faster in float32
+# and 30% slower in bfloat16 than 16 rows a thread at 12288 rows (PERF.md)
+WAVE128_ROWS = (37,)
+WAVE128_THREADS = 128
 # fwd_route's rule: lstm_wave.cu from this many rows (B x directions) up,
 # by (H, itemsize); H absent: never. Set from chip_smoke.py's sweep
 # (PERF.md): the fewest rows from which lstm_wave.cu measured at least 10%
-# faster than lstm_cluster.cu at every T of the sweep (12 and 298), every
-# larger B and both dtypes (at 1024 rows, T = 298: 7% in fp32, 13% in bf16)
-WAVE_MIN_ROWS = {(256, 4): 2048, (256, 2): 2048}
+# faster than lstm_cluster.cu at every T of the sweep (12 and 298; 280 at
+# 12288 rows) and every larger B (at H = 256, 1024 rows, T = 298: 7% in
+# fp32, 13% in bf16; at H = 128 in fp32, 4768 rows at T = 298: 9%)
+WAVE_MIN_ROWS = {(256, 4): 2048, (256, 2): 2048, (128, 4): 8192,
+                 (128, 2): 4096}
 BWD_WAVE_THREADS = 256            # threads of a lstm_bwd_wave.cu CTA
 BWD_WAVE_UNITS = 4                # hidden units a thread of it owns
-BWD_WAVE_ROWS = (4, 5)            # rows a thread lstm_bwd_wave.cu is built for
+BWD_WAVE_ROWS = (4, 5)            # rows a thread of it at H 32, 64 and 256
 BWD_WAVE_PAD = 4                  # floats a row of its dgates is padded by
+# lstm_bwd_wave.cu's H = 128 tiles, its only plans at that width: any even
+# row count from 10 to 40 a CTA (8 row groups of R = ceil(tile / 8) rows,
+# the last slot in the first (tile - 8 (R - 1)) / 2 warp-rows), 2 CTAs an SM
+BWD_WAVE128_TILES = tuple(range(10, 41, 2))
+BWD_WAVE128_GROUPS = 8
+# a wave of its grid measured 1.8 + R units of time, R = ceil(tile / 8)
+# rows a thread (tools/lstm_h128_variants.py: 8.3, 19.8 and 13.1 ms at R 2,
+# 3 and 5 in 1, 2 and 1 waves at T 280, 280 and 256; PERF.md)
+BWD_WAVE128_FIXED = 1.8
 # bwd_route's rule: lstm_bwd_wave.cu from this many rows (B x directions)
 # up, by (H, itemsize); H absent: never. Set from chip_smoke.py's sweep
 # (PERF.md): the fewest rows from which lstm_bwd_wave.cu measured at least
-# 10% faster than lstm_bwd_cluster.cu at T = 298 at every point of as many
-# rows or more (at H = 128 lstm_bwd_wave.cu was slower)
-BWD_WAVE_MIN_ROWS = {(256, 4): 2048, (256, 2): 4096}
+# 10% faster than lstm_bwd_cluster.cu at T = 298 (280 at 12288 rows) at
+# every point of as many rows or more (at H = 128, 4096 rows: 2% in fp32,
+# slower in bf16)
+BWD_WAVE_MIN_ROWS = {(256, 4): 2048, (256, 2): 4096, (128, 4): 4768,
+                     (128, 2): 8192}
 
 
 def lstm_fwd_plain(xg: torch.Tensor, w_hh_t: torch.Tensor,
@@ -218,7 +245,10 @@ def cluster_plan(hidden: int, itemsize: int, batch: int, ndir: int = 1, *,
 
 def wave_tile(hidden: int, rows: int) -> int:
     """Batch rows of a lstm_wave.cu tile: each of its 256 threads owns one
-    hidden unit of ``rows`` rows."""
+    hidden unit of ``rows`` rows; at H = 128 a plan of ``WAVE128_ROWS`` is
+    a CTA of 128 threads, one row group of that many rows."""
+    if hidden == 128 and rows in WAVE128_ROWS:
+        return rows
     return WAVE_THREADS // hidden * rows
 
 
@@ -230,11 +260,22 @@ def wave_smem(hidden: int, itemsize: int, tile: int) -> int:
             + tile * 4 * hidden * itemsize)
 
 
+def wave128_smem(rows: int) -> int:
+    """Shared memory (bytes) of one CTA of lstm_wave.cu's H = 128 tile of
+    ``rows`` rows: two h buffers (128 x (rows rounded up to 4, + 4)) and c
+    (rows x 128), float32; its xg goes straight to registers."""
+    pitch = -(-rows // 4) * 4 + WAVE_PAD
+    return (2 * 128 * pitch + rows * 128) * 4
+
+
 def wave_ctas_per_sm(hidden: int, itemsize: int, rows: int) -> int:
     """CTAs of lstm_wave.cu an SM holds at ``rows`` rows a thread: as its
     registers are budgeted (``__launch_bounds__`` for the 4 x rows
-    accumulators: 3 at 8 rows, 2 at 16, 1 at 32), or fewer where the
-    shared memory does not take them."""
+    accumulators: 3 at 8 rows, 2 at 16, 1 at 32; 2 of H = 128's
+    128-thread tile), or fewer where the shared memory does not take
+    them."""
+    if hidden == 128 and rows in WAVE128_ROWS:
+        return min(2, _ctas_per_sm(wave128_smem(rows), 0))
     regs = 3 if rows <= 8 else 2 if rows <= 16 else 1
     return min(regs, _ctas_per_sm(wave_smem(hidden, itemsize,
                                             wave_tile(hidden, rows))))
@@ -243,37 +284,53 @@ def wave_ctas_per_sm(hidden: int, itemsize: int, rows: int) -> int:
 def wave_fits(hidden: int, itemsize: int, rows: int) -> bool:
     """Whether lstm_wave.cu takes ``rows`` rows a thread at this H: rows it
     is built for, H a multiple of 32 that divides 256 (the row groups of a
-    CTA: 32, 64, 128 or 256), and the CTA's shared memory within 227 KB."""
+    CTA: 32, 64, 128 or 256), and the CTA's shared memory within 227 KB;
+    at H = 128 also ``WAVE128_ROWS``."""
+    if hidden == 128 and rows in WAVE128_ROWS:
+        return wave128_smem(rows) <= SMEM_BYTES
     return (rows in WAVE_ROWS and 32 <= hidden <= WAVE_THREADS
             and WAVE_THREADS % hidden == 0
             and wave_smem(hidden, itemsize, wave_tile(hidden, rows))
             <= SMEM_BYTES)
 
 
+def _fewest_busiest(plans, batch, ndir, tile, per_sm):
+    """Of ``plans``, the one whose grid (ndir x ceil(B / tile) CTAs) puts
+    the fewest rows on the busiest SM; on a tie the first."""
+    best = None
+    for plan in plans:
+        rows = tile(plan)
+        busiest = _busiest(rows, -(-batch // rows) * ndir, per_sm(plan))
+        if best is None or busiest < best[0]:
+            best = (busiest, plan)
+    return None if best is None else best[1]
+
+
 @functools.lru_cache(maxsize=None)
 def wave_plan(hidden: int, itemsize: int, batch: int, ndir: int = 1) -> int:
-    """Rows a thread of lstm_wave.cu (its tile is rows x 256/H batch rows).
+    """Rows a thread of lstm_wave.cu (its tile is rows x 256/H batch rows;
+    at H = 128 also ``WAVE128_ROWS``' tiles of that many rows).
 
-    Of the rows that fit, the one whose grid (ndir x ceil(B / tile) CTAs)
+    Of the plans that fit, the one whose grid (ndir x ceil(B / tile) CTAs)
     puts the fewest rows on the busiest SM, counting each wave of the grid
-    (``wave_ctas_per_sm`` CTAs an SM) in turn; on a tie, the most rows a
-    thread (fewer CTAs, each reading W_hh once a step). At H = 256: B =
-    4096 is 128 CTAs of 32 rows, one wave; B = 2048, 128 of 16 (measured
-    9.50 ms at T = 298 against 15.41 for 64 CTAs of 32; PERF.md).
+    (``wave_ctas_per_sm`` CTAs an SM) in turn; on a tie, the H = 128 tile,
+    then the most rows a thread (fewer CTAs, each reading W_hh once a
+    step).
+    At H = 256: B = 4096 is 128 CTAs of 32 rows, one wave; B = 2048, 128
+    of 16 (measured 9.50 ms at T = 298 against 15.41 for 64 CTAs of 32;
+    PERF.md). At H = 128, FN-SSL's full band (B = 4768, both directions)
+    is 258 tiles of 37 rows, 2 an SM: 74 rows on the busiest SM, where the
+    256-thread tiles put 80 to 128.
     """
-    best = None
-    for rows in WAVE_ROWS:
-        if not wave_fits(hidden, itemsize, rows):
-            continue
-        tile = wave_tile(hidden, rows)
-        busiest = _busiest(tile, -(-batch // tile) * ndir,
-                           wave_ctas_per_sm(hidden, itemsize, rows))
-        if best is None or busiest < best[0]:
-            best = (busiest, rows)
+    plans = [r for r in WAVE128_ROWS + WAVE_ROWS
+             if wave_fits(hidden, itemsize, r)]
+    best = _fewest_busiest(plans, batch, ndir,
+                           lambda r: wave_tile(hidden, r),
+                           lambda r: wave_ctas_per_sm(hidden, itemsize, r))
     if best is None:
         raise ValueError(f"lstm_wave: no plan fits hidden={hidden}, "
                          f"itemsize={itemsize}")
-    return best[1]
+    return best
 
 
 def fwd_route(t_steps: int, batch: int, hidden: int, ndir: int,
@@ -293,10 +350,14 @@ def fwd_route(t_steps: int, batch: int, hidden: int, ndir: int,
     return "cluster"
 
 
-def bwd_wave_tile(hidden: int, rows: int) -> int:
-    """Batch rows of a lstm_bwd_wave.cu tile: its 256 threads own 4 hidden
-    units each, so 1024/H row groups of ``rows`` rows."""
-    return BWD_WAVE_THREADS * BWD_WAVE_UNITS // hidden * rows
+def bwd_wave_tile(hidden: int, plan: int) -> int:
+    """Batch rows of a lstm_bwd_wave.cu tile of ``plan``: at H 32, 64 and
+    256 its 256 threads own 4 hidden units each, so 1024/H row groups of
+    ``plan`` rows a thread; at H = 128 the plan is the tile's rows
+    (``BWD_WAVE128_TILES``)."""
+    if hidden == 128:
+        return plan
+    return BWD_WAVE_THREADS * BWD_WAVE_UNITS // hidden * plan
 
 
 def bwd_wave_smem(hidden: int, itemsize: int, tile: int) -> int:
@@ -308,24 +369,43 @@ def bwd_wave_smem(hidden: int, itemsize: int, tile: int) -> int:
             + tile * hidden * itemsize)
 
 
-def bwd_wave_ctas_per_sm(hidden: int, itemsize: int, rows: int) -> int:
-    """CTAs of lstm_bwd_wave.cu an SM holds at ``rows`` rows a thread: two,
-    as its registers are budgeted (``__launch_bounds__(256, 2)``), or fewer
-    where the shared memory does not take them."""
+def bwd_wave128_smem(tile: int) -> int:
+    """Shared memory (bytes) of one CTA of lstm_bwd_wave.cu's H = 128 tile:
+    dgates alone (tile x (4H + 4) float32); G, c_{t-1} and dy_t go
+    straight to registers."""
+    return tile * (4 * 128 + BWD_WAVE_PAD) * 4
+
+
+def bwd_wave_ctas_per_sm(hidden: int, itemsize: int, plan: int) -> int:
+    """CTAs of lstm_bwd_wave.cu an SM holds at ``plan``: two, as its
+    registers are budgeted (``__launch_bounds__(256, 2)``), or fewer where
+    the shared memory does not take them."""
+    if hidden == 128:
+        return min(2, _ctas_per_sm(bwd_wave128_smem(plan), 0))
     return min(2, _ctas_per_sm(bwd_wave_smem(
-        hidden, itemsize, bwd_wave_tile(hidden, rows))))
+        hidden, itemsize, bwd_wave_tile(hidden, plan))))
 
 
-def bwd_wave_fits(hidden: int, itemsize: int, rows: int) -> bool:
-    """Whether lstm_bwd_wave.cu takes ``rows`` rows a thread at this H: rows
-    it is built for, H 32, 64, 128 or 256 (a warp's 8 lanes of 4 units,
-    1024/H row groups) and two CTAs' shared memory on an SM (5 rows: a
-    bfloat16 dy only, as the source is built)."""
-    return (rows in BWD_WAVE_ROWS and (rows == 4 or itemsize == 2)
+def bwd_wave_fits(hidden: int, itemsize: int, plan: int) -> bool:
+    """Whether lstm_bwd_wave.cu takes ``plan`` at this H: at H 32, 64 and
+    256 rows a thread it is built for (a warp's 8 lanes of 4 units, 1024/H
+    row groups) with two CTAs' shared memory on an SM (5 rows: a bfloat16
+    dy only, as the source is built); at H = 128 a tile of
+    ``BWD_WAVE128_TILES``, in either dtype."""
+    if hidden == 128:
+        return (plan in BWD_WAVE128_TILES
+                and bwd_wave_ctas_per_sm(hidden, itemsize, plan) >= 2)
+    return (plan in BWD_WAVE_ROWS and (plan == 4 or itemsize == 2)
             and 32 <= hidden <= BWD_MAX_HIDDEN and hidden % 32 == 0
             and BWD_WAVE_THREADS * BWD_WAVE_UNITS % hidden == 0
             and _ctas_per_sm(bwd_wave_smem(
-                hidden, itemsize, bwd_wave_tile(hidden, rows))) >= 2)
+                hidden, itemsize, bwd_wave_tile(hidden, plan))) >= 2)
+
+
+def bwd_wave_plans(hidden: int, itemsize: int) -> tuple[int, ...]:
+    """Every plan lstm_bwd_wave.cu takes at this H and dtype."""
+    return tuple(p for p in BWD_WAVE_ROWS + BWD_WAVE128_TILES
+                 if bwd_wave_fits(hidden, itemsize, p))
 
 
 def _busiest(tile: int, ctas: int, per_sm: int) -> int:
@@ -336,32 +416,51 @@ def _busiest(tile: int, ctas: int, per_sm: int) -> int:
     return (full * slots // SMS + -(-rest // SMS)) * tile
 
 
+def _bwd_wave128_cost(tile: int, batch: int, ndir: int):
+    """(the waves of the grid x (1.8 + R), rows on the busiest SM) of
+    lstm_bwd_wave.cu's H = 128 tile of `tile` rows, two CTAs an SM."""
+    ctas = -(-batch // tile) * ndir
+    rows = -(-tile // BWD_WAVE128_GROUPS)
+    return (-(-ctas // (2 * SMS)) * (BWD_WAVE128_FIXED + rows),
+            _busiest(tile, ctas, 2))
+
+
 @functools.lru_cache(maxsize=None)
 def bwd_wave_plan(hidden: int, itemsize: int, batch: int,
                   ndir: int = 1) -> int:
     """Rows a thread of lstm_bwd_wave.cu (its tile is rows x 1024/H batch
-    rows), chosen as ``wave_plan`` chooses lstm_wave.cu's: of the rows that
-    fit, the one whose grid (ndir x ceil(B / tile) CTAs) puts the fewest
-    rows on the busiest SM; on a tie, 4 rows. At H = 256, B = 4096 is 256
-    CTAs of 16 rows, two an SM, in one wave; with a bfloat16 dy, B = 4768
-    is 239 CTAs of 20 rows in one wave (against 298 of 16 in two). 8 rows
-    (one CTA an SM) and 2 (three) were built and measured slower at every
-    B from 2048 to 4768 (PERF.md), and 5 rows at B = 4768 in both
-    directions, where it ties on rows.
+    rows), or at H = 128 a tile of 10 to 40 rows, its only layout there.
+
+    At H 32, 64 and 256, chosen as ``wave_plan`` chooses lstm_wave.cu's: of
+    the rows that fit, the one whose grid (ndir x ceil(B / tile) CTAs)
+    puts the fewest rows on the busiest SM; on a tie, 4 rows. At H = 256,
+    B = 4096 is 256 CTAs of 16 rows, two an SM, in one wave; with a
+    bfloat16 dy, B = 4768 is 239 CTAs of 20 rows in one wave (against 298
+    of 16 in two). 8 rows (one CTA an SM) and 2 (three) were built and
+    measured slower at every B from 2048 to 4768 (PERF.md), and 5 rows at
+    B = 4768 in both directions, where it ties on rows.
+
+    At H = 128, the tile whose grid costs the least as measured: its waves
+    (two CTAs an SM) times 1.8 + R, R = ceil(tile / 8) rows a thread,
+    whatever the rows of a partial last wave (a CTA's time follows its
+    rows a thread more than the CTAs beside it); on a tie, the fewest rows
+    on the busiest SM. FN-SSL's full band (B = 4768, both directions) is
+    252 tiles of 38 rows in one wave: 76 rows on the busiest SM, against
+    96 for 32-row tiles in two; IPDnet's narrow band (B = 4096) 256 tiles
+    of 16; VariableIPDnet's (12288) 512 tiles of 24 in two waves (19.8 ms
+    at T = 280, against 25.7 for 384 tiles of 32 and 30.4 for 1024 of 12).
     """
-    best = None
-    for rows in BWD_WAVE_ROWS:
-        if not bwd_wave_fits(hidden, itemsize, rows):
-            continue
-        tile = bwd_wave_tile(hidden, rows)
-        busiest = _busiest(tile, -(-batch // tile) * ndir,
-                           bwd_wave_ctas_per_sm(hidden, itemsize, rows))
-        if best is None or busiest < best[0]:
-            best = (busiest, rows)
+    if hidden == 128:
+        return min(BWD_WAVE128_TILES,
+                   key=lambda t: _bwd_wave128_cost(t, batch, ndir))
+    best = _fewest_busiest(bwd_wave_plans(hidden, itemsize), batch, ndir,
+                           lambda p: bwd_wave_tile(hidden, p),
+                           lambda p: bwd_wave_ctas_per_sm(hidden, itemsize,
+                                                          p))
     if best is None:
         raise ValueError(f"lstm_bwd_wave: no plan fits hidden={hidden}, "
                          f"itemsize={itemsize}")
-    return best[1]
+    return best
 
 
 def bwd_route(t_steps: int, batch: int, hidden: int, ndir: int,
@@ -401,10 +500,10 @@ def bwd_cluster_fits(hidden: int, itemsize: int, n: int, bt: int, ks: int,
             and bwd_cluster_smem(hidden, itemsize, n, bt, ks) <= SMEM_BYTES)
 
 
-def _ctas_per_sm(smem: int) -> int:
-    """CTAs of `smem` dynamic bytes (and the 16 of mbarriers) that share
+def _ctas_per_sm(smem: int, static: int = 16) -> int:
+    """CTAs of `smem` dynamic bytes (and `static` of mbarriers) that share
     one SM's shared memory."""
-    return SM_SMEM_BYTES // (smem + 16 + CTA_RESERVED_SMEM)
+    return SM_SMEM_BYTES // (smem + static + CTA_RESERVED_SMEM)
 
 
 @functools.lru_cache(maxsize=None)
@@ -661,7 +760,7 @@ def lstm_bwd(g: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor,
     lstm_bwd_wave.cu. ``route`` ("cluster" or "wave") names the kernel
     instead, to hold or time one at any shape; ``plan`` overrides the
     route's plan (``bwd_cluster_plan``'s (N, Bt, KS, UPT), ``bwd_wave_plan``'s
-    rows a thread). Any B; H a multiple of 32 up to 256 (32, 64, 128 or 256
+    rows a thread, at H = 128 its tile). Any B; H a multiple of 32 up to 256 (32, 64, 128 or 256
     on lstm_bwd_wave.cu).
     """
     dims, dh_t, dc_t = _check_bwd(g, w_hh, c0, dys, dh_t, dc_t)

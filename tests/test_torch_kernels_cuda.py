@@ -248,6 +248,41 @@ def test_wave_every_plan_matches_plain(cuda, dtype, hidden):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(256, 16 * 298, 128, 2),
+                                   (256, 16 * 298 - 13, 128, 2),
+                                   (280, 16 * 256, 128, 1),
+                                   (9, 77, 128, 2)])
+def test_wave128_tile_matches_plain(cuda, dtype, shape):
+    """lstm_wave.cu's H = 128 tile (37 rows, 128 threads) at FN-SSL's full
+    band in training, a ragged B under it, IPDnet's narrow band and a
+    small ragged B: both entry points and walks."""
+    t_steps, b, h, ndir = shape
+    plan = lstm_cuda.WAVE128_ROWS[0]
+    args = inputs((2,), t_steps, b, h, dtype, cuda, 9)
+    if ndir == 2:
+        check_wave(args, dtype, plan=plan, route="wave")
+    for reverse in (False, True):
+        check_wave(tuple(a[int(reverse)] for a in args), dtype, reverse,
+                   plan=plan, route="wave")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wave128_tile_gives_the_same_bits_run_to_run(cuda, dtype):
+    """No atomics, no order that changes: the same inputs give the same ys,
+    hT and cT bits on every launch of the H = 128 tile."""
+    args = inputs((2,), 11, 4099, 128, dtype, cuda, 7)
+    outs = [lstm_cuda.lstm_fwd_bidir(*args, route="wave",
+                                     plan=lstm_cuda.WAVE128_ROWS[0])
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        for got, want in zip(out, outs[0]):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_wave_custom_op_in_a_cuda_graph(cuda):
     """The custom op (kernels/ops.py) at the 16-slot tick's narrow band,
     captured in a CUDA graph after one eager call: a replay with new
@@ -351,10 +386,13 @@ def test_bwd_kernel_matches_plain(cuda, dtype, hidden):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hidden", [32, 64, 128, 256])
 def test_bwd_wave_kernel_edge_cases(cuda, dtype, hidden):
-    """lstm_bwd_wave.cu at ragged B (and one row past a tile of 4 rows a
-    thread), short T, both entry points, both walks, nonzero c0/dhT/dcT."""
+    """lstm_bwd_wave.cu at ragged B (and one row past its largest tile at
+    this width), short T, both entry points, both walks, nonzero
+    c0/dhT/dcT."""
     seed = 100
-    for b in (1, 11, 13, 17, lstm_cuda.bwd_wave_tile(hidden, 4) + 1):
+    past = lstm_cuda.bwd_wave_tile(
+        hidden, max(lstm_cuda.bwd_wave_plans(hidden, 4))) + 1
+    for b in (1, 11, 13, 17, past):
         for t_steps in (1, 2, 7):
             seed += 1
             check_bwd_wave(bwd_inputs((2,), t_steps, b, hidden, dtype,
@@ -365,13 +403,14 @@ def test_bwd_wave_kernel_edge_cases(cuda, dtype, hidden):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hidden", [32, 64, 128, 256])
 def test_bwd_wave_every_plan_matches_plain(cuda, dtype, hidden):
-    """Every rows-a-thread lstm_bwd_wave.cu takes gives the same answer
-    (5 rows with a bfloat16 dy only)."""
+    """Every plan lstm_bwd_wave.cu takes gives the same answer, at a ragged
+    B of several tiles: 4 rows a thread (5 with a bfloat16 dy too), and at
+    H = 128 every tile of its own kernel (10 to 40 rows)."""
     itemsize = 4 if dtype == "float32" else 2
     args = bwd_inputs((2,), 9, 77, hidden, dtype, cuda, 3)
-    plans = [r for r in lstm_cuda.BWD_WAVE_ROWS
-             if lstm_cuda.bwd_wave_fits(hidden, itemsize, r)]
-    assert plans == ([4] if dtype == "float32" else [4, 5])
+    plans = lstm_cuda.bwd_wave_plans(hidden, itemsize)
+    assert plans == (lstm_cuda.BWD_WAVE128_TILES if hidden == 128 else
+                     (4,) if dtype == "float32" else (4, 5))
     for plan in plans:
         check_bwd_wave(args, plan, plan=plan)
 
@@ -404,6 +443,44 @@ def test_bwd_wave_gives_the_same_bits_run_to_run(cuda, dtype):
     args = bwd_inputs((2,), 11, 4099, 256, dtype, cuda, 7)
     outs = [lstm_cuda.lstm_bwd_bidir(args[0].clone(), *args[1:],
                                      route="wave") for _ in range(3)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        for got, want in zip(out, outs[0]):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(256, 16 * 298, 128, 2),
+                                   (256, 16 * 298 - 13, 128, 2),
+                                   (280, 16 * 256, 128, 1)])
+def test_bwd_wave128_tile_at_its_shapes(cuda, dtype, shape):
+    """lstm_bwd_wave.cu's H = 128 tiles at the plan's tile for FN-SSL's full
+    band in training (38 rows), a ragged B under it and IPDnet's narrow
+    band (16 rows)."""
+    t_steps, b, h, ndir = shape
+    args = bwd_inputs((ndir,), t_steps, b, h, dtype, cuda, 6)
+    plan = lstm_cuda.bwd_wave_plan(h, 4, b, ndir)
+    assert plan in lstm_cuda.BWD_WAVE128_TILES
+    kw = {"counter": lstm_cuda.launches_bwd_wave, "route": "wave",
+          "plan": plan}
+    if ndir == 2:
+        check_bwd(lstm_cuda.lstm_bwd_bidir, lstm_cuda.lstm_bwd_bidir_plain,
+                  args, shape, **kw)
+    else:
+        check_bwd(lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_plain,
+                  tuple(a[0] for a in args), shape, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_wave128_gives_the_same_bits_run_to_run(cuda, dtype):
+    """No atomics: the same inputs give the same dgates, dh0 and dc0 bits
+    on every launch of the H = 128 tile, at a ragged B of several tiles."""
+    args = bwd_inputs((2,), 11, 4099, 128, dtype, cuda, 7)
+    outs = [lstm_cuda.lstm_bwd_bidir(args[0].clone(), *args[1:],
+                                     route="wave", plan=38)
+            for _ in range(3)]
     torch.cuda.synchronize()
     for out in outs[1:]:
         for got, want in zip(out, outs[0]):
@@ -469,6 +546,10 @@ def test_bwd_plan_that_does_not_fit_is_refused(cuda):
         lstm_cuda.lstm_bwd_bidir(*args, route="wave", plan=8)  # not built
     with pytest.raises(RuntimeError, match="lstm_bwd_wave launch failed"):
         lstm_cuda.lstm_bwd_bidir(*args, route="wave", plan=5)  # fp32 dy
+    args = bwd_inputs((2,), 3, 4, 128, "float32", cuda)
+    with pytest.raises(RuntimeError, match="lstm_bwd_wave launch failed"):
+        # H = 128 takes its own tiles only
+        lstm_cuda.lstm_bwd_bidir(*args, route="wave", plan=4)
     assert (lstm_cuda.launches_bwd_wave.value,
             lstm_cuda.launches_bwd_cluster.value) == before
 

@@ -28,20 +28,23 @@ RTOL, ATOL = 2e-4, 2e-5
 # drives, FNSSLConfig() (full band H 128 both directions, narrow band H
 # 256) and IPDnetConfig() (H 64 and 128); K2 runs only in training
 PATH_SHAPES = [
-    ("train full band", 256, 16 * 298, 128, 2, 4, "cluster"),
-    ("train full band bf16", 256, 16 * 298, 128, 2, 2, "cluster"),
+    ("train full band", 256, 16 * 298, 128, 2, 4, "wave"),
+    ("train full band bf16", 256, 16 * 298, 128, 2, 2, "wave"),
     ("train narrow band", 298, 16 * 256, 256, 1, 4, "wave"),
     ("train narrow band bf16", 298, 16 * 256, 256, 1, 2, "wave"),
     ("parity step full band", 256, 2 * 298, 128, 2, 4, "cluster"),
     ("parity step narrow band", 298, 2 * 256, 256, 1, 4, "cluster"),
-    ("DP rank full band", 256, 8 * 298, 128, 2, 4, "cluster"),
+    ("DP rank full band", 256, 8 * 298, 128, 2, 4, "wave"),
+    ("DP rank full band bf16", 256, 8 * 298, 128, 2, 2, "cluster"),
     ("DP rank narrow band", 298, 8 * 256, 256, 1, 4, "wave"),
     ("IPDnet train full band", 256, 16 * 280, 64, 2, 4, "cluster"),
     ("IPDnet train narrow band", 280, 16 * 256, 128, 1, 4, "cluster"),
     ("IPDnet train narrow band bf16", 280, 16 * 256, 128, 1, 2, "cluster"),
     ("IPDnet offline narrow band", 280, 16 * 256, 64, 2, 4, "cluster"),
     ("variable IPDnet full band", 256, 8 * 6 * 280, 64, 2, 4, "cluster"),
-    ("variable IPDnet narrow band", 280, 8 * 6 * 256, 128, 1, 4, "cluster"),
+    ("variable IPDnet narrow band", 280, 8 * 6 * 256, 128, 1, 4, "wave"),
+    ("variable IPDnet narrow band bf16", 280, 8 * 6 * 256, 128, 1, 2,
+     "wave"),
 ]
 
 
@@ -68,10 +71,10 @@ def test_bwd_route_threshold(key):
 
 
 def test_bwd_route_keeps_unmeasured_widths_on_the_cluster_kernel():
-    """No threshold at H 32, 64, 128: the sweep covered H 128 and 256, and
-    at H 128 lstm_bwd_wave.cu was the slower kernel (PERF.md)."""
-    assert {h for h, _ in L.BWD_WAVE_MIN_ROWS} == {256}
-    for h in (32, 64, 128):
+    """No threshold at H 32 and 64: the sweep covered H 128 and 256, and
+    the rule takes only what it measured (PERF.md)."""
+    assert {h for h, _ in L.BWD_WAVE_MIN_ROWS} == {128, 256}
+    for h in (32, 64):
         assert L.bwd_route(298, 1 << 16, h, 2, 4) == "cluster"
 
 
@@ -79,7 +82,7 @@ def test_bwd_wave_smem_and_occupancy_arithmetic():
     """The source's sizing: dgates / G (tile x (4H + 4)) and c_{t-1} (tile
     x H) float32 and dy_t (tile x H in ys's dtype); CTAs an SM from the
     registers' budget and the 228 KB of shared memory less 1 KB a CTA."""
-    assert L.bwd_wave_tile(256, 4) == 16 and L.bwd_wave_tile(128, 4) == 32
+    assert L.bwd_wave_tile(256, 4) == 16 and L.bwd_wave_tile(128, 38) == 38
     assert L.bwd_wave_tile(64, 2) == 32 and L.bwd_wave_tile(32, 4) == 128
     assert L.bwd_wave_smem(256, 4, 16) == 16 * 1028 * 4 + 16 * 256 * 4 \
         + 16 * 256 * 4 == 98_560
@@ -94,7 +97,8 @@ def test_bwd_wave_smem_and_occupancy_arithmetic():
     assert L.bwd_wave_ctas_per_sm(256, 2, 5) == 2
     assert L._ctas_per_sm(L.bwd_wave_smem(256, 4, 20)) == 1
     # every width's tile of 4 rows a thread holds 96-98 KiB: 2 CTAs an SM
-    for h in (32, 64, 128, 256):
+    # (H = 128 takes its own tiles only)
+    for h in (32, 64, 256):
         assert L.bwd_wave_fits(h, 4, 4)
         smem = L.bwd_wave_smem(h, 4, L.bwd_wave_tile(h, 4))
         assert 96 * 1024 < smem <= L.SMEM_BYTES
@@ -124,6 +128,8 @@ def test_bwd_wave_smem_and_occupancy_arithmetic():
     (256, 4, 2),
     (256, 4, 5),            # 5 rows with a float32 dy: one CTA an SM
     (16, 4, 4),             # H not a multiple of 32
+    (128, 4, 4),            # H = 128 takes its own tiles only
+    (128, 2, 5),
 ])
 def test_bwd_wave_fits_refuses(hidden, itemsize, rows):
     assert not L.bwd_wave_fits(hidden, itemsize, rows)
@@ -181,11 +187,12 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_route():
     assert [c.value for c in counters] == before
 
 
-@pytest.mark.parametrize("hidden", [32, 256])
+@pytest.mark.parametrize("hidden", [32, 128, 256])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_plain_backward_at_a_ragged_tile_edge_matches_jax(hidden, reverse):
     """lstm_bwd_plain at B = 33 (one row past lstm_bwd_wave.cu's tiles of
-    16 and 32 rows), T = 7, against JAX's ``_lstm_backward`` on the same
+    16 and 32 rows, inside H = 128's of 38), T = 7, against JAX's
+    ``_lstm_backward`` on the same
     numpy-seeded forward: dh0, dc0, and dgates through the weight sums and
     dx they make (dx = dgates @ W_ih, db, dW_hh)."""
     rng = np.random.default_rng(hidden + reverse)
@@ -225,3 +232,61 @@ def test_plain_backward_at_a_ragged_tile_edge_matches_jax(hidden, reverse):
             (dgates.sum(dim=(0, 1)), db),
             (torch.einsum("tbg,tbh->gh", dgates, h_prev), d_whh)):
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_bwd_wave_plan_spreads_the_full_band_at_h128(itemsize):
+    """FN-SSL's full band in training (B 4768, both directions: 9536 rows,
+    72.2 an SM if spread evenly) takes the H = 128 tile of 38 rows, 2 CTAs
+    an SM in either dtype: 252 CTAs in one wave, 76 rows on the busiest
+    SM, where the tiles of 4 rows a thread put 96."""
+    tile = L.bwd_wave_plan(128, itemsize, 4768, 2)
+    per_sm = L.bwd_wave_ctas_per_sm(128, itemsize, tile)
+    assert (tile, L.bwd_wave_tile(128, tile), per_sm) == (38, 38, 2)
+    assert L._busiest(tile, -(-4768 // tile) * 2, per_sm) == 76
+    assert L._busiest(32, -(-4768 // 32) * 2, 2) == 96
+
+
+@pytest.mark.parametrize("batch,ndir,tile", [
+    (4768, 2, 38),          # FN-SSL's full band: one wave of R = 5
+    (4096, 1, 16),          # IPDnet's narrow band: one wave of R = 2
+    (12288, 1, 24),         # VariableIPDnet's: two waves of R = 3
+    (2384, 2, 20),          # a DP rank's full band: one wave of R = 3
+    (1242, 2, 10),          # LOCATA's full band
+])
+def test_bwd_wave_plan_at_h128_weighs_waves_by_rows_a_thread(batch, ndir,
+                                                             tile):
+    """At H = 128 the tile of the least (waves x (1.8 + R)), as measured:
+    more CTAs of fewer rows where that saves a wave."""
+    for itemsize in (4, 2):
+        assert L.bwd_wave_plan(128, itemsize, batch, ndir) == tile
+
+
+def test_bwd_wave128_tiles_fit_the_source():
+    """The H = 128 tiles as the source builds them: 8 row groups of R =
+    ceil(tile / 8) rows (R 2 to 5), the last slot in (tile - 8 (R - 1)) / 2
+    of the 4 warp-rows; dgates (tile x (4H + 4)) float32 alone in shared
+    memory, two CTAs an SM for every tile (__launch_bounds__(256, 2): 12 R
+    carries a thread, acc, dc and c_t, within its 128 registers); only at
+    H = 128."""
+    src = (cuda_build.CSRC / "lstm_bwd_wave.cu").read_text()
+    assert f"kRowGroups128 = {L.BWD_WAVE128_GROUPS};" in src
+    assert ("return static_cast<size_t>(tile) * (4 * 128 + kPad) * 4;"
+            in src)
+    assert "rows >= 10 && rows <= 40 && rows % 2 == 0" in src
+    assert sorted(L.BWD_WAVE128_TILES) == list(range(10, 41, 2))
+    for tile in L.BWD_WAVE128_TILES:
+        r = -(-tile // 8)
+        assert 2 <= r <= 5 and 1 <= (tile - 8 * (r - 1)) // 2 <= 4
+        assert L.bwd_wave128_smem(tile) == tile * 516 * 4
+        for itemsize in (4, 2):
+            assert L.bwd_wave_fits(128, itemsize, tile)
+            assert L.bwd_wave_ctas_per_sm(128, itemsize, tile) == 2
+        assert 12 * r < 65536 // (256 * 2)
+        assert not L.bwd_wave_fits(256, 4, tile)
+    assert not L.bwd_wave_fits(128, 4, 42) and not L.bwd_wave_fits(128, 4, 9)
+    # the plans each width takes: H = 128 its tiles only
+    assert L.bwd_wave_plans(128, 4) == L.bwd_wave_plans(128, 2) \
+        == L.BWD_WAVE128_TILES
+    assert L.bwd_wave_plans(256, 4) == (4,)
+    assert L.bwd_wave_plans(256, 2) == (4, 5)

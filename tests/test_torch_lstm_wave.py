@@ -4,10 +4,20 @@
 lstm_wave.cu's tiles. Both are plain arithmetic, checked here at every
 shape ``chip_smoke.py`` runs K1 at; what the kernel computes is checked on
 the card (tests/test_torch_kernels_cuda.py, chip_smoke.py phases 3 and 5).
+Here ``lstm_fwd_bidir_plain``, which the wrappers run for CPU tensors and
+the card's kernels are held against, is held against JAX's
+``lstm_fused_scan`` at a ragged tile edge.
+
+Tolerance: rtol 2e-4 / atol 2e-5, as tests/test_torch_lstm_bwd_wave.py.
 """
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from fnssl_tpu.kernels.lstm_pallas import lstm_fused_scan
+
+from fnssl_tpu_torch.kernels import cuda_build
 from fnssl_tpu_torch.kernels import lstm_cuda as L
 
 # (what, T, B, H, ndir, itemsize, route): K1's calls on the paths chip_smoke
@@ -17,7 +27,8 @@ PATH_SHAPES = [
     ("serve full band", 256, 12, 128, 2, 4, "cluster"),
     ("serve narrow band", 12, 256, 256, 1, 4, "cluster"),
     ("one-shot narrow band", 298, 256, 256, 1, 4, "cluster"),
-    ("train full band", 256, 16 * 298, 128, 2, 4, "cluster"),
+    ("train full band", 256, 16 * 298, 128, 2, 4, "wave"),
+    ("train full band bf16", 256, 16 * 298, 128, 2, 2, "wave"),
     ("train narrow band", 298, 16 * 256, 256, 1, 4, "wave"),
     ("train narrow band bf16", 298, 16 * 256, 256, 1, 2, "wave"),
     ("parity step narrow band", 298, 2 * 256, 256, 1, 4, "cluster"),
@@ -31,8 +42,9 @@ PATH_SHAPES = [
     ("LOCATA narrow band", 1242, 256, 256, 1, 4, "cluster"),
     ("IPDnet train full band", 256, 16 * 280, 64, 2, 4, "cluster"),
     ("IPDnet train narrow band", 280, 16 * 256, 128, 1, 4, "cluster"),
+    ("IPDnet train narrow band bf16", 280, 16 * 256, 128, 1, 2, "wave"),
     ("IPDnet 16-slot narrow band", 12, 16 * 256, 128, 1, 4, "cluster"),
-    ("variable IPDnet narrow band", 280, 8 * 6 * 256, 128, 1, 4, "cluster"),
+    ("variable IPDnet narrow band", 280, 8 * 6 * 256, 128, 1, 4, "wave"),
     ("H above 256", 5, 13, 512, 1, 4, "v2"),
 ]
 
@@ -58,10 +70,10 @@ def test_fwd_route_threshold(key):
 
 
 def test_fwd_route_keeps_unmeasured_widths_on_the_cluster_kernel():
-    """No threshold at H 32, 64, 128: the sweep covered H 128 and 256 and
+    """No threshold at H 32 and 64: the sweep covered H 128 and 256 and
     the rule takes only what it measured (PERF.md)."""
-    assert {h for h, _ in L.WAVE_MIN_ROWS} == {256}
-    for h in (32, 64, 128):
+    assert {h for h, _ in L.WAVE_MIN_ROWS} == {128, 256}
+    for h in (32, 64):
         assert L.fwd_route(298, 1 << 16, h, 2, 4) == "cluster"
 
 
@@ -131,3 +143,75 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_route():
         for x, y in zip(got, want):
             assert torch.equal(x, y)
     assert [c.value for c in counters] == before
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_wave_plan_spreads_the_full_band_at_h128(itemsize):
+    """FN-SSL's full band in training (B 4768, both directions: 9536 rows,
+    72.2 an SM if spread evenly) takes the H = 128 tile of 37 rows, 2 CTAs
+    an SM: 258 CTAs in one wave, 74 rows on the busiest SM, where the
+    256-thread tiles put 80 to 128."""
+    rows = L.wave_plan(128, itemsize, 4768, 2)
+    tile = L.wave_tile(128, rows)
+    per_sm = L.wave_ctas_per_sm(128, itemsize, rows)
+    assert (rows, tile, per_sm) == (37, 37, 2)
+    assert L._busiest(tile, -(-4768 // tile) * 2, per_sm) == 74 <= 76
+    for r in L.WAVE_ROWS:
+        t = L.wave_tile(128, r)
+        assert L._busiest(t, -(-4768 // t) * 2,
+                          L.wave_ctas_per_sm(128, itemsize, r)) >= 80
+
+
+def test_wave128_tiles_fit_the_source():
+    """The H = 128 tile's sizing as the source builds it: 128 threads, 37
+    rows, two h buffers (128 x (R rounded up to 4, + 4)) and c (R x 128)
+    float32 in shared memory, whatever xg's dtype; 2 CTAs an SM
+    (__launch_bounds__(128, 2): 4R accumulators a thread within its 256
+    registers); only at H = 128."""
+    src = (cuda_build.CSRC / "lstm_wave.cu").read_text()
+    assert f"kThreads128 = {L.WAVE128_THREADS};" in src
+    assert f"kRows128 = {L.WAVE128_ROWS[0]};" in src
+    assert "__launch_bounds__(kThreads128, 2)" in src
+    assert "(rows + 3) / 4 * 4 + kPad" in src
+    assert ("(2 * static_cast<size_t>(128) * pitch128(rows) +\n"
+            "          static_cast<size_t>(rows) * 128) * 4") in src
+    assert L.WAVE128_ROWS == (37,)
+    rows = 37
+    assert L.wave_fits(128, 4, rows) and L.wave_fits(128, 2, rows)
+    assert L.wave128_smem(rows) == (2 * 128 * 44 + rows * 128) * 4 == 64_000
+    for itemsize in (4, 2):
+        assert L.wave_ctas_per_sm(128, itemsize, rows) == 2
+    assert 2 * (L.wave128_smem(rows) + L.CTA_RESERVED_SMEM) \
+        <= L.SM_SMEM_BYTES
+    assert 4 * rows < 65536 // (L.WAVE128_THREADS * 2)
+    assert not L.wave_fits(256, 4, rows) and not L.wave_fits(64, 4, rows)
+    assert not L.wave_fits(128, 4, 24)
+
+
+@pytest.mark.parametrize("hidden", [32, 128, 256])
+def test_plain_bidir_forward_at_a_ragged_tile_edge_matches_jax(hidden):
+    """lstm_fwd_bidir_plain at B = 38 (one row past the H = 128 tile of 37
+    rows), T = 7, against JAX's ``lstm_fused_scan`` forward and reversed on
+    the same numpy-seeded weights: ys, hT and cT of both directions."""
+    rng = np.random.default_rng(hidden)
+    b, t, i, h = 38, 7, 16, hidden
+    f32 = np.float32
+    x = rng.standard_normal((b, t, i)).astype(f32)
+    w_ih, w_hh = ((rng.standard_normal((2, 4 * h, n)) * n ** -0.5)
+                  .astype(f32) for n in (i, h))
+    bias = (rng.standard_normal((2, 4 * h)) * 0.1).astype(f32)
+    h0, c0 = ((rng.standard_normal((2, b, h)) * 0.5).astype(f32)
+              for _ in range(2))
+    xg = np.stack([np.swapaxes(x @ w_ih[d].T + bias[d], 0, 1)
+                   for d in range(2)])                      # (2, T, B, 4H)
+    got = L.lstm_fwd_bidir_plain(
+        torch.as_tensor(xg), torch.as_tensor(np.swapaxes(w_hh, 1, 2).copy()),
+        torch.as_tensor(h0), torch.as_tensor(c0))
+    for d in range(2):
+        ys, h_t, c_t = (np.asarray(a) for a in lstm_fused_scan(
+            *(jnp.asarray(a) for a in (x, w_ih[d], w_hh[d], bias[d], h0[d],
+                                       c0[d])), bool(d)))
+        for g, want in ((got[0][d].transpose(0, 1), ys), (got[1][d], h_t),
+                        (got[2][d], c_t)):
+            np.testing.assert_allclose(g.numpy(), want, rtol=2e-4,
+                                       atol=2e-5)

@@ -181,3 +181,32 @@ def test_ssm_wrappers_take_the_plain_version_on_the_cpu_only():
                                     bm.double(), c.double(), d_skip, h0)
     with pytest.raises(ValueError, match="c must be"):
         ssm_cuda.selective_scan_fwd(x, dt, bias, a, bm, c[:, :2], d_skip, h0)
+
+
+def test_every_kernel_of_the_sources_is_counted_in_a_device_trace():
+    """chip_smoke.py counts launches read from a device trace by kernel
+    name: every __global__ kernel in the port's sources (an H = 128 tile
+    with its kernel) falls to exactly one of its TRACED names."""
+    import importlib.util
+    import re
+
+    from fnssl_tpu_torch.kernels import cuda_build
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    symbols = set()
+    for src in cuda_build.CSRC.glob("*.cu"):
+        symbols |= set(re.findall(
+            r"__global__\s+void\s+"
+            r"(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s+)?(\w+)\(",
+            src.read_text()))
+    assert {"lstm_wave_kernel_h128", "lstm_bwd_wave_kernel_h128"} <= symbols
+    for sym in symbols:
+        # as a device trace names a template instance
+        event = f"void (anonymous namespace)::{sym}<float, 4>(float*, int)"
+        hits = [k for k in smoke.TRACED
+                if re.search(rf"\b{k}(?:_h128)?\b", event)]
+        assert len(hits) == 1, (sym, hits)
+        assert smoke.traced_index(event) == smoke.TRACED.index(hits[0])

@@ -4,12 +4,14 @@ sources: fnssl_tpu_torch/kernels/csrc/lstm_bwd_cluster.cu and
 lstm_bwd_wave.cu.
 
   python3 tools/lstm_bwd_breakdown.py [--source lstm_bwd_cluster|lstm_bwd_wave]
-      [--rows R]
 
 Builds each source and copies of it with one part cut out, into
 fnssl_tpu_torch/_build/variants/, and times them all on the same inputs
 at the two training shapes of FN-SSL at nb=16, fp32, with CUDA events, in
-turns (base, variants, variants reversed, base). The cuts:
+turns (base, variants, variants reversed, base), each at the plan of its
+rule. lstm_bwd_wave.cu runs its H = 128 kernel at the full band and its
+other kernel at the narrow band; a shape times the cuts of the kernel it
+runs. The cuts:
   no_product — the per-step product dgates @ W_hh (both sources);
   no_replay  — the replay of c (both sources);
   no_remote  — lstm_bwd_cluster.cu: every CTA stores its dgates N times
@@ -25,9 +27,11 @@ turns (base, variants, variants reversed, base). The cuts:
   dg_row0    — lstm_bwd_wave.cu: the product reads the thread's first
                row of dgates for each of its rows (one shared-memory load
                a block instead of R, the same FMAs);
-  w_in_l1    — lstm_bwd_wave.cu: every block of the product reads the same
-               four rows of W_hh, which stay in L1 (no L2 traffic, the
-               same loads).
+  w_in_l1    — lstm_bwd_wave.cu (both kernels): every block of the product
+               reads the same four rows of W_hh, which stay in L1 (no L2
+               traffic, the same loads);
+  no_w_loads — lstm_bwd_wave.cu at H = 128: the product loads no W_hh
+               (each thread's first block used throughout).
 The variants compute wrong gradients: they only time what is left. Prints
 one JSON line per source and shape.
 """
@@ -50,6 +54,8 @@ from fnssl_tpu_torch.kernels import cuda_build, lstm_cuda  # noqa: E402
 # (name, T, B, H, ndir): one train step's recurrences at nb=16
 SHAPES = [("train_fullband", 256, 16 * 298, 128, 2),
           ("train_narrowband", 298, 16 * 256, 256, 1)]
+# (old, new) by cut; lstm_bwd_wave.cu's are also by the kernel they cut:
+# "h128" (its H = 128 kernel), "other" (the other widths') or "both"
 CUTS = {
     "lstm_bwd_cluster": {
         "no_product": ("for (int uu = 0; uu < KL; ++uu) {",
@@ -69,13 +75,45 @@ CUTS = {
     "lstm_bwd_wave": {
         "no_product": ("for (int kk = 0; kk < hidden; kk += 2 * kBlock) {",
                        "for (int kk = 0; kk < 0; kk += 2 * kBlock) {"),
-        "no_replay": ("for (int s = 0; s < t_steps; ++s) {",
-                      "for (int s = 0; s < 0; ++s) {"),
-        "dg_row0": ("dgrow + i * row_stride + k0", "dgrow + k0"),
+        "no_replay": ("for (int s = 0; s < t_steps; ++s) {\n"
+                      "    const int t = time_of(s);",
+                      "for (int s = 0; s < 0; ++s) {\n"
+                      "    const int t = time_of(s);"),
+        "dg_row0": ("for (int i = 0; i < R; ++i) {\n    const float4 d4 =\n"
+                    "        *reinterpret_cast<const float4*>(dgrow + i * "
+                    "row_stride + k0);",
+                    "for (int i = 0; i < R; ++i) {\n    const float4 d4 =\n"
+                    "        *reinterpret_cast<const float4*>(dgrow + k0);"),
         "w_in_l1": ("w_hh + static_cast<size_t>(k0 + e) * hidden + u0",
                     "w_hh + static_cast<size_t>(e) * hidden + u0"),
+        "no_product_h128": ("for (int kg = 0; kg < four_h; kg += 2 * kBlock)",
+                            "for (int kg = 0; kg < 0; kg += 2 * kBlock)"),
+        "no_replay_h128": ("for (int s = 0; s < t_steps; ++s) {\n    const "
+                           "float* gt",
+                           "for (int s = 0; s < 0; ++s) {\n    const "
+                           "float* gt"),
+        "dg_row0_h128": ("for (int i = 0; i < N; ++i) {\n    const float4 "
+                         "d4 =\n        *reinterpret_cast<const float4*>("
+                         "dgrow + i * row_stride + k0);",
+                         "for (int i = 0; i < N; ++i) {\n    const float4 "
+                         "d4 =\n        *reinterpret_cast<const float4*>("
+                         "dgrow + k0);"),
+        "no_w_loads_h128": ("    load_block(w1, w_hh, kg + kBlock, u0, 128);"
+                            "\n    fma_rows<N>(acc, w0, dgrow, kg, stride);"
+                            "\n    load_block(w0, w_hh, kg + 2 * kBlock < "
+                            "four_h ? kg + 2 * kBlock : 0, u0,\n"
+                            "               128);\n",
+                            "    fma_rows<N>(acc, w0, dgrow, kg, stride);\n"),
     },
 }
+
+
+def cuts_at(source: str, hidden: int) -> list[str]:
+    """The cuts of `source` that touch the kernel it runs at this H."""
+    if source != "lstm_bwd_wave":
+        return list(CUTS[source])
+    return [n for n in CUTS[source] if n == "w_in_l1"
+            or n.endswith("_h128") == (hidden == 128)]
 
 
 def build_variants(source: str) -> dict[str, ctypes.CDLL]:
@@ -109,9 +147,6 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", choices=list(CUTS), action="append",
                     help="the sources to break down (default: both)")
-    ap.add_argument("--rows", type=int, default=None,
-                    help="lstm_bwd_wave.cu's rows a thread (default: "
-                         "bwd_wave_plan's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("lstm_bwd_breakdown: no CUDA device")
@@ -138,8 +173,7 @@ def main():
             stream = torch.cuda.current_stream(device).cuda_stream
             plan = (lstm_cuda.bwd_cluster_plan(hidden, 4)
                     if source == "lstm_bwd_cluster" else
-                    (args.rows or lstm_cuda.bwd_wave_plan(hidden, 4, batch,
-                                                          ndir),))
+                    (lstm_cuda.bwd_wave_plan(hidden, 4, batch, ndir),))
 
             def launch(lib):
                 err = getattr(lib, source)(
@@ -163,8 +197,9 @@ def main():
                 torch.cuda.synchronize()
                 return start.elapsed_time(end) / iters
 
-            order = list(libs) + list(libs)[::-1]
-            times = {k: [] for k in libs}
+            names = ["base"] + cuts_at(source, hidden)
+            order = names + names[::-1]
+            times = {k: [] for k in names}
             for k in order:
                 times[k].append(ms(libs[k]))
             print(json.dumps({"source": source, "shape": name, "T": t_steps,
