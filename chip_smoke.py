@@ -7,8 +7,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
   1. device  — the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build   — nvcc builds every kernel from the sources in the checkout
                (lstm_cluster.cu, lstm_wave.cu, lstm_fwd.cu,
-               lstm_bwd_cluster.cu, lstm_bwd_wave.cu, ssm_scan.cu), one nvcc
-               per source, all started together.
+               lstm_bwd_cluster.cu, lstm_bwd_wave.cu, lstm_bwd_wide.cu,
+               ssm_scan.cu), one nvcc per source, all started together.
   3. kernels — each kernel against its plain PyTorch version on the card:
                K1 through lstm_fwd (both directions) and lstm_fwd_bidir,
                each call on the kernel lstm_cuda.fwd_route gives its shape
@@ -17,7 +17,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
                the main path's shapes, at the 16-slot tick's (FN-SSL's and
                IPDnet's, phase 24) and at edge cases (B 1/11/13/17, T
                0/1/2/7, H 32/64/128/256), fp32 and bf16, nonzero h0/c0;
-               lstm_fwd.cu at H = 512, its only use. lstm_wave.cu also
+               lstm_fwd.cu at H = 512; an LSTM of H 48, padded to 64
+               (lstm_cluster.cu). lstm_wave.cu also
                at FN-SSL's narrow band in training (298, 4096, 256), in
                the 16-slot tick (12, 4096, 256) and in a DP rank's step
                (298, 2048, 256), at ragged B on both sides of each of the
@@ -60,8 +61,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
                each threshold, forced onto it at the training and rank
                shapes, at its edge cases (B 1/11/13/17 and one row past a
                tile, T 1/2/7, H 32/64/128/256) and with every plan it is
-               built for; and K1 at the training and rank shapes, which
-               phase 3 never reaches.
+               built for; lstm_bwd_wide.cu (H above 256) through the rule
+               at FN-SSL's hidden-512 narrow band (298, 4096, 512), at H
+               288/384/512/768/1024 at B 1/11/13/17 and one row past its
+               largest tile, T 1/2/7, and with every plan at H
+               288/512/544/1024 (T 7, B 77); H 48 padded to 64; and K1 at
+               the training and rank shapes (FN-SSL's at hidden 512 too),
+               which phase 3 never reaches. Then the refusals: K1 and K2
+               at H 1056, K3 and K4 at d_state 72 raise and launch
+               nothing.
   7. train parity — one make_train_step step (fp32, dropout off, nb=2 x
                4.79 s, full width, weights from --seed) on cuda:0 and on the
                CPU: loss, every gradient and every parameter after the Adam
@@ -87,7 +95,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
                sweep that sets bwd_route's rule: lstm_bwd_wave.cu against
                lstm_bwd_cluster.cu at T 298, B 1024-4768 x H 128/256 x 1-2
                directions x fp32/bf16 (fails where the rule routes a point
-               to lstm_bwd_wave.cu that measured slower).
+               to lstm_bwd_wave.cu that measured slower). Then K1 and K2 at
+               FN-SSL's hidden-512 shapes, (298, 4096, 512) and (256, 4768,
+               256, both), and at lstm_fwd.cu's check case (5, 13, 512),
+               each on its rule's kernel: the card's time from a trace,
+               the bound, the plain version, cuDNN's forward and backward
+               (TF32 off and on) and the port's whole LSTM backward.
  10. fit     — the user's loop through the CLI (`main()` in this process)
                on cuda:0 at full width: `simulate` 96 train scenes
                (wav+pickle) and 8 dev scenes (compact npz) of 4.79 s;
@@ -125,7 +138,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
                the CPU, equal DOAs per track but at exact ties, eof.
  14. ipdnet times and parity — K1/K2, plain and cuDNN at IPDnet's shapes
                (as phases 5 and 9); one fp32 train step of make_ipdnet_task
-               and make_ipdnet_offline_task (nb=2 x 4.5 s) and of
+               and make_ipdnet_offline_task (nb=1 x 4.5 s) and of
                make_variable_ipdnet_task (nch 4, nb 1), dropout off, the
                card against the CPU at phase 7's tolerances, the CPU step
                taking the card's ReLU gates in the conv head.
@@ -151,7 +164,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
                step in phase 29 at B 128 and in phase 30 at B 64, L 201 and
                40, d 192) and edge cases (B 1/3/13, L 0/1/2/7, d 13/32/192),
                fp32 and bf16 inputs, one channel past the softplus
-               threshold.
+               threshold; the same at d_state 8, 32 and 64 (the kernels'
+               other builds) and 24 (padded to 32), at layer 0's training
+               shape and the edge cases.
  18. ipdnet2 serve — `cli serve --model ipdnet2` (SpatialNetConfig(),
                weights from --seed) on cuda:0, 3 TCP connections of 5 s of
                5-channel audio with fixed inter-mic delays: 16 K3 launches
@@ -188,7 +203,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
                serve path's session on the same pushes.
  24. slots   — `cli serve --slots 16` of fnssl, ipdnet and ipdnet2: the
                pool captures tiers 1, 4 and 16 as CUDA graphs; 16
-               concurrent TCP connections (25 chunk steps each, 50 for
+               concurrent TCP connections (3 s: 15 chunk steps each, 30 for
                IPDnet2), each held against a dedicated stream of its audio
                on the card (outputs 1e-3, DOAs but at exact ties); the
                live run traced by torch.profiler: no wrapper launches (each
@@ -210,7 +225,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
                and cpu, its CPU program held against the card's (1e-3);
                one `serve --artifact` TCP connection against a dedicated
                stream.
- 26. locata  — a synthetic LOCATA tree (task 3 and 5, recordings 1 and 2,
+ 26. locata  — a synthetic LOCATA tree (task 3 and 5, recording 1,
                dicit: 15 channels of 12 s at 48 kHz, pose, time, source and
                VAD files; written before phase 3, which holds K1 at its
                frame count too): `cli locata --model fnssl` from phase 10's
@@ -272,6 +287,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
                collectives moved a step. Phase 17 holds K3 and K4 at a
                rank's scan shapes (B 64 at L 201 and 40) and this phase
                times them there.
+ 31. fnssl hidden 512 — FNSSLConfig(hidden_size=512), every other width
+               published (narrow-band LSTMs of H 512, full-band BiLSTMs of
+               H 256): one fp32 train step (nb 1 x 2 s, dropout off) on the
+               card against the CPU at phase 7's tolerances (3 K1 of
+               lstm_cluster.cu and 3 of lstm_fwd.cu, 3 K2 of
+               lstm_bwd_cluster.cu and 3 of lstm_bwd_wide.cu); the cell nb
+               16 x 4.79 s, fp32 then bf16, 1 warm + 3 timed steps (ms mean
+               and p90, peak memory, exactly 3 K1 of lstm_fwd.cu and 3 of
+               lstm_wave.cu, 3 K2 of lstm_bwd_wide.cu and 3 of
+               lstm_bwd_wave.cu a step) and one traced step of each (K1's
+               and K2's device ms, busy time, idle share).
+ 32. ipdnet2 mamba(32,4) — SpatialNetConfig(attention="mamba(32,4)"),
+               every other width published (the fused scan at d_state 32):
+               phase 19's fp32 parity step at its tolerances and gates (16
+               K3 and 16 K4 launches); phase 20's cell nb 16 x 4 s, fp32
+               then bf16, 1 warm + 3 timed steps (ms mean and p90, peak
+               memory, exact launches); K3 and K4 a launch at its scan
+               shapes beside their bounds and plain versions.
 The line before the last is the kernels JSON line (each kernel's numbers
 over one train step's work, its launches over every path); the last line
 is
@@ -321,9 +354,9 @@ PER_CHUNK = {"serve_fullband": 3, "serve_narrowband": 3}
 LAUNCHES_PER_CHUNK = 6
 # launches a serve chunk step by model, in COUNTED's order: K1 for FN-SSL's
 # 3 blocks and IPDnet's 2; K3 for IPDnet2's 8 layers x 2 Mamba blocks
-CHUNK_LAUNCHES = {"fnssl": [LAUNCHES_PER_CHUNK, 0, 0, 0, 0, 0, 0],
-                  "ipdnet": [4, 0, 0, 0, 0, 0, 0],
-                  "ipdnet2": [0, 0, 0, 0, 16, 0, 0]}
+CHUNK_LAUNCHES = {"fnssl": [LAUNCHES_PER_CHUNK, 0, 0, 0, 0, 0, 0, 0],
+                  "ipdnet": [4, 0, 0, 0, 0, 0, 0, 0],
+                  "ipdnet2": [0, 0, 0, 0, 16, 0, 0, 0]}
 SERVE_NCH = {"ipdnet2": 5}              # channels a connection, else 2
 EDGE_B, EDGE_T, EDGE_H = (1, 11, 13, 17), (0, 1, 2, 7), (32, 64, 128, 256)
 V2_CASE = (5, 13, 512)                  # (T, B, H): lstm_fwd.cu serves H > 256
@@ -370,12 +403,23 @@ def lstm_inputs(t_steps, batch, hidden, dtype, device, seed, ndir=None):
             randn(batch, hidden) * 0.5, randn(batch, hidden) * 0.5)
 
 
+def max_abs_diff(got, want, rows=1 << 16):
+    """max |got - want| over blocks of `rows` rows of the last dim: at FN-SSL's
+    hidden-512 narrow band both directions' dgates hold 18.6 GiB, and their
+    whole difference would not fit beside them."""
+    if not got.numel():
+        return 0.0
+    g, w = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+    return max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(g.split(rows), w.split(rows)))
+
+
 def held(kernel, what, dtype, got, want, worst):
     """Max |kernel - plain| of ys, hT, cT against TOL; folds them into
     worst[kernel]."""
     torch.cuda.synchronize()
-    errs = {k: (g.float() - w.float()).abs().max().item() if g.numel()
-            else 0.0 for k, g, w in zip(("ys", "hT", "cT"), got, want)}
+    errs = {k: max_abs_diff(g, w)
+            for k, g, w in zip(("ys", "hT", "cT"), got, want)}
     for k, v in errs.items():
         if not v <= TOL[dtype][k]:
             raise AssertionError(f"{kernel} {what} {dtype}: {k} max|diff| "
@@ -445,7 +489,7 @@ def phase_kernels(device, extra=()):
              SHAPES + SLOT_SHAPES + list(extra)]
     cases += [("edge", t, b, h) for h in EDGE_H for b in EDGE_B
               for t in EDGE_T]
-    cases += [("v2_h512", *V2_CASE)]
+    cases += [("v2_h512", *V2_CASE), ("padded_h48", 7, 13, 48)]
     seed, checks = 0, 0
     for name, t, b, h in cases:
         for dtype in ("float32", "bfloat16"):
@@ -532,11 +576,11 @@ def wave_checks(device, worst):
     return checks + plans
 
 
-def make_audio(seed, delay, nch=2):
-    """Noise reaching mic k k·`delay` samples after mic 0, plus a little
-    independent noise on each mic."""
+def make_audio(seed, delay, nch=2, seconds=SERVE_AUDIO_S):
+    """`seconds` of noise reaching mic k k·`delay` samples after mic 0,
+    plus a little independent noise on each mic."""
     rng = np.random.default_rng(seed)
-    n = int(SERVE_AUDIO_S * FS)
+    n = int(seconds * FS)
     span = (nch - 1) * abs(delay)
     src = rng.standard_normal(n + span).astype(np.float32) * 0.1
     starts = [(nch - 1 - k) * delay if delay >= 0 else k * -delay
@@ -1150,7 +1194,7 @@ def bwd_inputs(lead, t_steps, batch, hidden, dtype, device, seed):
 def held_bwd(what, got, want, worst, dtype):
     """Max |kernel - plain| of dgates, dh0, dc0 against BWD_TOL."""
     torch.cuda.synchronize()
-    errs = {k: (g - w).abs().max().item() if g.numel() else 0.0
+    errs = {k: max_abs_diff(g, w)
             for k, g, w in zip(("dgates", "dh0", "dc0"), got, want)}
     for k, v in errs.items():
         if not v <= BWD_TOL:
@@ -1191,7 +1235,10 @@ def k2_checks(name, t, b, h, dtype, device, seed, worst_bwd, checks,
                 what = f"lstm_bwd reverse={int(reverse)}"
             got = counted(counter, 1, fn, args[0].clone(), *args[1:],
                           route=route, plan=plan, **kw)
-            want = plain(args[0].clone(), *args[1:], **kw)
+            # the last call's plain version takes g itself: at (298, 4096,
+            # 512) a copy of both directions' g is 18.6 GiB
+            want = plain(args[0] if reverse is None else args[0].clone(),
+                         *args[1:], **kw)
             checks[kernel] += 1
             errs.append(held_bwd(f"{kernel} {name} T={t} B={b} H={h} {what}",
                                  got, want, worst_bwd[kernel], dtype))
@@ -1215,7 +1262,8 @@ def bwd_wave_cases(shapes):
             cases += [(f"threshold{d:+d}", 7, rows + d, h, None, None)
                       for d in (-3, 3)]
     cases += [(n, t, b, h, "wave", None) for n, t, b, h, _, ndir in shapes
-              if L.bwd_route(t, b, h, ndir, 4) != "wave"]
+              if h <= L.CLUSTER_MAX_HIDDEN
+              and L.bwd_route(t, b, h, ndir, 4) != "wave"]
     cases += [("wave edge", t, b, h, "wave", None) for h in EDGE_H
               for b in EDGE_B for t in BWD_EDGE_T]
     # one row past the largest tile of each width, on that tile
@@ -1247,7 +1295,7 @@ def phase_backward(device, worst, shapes):
     cases = [(n, t, b, h, None, None) for n, t, b, h, _, _ in shapes]
     cases += [("edge", t, b, h, None, None) for h in EDGE_H for b in EDGE_B
               for t in BWD_EDGE_T]
-    cases += bwd_wave_cases(shapes)
+    cases += bwd_wave_cases(shapes) + bwd_wide_cases()
     seed = 1000
     for name, t, b, h, route, plan in cases:
         for dtype in ("float32", "bfloat16"):
@@ -1258,6 +1306,7 @@ def phase_backward(device, worst, shapes):
                 log(f"  {'/'.join(kernels)} {name:16s} T={t:3d} B={b:4d} "
                     f"H={h:3d} {dtype:8s} max|diff| dgates/dh0/dc0 "
                     "fwd/rev/bidir " + "/".join(f"{v:.2e}" for v in errs))
+                torch.cuda.empty_cache()
     plans = 0
     for h in (128, 256):
         for dtype in ("float32", "bfloat16"):
@@ -1266,10 +1315,19 @@ def phase_backward(device, worst, shapes):
                 k2_checks(f"plan {plan}", 7, 77, h, dtype, device, seed,
                           worst_bwd, checks, "wave", plan)
                 plans += 1
+    for h in WIDE_PLAN_H:
+        for dtype in ("float32", "bfloat16"):
+            for plan in L.bwd_wide_plans(h):
+                seed += 1
+                k2_checks(f"plan {plan}", 7, 77, h, dtype, device, seed,
+                          worst_bwd, checks, "wide", plan)
+                plans += 1
     log(f"  K2 checks passed by source {json.dumps(checks)} at "
         f"{', '.join(n for n, *_ in shapes)}, edge cases B {EDGE_B} x T "
         f"{BWD_EDGE_T} x H {EDGE_H}, lstm_bwd_wave.cu also one row past a "
-        f"tile and with {plans} plans; worst {json.dumps(worst_bwd)}")
+        f"tile, lstm_bwd_wide.cu at H {WIDE_EDGE_H} (B {EDGE_B} and one row "
+        f"past a tile), H 48 padded, {plans} plans of both; worst "
+        f"{json.dumps(worst_bwd)}")
     for name, t, b, h, _, _ in shapes:
         for dtype in ("float32", "bfloat16"):
             seed += 1
@@ -1283,30 +1341,32 @@ def phase_backward(device, worst, shapes):
     return worst_bwd, checks
 
 
-def train_setup(seed, device, nb, precision="fp32"):
+def train_setup(seed, device, nb, precision="fp32", hidden=256,
+                t_s=TRAIN_T_S):
     """(state, step, batch) of the FN-SSL reference task on `device`:
-    FNSSLConfig(), weights from `seed`, Adam 1e-3 / gamma 0.8988."""
-    from fnssl_tpu_torch.models.fnssl import FNSSL
+    FNSSLConfig(hidden_size=hidden) (FNSSLConfig() at 256), weights from
+    `seed`, Adam 1e-3 / gamma 0.8988, nb scenes of t_s seconds."""
+    from fnssl_tpu_torch.models.fnssl import FNSSL, FNSSLConfig
     from fnssl_tpu_torch.train import step as S
     from fnssl_tpu_torch.train import tasks as TK
 
-    model = FNSSL(device=device,
+    cfg = FNSSLConfig(hidden_size=hidden)
+    model = FNSSL(cfg, device=device,
                   generator=torch.Generator().manual_seed(seed))
     tx = S.make_optimizer("adam", 1e-3, 0.8988, 1)
-    step = S.make_train_step(TK.make_fnssl_task(precision=precision,
+    step = S.make_train_step(TK.make_fnssl_task(cfg, precision=precision,
                                                 device=device).loss_fn, tx)
     batch = {k: torch.as_tensor(v, device=device) for k, v in
-             TK.synthetic_fnssl_batch(nb=nb, t_s=TRAIN_T_S,
-                                      seed=seed).items()}
+             TK.synthetic_fnssl_batch(nb=nb, t_s=t_s, seed=seed).items()}
     return S.init_train_state(model, tx), step, batch
 
 
 COUNTED = ("lstm_cluster", "lstm_fwd", "lstm_bwd_wave", "lstm_bwd_cluster",
-           "ssm_scan_fwd", "ssm_scan_bwd", "lstm_wave")
+           "ssm_scan_fwd", "ssm_scan_bwd", "lstm_wave", "lstm_bwd_wide")
 # their kernels' names in a device trace, in the same order
 TRACED = ("lstm_cluster_kernel", "lstm_fwd_kernel", "lstm_bwd_wave_kernel",
           "lstm_bwd_cluster_kernel", "selective_fwd_kernel",
-          "selective_bwd_kernel", "lstm_wave_kernel")
+          "selective_bwd_kernel", "lstm_wave_kernel", "lstm_bwd_wide_kernel")
 TRACE_GUARD = 2048
 # the settling time of each try of a guarded trace
 TRACE_SETTLE_S = (0.1, 1.0, 2.0)
@@ -1329,7 +1389,7 @@ def launch_counters():
 
     return (L.launches, L.launches_v2, L.launches_bwd_wave,
             L.launches_bwd_cluster, S.launches_ssm_fwd, S.launches_ssm_bwd,
-            L.launches_wave)
+            L.launches_wave, L.launches_bwd_wide)
 
 
 def k1_route(t_steps, batch, hidden, ndir, itemsize):
@@ -1365,25 +1425,26 @@ def k2_route(t_steps, batch, hidden, ndir, itemsize):
     return name, L.BWD_COUNTERS[name]
 
 
-def fnssl_recurrences(nb, nt=298):
-    """(T, B, H, ndir, n) of one FN-SSL forward (FNSSLConfig(), 3 blocks,
-    256 bins) of nb scenes of nt frames: a full-band BiLSTM (T 256, B nb
-    nt, H 128) and a narrow-band LSTM (T nt, B nb 256, H 256) a block."""
-    return [(256, nb * nt, 128, 2, 3), (nt, nb * 256, 256, 1, 3)]
+def fnssl_recurrences(nb, nt=298, hidden=256):
+    """(T, B, H, ndir, n) of one FN-SSL forward (FNSSLConfig(hidden_size=
+    hidden), 3 blocks, 256 bins) of nb scenes of nt frames: a full-band
+    BiLSTM (T 256, B nb nt, H hidden/2) and a narrow-band LSTM (T nt, B nb
+    256, H hidden) a block."""
+    return [(256, nb * nt, hidden // 2, 2, 3), (nt, nb * 256, hidden, 1, 3)]
 
 
-def fnssl_k1(nb, nt=298, itemsize=4):
+def fnssl_k1(nb, nt=298, itemsize=4, hidden=256):
     """K1 launches (COUNTED's order) of one FN-SSL forward."""
-    return k1_split(fnssl_recurrences(nb, nt), itemsize)
+    return k1_split(fnssl_recurrences(nb, nt, hidden), itemsize)
 
 
-def step_launches(nb, itemsize=4):
+def step_launches(nb, itemsize=4, hidden=256, nt=298):
     """Launches (COUNTED's order) of one FN-SSL train step of nb scenes of
-    4.79 s: fnssl_k1's forward and a K2 launch for each of its 6
-    recurrences, on the kernel bwd_route gives it."""
-    out = fnssl_k1(nb, itemsize=itemsize)
-    for t_steps, batch, hidden, ndir, n in fnssl_recurrences(nb):
-        name, _ = k2_route(t_steps, batch, hidden, ndir, itemsize)
+    nt frames (4.79 s: 298): fnssl_k1's forward and a K2 launch for each
+    of its 6 recurrences, on the kernel bwd_route gives it."""
+    out = fnssl_k1(nb, nt, itemsize, hidden)
+    for t_steps, batch, h, ndir, n in fnssl_recurrences(nb, nt, hidden):
+        name, _ = k2_route(t_steps, batch, h, ndir, itemsize)
         out[COUNTED.index(name)] += n
     return out
 
@@ -1808,6 +1869,236 @@ def phase_bwd_sweep(device):
     return rows, measured
 
 
+# FN-SSL at FNSSLConfig(hidden_size=512), every other width published:
+# narrow-band LSTMs of H 512 (K1 on lstm_fwd.cu, K2 on lstm_bwd_wide.cu) and
+# full-band BiLSTMs of H 256 (T 256). (name, T, B, H, I, ndir) of one train
+# step's recurrences at nb 16 (I: the input width the cuDNN yardstick and
+# the whole LSTM backward are timed with), and lstm_fwd.cu's check case
+WIDE_HIDDEN, WIDE_NB, WIDE_STEPS = 512, 16, 3
+WIDE_TRAIN_SHAPES = [
+    ("wide_fullband", 256, WIDE_NB * 298, WIDE_HIDDEN // 2, WIDE_HIDDEN, 2),
+    ("wide_narrowband", 298, WIDE_NB * 256, WIDE_HIDDEN, WIDE_HIDDEN, 1)]
+WIDE_TIMED_SHAPES = WIDE_TRAIN_SHAPES + [("v2_case", *V2_CASE, 512, 1)]
+# the parity step: nb 1 x 2 s (124 frames), so that the CPU's step stays
+# near 11 s (25 s at 4.79 s on 8 cores)
+WIDE_PARITY_NB, WIDE_PARITY_T_S = 1, 2.0
+# K2 above H = 256 on the card: every width the rule gives lstm_bwd_wide.cu
+# that FN-SSL does not (two columns a lane from 544), at phase 6's edge cases
+# and one row past the largest tile; every plan at T 7, B 77
+WIDE_EDGE_H = (288, 384, 512, 768, 1024)
+WIDE_PLAN_H = (288, 512, 544, 1024)
+
+
+def frames(t_s):
+    """Frames of the FN-SSL front-end for t_s seconds of audio (hop 256,
+    the STFT's last two frames dropped): 298 at 4.79 s, 124 at 2 s."""
+    return int(t_s * FS) // 256 - 1
+
+
+def bwd_wide_cases():
+    """(name, T, B, H, route, plan) at which phase 6 holds lstm_bwd_wide.cu
+    beyond the rule's calls at the wide training shapes: WIDE_EDGE_H at B
+    1/11/13/17 and one row past the largest tile, T 1/2/7, through the
+    rule; an LSTM of H 48, padded to 64 (lstm_bwd_cluster.cu)."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    cases = []
+    for h in WIDE_EDGE_H:
+        past = L.bwd_wide_tile(max(L.bwd_wide_plans(h))) + 1
+        cases += [("wide edge", t, b, h, None, None)
+                  for b in EDGE_B + (past,) for t in BWD_EDGE_T]
+    cases += [("padded H 48", t, 13, 48, None, None) for t in BWD_EDGE_T]
+    return cases
+
+
+def refusals(device):
+    """Above H = 1024 and d_state 64 the card raises, through every entry
+    point, and launches nothing: K1 and K2 at H 1056, K3 and K4 at n 72."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+    from fnssl_tpu_torch.kernels import ssm_cuda as S
+
+    counts = launch_counters()
+    before = [c.value for c in counts]
+    fwd = lstm_inputs(3, 4, 1056, torch.float32, device, 1, ndir=2)
+    bwd = bwd_inputs((2,), 3, 4, 1056, torch.float32, device, 1)
+    x = ssm_inputs(2, 3, 32, torch.float32, device, 1, n=72)
+    args = [x[k] for k in SSM_ARGS]
+    calls = [("lstm_fwd_bidir H 1056", L.lstm_fwd_bidir, fwd, "up to 1024"),
+             ("lstm_fwd H 1056", L.lstm_fwd, [a[0] for a in fwd],
+              "up to 1024"),
+             ("lstm_bwd_bidir H 1056", L.lstm_bwd_bidir, bwd, "up to 1024"),
+             ("lstm_bwd H 1056", L.lstm_bwd, [a[0] for a in bwd],
+              "up to 1024"),
+             ("selective_scan_fwd n 72", S.selective_scan_fwd, args,
+              "d_state=72"),
+             ("selective_scan_bwd n 72", S.selective_scan_bwd,
+              args + [x["dy"], x["dh_last"]], "d_state=72")]
+    for what, fn, a, msg in calls:
+        try:
+            fn(*a)
+        except ValueError as e:
+            if msg not in str(e):
+                raise AssertionError(f"{what}: raised {e!r}") from e
+        else:
+            raise AssertionError(f"{what} ran; the card must refuse it")
+    if [c.value for c in counts] != before:
+        raise AssertionError("a refused call launched a kernel")
+    log(f"  refused, nothing launched: {', '.join(c[0] for c in calls)}")
+    return [c[0] for c in calls]
+
+
+def phase_wide_times(device, shapes=WIDE_TIMED_SHAPES):
+    """K1 and K2 at `shapes` (FN-SSL's recurrences at hidden_size 512 and
+    lstm_fwd.cu's check case), each on the kernel its rule gives it, fp32
+    and bf16: the card's time of a launch from a trace (device_ms), the
+    bound, the plain version (fp32), cuDNN's forward and backward
+    (forward+backward less forward) with TF32 off and on, and the port's
+    whole LSTM backward."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+    from fnssl_tpu_torch.models.lstm import lstm
+
+    rows = []
+    for name, t, b, h, i, ndir in shapes:
+        bidir = ndir == 2
+        row = {"shape": name, "T": t, "B": b, "H": h, "I": i, "ndir": ndir}
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            row[f"k1_route_{dtype}"] = L.fwd_route(t, b, h, ndir,
+                                                   tdt.itemsize)
+            row[f"k2_route_{dtype}"] = L.bwd_route(t, b, h, ndir,
+                                                   tdt.itemsize)
+            args = lstm_inputs(t, b, h, tdt, device, 7, ndir=ndir)
+            k1, k1_plain = ((L.lstm_fwd_bidir, L.lstm_fwd_bidir_plain)
+                            if bidir else (L.lstm_fwd, L.lstm_fwd_plain))
+            if not bidir:
+                args = tuple(a[0] for a in args)
+            row[f"k1_ms_{dtype}"] = device_ms(lambda: k1(*args), 3)
+            row[f"k1_bound_terms_{dtype}"] = {
+                k: ndir * v for k, v in bound_terms(t, b, h,
+                                                    tdt.itemsize).items()}
+            if dtype == "float32":
+                row["k1_plain_ms"] = cuda_ms(lambda: k1_plain(*args), 1)
+            args = bwd_inputs((ndir,), t, b, h, tdt, device, 8)
+            k2, k2_plain = ((L.lstm_bwd_bidir, L.lstm_bwd_bidir_plain)
+                            if bidir else (L.lstm_bwd, L.lstm_bwd_plain))
+            if not bidir:
+                args = tuple(a[0] for a in args)
+            row[f"k2_ms_{dtype}"] = device_ms(lambda: k2(*args), 3)
+            row[f"k2_bound_terms_{dtype}"] = {
+                k: ndir * v for k, v in bwd_bound_terms(t, b, h,
+                                                        tdt.itemsize).items()}
+            if dtype == "float32":
+                row["k2_plain_ms"] = cuda_ms(lambda: k2_plain(*args), 1)
+            del args
+        params, x, gy = lstm_grad_case(t, b, h, i, ndir, device, 9)
+        out, _ = lstm(params, x, None, bidir)
+        row["port_bwd_ms"] = cuda_ms(lambda: torch.autograd.backward(
+            [out], [gy], retain_graph=True), 3)
+        del out, params
+        ref = torch.nn.LSTM(i, h, batch_first=True,
+                            bidirectional=bidir).to(device)
+        for tf32 in LIBRARY_TF32:
+            with library_flags(tf32):
+                with torch.no_grad():
+                    row[library_key("library_fwd_ms", tf32)] = cuda_ms(
+                        lambda: ref(x), 3)
+                fwd_grad = cuda_ms(lambda: ref(x), 3)
+                both = cuda_ms(lambda: torch.autograd.backward(ref(x)[0],
+                                                               gy), 3)
+            row[library_key("library_bwd_ms", tf32)] = both - fwd_grad
+        del ref, x, gy
+        torch.cuda.empty_cache()
+        for k in ("k1", "k2"):
+            row[f"{k}_bound_ms"], row[f"{k}_bound_by"] = bound(
+                row[f"{k}_bound_terms_float32"])
+        rows.append(row)
+        log(f"  {name:16s} T={t} B={b} H={h} ndir={ndir}: K1 "
+            f"({row['k1_route_float32']}) fp32 {row['k1_ms_float32']:.3f} ms,"
+            f" bf16 {row['k1_ms_bfloat16']:.3f} (bound "
+            f"{row['k1_bound_ms']:.3f} {row['k1_bound_by']}, plain "
+            f"{row['k1_plain_ms']:.1f}, cuDNN fwd TF32 off "
+            f"{row['library_fwd_ms']:.3f}, on {row['library_fwd_ms_tf32']:.3f})"
+            f"; K2 ({row['k2_route_float32']}/{row['k2_route_bfloat16']}) "
+            f"fp32 {row['k2_ms_float32']:.3f} ms, bf16 "
+            f"{row['k2_ms_bfloat16']:.3f} (bound {row['k2_bound_ms']:.3f} "
+            f"{row['k2_bound_by']}, plain {row['k2_plain_ms']:.1f}, cuDNN bwd "
+            f"TF32 off {row['library_bwd_ms']:.3f}, on "
+            f"{row['library_bwd_ms_tf32']:.3f}); whole LSTM backward "
+            f"{row['port_bwd_ms']:.3f}")
+    return rows
+
+
+def phase_wide_train(seed, device):
+    """FN-SSL at FNSSLConfig(hidden_size=512): one fp32 train step (nb
+    WIDE_PARITY_NB x WIDE_PARITY_T_S s, dropout off) on the card against
+    the CPU at phase 7's tolerances, its launches as the rules split them;
+    then the cell nb WIDE_NB x 4.79 s, fp32 then bf16, 1 warm +
+    WIDE_STEPS timed steps each (ms mean and p90, peak memory, exact
+    launches: 3 K1 on lstm_fwd.cu and 3 on lstm_wave.cu, 3 K2 on
+    lstm_bwd_wide.cu and 3 on lstm_bwd_wave.cu a step), and one traced
+    step of each (K1's and K2's device ms, busy time, idle share)."""
+    setup = functools.partial(train_setup, seed, nb=WIDE_PARITY_NB,
+                              hidden=WIDE_HIDDEN, t_s=WIDE_PARITY_T_S)
+    report = {"parity": phase_train_parity(
+        seed, device, setup, want=step_launches(
+            WIDE_PARITY_NB, hidden=WIDE_HIDDEN,
+            nt=frames(WIDE_PARITY_T_S)))}
+    total = list(report["parity"]["launches"])
+    counts = launch_counters()
+    for c in counts:
+        c.reset()
+    for precision in ("fp32", "bf16"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, step, batch = train_setup(seed, device, WIDE_NB, precision,
+                                         WIDE_HIDDEN)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        state, ms, losses = timed_steps(state, step, batch, gen, WIDE_STEPS)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"hidden {WIDE_HIDDEN} {precision}: losses "
+                                 f"{losses}")
+        row = {"ms_mean": float(ms.mean()),
+               "ms_p90": float(np.percentile(ms, 90)), "ms": ms.tolist(),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "losses": losses}
+        log(f"  hidden {WIDE_HIDDEN} nb={WIDE_NB} x {TRAIN_T_S} s "
+            f"{precision}: step ms mean {row['ms_mean']:.2f} p90 "
+            f"{row['ms_p90']:.2f} over {WIDE_STEPS} steps; peak "
+            f"{row['peak_bytes'] / 2**30:.2f} GiB; losses "
+            + ", ".join(f"{v:.6f}" for v in losses))
+        launched = [c.value for c in counts]
+        prof = profile_step(lambda: step(state, batch, gen))
+        if not prof["busy_ms"]:
+            raise AssertionError("the profiler saw no kernel on the card")
+        row["profile"] = prof
+        row["k1_device_ms"] = prof["groups_ms"]["K1"]
+        row["k2_device_ms"] = prof["groups_ms"]["K2"]
+        log(f"  traced {precision} step: wall {prof['wall_ms']:.2f} ms, busy "
+            f"{prof['busy_ms']:.2f} ms, idle share {prof['idle_share']:.2%}; "
+            f"K1 {row['k1_device_ms']:.2f} ms, K2 {row['k2_device_ms']:.2f}; "
+            "busy by group " + ", ".join(
+                f"{g} {v:.2f}" for g, v in prof["groups_ms"].items()))
+        per = step_launches(WIDE_NB, 4 if precision == "fp32" else 2,
+                            WIDE_HIDDEN)
+        want = [(1 + WIDE_STEPS) * n for n in per]
+        if launched != want:
+            raise AssertionError(f"hidden {WIDE_HIDDEN} {precision} training "
+                                 f"launched {COUNTED} {launched}, expected "
+                                 f"{want}")
+        row["launches_per_step"] = dict(zip(COUNTED, per))
+        report[precision] = row
+        # the timed steps and the traced one
+        total = [a + (2 + WIDE_STEPS) * n for a, n in zip(total, per)]
+        for c in counts:
+            c.reset()
+        del state, step, batch
+    torch.cuda.empty_cache()
+    log(f"  launches a step {COUNTED}: fp32 "
+        f"{list(report['fp32']['launches_per_step'].values())}, bf16 "
+        f"{list(report['bf16']['launches_per_step'].values())}")
+    return report, dict(zip(COUNTED, total))
+
+
 def cli(argv):
     """The port's CLI main(argv) in this process; echoes its output and
     returns (its last line as JSON, all of its output, seconds)."""
@@ -2113,7 +2404,9 @@ def phase_fit(seed, device, card, step_ms, work):
 # output frames); the JAX package's cells bench.py:179-214 (fixed array,
 # nb 16) and bench.py:217-265 (variable array, nch 4, P = 6 pairs, nb 8)
 
-IPD_T_S, IPD_NB, IPD_PARITY_NB = 4.5, 16, 2
+# the parity steps take nb 1, so that the CPU's steps leave room in the
+# script's time limit
+IPD_T_S, IPD_NB, IPD_PARITY_NB = 4.5, 16, 1
 IPD_VAR_NB, IPD_VAR_NCH = 8, 4
 IPD_LR = 5e-4
 IPD_LAUNCHES = 4            # K1 a forward, and K2 a train step: 2 blocks
@@ -2255,8 +2548,8 @@ def ipdnet_setup(seed, which, nb, device, precision="fp32", nch=None):
 
 
 def phase_ipdnet_parity(seed, device):
-    """Phase 7's check for each IPDnet task: nb=2 x 4.5 s (variable:
-    nch 4, nb 1), dropout off, the card against the CPU."""
+    """Phase 7's check for each IPDnet task: nb=IPD_PARITY_NB x 4.5 s
+    (variable: nch 4, nb 1), dropout off, the card against the CPU."""
     out = {}
     for which, nb in (("ipdnet", IPD_PARITY_NB),
                       ("ipdnet_offline", IPD_PARITY_NB),
@@ -2271,8 +2564,9 @@ def phase_ipdnet_parity(seed, device):
     return out
 
 
-KERNEL_GROUPS = (("K1", ("lstm_cluster", "lstm_wave")),
-                 ("K2", ("lstm_bwd_cluster", "lstm_bwd_wave")),
+KERNEL_GROUPS = (("K1", ("lstm_cluster", "lstm_wave", "lstm_fwd_kernel")),
+                 ("K2", ("lstm_bwd_cluster", "lstm_bwd_wave",
+                         "lstm_bwd_wide")),
                  ("K3", ("selective_fwd_kernel",)),
                  ("K4", ("selective_bwd_kernel",)),
                  ("conv head", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
@@ -2521,7 +2815,7 @@ def phase_ipdnet_fit(seed, device, card):
 # gamma 0.975, clip 5) and bench.py:460-481 (forward, nb 16, nt 200)
 I2_T_S, I2_NB, I2_PARITY_NB, I2_LR, I2_FWD_NT = 4.0, 16, 2, 5e-4, 200
 I2_LAUNCHES = 16         # K3 a forward, K4 a train step: 8 layers x 2 blocks
-I2_STEP_LAUNCHES = [0, 0, 0, 0, I2_LAUNCHES, I2_LAUNCHES, 0]
+I2_STEP_LAUNCHES = [0, 0, 0, 0, I2_LAUNCHES, I2_LAUNCHES, 0, 0]
 # (name, B, L, d) of the scans: a train step at nb 16 (layer 0 at T 201,
 # layers 1-7 at 40 after the 5x time mean), the forward cell's layer 0 (T
 # 200) and a serve chunk step (5 frames at layer 0, then 1); each path runs
@@ -2538,6 +2832,9 @@ SSM_EDGE_B, SSM_EDGE_L, SSM_EDGE_D = ((1, 3, 13), (0, 1, 2, 7, 17),
 # checkpoint)
 SSM_RAGGED = [(2, 17, 13), (3, 33, 40), (4, 201, 13), (64, 201, 200)]
 SSM_REPEATS = 5
+# the other d_state the kernels are built for (8, 32, 64: 2, 8 and 16
+# lanes a channel) and one they run padded to 32 (24)
+SSM_STATES = (8, 24, 32, 64)
 # K3/K4 against their plain versions: float32 outputs within 1e-5 relative
 # + 1e-4 (fused multiply-adds, the 16 states and d's sums in another order,
 # the plain version's float32 exp(delta A) and delta x B tensors; the
@@ -2562,11 +2859,11 @@ SFU_OPS_S = 16 * 132 * 1.98e9
 I2_FIT_TRAIN, I2_FIT_DEV, I2_FIT_BZ, I2_FIT_EPOCHS = 16, 8, 8, 2
 
 
-def ssm_inputs(batch, steps, dim, dtype, device, seed):
-    """The fused scan's inputs on the device as IPDnet2's init gives them:
-    dt_bias the inverse softplus of a dt in [1e-3, 0.1] (channel 0 at 25,
-    past the softplus threshold), A = -(1..16), D = 1; x, dt (at 0.5), B,
-    C normal in `dtype`; h0, dy, dh_last float32."""
+def ssm_inputs(batch, steps, dim, dtype, device, seed, n=16):
+    """The fused scan's inputs on the device as IPDnet2's init gives them
+    at n states: dt_bias the inverse softplus of a dt in [1e-3, 0.1]
+    (channel 0 at 25, past the softplus threshold), A = -(1..n), D = 1; x,
+    dt (at 0.5), B, C normal in `dtype`; h0, dy, dh_last float32."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
@@ -2576,17 +2873,17 @@ def ssm_inputs(batch, steps, dim, dtype, device, seed):
     dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
     dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
     dt_bias[0] = 25.0
-    a = -torch.arange(1, 17, dtype=torch.float32,
-                      device=device).expand(dim, 16).contiguous()
+    a = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device=device).expand(dim, n).contiguous()
     return {"x": randn(batch, steps, dim).to(dtype),
             "dt": randn(batch, steps, dim, scale=0.5).to(dtype),
             "dt_bias": dt_bias, "a": a,
-            "bm": randn(batch, steps, 16).to(dtype),
-            "c": randn(batch, steps, 16).to(dtype),
+            "bm": randn(batch, steps, n).to(dtype),
+            "c": randn(batch, steps, n).to(dtype),
             "d_skip": torch.ones(dim, device=device),
-            "h0": randn(batch, dim, 16, scale=0.5),
+            "h0": randn(batch, dim, n, scale=0.5),
             "dy": randn(batch, steps, dim),
-            "dh_last": randn(batch, dim, 16, scale=0.5)}
+            "dh_last": randn(batch, dim, n, scale=0.5)}
 
 
 def ssm_held(what, kernel, got, want, worst, key):
@@ -2621,20 +2918,26 @@ def ssm_held(what, kernel, got, want, worst, key):
 def phase_ssm_kernels(device, extra=()):
     """K3 and K4 against their plain versions at every scan shape of the
     IPDnet2 paths (the 16-slot tick's too), at the `extra` shapes and at
-    edge cases (SSM_EDGE_*), float32 and bfloat16 inputs; and K4's bits
-    run to run at SSM_RAGGED. Returns the worst errors and the checks."""
+    edge cases (SSM_EDGE_*), float32 and bfloat16 inputs; at each other
+    d_state of SSM_STATES (24 padded to 32) at layer 0's training shape
+    and the same edge cases; and K4's bits run to run at SSM_RAGGED.
+    Returns the worst errors and the checks."""
     from fnssl_tpu_torch.kernels import ssm_cuda as S
 
     worst = {k: {"float32": 0.0, "bfloat16": 0.0} for k in SSM_OUTPUTS}
     shapes = SSM_SHAPES + SSM_SLOT_SHAPES + list(extra)
-    cases = [(n, b, t, d) for n, b, t, d in shapes]
-    cases += [("edge", b, t, d) for d in SSM_EDGE_D for b in SSM_EDGE_B
-              for t in SSM_EDGE_L]
+    edges = [("edge", b, t, d) for d in SSM_EDGE_D for b in SSM_EDGE_B
+             for t in SSM_EDGE_L]
+    cases = [(n, b, t, d, 16) for n, b, t, d in shapes]
+    cases += [(*e, 16) for e in edges]
+    for n in SSM_STATES:
+        cases += [(f"{name} n={n}", b, t, d, n) for name, b, t, d in
+                  SSM_SHAPES[:1] + edges]
     seed, checks = 5000, 0
-    for name, b, t, d in cases:
+    for name, b, t, d, states in cases:
         for dtype in (torch.float32, torch.bfloat16):
             seed += 1
-            x = ssm_inputs(b, t, d, dtype, device, seed)
+            x = ssm_inputs(b, t, d, dtype, device, seed, states)
             args = [x[k] for k in SSM_ARGS]
             n = 1 if t else 0
             key = str(dtype)[6:]
@@ -2650,7 +2953,7 @@ def phase_ssm_kernels(device, extra=()):
                                                      x["dh_last"]),
                           worst["ssm_scan_bwd"], key)
             checks += 2
-            if name != "edge":
+            if not name.startswith("edge"):
                 log(f"  {name:16s} B={b:3d} L={t:3d} d={d:3d} {key:8s} "
                     f"max|diff| K3 {e3:.2e} K4 {e4:.2e}")
             del x, args, fwd, bwd
@@ -2670,12 +2973,13 @@ def phase_ssm_kernels(device, extra=()):
     torch.cuda.empty_cache()
     log(f"  {checks} checks passed at {', '.join(n for n, *_ in shapes)}; "
         f"edge cases B {SSM_EDGE_B} x L {SSM_EDGE_L} x d {SSM_EDGE_D}; "
+        f"d_state {SSM_STATES} at {SSM_SHAPES[0][0]} and the edge cases; "
         f"K4 the same bits in {SSM_REPEATS} launches at {SSM_RAGGED}; "
         f"worst {json.dumps(worst)}")
     return worst, checks
 
 
-def ssm_bound_terms(batch, steps, dim, itemsize):
+def ssm_bound_terms(batch, steps, dim, itemsize, n=16):
     """The least time (ms) of K3 and of K4, the fused selective scan, for
     the bytes each must move (every input read once, every output written
     once), for its float32 operations and for its exponentials on the SFU
@@ -2687,8 +2991,8 @@ def ssm_bound_terms(batch, steps, dim, itemsize):
     K4 reads those and dy, dh_last and writes dx, d(dt), d(B), d(C) and
     the float32 d(dt_bias), d(A), d(D), d(h0); it must rebuild exp(delta
     A) and h (an exponential and 4 FLOPs a state a step) and walk back
-    (gh, d(da) da, d(B), d(C), s_A, s_B, d(A), the carry: 14 FLOPs)."""
-    n = 16
+    (gh, d(da) da, d(B), d(C), s_A, s_B, d(A), the carry: 14 FLOPs); n
+    states."""
     big, chan = batch * steps * dim * n, batch * steps * dim
     bc, state = batch * steps * n, batch * dim * n * 4
     params = (2 * dim + dim * n) * 4
@@ -2703,10 +3007,10 @@ def ssm_bound_terms(batch, steps, dim, itemsize):
                  for nbytes, flops, exps in (k3, k4))
 
 
-def phase_ssm_times(device, shapes=SSM_SHAPES):
-    """K3 and K4 at each scan shape of the IPDnet2 paths, float32 and
-    bfloat16 inputs: the card's time of a launch from a device trace
-    (device_ms; CUDA events around back-to-back calls would read the
+def phase_ssm_times(device, shapes=SSM_SHAPES, n=16):
+    """K3 and K4 at each scan shape of the IPDnet2 paths (n states),
+    float32 and bfloat16 inputs: the card's time of a launch from a device
+    trace (device_ms; CUDA events around back-to-back calls would read the
     host's enqueue at the serve and slot shapes), the host's enqueue
     beside it, their bound and their plain versions (float32, CUDA
     events). No PyTorch call computes a selective scan: there is no
@@ -2715,9 +3019,9 @@ def phase_ssm_times(device, shapes=SSM_SHAPES):
 
     rows = []
     for name, b, t, d in shapes:
-        row = {"shape": name, "B": b, "L": t, "d": d}
+        row = {"shape": name, "B": b, "L": t, "d": d, "n": n}
         for dtype in (torch.float32, torch.bfloat16):
-            x = ssm_inputs(b, t, d, dtype, device, 7)
+            x = ssm_inputs(b, t, d, dtype, device, 7, n)
             args = [x[k] for k in SSM_ARGS]
             key = str(dtype)[6:]
             k3 = lambda: S.selective_scan_fwd(*args)          # noqa: E731
@@ -2727,7 +3031,7 @@ def phase_ssm_times(device, shapes=SSM_SHAPES):
             row[f"k4_ms_{key}"] = device_ms(k4, 20)
             row[f"k3_enqueue_ms_{key}"] = enqueue_ms(k3, 20)
             row[f"k4_enqueue_ms_{key}"] = enqueue_ms(k4, 20)
-            k3, k4 = ssm_bound_terms(b, t, d, dtype.itemsize)
+            k3, k4 = ssm_bound_terms(b, t, d, dtype.itemsize, n)
             row[f"k3_bound_terms_{key}"], row[f"k4_bound_terms_{key}"] = \
                 k3, k4
             if dtype == torch.float32:
@@ -2741,7 +3045,7 @@ def phase_ssm_times(device, shapes=SSM_SHAPES):
             row["k4_bound_terms_float32"])
         row["k3_bound_ms"], row["k4_bound_ms"] = k3b[0], k4b[0]
         rows.append(row)
-        log(f"  {name:16s} B={b:3d} L={t:3d} d={d}: K3 "
+        log(f"  {name:16s} B={b:3d} L={t:3d} d={d} n={n}: K3 "
             f"{row['k3_ms_float32']:.4f} ms ({row['k3_ms_bfloat16']:.4f}; "
             f"enqueue {row['k3_enqueue_ms_float32']:.4f}) bound "
             f"{k3b[0]:.4f} ({k3b[1]}) plain {row['k3_plain_ms']:.2f}; K4 "
@@ -2910,6 +3214,68 @@ def phase_ipdnet2_train(seed, device):
     return rows, dict(zip(COUNTED, launched))
 
 
+# IPDnet2 at SpatialNetConfig(attention="mamba(32,4)"), every other width
+# published: the fused scan at d_state 32. Phase 19's parity step, phase
+# 20's train cell (1 warm + WIDE_STEPS timed steps, fp32 then bf16), and K3
+# and K4 at its scan shapes
+I2_D32_ATTENTION = "mamba(32,4)"
+I2_D32_SHAPES = [("d32_train_layer0", 256, 201, 192),
+                 ("d32_train_layers1_7", 256, 40, 192)]
+
+
+def phase_ipdnet2_d32(seed, device):
+    """IPDnet2 with attention="mamba(32,4)": phase 19's fp32 parity step
+    (nb I2_PARITY_NB x 4 s, the card's PReLU gates), 16 K3 and 16 K4 a
+    step; phase 20's cell nb I2_NB x 4 s, fp32 then bf16 (ms a step, mean
+    and p90, peak memory, exact launches); K3 and K4 a launch at its scan
+    shapes beside their bounds and plain versions."""
+    from fnssl_tpu_torch.models.spatialnet import SpatialNetConfig
+
+    cfg = SpatialNetConfig(attention=I2_D32_ATTENTION)
+    if cfg.mamba_cfg.d_state != 32:
+        raise AssertionError(f"{I2_D32_ATTENTION}: d_state "
+                             f"{cfg.mamba_cfg.d_state}")
+    report = {"parity": phase_train_parity(
+        seed, device, functools.partial(ipdnet2_setup, seed, I2_PARITY_NB,
+                                        cfg=cfg),
+        lr=I2_LR, want=I2_STEP_LAUNCHES, gates=I2_GATES)}
+    counts = launch_counters()
+    for c in counts:
+        c.reset()
+    for precision in ("fp32", "bf16"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, step, batch = ipdnet2_setup(seed, I2_NB, device, precision,
+                                           cfg=cfg)
+        state, ms, losses = timed_steps(state, step, batch, None, WIDE_STEPS)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{I2_D32_ATTENTION} {precision}: losses "
+                                 f"{losses}")
+        report[precision] = {
+            "ms_mean": float(ms.mean()),
+            "ms_p90": float(np.percentile(ms, 90)), "ms": ms.tolist(),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "losses": losses}
+        log(f"  {I2_D32_ATTENTION} nb={I2_NB} x {I2_T_S} s {precision}: step "
+            f"ms mean {report[precision]['ms_mean']:.2f} p90 "
+            f"{report[precision]['ms_p90']:.2f} over {WIDE_STEPS} steps; peak "
+            f"{report[precision]['peak_bytes'] / 2**30:.2f} GiB; losses "
+            + ", ".join(f"{v:.6f}" for v in losses))
+        del state, step, batch
+    torch.cuda.empty_cache()
+    steps = 2 * (1 + WIDE_STEPS)
+    launched = [c.value for c in counts]
+    want = [steps * n for n in I2_STEP_LAUNCHES]
+    if launched != want:
+        raise AssertionError(f"{I2_D32_ATTENTION} training launched {COUNTED} "
+                             f"{launched} for {steps} steps, expected {want}")
+    log(f"  launches {COUNTED} {launched} = {steps} steps x "
+        f"{I2_STEP_LAUNCHES}")
+    report["scans"] = phase_ssm_times(device, I2_D32_SHAPES, n=32)
+    total = [a + b for a, b in zip(launched, report["parity"]["launches"])]
+    return report, dict(zip(COUNTED, total))
+
+
 def write_realman(root, recordings, seed):
     """A RealMAN-layout corpus of `recordings` 6 s recordings (the 5
     channels of the mic subset, a dp_speech copy, one static source a
@@ -2960,7 +3326,7 @@ def phase_ipdnet2_fit(seed, device, card):
 
     def want(train, evals):
         return [0, 0, 0, 0, I2_LAUNCHES * (train + evals),
-                I2_LAUNCHES * train, 0]
+                I2_LAUNCHES * train, 0, 0]
 
     with tempfile.TemporaryDirectory() as tmp:
         train_csv = write_realman(Path(tmp) / "train", I2_FIT_TRAIN, seed)
@@ -3039,9 +3405,11 @@ FORWARD_LAUNCHES = {"fnssl": CHUNK_LAUNCHES["fnssl"],
                     "ipdnet": CHUNK_LAUNCHES["ipdnet"],
                     "ipdnet2": CHUNK_LAUNCHES["ipdnet2"]}
 STREAM_BLOCK = int(FS * 0.192)            # `cli stream`'s default push
-# serve --slots: 16 slots, 16 concurrent TCP connections of SERVE_AUDIO_S
-# (25 chunk steps; 50 for IPDnet2), ticks timed a tier
+# serve --slots: 16 slots, 16 concurrent TCP connections of SLOT_AUDIO_S
+# (15 chunk steps; 30 for IPDnet2: each connection's dedicated reference
+# stream runs on the host's time), ticks timed a tier
 SLOTS, SLOT_MODELS, TIER_ITERS = 16, ("fnssl", "ipdnet", "ipdnet2"), 20
+SLOT_AUDIO_S = 3.0
 # the same connections through the eager per-connection serve path, as the
 # yardstick of the pool's aggregate rate: FN-SSL's alone, for the script's
 # time limit (IPDnet's takes 13 s, IPDnet2's ~42 ms eager step would add
@@ -3309,8 +3677,17 @@ def tier_checks(stepper, rows, feat_shape, device, launches):
             for leaf, b in zip(stepper._state, before):
                 leaf.copy_(b)
 
-        got, per_tick[s] = traced_launches(stepper.step_slots, ids, feats,
-                                           reset, retry=restore)
+        # a trace that recorded none of the replay's kernels (seen once, at
+        # IPDnet2's tier 1, its guard kept) is taken again from the same
+        # state; the count must still equal launches(s)
+        for attempt in range(len(TRACE_SETTLE_S)):
+            got, per_tick[s] = traced_launches(
+                stepper.step_slots, ids, feats, reset, retry=restore)
+            if any(per_tick[s]) or not any(launches(s)):
+                break
+            log(f"  (tier {s}: the traced replay recorded none of its "
+                f"kernels; tracing it again, try {attempt + 2})")
+            restore()
         after = [leaf.clone() for leaf in stepper._state]
         restore()
         n0 = [c.value for c in counters]
@@ -3406,7 +3783,8 @@ def concurrent_eager(seed, model, audios, steps):
 def phase_slots(seed, device, model):
     """`cli serve --model model --slots 16` on the card: the pool captures
     tiers 1, 4 and 16 as CUDA graphs before traffic; 16 concurrent TCP
-    connections of 5 s of audio (25 chunk steps each, 50 for IPDnet2).
+    connections of SLOT_AUDIO_S of audio (15 chunk steps each, 30 for
+    IPDnet2).
     Checked: eof and a line a chunk step on each; each connection's
     outputs within 1e-3 of a dedicated stream of the same audio on the
     card (its own eager chunk steps at batch 1; another cluster plan) and
@@ -3452,7 +3830,7 @@ def phase_slots(seed, device, model):
     server.session_factory = recorded_session
     server.start()
     conns = [(seed + 500 + k, (-5, -3, 0, 3, 5)[k % 5]) for k in range(SLOTS)]
-    audios = [make_audio(s, d, nch) for s, d in conns]
+    audios = [make_audio(s, d, nch, SLOT_AUDIO_S) for s, d in conns]
     try:
         replays0, ticks0, occ0 = dict(st.replays), pool.ticks, pool.occupancy
         (replies, wrapped, wall), launched = traced_launches(
@@ -3464,7 +3842,7 @@ def phase_slots(seed, device, model):
     if any(wrapped) or sum(replays.values()) != ticks or not ticks:
         raise AssertionError(f"slots {model}: wrapper launches {wrapped} "
                              f"(replays {replays}, ticks {ticks})")
-    steps = chunk_steps(model)
+    steps = chunk_steps(model, int(SLOT_AUDIO_S * FS))
     errs, ties, unmatched = [], 0, list(range(len(sessions)))
     if len(sessions) != SLOTS:
         raise AssertionError(f"slots {model}: {len(sessions)} sessions")
@@ -3669,9 +4047,11 @@ def phase_export(seed, device, tmp):
 # phase 26: a synthetic LOCATA tree in the reference layout, (task,
 # recording) pairs of LOCATA_S s of 15-channel 48 kHz audio (dicit; as
 # short as the script's time limit asks: the CPU run scales with it)
-LOCATA_TASKS, LOCATA_RECORDINGS, LOCATA_S = (3, 5), (1, 2), 12.0
+# 2 recordings, one of each task: `cli locata --platform cpu` runs them on
+# the host's time
+LOCATA_TASKS, LOCATA_RECORDINGS, LOCATA_S = (3, 5), (1,), 12.0
 LOCATA_FS, LOCATA_SILENCE, LOCATA_BURST = 48000, 4800, 2400
-LOCATA_LAUNCHES = [LAUNCHES_PER_CHUNK, 0, 0, 0, 0, 0, 0]  # a recording
+LOCATA_LAUNCHES = [LAUNCHES_PER_CHUNK, 0, 0, 0, 0, 0, 0, 0]  # a recording
 LOCATA_MICS = (8, 5)                  # `cli locata`'s default --mic-pick
 # phase 27: the time modules, each at SpatialNetConfig()'s width
 TIME_CONFIGS = (("mhsa(251)", False), ("mhsa(251)", "ALiBi"),
@@ -4667,7 +5047,7 @@ def main():
     t0 = time.perf_counter()
     reports = cuda_build.build(["lstm_cluster", "lstm_wave", "lstm_fwd",
                                 "lstm_bwd_cluster", "lstm_bwd_wave",
-                                "ssm_scan"])
+                                "lstm_bwd_wide", "ssm_scan"])
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         spills = [line.strip() for line in report.splitlines()
@@ -4712,8 +5092,9 @@ def main():
     # 6-9. training
     log("[backward] K2 against its plain version on the card; K1 at the "
         "training shapes and at a DP rank's")
-    worst_bwd, bwd_checks = phase_backward(device, worst,
-                                           TRAIN_SHAPES + DP_RANK_SHAPES)
+    worst_bwd, bwd_checks = phase_backward(
+        device, worst, TRAIN_SHAPES + DP_RANK_SHAPES + WIDE_TRAIN_SHAPES)
+    refused = refusals(device)
     log(f"[train parity] one fp32 train step, nb={PARITY_NB} x {TRAIN_T_S} s,"
         " dropout off: the card against the CPU")
     parity = phase_train_parity(args.seed, device)
@@ -4729,6 +5110,10 @@ def main():
         f"{BWD_SWEEP_T}, B {BWD_SWEEP_B} x H {BWD_SWEEP_H} x 1-2 directions "
         "x fp32/bf16")
     bwd_sweep, bwd_measured = phase_bwd_sweep(device)
+    log(f"[wide times] K1 and K2 at FN-SSL's hidden_size {WIDE_HIDDEN} "
+        "shapes and lstm_fwd.cu's check case: the card's time from a trace, "
+        "bound, plain, cuDNN (TF32 off and on)")
+    wide_rows = phase_wide_times(device)
 
     # 10. the user's training loop through the CLI
     log(f"[fit] cli simulate -> fit -> test -> serve at full width: "
@@ -4856,6 +5241,55 @@ def main():
     fp_report, fp_launches = phase_freq(args.seed, device, dp_ref,
                                         fp_ssm_rows, card)
 
+    # 31-32. the widths of this slice
+    log(f"[fnssl hidden {WIDE_HIDDEN}] FNSSLConfig(hidden_size="
+        f"{WIDE_HIDDEN}): one fp32 train step (nb={WIDE_PARITY_NB} x "
+        f"{WIDE_PARITY_T_S} s) against the CPU; the cell nb={WIDE_NB} x "
+        f"{TRAIN_T_S} s, fp32 then bf16, and a traced step of each")
+    wide_report, wide_launches = phase_wide_train(args.seed, device)
+    log(f"[ipdnet2 {I2_D32_ATTENTION}] SpatialNetConfig(attention="
+        f"{I2_D32_ATTENTION!r}): one fp32 train step (nb={I2_PARITY_NB}) "
+        f"against the CPU; the cell nb={I2_NB} x {I2_T_S} s, fp32 then bf16; "
+        "K3/K4 at its scan shapes")
+    d32_report, d32_launches = phase_ipdnet2_d32(args.seed, device)
+
+    # lstm_fwd.cu's and lstm_bwd_wide.cu's work in one train step of FN-SSL
+    # at hidden_size 512, nb 16, fp32: the 3 narrow-band LSTMs (298, 4096,
+    # 512) their rules give them
+    wide = {r["shape"]: r for r in wide_rows}
+    wn = wide["wide_narrowband"]
+
+    def wide_share(k, library):
+        b = bound({t: 3 * v for t, v in
+                   wn[f"{k}_bound_terms_float32"].items()})
+        return {"ms": 3 * wn[f"{k}_ms_float32"],
+                "ms_bf16": 3 * wn[f"{k}_ms_bfloat16"],
+                "replaces": ("fnssl_tpu/kernels/lstm_pallas.py:50"
+                             if k == "k1" else
+                             "fnssl_tpu/kernels/lstm_pallas.py:269"),
+                "plain_ms": 3 * wn[f"{k}_plain_ms"],
+                "bound_ms": b[0], "bound_by": b[1],
+                "library_ms": 3 * wn[library],
+                "library_tf32_ms": 3 * wn[f"{library}_tf32"],
+                "work": f"the 3 launches of one FN-SSL train step at "
+                        f"hidden_size {WIDE_HIDDEN}, nb={WIDE_NB}, fp32, that "
+                        f"the rule gives this kernel: 3 x (T={wn['T']}, "
+                        f"B={wn['B']}, H={wn['H']}, ndir=1); ms is the card's "
+                        "time from a trace (ms_bf16 the same launches in "
+                        "bf16); library_ms is nn.LSTM (cuDNN) on the same "
+                        "shapes with TF32 off (the port's float32; the "
+                        "backward: forward+backward less forward), "
+                        "library_tf32_ms with it on"}
+
+    def wide_case(k, library):
+        v = wide["v2_case"]
+        return {"T": v["T"], "B": v["B"], "H": v["H"],
+                "ms": v[f"{k}_ms_float32"], "ms_bf16": v[f"{k}_ms_bfloat16"],
+                "plain_ms": v[f"{k}_plain_ms"],
+                "bound_ms": v[f"{k}_bound_ms"],
+                "bound_by": v[f"{k}_bound_by"], "library_ms": v[library],
+                "library_tf32_ms": v[f"{library}_tf32"]}
+
     # each kernel's work in one online chunk step, fp32: 3 BiLSTMs over
     # frequency and 3 LSTMs over time
     serve = {r["shape"]: r for r in rows if r["shape"] in PER_CHUNK}
@@ -4935,7 +5369,9 @@ def main():
              "stream": stream_launches, "serve_slots": slots_launches,
              "export": export_launches, "locata": locata_launches,
              "time_modules": time_launches, "fit_flags": flags_launches,
-             "data_parallel": dp_launches, "freq_parallel": fp_launches}
+             "data_parallel": dp_launches, "freq_parallel": fp_launches,
+             "fnssl_h512_train": wide_launches,
+             "ipdnet2_d32_train": d32_launches}
     # and in one fixed-array IPDnet train step at nb=16, fp32: 2 full-band
     # BiLSTMs and 2 narrow-band LSTMs, forward (K1) and backward (K2)
     ipd_step_rows = ipd_train_rows[:2]
@@ -5008,11 +5444,14 @@ def main():
         "launches": sum(v["lstm_fwd"] for v in paths.values()),
         "launches_by_path": {k: v["lstm_fwd"] for k, v in paths.items()},
         "max_abs_err": worst["lstm_fwd"]["float32"],
-        "ms": per_train_step(train_rows, "v2_ms"), **k1_common,
-        "note": "serves H > 256 only (checked at H=512); on neither main "
-                "path, so 0 launches there; ms is the same train step's "
-                "forward work in 9 launches of this kernel",
+        **wide_share("k1", "library_fwd_ms"),
         "max_abs_err_bf16_ys": worst["lstm_fwd"]["bfloat16_ys"],
+        "v2_case": wide_case("k1", "library_fwd_ms"),
+        "fnssl_train_step_forced": {
+            "ms": per_train_step(train_rows, "v2_ms"), **k1_common,
+            "note": "FN-SSL's hidden-256 train step's forward work in 9 "
+                    "launches of this kernel, which fwd_route does not give "
+                    "it"},
         "serve_chunk_step": {
             "ms": 2 * nf * full["v2_ms_float32"]
             + nn_ * narrow["v2_ms_float32"], **serve_common},
@@ -5199,6 +5638,39 @@ def main():
         "work": "the scans of one 16-slot IPDnet2 tick: 2 at B=256, L=5, "
                 "d=192 and 14 at L=1"}
     kernels[-2]["slots16"] = ssm_slot_rows
+    # K3 and K4 over one IPDnet2 train step at mamba(32,4), nb 16, fp32
+    d32 = {r["shape"]: r for r in d32_report["scans"]}
+    for kern, k in zip(kernels[-2:], ("k3", "k4")):
+        b = ssm_path_bound(k, "d32_train_layer0", "d32_train_layers1_7", d32)
+        kern["d_state_32_train_step"] = {
+            "ms": ssm_path(f"{k}_ms_float32", "d32_train_layer0",
+                           "d32_train_layers1_7", d32),
+            "plain_ms": ssm_path(f"{k}_plain_ms", "d32_train_layer0",
+                                 "d32_train_layers1_7", d32),
+            "bound_ms": b[0], "bound_by": bound_by(b[1]),
+            "work": "one IPDnet2 train step at attention=mamba(32,4), nb=16 "
+                    "x 4 s, fp32: 2 scans at B=256, L=201, d=192, n=32 and "
+                    "14 at L=40"}
+    kernels.append({
+        "name": "lstm_bwd_wide", "route": "cuda",
+        "source": "fnssl_tpu_torch/kernels/csrc/lstm_bwd_wide.cu",
+        "launches": sum(v["lstm_bwd_wide"] for v in paths.values()),
+        "launches_by_path": {k: v["lstm_bwd_wide"] for k, v in paths.items()},
+        "max_abs_err": worst_bwd["lstm_bwd_wide"]["float32"],
+        "max_abs_err_bf16": worst_bwd["lstm_bwd_wide"]["bfloat16"],
+        "checks": bwd_checks["lstm_bwd_wide"],
+        **wide_share("k2", "library_bwd_ms"),
+        "lstm_backward_ms": 3 * wn["port_bwd_ms"],
+        "v2_case": wide_case("k2", "library_bwd_ms"),
+        "per_shape": wide_rows,
+        # K2's device ms in one traced step of phase 31's cell (this kernel
+        # and lstm_bwd_wave.cu's full band)
+        "fnssl_h512_step_k2_traced_ms": {
+            p: wide_report[p]["k2_device_ms"] for p in ("fp32", "bf16")}})
+    # K1's device ms in one traced step of phase 31's cell (this kernel and
+    # lstm_wave.cu's full band)
+    kernels[2]["fnssl_h512_step_k1_traced_ms"] = {
+        p: wide_report[p]["k1_device_ms"] for p in ("fp32", "bf16")}
     report = {"card": card, "kind": kind, "kernels": kernels,
               "predict": predict_report, "stream": stream_report,
               "serve_slots": slots_report, "export": export_report,
@@ -5209,7 +5681,9 @@ def main():
               "ipdnet2_fit": i2_fit, "locata": locata_report,
               "time_modules": time_report, "fit_flags": flags_report,
               "data_parallel": dp_report, "freq_parallel": fp_report,
-              "k1_train_step": k1_train_step, "k1_slots16_tick": k1_tick}
+              "k1_train_step": k1_train_step, "k1_slots16_tick": k1_tick,
+              "refused": refused, "fnssl_h512": wide_report,
+              "ipdnet2_d32": d32_report}
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -7,8 +7,10 @@
 // _ssm_inputs (:80): the slot of the reference's mamba_ssm CUDA
 // selective_scan. Contract, batch-major:
 //   x, dt (B, L, d) and Bm, C (B, L, n) float32 or bfloat16 (one dtype);
-//   dt_bias (d), A (d, n), D (d) and h0 (B, d, n) float32; n = 16. dt is
-//   the dt_proj product before its bias and softplus.
+//   dt_bias (d), A (d, n), D (d) and h0 (B, d, n) float32; n = 8, 16, 32
+//   or 64 (the wrapper pads any other n up to 64 with zero states, which
+//   stay 0 and add nothing). dt is the dt_proj product before its bias and
+//   softplus.
 //   K3: per step, in registers: delta = softplus(dt + dt_bias) (torch's,
 //       threshold 20), da = exp(delta * A), dbx = delta * x * Bm,
 //       h = da * h + dbx;  y = sum_n h * C + D * x.
@@ -37,10 +39,11 @@
 // four times K3 (it replays the forward, recomputes each decay twice and
 // reduces d(Bm), d(C) by shuffles). The design:
 //
-// Both kernels give a block of 128 threads one batch row's slice of 32
-// channels (a grid of B x ceil(d / 32) blocks: 384 at B 64, d 192), four
-// threads a (b, d) channel, each holding 4 of the 16 states (and of A) in
-// registers. Every 8 steps the block stages that group's inputs in shared
+// Both kernels are templates on n (kN). They give a block of 128 threads
+// one batch row's slice of 512 / n channels (32 at n = 16: a grid of B x
+// ceil(d / 32) blocks, 384 at B 64, d 192), n / 4 threads a (b, d) channel
+// (2 to 16, all inside one warp), each holding 4 of the n states (and of A)
+// in registers. Every 8 steps the block stages that group's inputs in shared
 // memory, coalesced: Bm and C (shared by every channel of the row), x, and
 // the softplus of dt + dt_bias, computed once a channel a step (and, in
 // K4, its derivative and dy); each thread then reads its channel's
@@ -52,8 +55,8 @@
 // the spare threads walk the last channel on zeros, so that the four
 // threads of a channel all reach the shuffles, and store nothing.
 //
-// K3: y_t is the sum of the four threads' partial dot products (two
-// xor-shuffles).
+// K3: y_t is the sum of the channel's n / 4 threads' partial dot products
+// (log2(n / 4) xor-shuffles: two at n = 16).
 //
 // K4: phase 1 replays the forward and stores h at the start of every
 // 8-step segment into a scratch (B, ceil(L/8), d, n) float32 (an eighth of
@@ -61,11 +64,15 @@
 // Phase 2 walks the segments backwards: it recomputes the segment's 8
 // states from its checkpoint in registers, then walks them back,
 // recomputing each decay (an SFU operation instead of 32 registers). The
-// sums over the channel's 16 states (s_A, s_B) take two xor-shuffles each.
-// d(Bm) and d(C), sums over d, are reduced inside the block: the 8
-// channels of a warp by a butterfly that leaves each of the 32 lanes one of
-// the 32 sums (7 shuffles), the warps through shared memory after each
-// segment, and the block writes its slice's partial (B, L, slices, 32).
+// sums over the channel's n states (s_A, s_B) take log2(n / 4) xor-shuffles
+// each. d(Bm) and d(C), sums over d, are reduced inside the block: the 128
+// / n channels of a warp by a butterfly over the 8 values a lane holds
+// (its 4 states' d(Bm) and d(C)), which halves them at each of the first
+// three channel bits (at n = 16 it leaves each of the 32 lanes one of the 32
+// sums, 7 shuffles; at n = 64 each lane keeps 4 of 128 after one; at n = 8
+// a fourth bit adds the two halves' sums), the warps through shared memory
+// after each segment, and the block writes its slice's partial (B, L,
+// slices, 2n).
 // d(A), d(D) and d(dt_bias) are summed over L in registers and written per
 // batch row; the wrapper sums every partial in a fixed order: no atomics,
 // the same bits run to run.
@@ -75,14 +82,27 @@
 
 namespace {
 
-constexpr int kN = 16;                 // d_state
 constexpr int kQ = 4;                  // states a thread holds
-constexpr int kTpc = kN / kQ;          // threads a channel
 constexpr int kGroup = 8;              // steps a staged group / K4 segment
-constexpr int kThreads = 128;          // a block: 32 channels
-constexpr int kCh = kThreads / kTpc;
+constexpr int kThreads = 128;          // a block: 512 / n channels
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+
+// the layout at n = kN states (8, 16, 32 or 64)
+template <int kN>
+struct Layout {
+  static constexpr int kTpc = kN / kQ;          // threads a channel
+  static constexpr int kCh = kThreads / kTpc;   // channels a block
+  static constexpr int kCw = 32 / kTpc;         // channels a warp
+};
+
+// the sum over a channel's kTpc threads (xor-shuffles inside the warp)
+template <int kTpc>
+__device__ __forceinline__ float channel_sum(float s) {
+#pragma unroll
+  for (int o = 1; o < kTpc; o <<= 1) s += __shfl_xor_sync(kFull, s, o);
+  return s;
+}
 
 __device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
 
@@ -134,7 +154,8 @@ __device__ __forceinline__ void softplus_grad(float v, float& sp,
 // in shared memory: Bm and C (s_bc[k] = Bm_t then C_t), x, delta and, with
 // kGrad, softplus' derivative and dy. Each channel's softplus is computed
 // once, by one thread; channels past d hold zeros.
-template <typename T, bool kGrad>
+template <int kN, typename T, bool kGrad,
+          int kCh = Layout<kN>::kCh>
 __device__ __forceinline__ void stage(
     const T* __restrict__ x, const T* __restrict__ dt,
     const float* __restrict__ dt_bias, const T* __restrict__ bm,
@@ -172,10 +193,10 @@ __device__ __forceinline__ void stage(
   }
 }
 
-// K3: y and h_last. Block (b, slice) holds channels slice * 32 .. + 31 of
-// batch row b; thread (c, j) = (tid / 4, tid % 4) holds states 4j .. 4j+3
-// of its channel.
-template <typename T>
+// K3: y and h_last. Block (b, slice) holds channels slice * kCh .. +
+// kCh - 1 of batch row b; thread (c, j) = (tid / kTpc, tid % kTpc) holds
+// states 4j .. 4j+3 of its channel.
+template <int kN, typename T>
 __global__ void __launch_bounds__(kThreads)
 selective_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                      const float* __restrict__ dt_bias,
@@ -183,6 +204,7 @@ selective_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                      const T* __restrict__ c, const float* __restrict__ D,
                      const float* __restrict__ h0, float* __restrict__ y,
                      float* __restrict__ h_last, int steps, int dim) {
+  constexpr int kTpc = Layout<kN>::kTpc, kCh = Layout<kN>::kCh;
   __shared__ __align__(16) float s_bc[kGroup][2 * kN];
   __shared__ float s_x[kGroup][kCh], s_dl[kGroup][kCh], s_y[kGroup][kCh];
   const long long b = blockIdx.x;
@@ -199,8 +221,8 @@ selective_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   for (int t0 = 0; t0 < steps; t0 += kGroup) {
     const int kk = min(kGroup, steps - t0);
     __syncthreads();                   // the last group's s_* are read
-    stage<T, false>(x, dt, dt_bias, bm, c, nullptr, row, t0, kk, dim, d0,
-                    true, s_bc, s_x, s_dl, s_dl, s_dl);
+    stage<kN, T, false>(x, dt, dt_bias, bm, c, nullptr, row, t0, kk, dim,
+                        d0, true, s_bc, s_x, s_dl, s_dl, s_dl);
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < kGroup; ++k) {
@@ -218,8 +240,7 @@ selective_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
           h[q] = expf(delta * a[q]) * h[q] + du * bb[q];
           s += h[q] * cc[q];
         }
-        s += __shfl_xor_sync(kFull, s, 1);
-        s += __shfl_xor_sync(kFull, s, 2);
+        s = channel_sum<kTpc>(s);
         if (j == 0) s_y[k][cl] = s + dskip * xv;
       }
     }
@@ -232,9 +253,9 @@ selective_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   if (valid) store4(h_last + state, h);
 }
 
-// K4: block (b, slice) holds channels slice * 32 .. + 31 of batch row b;
-// thread (c, j) = (tid / 4, tid % 4) holds states 4j .. 4j+3.
-template <typename T>
+// K4: block (b, slice) holds channels slice * kCh .. + kCh - 1 of batch
+// row b; thread (c, j) = (tid / kTpc, tid % kTpc) holds states 4j .. 4j+3.
+template <int kN, typename T>
 __global__ void __launch_bounds__(kThreads)
 selective_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                      const float* __restrict__ dt_bias,
@@ -247,6 +268,11 @@ selective_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                      float* __restrict__ part_a, float* __restrict__ part_d,
                      float* __restrict__ part_bias, float* __restrict__ dh0,
                      float* __restrict__ ck, int steps, int dim, int nseg) {
+  constexpr int kTpc = Layout<kN>::kTpc, kCh = Layout<kN>::kCh;
+  constexpr int kCw = Layout<kN>::kCw;
+  // the channel bits of a warp, and the halvings of a lane's 8 values
+  constexpr int kBits = kCw == 16 ? 4 : kCw == 8 ? 3 : kCw == 4 ? 2 : 1;
+  constexpr int kHalve = kBits < 3 ? kBits : 3;
   __shared__ __align__(16) float s_bc[kGroup][2 * kN];
   __shared__ float s_x[kGroup][kCh], s_dl[kGroup][kCh];
   __shared__ float s_dsp[kGroup][kCh], s_dy[kGroup][kCh];
@@ -275,8 +301,8 @@ selective_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     // a spare thread shares the last channel's address: it must not write
     if (valid) store4(pck + s * seg_stride, h);
     __syncthreads();
-    stage<T, false>(x, dt, dt_bias, bm, c, nullptr, row, t0, kk, dim, d0,
-                    false, s_bc, s_x, s_dl, s_dsp, s_dy);
+    stage<kN, T, false>(x, dt, dt_bias, bm, c, nullptr, row, t0, kk, dim,
+                        d0, false, s_bc, s_x, s_dl, s_dsp, s_dy);
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < kGroup; ++k) {
@@ -299,8 +325,8 @@ selective_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   for (int s = nseg - 1; s >= 0; --s) {
     const int t0 = s * kGroup, kk = min(kGroup, steps - t0);
     __syncthreads();                   // the last segment's s_* are read
-    stage<T, true>(x, dt, dt_bias, bm, c, dy, row, t0, kk, dim, d0, true,
-                   s_bc, s_x, s_dl, s_dsp, s_dy);
+    stage<kN, T, true>(x, dt, dt_bias, bm, c, dy, row, t0, kk, dim, d0,
+                       true, s_bc, s_x, s_dl, s_dsp, s_dy);
     __syncthreads();
     float hs[kGroup + 1][kQ];          // hs[k + 1] = h at step t0 + k
     load4_rw(pck + s * seg_stride, hs[0]);
@@ -339,10 +365,11 @@ selective_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
           acc_a[q] += gda * delta;
           g[q] = gh * da;
         }
-        s_a += __shfl_xor_sync(kFull, s_a, 1);
-        s_b += __shfl_xor_sync(kFull, s_b, 1);
-        s_a += __shfl_xor_sync(kFull, s_a, 2);
-        s_b += __shfl_xor_sync(kFull, s_b, 2);
+#pragma unroll
+        for (int o = 1; o < kTpc; o <<= 1) {
+          s_a += __shfl_xor_sync(kFull, s_a, o);
+          s_b += __shfl_xor_sync(kFull, s_b, o);
+        }
         if (j == 0) {
           const float gdt = (s_a + xv * s_b) * s_dsp[k][cl];
           s_dx[k][cl] = gy * dskip + delta * s_b;
@@ -350,31 +377,37 @@ selective_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
           acc_d += gy * xv;
           acc_bias += gdt;
         }
-        // d(Bm), d(C) over the warp's 8 channels: a butterfly that leaves
-        // lane (cw, j) the sum of entry e = 4 (cw & 1) + 2 (cw >> 1 & 1) +
-        // (cw >> 2 & 1) of the channels' v
-        float w4[kQ], w2[2];
-        bool hi = cw & 1;
+        // d(Bm), d(C) over the warp's kCw channels: a butterfly that
+        // halves the lane's values at each of the first kHalve channel bits
+        // b, keeping the upper half where bit b of cw is set, so that lane
+        // (cw, j) ends with the sums of entries base .. base + 8 / 2^kHalve
+        // - 1 of the channels' v, base = 4 (cw & 1) + 2 (cw >> 1 & 1) + ..
+        // (at n = 16, one entry, e = 4 (cw & 1) + 2 (cw >> 1 & 1) + (cw >> 2
+        // & 1)); a fourth bit (n = 8) adds the two halves' sums
+        int base = 0;
 #pragma unroll
-        for (int e = 0; e < kQ; ++e) {
-          const float send = hi ? v[e] : v[e + kQ];
-          w4[e] = (hi ? v[e + kQ] : v[e]) +
-                  __shfl_xor_sync(kFull, send, kTpc);
-        }
-        hi = cw & 2;
+        for (int b = 0; b < kHalve; ++b) {
+          const int half = 2 * kQ >> (b + 1);
+          const bool hi = (cw >> b) & 1;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float send = hi ? w4[e] : w4[e + 2];
-          w2[e] = (hi ? w4[e + 2] : w4[e]) +
-                  __shfl_xor_sync(kFull, send, 2 * kTpc);
+          for (int e = 0; e < half; ++e) {
+            const float send = hi ? v[e] : v[e + half];
+            v[e] = (hi ? v[e + half] : v[e]) +
+                   __shfl_xor_sync(kFull, send, kTpc << b);
+          }
+          base += hi ? half : 0;
         }
-        hi = cw & 4;
-        const float send = hi ? w2[0] : w2[1];
-        const float sum = (hi ? w2[1] : w2[0]) +
-                          __shfl_xor_sync(kFull, send, 4 * kTpc);
-        const int e = 4 * (cw & 1) + 2 * ((cw >> 1) & 1) + ((cw >> 2) & 1);
-        // slots 0..15 d(Bm) of states 0..15, 16..31 d(C)
-        red[warp][k][(e / kQ) * kN + j * kQ + e % kQ] = sum;
+#pragma unroll
+        for (int b = kHalve; b < kBits; ++b)
+          v[0] += __shfl_xor_sync(kFull, v[0], kTpc << b);
+        // slots 0..n-1 d(Bm) of states 0..n-1, n..2n-1 d(C)
+        if (kBits <= 3 || cw < 8) {
+#pragma unroll
+          for (int e = 0; e < (2 * kQ >> kHalve); ++e) {
+            const int entry = base + e;
+            red[warp][k][(entry / kQ) * kN + j * kQ + entry % kQ] = v[e];
+          }
+        }
       }
     }
     __syncthreads();
@@ -404,21 +437,22 @@ selective_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   }
 }
 
-template <typename T>
+template <int kN, typename T>
 cudaError_t launch_fwd(const void* x, const void* dt, const float* dt_bias,
                        const float* A, const void* bm, const void* c,
                        const float* D, const float* h0, float* y,
                        float* h_last, int batch, int steps, int dim,
                        cudaStream_t s) {
+  constexpr int kCh = Layout<kN>::kCh;
   const dim3 grid(batch, (dim + kCh - 1) / kCh);
-  selective_fwd_kernel<T><<<grid, kThreads, 0, s>>>(
+  selective_fwd_kernel<kN, T><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt), dt_bias, A,
       static_cast<const T*>(bm), static_cast<const T*>(c), D, h0, y, h_last,
       steps, dim);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <int kN, typename T>
 cudaError_t launch_bwd(const void* x, const void* dt, const float* dt_bias,
                        const float* A, const void* bm, const void* c,
                        const float* D, const float* h0, const float* dy,
@@ -426,9 +460,10 @@ cudaError_t launch_bwd(const void* x, const void* dt, const float* dt_bias,
                        float* part_bc, float* part_a, float* part_d,
                        float* part_bias, float* dh0, float* ck, int batch,
                        int steps, int dim, cudaStream_t s) {
+  constexpr int kCh = Layout<kN>::kCh;
   const int nseg = (steps + kGroup - 1) / kGroup;
   const dim3 grid(batch, (dim + kCh - 1) / kCh);
-  selective_bwd_kernel<T><<<grid, kThreads, 0, s>>>(
+  selective_bwd_kernel<kN, T><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt), dt_bias, A,
       static_cast<const T*>(bm), static_cast<const T*>(c), D, h0, dy, dh_last,
       static_cast<T*>(dx), static_cast<T*>(ddt), part_bc, part_a, part_d,
@@ -436,9 +471,51 @@ cudaError_t launch_bwd(const void* x, const void* dt, const float* dt_bias,
   return cudaGetLastError();
 }
 
+// whether the kernels are built for n = d_state
+bool built_for(int d_state) {
+  return d_state == 8 || d_state == 16 || d_state == 32 || d_state == 64;
+}
+
+// `launch` instantiated for the n and the dtype of a call
+#define SSM_DISPATCH(launch, ...)                                        \
+  switch (d_state * 2 + (is_bf16 ? 1 : 0)) {                             \
+    case 16: return launch<8, float>(__VA_ARGS__);                       \
+    case 17: return launch<8, __nv_bfloat16>(__VA_ARGS__);               \
+    case 32: return launch<16, float>(__VA_ARGS__);                      \
+    case 33: return launch<16, __nv_bfloat16>(__VA_ARGS__);              \
+    case 64: return launch<32, float>(__VA_ARGS__);                      \
+    case 65: return launch<32, __nv_bfloat16>(__VA_ARGS__);              \
+    case 128: return launch<64, float>(__VA_ARGS__);                     \
+    default: return launch<64, __nv_bfloat16>(__VA_ARGS__);              \
+  }
+
+cudaError_t fwd(const void* x, const void* dt, const float* dt_bias,
+                const float* A, const void* bm, const void* c,
+                const float* D, const float* h0, float* y, float* h_last,
+                int batch, int steps, int dim, int d_state, int is_bf16,
+                cudaStream_t s) {
+  SSM_DISPATCH(launch_fwd, x, dt, dt_bias, A, bm, c, D, h0, y, h_last, batch,
+               steps, dim, s)
+}
+
+cudaError_t bwd(const void* x, const void* dt, const float* dt_bias,
+                const float* A, const void* bm, const void* c,
+                const float* D, const float* h0, const float* dy,
+                const float* dh_last, void* dx, void* ddt, float* part_bc,
+                float* part_a, float* part_d, float* part_bias, float* dh0,
+                float* ck, int batch, int steps, int dim, int d_state,
+                int is_bf16, cudaStream_t s) {
+  SSM_DISPATCH(launch_bwd, x, dt, dt_bias, A, bm, c, D, h0, dy, dh_last, dx,
+               ddt, part_bc, part_a, part_d, part_bias, dh0, ck, batch, steps,
+               dim, s)
+}
+
+#undef SSM_DISPATCH
+
 }  // namespace
 
-// K3. Returns a cudaError_t (0 on success).
+// K3. n = d_state of 8, 16, 32 or 64. Returns a cudaError_t (0 on
+// success).
 extern "C" int selective_scan_fwd(const void* x, const void* dt,
                                   const void* dt_bias, const void* A,
                                   const void* bm, const void* c,
@@ -446,27 +523,22 @@ extern "C" int selective_scan_fwd(const void* x, const void* dt,
                                   void* h_last, int batch, int steps,
                                   int dim, int d_state, int is_bf16,
                                   int device, void* stream) {
-  if (d_state != kN || batch < 1 || steps < 1 || dim < 1)
+  if (!built_for(d_state) || batch < 1 || steps < 1 || dim < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float* bias = static_cast<const float*>(dt_bias);
-  const float* af = static_cast<const float*>(A);
-  const float* df = static_cast<const float*>(D);
-  const float* h0f = static_cast<const float*>(h0);
-  float* yf = static_cast<float*>(y);
-  float* hf = static_cast<float*>(h_last);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = is_bf16 ? launch_fwd<__nv_bfloat16>(x, dt, bias, af, bm, c, df, h0f,
-                                            yf, hf, batch, steps, dim, s)
-                : launch_fwd<float>(x, dt, bias, af, bm, c, df, h0f, yf, hf,
-                                    batch, steps, dim, s);
+  err = fwd(x, dt, static_cast<const float*>(dt_bias),
+            static_cast<const float*>(A), bm, c, static_cast<const float*>(D),
+            static_cast<const float*>(h0), static_cast<float*>(y),
+            static_cast<float*>(h_last), batch, steps, dim, d_state, is_bf16,
+            static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 
-// K4. Scratch and partials, all float32: ck (batch, ceil(steps / 8), dim,
-// 16); part_bc (batch, steps, ceil(dim / 32), 32), d(Bm) then d(C); part_a
-// (batch, dim, 16); part_d and part_bias (batch, dim).
+// K4. n = d_state of 8, 16, 32 or 64. Scratch and partials, all float32: ck
+// (batch, ceil(steps / 8), dim, n); part_bc (batch, steps, ceil(dim / (512
+// / n)), 2n), d(Bm) then d(C); part_a (batch, dim, n); part_d and part_bias
+// (batch, dim).
 extern "C" int selective_scan_bwd(
     const void* x, const void* dt, const void* dt_bias, const void* A,
     const void* bm, const void* c, const void* D, const void* h0,
@@ -474,30 +546,18 @@ extern "C" int selective_scan_bwd(
     void* part_a, void* part_d, void* part_bias, void* dh0, void* ck,
     int batch, int steps, int dim, int d_state, int is_bf16, int device,
     void* stream) {
-  if (d_state != kN || batch < 1 || steps < 1 || dim < 1)
+  if (!built_for(d_state) || batch < 1 || steps < 1 || dim < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float* bias = static_cast<const float*>(dt_bias);
-  const float* af = static_cast<const float*>(A);
-  const float* df = static_cast<const float*>(D);
-  const float* h0f = static_cast<const float*>(h0);
-  const float* dyf = static_cast<const float*>(dy);
-  const float* dhf = static_cast<const float*>(dh_last);
-  float* pbc = static_cast<float*>(part_bc);
-  float* pa = static_cast<float*>(part_a);
-  float* pd = static_cast<float*>(part_d);
-  float* pbias = static_cast<float*>(part_bias);
-  float* dh0f = static_cast<float*>(dh0);
-  float* ckf = static_cast<float*>(ck);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = is_bf16
-            ? launch_bwd<__nv_bfloat16>(x, dt, bias, af, bm, c, df, h0f,
-                                        dyf, dhf, dx, ddt, pbc, pa, pd, pbias,
-                                        dh0f, ckf, batch, steps, dim, s)
-            : launch_bwd<float>(x, dt, bias, af, bm, c, df, h0f, dyf, dhf, dx,
-                                ddt, pbc, pa, pd, pbias, dh0f, ckf, batch,
-                                steps, dim, s);
+  err = bwd(x, dt, static_cast<const float*>(dt_bias),
+            static_cast<const float*>(A), bm, c, static_cast<const float*>(D),
+            static_cast<const float*>(h0), static_cast<const float*>(dy),
+            static_cast<const float*>(dh_last), dx, ddt,
+            static_cast<float*>(part_bc), static_cast<float*>(part_a),
+            static_cast<float*>(part_d), static_cast<float*>(part_bias),
+            static_cast<float*>(dh0), static_cast<float*>(ck), batch, steps,
+            dim, d_state, is_bf16, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

@@ -29,10 +29,10 @@ K1, the forward, replaces ``fnssl_tpu/kernels/lstm_pallas.py:_lstm_kernel``
 - ``csrc/lstm_fwd.cu`` for H above 256 (up to 1024): one direction a
   launch, W_hh read through L2 on every step.
 
-K2, the backward recurrence (H up to 256), replaces the sequential part
+K2, the backward recurrence (H up to 1024), replaces the sequential part
 of ``_lstm_backward``, K1's ``custom_vjp``: the replay of c and the
 reverse walk that turns the gate pre-activations into dgates, dh0 and dc0
-(``lstm_bwd``, ``lstm_bwd_bidir``). Two CUDA C++ sources; ``bwd_route``
+(``lstm_bwd``, ``lstm_bwd_bidir``). Three CUDA C++ sources; ``bwd_route``
 chooses one by shape:
 
 - ``csrc/lstm_bwd_cluster.cu`` for H a multiple of 32 up to 256, at every
@@ -56,6 +56,17 @@ chooses one by shape:
   in float32, from 16 in bfloat16; at H = 128 from 4768 rows in float32
   (FN-SSL's full band in training and in a DP rank's step), 8192 in
   bfloat16 (the full band in training), and VariableIPDnet's narrow band.
+- ``csrc/lstm_bwd_wide.cu`` for H above 256 (up to 1024: FN-SSL at
+  hidden_size 512): lstm_bwd_wave.cu's tile widened, one or two columns of
+  32 units a lane, 4 x R rows a CTA, one CTA an SM; ``bwd_wide_plan``
+  gives R.
+
+An LSTM whose H is not a multiple of 32 runs on the card padded to the
+next multiple (``padded_hidden``; ``lstm_fwd_padded``, ``lstm_bwd_padded``):
+zero rows and columns in each gate block of W_hh and zeros in xg (or G),
+h0, c0, dys, dhT and dcT. A padded unit has i = f = o = 1/2 and g = 0, so
+it stays 0 and reads nothing into the real units; its gradients are 0.
+Above H = 1024 the card raises.
 
 Each source's header comment says what bounds it on the card and how the
 design responds. Every wrapper runs the plain version for tensors on the
@@ -71,23 +82,27 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from fnssl_tpu_torch.kernels.cuda_build import LaunchCounter, load_library
 
 # launches of each CUDA kernel (the plain version is not counted):
 # ``launches`` for lstm_cluster.cu, ``launches_wave`` for lstm_wave.cu,
 # ``launches_v2`` for lstm_fwd.cu, ``launches_bwd_cluster`` for
-# lstm_bwd_cluster.cu, ``launches_bwd_wave`` for lstm_bwd_wave.cu
+# lstm_bwd_cluster.cu, ``launches_bwd_wave`` for lstm_bwd_wave.cu,
+# ``launches_bwd_wide`` for lstm_bwd_wide.cu
 launches = LaunchCounter()
 launches_wave = LaunchCounter()
 launches_v2 = LaunchCounter()
 launches_bwd_cluster = LaunchCounter()
 launches_bwd_wave = LaunchCounter()
+launches_bwd_wide = LaunchCounter()
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 CLUSTER_MAX_HIDDEN = 256          # lstm_cluster.cu's H; lstm_fwd.cu above
-BWD_MAX_HIDDEN = 256              # K2's H (both sources)
+MAX_HIDDEN = 1024                 # K1's H (lstm_fwd.cu's)
+BWD_MAX_HIDDEN = 1024             # K2's H (lstm_bwd_wide.cu's above 256)
 BWD_MAX_THREADS = 512             # threads of a lstm_bwd_cluster.cu CTA
 BWD_UPTS = (2, 1)                 # units a thread sums in its product
 BWD_TILE = 8                      # batch rows of a lstm_bwd_cluster.cu tile
@@ -139,6 +154,12 @@ BWD_WAVE128_FIXED = 1.8
 # slower in bf16)
 BWD_WAVE_MIN_ROWS = {(256, 4): 2048, (256, 2): 4096, (128, 4): 4768,
                      (128, 2): 8192}
+# lstm_bwd_wide.cu (H 288 to 1024): a warp is 8 unit lanes x 4 row groups,
+# a lane owns 4 units of one column of 32 (two columns above H = 512), and
+# a CTA of up to 512 threads owns tiles of 4 x R rows, R by the columns
+BWD_WIDE_GROUPS = 4
+BWD_WIDE_ROWS = {1: (4, 2, 1), 2: (2, 1)}
+BWD_WIDE_MAX_THREADS = 512
 
 
 def lstm_fwd_plain(xg: torch.Tensor, w_hh_t: torch.Tensor,
@@ -396,7 +417,7 @@ def bwd_wave_fits(hidden: int, itemsize: int, plan: int) -> bool:
         return (plan in BWD_WAVE128_TILES
                 and bwd_wave_ctas_per_sm(hidden, itemsize, plan) >= 2)
     return (plan in BWD_WAVE_ROWS and (plan == 4 or itemsize == 2)
-            and 32 <= hidden <= BWD_MAX_HIDDEN and hidden % 32 == 0
+            and 32 <= hidden <= CLUSTER_MAX_HIDDEN and hidden % 32 == 0
             and BWD_WAVE_THREADS * BWD_WAVE_UNITS % hidden == 0
             and _ctas_per_sm(bwd_wave_smem(
                 hidden, itemsize, bwd_wave_tile(hidden, plan))) >= 2)
@@ -463,14 +484,72 @@ def bwd_wave_plan(hidden: int, itemsize: int, batch: int,
     return best
 
 
+def bwd_wide_columns(hidden: int) -> int:
+    """Columns of 32 units a lane of lstm_bwd_wide.cu owns: 1 up to H =
+    512, 2 above (a CTA of up to 16 warps covers H / 32 columns)."""
+    return 1 if hidden // 32 <= 16 else 2
+
+
+def bwd_wide_threads(hidden: int) -> int:
+    """Threads of a lstm_bwd_wide.cu CTA: a warp for each J columns."""
+    return 32 * -(-(hidden // 32) // bwd_wide_columns(hidden))
+
+
+def bwd_wide_tile(plan: int) -> int:
+    """Batch rows of a lstm_bwd_wide.cu tile of ``plan`` rows a thread."""
+    return BWD_WIDE_GROUPS * plan
+
+
+def bwd_wide_smem(hidden: int, tile: int) -> int:
+    """Shared memory (bytes) of one CTA of lstm_bwd_wide.cu: dgates alone
+    (tile x (4H + 4) float32); G, c and dy go straight to registers."""
+    return tile * (4 * hidden + BWD_WAVE_PAD) * 4
+
+
+def bwd_wide_fits(hidden: int, plan: int) -> bool:
+    """Whether lstm_bwd_wide.cu takes ``plan`` rows a thread at this H: H a
+    multiple of 32 above 256 up to 1024, rows it is built for at this many
+    columns a lane, at most 512 threads and 227 KB of shared memory."""
+    return (CLUSTER_MAX_HIDDEN < hidden <= BWD_MAX_HIDDEN
+            and hidden % 32 == 0
+            and plan in BWD_WIDE_ROWS[bwd_wide_columns(hidden)]
+            and bwd_wide_threads(hidden) <= BWD_WIDE_MAX_THREADS
+            and bwd_wide_smem(hidden, bwd_wide_tile(plan)) <= SMEM_BYTES)
+
+
+def bwd_wide_plans(hidden: int) -> tuple[int, ...]:
+    """Every plan lstm_bwd_wide.cu takes at this H, the most rows first."""
+    return tuple(p for p in BWD_WIDE_ROWS[bwd_wide_columns(hidden)]
+                 if bwd_wide_fits(hidden, p))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_wide_plan(hidden: int, batch: int, ndir: int = 1) -> int:
+    """Rows a thread of lstm_bwd_wide.cu (tiles of 4 x that many rows): of
+    the plans that fit, the one whose grid (ndir x ceil(B / tile) CTAs, one
+    an SM) puts the fewest rows on the busiest SM, counting each wave in
+    turn; on a tie the most rows a thread (fewer CTAs, each reading W_hh
+    once a step for more rows). At (298, 4096, 512): 4 rows, 256 tiles of
+    16 in two waves, 32 rows on the busiest SM (31.03 spread evenly); at H
+    = 1024 and B = 4096: 2 rows, 512 tiles of 8, 32 rows."""
+    best = _fewest_busiest(bwd_wide_plans(hidden), batch, ndir,
+                           bwd_wide_tile, lambda p: 1)
+    if best is None:
+        raise ValueError(f"lstm_bwd_wide: no plan fits hidden={hidden}")
+    return best
+
+
 def bwd_route(t_steps: int, batch: int, hidden: int, ndir: int,
               itemsize: int) -> str:
-    """K2's kernel for a shape, by shape alone: "wave" (lstm_bwd_wave.cu)
-    from ``BWD_WAVE_MIN_ROWS[(H, itemsize)]`` rows (B x ndir) up; else
-    "cluster" (lstm_bwd_cluster.cu). The thresholds come from chip_smoke.py's
-    sweep over B in {1024 .. 4768}, H in {128, 256}, both directions and
-    both dtypes at T = 298; ``t_steps`` does not move them."""
+    """K2's kernel for a shape, by shape alone: "wide" (lstm_bwd_wide.cu)
+    above H = 256; "wave" (lstm_bwd_wave.cu) from
+    ``BWD_WAVE_MIN_ROWS[(H, itemsize)]`` rows (B x ndir) up; else "cluster"
+    (lstm_bwd_cluster.cu). The thresholds come from chip_smoke.py's sweep
+    over B in {1024 .. 4768}, H in {128, 256}, both directions and both
+    dtypes at T = 298; ``t_steps`` does not move them."""
     del t_steps
+    if hidden > CLUSTER_MAX_HIDDEN:
+        return "wide"
     least = BWD_WAVE_MIN_ROWS.get((hidden, itemsize))
     if least is not None and batch * ndir >= least:
         return "wave"
@@ -528,9 +607,9 @@ def bwd_cluster_plan(hidden: int, itemsize: int):
     12; PERF.md). The wrappers' ``plan`` takes any other plan that
     ``bwd_cluster_fits``.
     """
-    if hidden % 32 or not 32 <= hidden <= BWD_MAX_HIDDEN:
+    if hidden % 32 or not 32 <= hidden <= CLUSTER_MAX_HIDDEN:
         raise ValueError(f"lstm_bwd_cluster: hidden={hidden} must be a "
-                         f"multiple of 32 up to {BWD_MAX_HIDDEN}")
+                         f"multiple of 32 up to {CLUSTER_MAX_HIDDEN}")
     for upt in BWD_UPTS:
         for n in CLUSTER_SIZES:
             splits = [ks for ks in (hidden // 8, hidden // 16)
@@ -581,9 +660,9 @@ def _check(xg, w_hh_t, h0, c0, ndir: int | None = None):
                            "autograd Function runs the backward kernel)")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("lstm_fwd: inputs must be contiguous")
-    if hidden % 32 or hidden > 1024:
-        raise ValueError(f"lstm_fwd: hidden={hidden} must be a multiple of "
-                         "32 up to 1024")
+    if hidden > MAX_HIDDEN:
+        raise ValueError(f"lstm_fwd: hidden={hidden}: the CUDA forward "
+                         f"takes H up to {MAX_HIDDEN}")
     return t_steps, batch, hidden
 
 
@@ -597,13 +676,16 @@ def lstm_fwd(xg: torch.Tensor, w_hh_t: torch.Tensor, h0: torch.Tensor,
     H up to 256, lstm_fwd.cu for H above 256 up to 1024. ``route``
     ("cluster", "wave" or "v2") names the kernel instead, to hold or time
     one at any shape; ``plan`` overrides the route's plan (``cluster_plan``'s
-    (N, Bt, KS), ``wave_plan``'s rows a thread). Any B; H must be a
-    multiple of 32.
+    (N, Bt, KS), ``wave_plan``'s rows a thread). Any B; H up to 1024, run
+    padded to a multiple of 32 (``lstm_fwd_padded``) where it is not one.
     """
     dims = _check(xg, w_hh_t, h0, c0)
     if dims is None:
         return lstm_fwd_plain(xg, w_hh_t, h0, c0, reverse=reverse)
     t_steps, batch, hidden = dims
+    if hidden % 32:
+        return lstm_fwd_padded(lstm_fwd, xg, w_hh_t, h0, c0,
+                               reverse=reverse, plan=plan, route=route)
     outs = _outputs(xg, h0, (t_steps, batch, hidden))
     if batch == 0:
         return outs
@@ -629,12 +711,15 @@ def lstm_fwd_bidir(xg: torch.Tensor, w_hh_t: torch.Tensor,
     both directions in one launch of lstm_cluster.cu or lstm_wave.cu (as
     ``fwd_route`` gives for 2 directions); H above 256 launches lstm_fwd.cu
     once per direction (a choice by shape). ``route`` and ``plan`` as in
-    ``lstm_fwd``.
+    ``lstm_fwd``; H not a multiple of 32 runs padded, as there.
     """
     dims = _check(xg, w_hh_t, h0, c0, ndir=2)
     if dims is None:
         return lstm_fwd_bidir_plain(xg, w_hh_t, h0, c0)
     t_steps, batch, hidden = dims
+    if hidden % 32:
+        return lstm_fwd_padded(lstm_fwd_bidir, xg, w_hh_t, h0, c0,
+                               plan=plan, route=route)
     outs = _outputs(xg, h0, (2, t_steps, batch, hidden))
     if batch == 0:
         return outs
@@ -646,6 +731,56 @@ def lstm_fwd_bidir(xg: torch.Tensor, w_hh_t: torch.Tensor,
     else:
         _LAUNCH[route](xg, w_hh_t, h0, c0, outs, 2, False, plan)
     return outs
+
+
+def padded_hidden(hidden: int) -> int:
+    """H rounded up to a multiple of 32: the width at which the kernels
+    run an LSTM of H units."""
+    return -(-hidden // 32) * 32
+
+
+def pad_gates(t: torch.Tensor, hp: int) -> torch.Tensor:
+    """(..., 4H) -> (..., 4Hp): zeros after each of the four gate blocks."""
+    h = t.shape[-1] // 4
+    return F.pad(t.unflatten(-1, (4, h)), (0, hp - h)).flatten(-2)
+
+
+def pad_units(t: torch.Tensor, hp: int) -> torch.Tensor:
+    """(..., H) -> (..., Hp): zeros after the H units."""
+    return F.pad(t, (0, hp - t.shape[-1]))
+
+
+def lstm_fwd_padded(fn, xg, w_hh_t, h0, c0, **kw):
+    """``fn`` (``lstm_fwd``, ``lstm_fwd_bidir`` or a plain version) on the
+    LSTM padded to ``padded_hidden(H)`` units: zeros after each gate block
+    of xg and of W_hh's columns, zero rows of W_hh, zeros in h0 and c0.
+    Returns (ys, hT, cT) sliced back to H. Exact: a padded unit's gates
+    are 0 (i = f = o = 1/2, g = 0), so its c and h stay 0 and the padded
+    rows of W_hh, which are 0, add nothing to the real units."""
+    h = h0.shape[-1]
+    hp = padded_hidden(h)
+    w = F.pad(pad_gates(w_hh_t, hp), (0, 0, 0, hp - h))
+    outs = fn(pad_gates(xg, hp), w, pad_units(h0, hp), pad_units(c0, hp),
+              **kw)
+    return tuple(o[..., :h].contiguous() for o in outs)
+
+
+def lstm_bwd_padded(fn, g, w_hh, c0, dys, dh_t=None, dc_t=None, **kw):
+    """``fn`` (``lstm_bwd``, ``lstm_bwd_bidir`` or a plain version) on the
+    LSTM padded as ``lstm_fwd_padded`` pads it: zeros after each gate block
+    of g, zero columns and gate rows of W_hh, zeros in c0, dys, dhT and
+    dcT. Writes the dgates of the H units back over g and returns (g, dh0,
+    dc0), dh0 and dc0 sliced back to H. Exact: a padded unit's dh is 0
+    (W_hh's padded columns are 0), and with dc = dy = 0 its dgates are 0."""
+    h = c0.shape[-1]
+    hp = padded_hidden(h)
+    w = pad_units(w_hh, hp).unflatten(-2, (4, h))
+    w = F.pad(w, (0, 0, 0, hp - h)).flatten(-3, -2)
+    carries = [None if t is None else pad_units(t, hp) for t in (dh_t, dc_t)]
+    gp, dh0, dc0 = fn(pad_gates(g, hp), w, pad_units(c0, hp),
+                      pad_units(dys, hp), *carries, **kw)
+    g.copy_(gp.unflatten(-1, (4, hp))[..., :h].flatten(-2))
+    return g, dh0[..., :h].contiguous(), dc0[..., :h].contiguous()
 
 
 def lstm_bwd_plain(g: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor,
@@ -740,11 +875,9 @@ def _check_bwd(g, w_hh, c0, dys, dh_t, dc_t, ndir: int | None = None):
         raise ValueError("lstm_bwd: inputs on mixed devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("lstm_bwd: inputs must be contiguous")
-    if hidden % 32 or hidden > BWD_MAX_HIDDEN:
-        raise ValueError(f"lstm_bwd: hidden={hidden} must be a multiple of "
-                         f"32 up to {BWD_MAX_HIDDEN}: the CUDA backward "
-                         "serves every LSTM of the JAX package, H > 256 "
-                         "is not ported")
+    if hidden > BWD_MAX_HIDDEN:
+        raise ValueError(f"lstm_bwd: hidden={hidden}: the CUDA backward "
+                         f"takes H up to {BWD_MAX_HIDDEN}")
     return (t_steps, batch, hidden), dh_t, dc_t
 
 
@@ -760,12 +893,17 @@ def lstm_bwd(g: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor,
     lstm_bwd_wave.cu. ``route`` ("cluster" or "wave") names the kernel
     instead, to hold or time one at any shape; ``plan`` overrides the
     route's plan (``bwd_cluster_plan``'s (N, Bt, KS, UPT), ``bwd_wave_plan``'s
-    rows a thread, at H = 128 its tile). Any B; H a multiple of 32 up to 256 (32, 64, 128 or 256
-    on lstm_bwd_wave.cu).
+    rows a thread, at H = 128 its tile; ``bwd_wide_plan``'s rows a thread).
+    Any B; H up to 1024 (32, 64, 128 or 256 on lstm_bwd_wave.cu, above 256
+    on lstm_bwd_wide.cu only), run padded to a multiple of 32
+    (``lstm_bwd_padded``) where it is not one.
     """
     dims, dh_t, dc_t = _check_bwd(g, w_hh, c0, dys, dh_t, dc_t)
     if dims is None:
         return lstm_bwd_plain(g, w_hh, c0, dys, dh_t, dc_t, reverse=reverse)
+    if dims[2] % 32:
+        return lstm_bwd_padded(lstm_bwd, g, w_hh, c0, dys, dh_t, dc_t,
+                               reverse=reverse, plan=plan, route=route)
     return _launch_bwd(_bwd_route(route, dims, 1, dys.element_size()), g,
                        w_hh, c0, dys, dh_t, dc_t, dims, 1, reverse, plan)
 
@@ -787,21 +925,29 @@ def lstm_bwd_bidir(g: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor,
     dims, dh_t, dc_t = _check_bwd(g, w_hh, c0, dys, dh_t, dc_t, ndir=2)
     if dims is None:
         return lstm_bwd_bidir_plain(g, w_hh, c0, dys, dh_t, dc_t)
+    if dims[2] % 32:
+        return lstm_bwd_padded(lstm_bwd_bidir, g, w_hh, c0, dys, dh_t, dc_t,
+                               plan=plan, route=route)
     return _launch_bwd(_bwd_route(route, dims, 2, dys.element_size()), g,
                        w_hh, c0, dys, dh_t, dc_t, dims, 2, False, plan)
 
 
 BWD_COUNTERS = {"lstm_bwd_cluster": launches_bwd_cluster,
-                "lstm_bwd_wave": launches_bwd_wave}
-BWD_SOURCES = {"cluster": "lstm_bwd_cluster", "wave": "lstm_bwd_wave"}
+                "lstm_bwd_wave": launches_bwd_wave,
+                "lstm_bwd_wide": launches_bwd_wide}
+BWD_SOURCES = {"cluster": "lstm_bwd_cluster", "wave": "lstm_bwd_wave",
+               "wide": "lstm_bwd_wide"}
 
 
 def _bwd_route(route, dims, ndir, itemsize):
-    """The route asked for, or ``bwd_route``'s; another name is refused."""
+    """The route asked for, or ``bwd_route``'s; another name, "wide" at H
+    up to 256 or another route above it, is refused."""
     if route is None:
         return bwd_route(*dims, ndir, itemsize)
-    if route not in BWD_SOURCES:
-        raise ValueError(f"lstm_bwd: no route {route!r}")
+    if route not in BWD_SOURCES or (
+            (route == "wide") != (dims[2] > CLUSTER_MAX_HIDDEN)):
+        raise ValueError(f"lstm_bwd: no route {route!r} at hidden="
+                         f"{dims[2]}")
     return route
 
 
@@ -821,12 +967,13 @@ def _launch_bwd(route, g, w_hh, c0, dys, dh_t, dc_t, dims, ndir, reverse,
     if batch == 0:
         return g, dh0, dc0
     work = g
-    if route == "wave":
-        plan = (plan or bwd_wave_plan(hidden, dys.element_size(), batch,
-                                      ndir),)
+    if route in ("wave", "wide"):
+        plan = (plan or (bwd_wave_plan(hidden, dys.element_size(), batch,
+                                       ndir) if route == "wave" else
+                         bwd_wide_plan(hidden, batch, ndir)),)
         work = _aligned(g)
-        # a float32 W_hh: each value feeds 4 FMAs there, too few to widen
-        # a bfloat16 one in the kernel's loop
+        # a float32 W_hh: each value feeds 4 FMAs a row there, too few to
+        # widen a bfloat16 one in the kernel's loop
         w_hh = w_hh.float()
         w_hh, c0, dys, dh_t, dc_t = map(_aligned, (w_hh, c0, dys, dh_t, dc_t))
         what = "(rows={})"
@@ -937,6 +1084,8 @@ _ARGTYPES = {
     "lstm_bwd_cluster": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
     + [ctypes.c_void_p],
     "lstm_bwd_wave": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p],
+    "lstm_bwd_wide": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
 }
 

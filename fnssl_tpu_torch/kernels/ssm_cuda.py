@@ -14,7 +14,13 @@ dt_proj product before its bias and softplus), dt_bias (d), a = -exp(A_log)
 (d, n), d_skip (D, (d)) and h0 (B, d, n) float32 → y = the scan's
 contraction + D·x (B, L, d) and h_last (B, d, n), float32. exp(Δ·A) and
 Δ·x·B are formed in registers: no (B, L, d, n) tensor is written on the
-card, forward or backward. n (d_state) is 16 on the card.
+card, forward or backward. The kernels are built for n (d_state) of 8, 16,
+32 and 64; any other n up to 64 runs padded to the next of them
+(``padded_state``, ``selective_scan_fwd_padded``,
+``selective_scan_bwd_padded``): zero columns in A, B, C and h0, which
+keep each padded state at 0 (A = 0, B = 0, h0 = 0) and out of y (C = 0);
+the padded rows of h_last and of the gradients are dropped. Above n = 64
+the card raises.
 
 ``ssm_scan_fwd_plain`` and ``ssm_scan_bwd_plain`` keep JAX's (da, dbx)
 contract of ``ssm_scan`` as the counterparts of its tests; the fused plain
@@ -40,9 +46,57 @@ launches_ssm_fwd = LaunchCounter()
 launches_ssm_bwd = LaunchCounter()
 
 _DTYPES = (torch.float32, torch.bfloat16)
-D_STATE = 16                    # the kernels' n
+D_STATES = (8, 16, 32, 64)      # the n the kernels are built for
 SEGMENT = 8                     # K4's checkpoint interval (ssm_scan.cu kGroup)
-SLICE = 32                      # channels a block (ssm_scan.cu kCh)
+THREADS = 128                   # threads a block, 4 states each
+
+
+def slice_channels(n: int) -> int:
+    """Channels a block of the kernels at n states (ssm_scan.cu's kCh): 128
+    threads, n / 4 a channel; 32 at n = 16."""
+    return THREADS * 4 // n
+
+
+def padded_state(n: int) -> int:
+    """The n the kernels run a scan of n states at: the least of
+    ``D_STATES`` that holds n. Raises above 64."""
+    for m in D_STATES:
+        if n <= m:
+            return m
+    raise ValueError(f"selective_scan: d_state={n}; the CUDA kernels take "
+                     f"d_state up to {D_STATES[-1]}")
+
+
+def _pad_states(t, n):
+    return F.pad(t, (0, n - t.shape[-1]))
+
+
+def selective_scan_fwd_padded(fn, x, dt, dt_bias, a, bm, c, d_skip, h0):
+    """``fn`` (``selective_scan_fwd`` or its plain version) on the scan
+    padded to ``padded_state(n)`` states: zero columns in a, bm, c and h0.
+    Returns y and h_last sliced back to n. Exact: a padded state has A = 0,
+    B = 0 and h0 = 0, so it stays 0, and C = 0 keeps it out of y."""
+    n = a.shape[-1]
+    m = padded_state(n)
+    y, h_last = fn(x, dt, dt_bias, *(_pad_states(t, m) for t in (a, bm, c)),
+                   d_skip, _pad_states(h0, m))
+    return y, h_last[..., :n].contiguous()
+
+
+def selective_scan_bwd_padded(fn, x, dt, dt_bias, a, bm, c, d_skip, h0, dy,
+                              dh_last):
+    """``fn`` (``selective_scan_bwd`` or its plain version) on the scan
+    padded as ``selective_scan_fwd_padded`` pads it (dh_last too). Returns
+    the gradients with the padded states' columns dropped (d(a), d(bm),
+    d(c), d(h0)). Exact: a padded state's gh is 0, so it adds nothing to
+    s_A, s_B or any real gradient."""
+    n = a.shape[-1]
+    m = padded_state(n)
+    dx, ddt, dbias, da, dbm, dc, dd, dh0 = fn(
+        x, dt, dt_bias, *(_pad_states(t, m) for t in (a, bm, c)), d_skip,
+        _pad_states(h0, m), dy, _pad_states(dh_last, m))
+    return (dx, ddt, dbias, *(t[..., :n].contiguous() for t in (da, dbm, dc)),
+            dd, dh0[..., :n].contiguous())
 
 
 def ssm_scan_fwd_plain(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
@@ -151,7 +205,9 @@ def selective_scan_bwd_plain(x, dt, dt_bias, a, bm, c, d_skip, h0, dy,
 
 def _check(x, dt, dt_bias, a, bm, c, d_skip, h0, extra=()):
     """Checks the inputs (and dy, dh_last); returns (B, L, d, n) for CUDA
-    tensors, None for CPU ones."""
+    tensors, None for CPU ones. An n the kernels are not built for is
+    checked no further here: the wrapper pads it, and checks the padded
+    call."""
     if x.dim() != 3 or dt.shape != x.shape:
         raise ValueError(f"x and dt must be (B, L, d), got "
                          f"{tuple(x.shape)} and {tuple(dt.shape)}")
@@ -184,25 +240,27 @@ def _check(x, dt, dt_bias, a, bm, c, d_skip, h0, extra=()):
         raise RuntimeError("selective_scan: no backward through a direct "
                            "call; take gradients through "
                            "models.mamba.SSMScan")
+    if padded_state(n) != n:
+        return batch, steps, dim, n
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("selective_scan: inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("selective_scan: inputs must be 16-byte aligned")
-    if n != D_STATE:
-        raise ValueError(f"selective_scan: d_state={n}; the CUDA kernels "
-                         f"take {D_STATE}")
     return batch, steps, dim, n
 
 
 def selective_scan_fwd(x, dt, dt_bias, a, bm, c, d_skip, h0):
     """K3 (contract of ``selective_scan_fwd_plain``): y (B, L, d) and
     h_last (B, d, n), float32. CPU tensors take the plain version; CUDA
-    tensors launch ssm_scan.cu's forward once."""
+    tensors launch ssm_scan.cu's forward once, at n padded to 8, 16, 32 or
+    64 where it is another n (``selective_scan_fwd_padded``)."""
     args = (x, dt, dt_bias, a, bm, c, d_skip, h0)
     dims = _check(*args)
     if dims is None:
         return selective_scan_fwd_plain(*args)
     batch, steps, dim, n = dims
+    if n not in D_STATES:
+        return selective_scan_fwd_padded(selective_scan_fwd, *args)
     y = torch.empty((batch, steps, dim), dtype=torch.float32,
                     device=x.device)
     if steps == 0 or batch == 0:
@@ -224,20 +282,24 @@ def selective_scan_fwd(x, dt, dt_bias, a, bm, c, d_skip, h0):
 def selective_scan_bwd(x, dt, dt_bias, a, bm, c, d_skip, h0, dy, dh_last):
     """K4 (contract of ``selective_scan_bwd_plain``): the gradients of
     (x, dt, dt_bias, a, bm, c, d_skip, h0). CPU tensors take the plain
-    version; CUDA tensors launch ssm_scan.cu's backward once, then sum its
-    per-block partials (d(bm), d(c) over the slices of d; d(a), d(d_skip),
-    d(dt_bias) over the batch) in a fixed order."""
+    version; CUDA tensors launch ssm_scan.cu's backward once (at n padded as
+    in ``selective_scan_fwd``), then sum its per-block partials (d(bm), d(c)
+    over the slices of d; d(a), d(d_skip), d(dt_bias) over the batch) in a
+    fixed order."""
     args = (x, dt, dt_bias, a, bm, c, d_skip, h0)
     dims = _check(*args, extra=(dy, dh_last))
     if dims is None:
         return selective_scan_bwd_plain(*args, dy, dh_last)
     batch, steps, dim, n = dims
+    if n not in D_STATES:
+        return selective_scan_bwd_padded(selective_scan_bwd, *args, dy,
+                                         dh_last)
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     if steps == 0 or batch == 0:
         return (dx, ddt, torch.zeros_like(dt_bias), torch.zeros_like(a),
                 torch.empty_like(bm), torch.empty_like(c),
                 torch.zeros_like(d_skip), dh_last.clone())
-    slices = -(-dim // SLICE)
+    slices = -(-dim // slice_channels(n))
 
     def scratch(*shape):
         return torch.empty(shape, dtype=torch.float32, device=x.device)

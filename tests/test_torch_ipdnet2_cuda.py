@@ -9,9 +9,11 @@ cases (L 0/1/2/7, ragged B, d 13, 32, 40 and 200: d's last slice
 ragged, also over several of K4's 8-step segments: L 17, 33 and 201),
 float32 and bfloat16 inputs, nonzero h0 and dh_last, one channel
 whose dt + dt_bias passes the softplus threshold; K4's outputs the same
-bits run to run at the ragged shapes; the exact launch counts
+bits run to run at the ragged shapes; the other d_state the kernels are
+built for (8, 32, 64) and one they run padded (24), at layer 0's training
+shape and the edge cases; the exact launch counts
 of a SpatialNet chunk step (16 K3, no K4) and of an IPDnet2 train step (16
-K3 and 16 K4).
+K3 and 16 K4), also at ``attention="mamba(32,4)"``.
 
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips where there is no CUDA device; the file imports only torch and the
@@ -49,10 +51,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def inputs(batch, steps, dim, dtype, device, seed):
-    """The fused scan's inputs as IPDnet2's init gives them: dt_bias the
-    inverse softplus of a dt in [1e-3, 0.1] (channel 0 at 25, past the
-    threshold), A = -(1..16), D = 1; x, dt, B, C normal (dt at 0.5)."""
+def inputs(batch, steps, dim, dtype, device, seed, n=16):
+    """The fused scan's inputs as IPDnet2's init gives them at n states:
+    dt_bias the inverse softplus of a dt in [1e-3, 0.1] (channel 0 at 25,
+    past the threshold), A = -(1..n), D = 1; x, dt, B, C normal (dt at
+    0.5)."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
@@ -62,17 +65,17 @@ def inputs(batch, steps, dim, dtype, device, seed):
     dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
     dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
     dt_bias[0] = 25.0
-    a = -torch.arange(1, 17, dtype=torch.float32,
-                      device=device).expand(dim, 16).contiguous()
+    a = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device=device).expand(dim, n).contiguous()
     return {"x": randn(batch, steps, dim).to(dtype),
             "dt": randn(batch, steps, dim, scale=0.5).to(dtype),
             "dt_bias": dt_bias, "a": a,
-            "bm": randn(batch, steps, 16).to(dtype),
-            "c": randn(batch, steps, 16).to(dtype),
+            "bm": randn(batch, steps, n).to(dtype),
+            "c": randn(batch, steps, n).to(dtype),
             "d_skip": torch.ones(dim, device=device),
-            "h0": randn(batch, dim, 16, scale=0.5),
+            "h0": randn(batch, dim, n, scale=0.5),
             "dy": randn(batch, steps, dim),
-            "dh_last": randn(batch, dim, 16, scale=0.5)}
+            "dh_last": randn(batch, dim, n, scale=0.5)}
 
 
 ARGS = ("x", "dt", "dt_bias", "a", "bm", "c", "d_skip", "h0")
@@ -101,12 +104,9 @@ RAGGED = [(2, 17, 13), (2, 17, 40), (3, 33, 40), (4, 201, 13),
           (64, 201, 200)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_k3_and_k4_match_their_plain_versions(cuda, shape, dtype):
+def check_k3_k4(cuda, shape, dtype, n=16):
     batch, steps, dim = shape
-    x = inputs(batch, steps, dim, dtype, cuda, seed=batch + steps + dim)
+    x = inputs(batch, steps, dim, dtype, cuda, seed=batch + steps + dim, n=n)
     args = [x[k] for k in ARGS]
     before = (ssm_cuda.launches_ssm_fwd.value,
               ssm_cuda.launches_ssm_bwd.value)
@@ -127,14 +127,55 @@ def test_k3_and_k4_match_their_plain_versions(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k3_and_k4_match_their_plain_versions(cuda, shape, dtype):
+    check_k3_k4(cuda, shape, dtype)
+
+
+# the other d_state: layer 0's training shape, the edge cases and every
+# ragged shape; 24 runs padded to 32
+STATE_SHAPES = [(256, 201, 192), (3, 0, 192), (3, 1, 32), (13, 2, 32),
+                (5, 7, 192), (1, 9, 32)] + RAGGED
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [8, 24, 32, 64])
+@pytest.mark.parametrize("shape", STATE_SHAPES)
+def test_k3_and_k4_at_other_d_state(cuda, shape, dtype, n):
+    """The kernels built for n = 8, 32 and 64 (2, 8 and 16 lanes a channel,
+    64, 16 and 8 channels a block), and n = 24 padded to 32, against the
+    plain versions at n, at the tolerances above."""
+    check_k3_k4(cuda, shape, dtype, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 64])
+def test_k4_gives_the_same_bits_run_to_run_at_other_d_state(cuda, n):
+    x = inputs(64, 201, 200, torch.float32, cuda, seed=n, n=n)
+    args = [x[k] for k in ARGS] + [x["dy"], x["dh_last"]]
+    first = ssm_cuda.selective_scan_bwd(*args)
+    for _ in range(2):
+        for name, g, w in zip(GRADS, ssm_cuda.selective_scan_bwd(*args),
+                              first):
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = inputs(2, 3, 32, torch.float32, cuda, seed=0, n=72)
+    args = [x[k] for k in ARGS]
+    before = (ssm_cuda.launches_ssm_fwd.value,
+              ssm_cuda.launches_ssm_bwd.value)
+    with pytest.raises(ValueError, match="d_state"):
+        ssm_cuda.selective_scan_fwd(*args)
+    with pytest.raises(ValueError, match="d_state"):
+        ssm_cuda.selective_scan_bwd(*args, x["dy"], x["dh_last"])
+    assert (ssm_cuda.launches_ssm_fwd.value,
+            ssm_cuda.launches_ssm_bwd.value) == before
     x = inputs(2, 3, 32, torch.float32, cuda, seed=0)
     args = [x[k] for k in ARGS]
-    with pytest.raises(ValueError, match="d_state"):
-        ssm_cuda.selective_scan_fwd(
-            *args[:3], x["a"][:, :8].contiguous(),
-            x["bm"][..., :8].contiguous(), x["c"][..., :8].contiguous(),
-            x["d_skip"], x["h0"][..., :8].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         ssm_cuda.selective_scan_fwd(
             x["x"].transpose(0, 1).contiguous().transpose(0, 1), *args[1:])
@@ -191,6 +232,36 @@ def test_launches_of_a_chunk_step_and_a_train_step(cuda):
              "mic_pos": task.dpipd.mic_location[None].astype(np.float32)}
     tx = tstep.make_optimizer("adamw", 5e-4, 0.975, 1, grad_clip=5.0)
     st = tstep.init_train_state(model, tx)
+    for c in counters:
+        c.reset()
+    st, loss = tstep.make_train_step(task.loss_fn, tx)(st, batch)
+    torch.cuda.synchronize()
+    assert [c.value for c in counters] == [16, 16]
+    assert math.isfinite(float(loss))
+
+
+@pytest.mark.cuda
+def test_launches_of_a_train_step_at_d_state_32(cuda):
+    """A train step of make_ipdnet2_task at attention="mamba(32,4)" (nb 1
+    x 1 s): 16 K3 and 16 K4, the kernels built for n = 32."""
+    from fnssl_tpu_torch.models.spatialnet import SpatialNet, SpatialNetConfig
+    from fnssl_tpu_torch.train import step as tstep
+    from fnssl_tpu_torch.train.tasks import make_ipdnet2_task
+
+    cfg = SpatialNetConfig(attention="mamba(32,4)")
+    model = SpatialNet(cfg, device=cuda,
+                       generator=torch.Generator().manual_seed(0))
+    task = make_ipdnet2_task(cfg, device=cuda)
+    rng = np.random.default_rng(1)
+    batch = {"mic_sig": rng.standard_normal((1, 16000, 5)).astype(
+                 np.float32),
+             "azi_deg": rng.uniform(0, 360, (1, 10, 2)).astype(np.float32),
+             "distance": np.full((1, 10, 2), 1.5, np.float32),
+             "vad": np.ones((1, 10, 2), np.float32),
+             "mic_pos": task.dpipd.mic_location[None].astype(np.float32)}
+    tx = tstep.make_optimizer("adamw", 5e-4, 0.975, 1, grad_clip=5.0)
+    st = tstep.init_train_state(model, tx)
+    counters = (ssm_cuda.launches_ssm_fwd, ssm_cuda.launches_ssm_bwd)
     for c in counters:
         c.reset()
     st, loss = tstep.make_train_step(task.loss_fn, tx)(st, batch)

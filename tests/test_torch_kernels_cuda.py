@@ -1,8 +1,9 @@
 """The Hopper LSTM kernels (kernels/csrc/lstm_cluster.cu for H up to 256,
 kernels/csrc/lstm_wave.cu for large batches at H 256, kernels/csrc/
 lstm_fwd.cu above H 256, and the backward kernels/csrc/
-lstm_bwd_cluster.cu and, for large batches, kernels/csrc/
-lstm_bwd_wave.cu) against their plain version, on the card; the autograd
+lstm_bwd_cluster.cu, for large batches kernels/csrc/lstm_bwd_wave.cu, and
+above H 256 kernels/csrc/lstm_bwd_wide.cu) against their plain version, on
+the card; widths that are not a multiple of 32, padded; the autograd
 Function and one train step on the card.
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips where there is no CUDA device. The file imports only torch and the
@@ -140,13 +141,24 @@ def test_v2_kernel_above_256(cuda, dtype):
 
 @pytest.mark.cuda
 def test_unsupported_hidden_raises(cuda):
-    """H not a multiple of 32 is refused on the card, never run elsewhere;
-    so is a plan that does not fit."""
+    """H not a multiple of 32 (48) runs through the kernels padded to 64
+    and equals the plain version; H above 1024 is refused on the card,
+    never run elsewhere; so is a plan that does not fit."""
+    args = inputs((2,), 7, 13, 48, "float32", cuda, 3)
+    check_bidir(args, "float32")
+    for reverse in (False, True):
+        check_one(tuple(a[int(reverse)] for a in args), "float32", reverse)
+    bwd = bwd_inputs((2,), 7, 13, 48, "float32", cuda, 3)
+    check_bwd(lstm_cuda.lstm_bwd_bidir, lstm_cuda.lstm_bwd_bidir_plain, bwd,
+              "H 48", route=None)
+    check_bwd(lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_plain,
+              tuple(a[1] for a in bwd), "H 48 reverse", route=None,
+              reverse=True)
     before = (lstm_cuda.launches.value, lstm_cuda.launches_v2.value)
-    args = inputs((2,), 3, 4, 40, "float32", cuda)
-    with pytest.raises(ValueError, match="multiple of 32"):
+    args = inputs((2,), 3, 4, 1056, "float32", cuda)
+    with pytest.raises(ValueError, match="up to 1024"):
         lstm_cuda.lstm_fwd_bidir(*args)
-    with pytest.raises(ValueError, match="multiple of 32"):
+    with pytest.raises(ValueError, match="up to 1024"):
         lstm_cuda.lstm_fwd(*(a[0] for a in args))
     args = inputs((2,), 3, 4, 256, "float32", cuda)
     with pytest.raises(RuntimeError, match="lstm_cluster launch failed"):
@@ -622,15 +634,177 @@ def test_train_step_launch_counts(cuda):
 
 @pytest.mark.cuda
 def test_backward_above_256_is_refused(cuda):
-    """The CUDA backward serves H up to 256; a gradient through a wider
-    LSTM raises instead of running elsewhere."""
+    """The CUDA backward serves H up to 1024 (lstm_bwd_wide.cu above 256);
+    a wider one raises instead of running elsewhere, through both entry
+    points and through an LSTM layer, whose forward refuses it first."""
     from fnssl_tpu_torch.models.lstm import LSTM
 
-    layer = LSTM(4, 512, device=cuda)
-    out, _ = layer(torch.randn(2, 3, 4, device=cuda))
-    before = (lstm_cuda.launches_bwd_wave.value,
-              lstm_cuda.launches_bwd_cluster.value)
-    with pytest.raises(ValueError, match="up to 256"):
-        out.sum().backward()
-    assert (lstm_cuda.launches_bwd_wave.value,
-            lstm_cuda.launches_bwd_cluster.value) == before
+    counters = (lstm_cuda.launches_bwd_wave, lstm_cuda.launches_bwd_cluster,
+                lstm_cuda.launches_bwd_wide, lstm_cuda.launches_v2)
+    before = [c.value for c in counters]
+    args = bwd_inputs((2,), 3, 4, 1056, "float32", cuda)
+    with pytest.raises(ValueError, match="up to 1024"):
+        lstm_cuda.lstm_bwd_bidir(*args)
+    with pytest.raises(ValueError, match="up to 1024"):
+        lstm_cuda.lstm_bwd(*(a[0] for a in args))
+    layer = LSTM(4, 1056, device=cuda)
+    with pytest.raises(ValueError, match="up to 1024"):
+        layer(torch.randn(2, 3, 4, device=cuda))
+    assert [c.value for c in counters] == before
+
+
+# K2 above H = 256: kernels/csrc/lstm_bwd_wide.cu, which bwd_route gives
+# every H from 288 to 1024. Tolerance: BWD_TOL, as lstm_bwd_wave.cu's.
+
+
+def check_bwd_wide(args, what, plan=None, route="wide"):
+    """lstm_bwd_wide.cu through both entry points: both directions in one
+    launch, and each direction alone with its own walk."""
+    kw = {"counter": lstm_cuda.launches_bwd_wide, "plan": plan,
+          "route": route}
+    check_bwd(lstm_cuda.lstm_bwd_bidir, lstm_cuda.lstm_bwd_bidir_plain, args,
+              what, **kw)
+    for reverse in (False, True):
+        check_bwd(lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_plain,
+                  tuple(a[int(reverse)] for a in args), (what, reverse),
+                  reverse=reverse, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_wide_kernel_at_the_path_shape(cuda, dtype):
+    """FN-SSL's narrow band at hidden_size 512 in training (298, 4096,
+    512), on the kernel bwd_route gives it, with its rule's plan."""
+    args = bwd_inputs((1,), 298, 4096, 512, dtype, cuda, 5)
+    assert lstm_cuda.bwd_route(298, 4096, 512, 1, 4) == "wide"
+    check_bwd(lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_plain,
+              tuple(a[0] for a in args), "train narrow band H 512",
+              counter=lstm_cuda.launches_bwd_wide, route=None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden", [288, 384, 512, 768, 1024])
+def test_bwd_wide_kernel_edge_cases(cuda, dtype, hidden):
+    """lstm_bwd_wide.cu at ragged B (and one row past its largest tile at
+    this width), short T, both entry points, both walks, nonzero
+    c0/dhT/dcT; at H 768 and 1024 a lane owns two columns."""
+    seed = 200 + hidden
+    past = lstm_cuda.bwd_wide_tile(max(lstm_cuda.bwd_wide_plans(hidden))) + 1
+    for b in (1, 11, 13, 17, past):
+        for t_steps in (1, 2, 7):
+            seed += 1
+            check_bwd_wide(bwd_inputs((2,), t_steps, b, hidden, dtype, cuda,
+                                      seed), (hidden, b, t_steps), route=None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden", [288, 512, 544, 1024])
+def test_bwd_wide_every_plan_matches_plain(cuda, dtype, hidden):
+    """Every plan lstm_bwd_wide.cu takes gives the same answer, at a ragged
+    B of several tiles (544: 17 columns, the last warp's second one past
+    H)."""
+    args = bwd_inputs((2,), 9, 77, hidden, dtype, cuda, 3)
+    plans = lstm_cuda.bwd_wide_plans(hidden)
+    assert plans == ((4, 2, 1) if hidden <= 512 else (2, 1))
+    for plan in plans:
+        check_bwd_wide(args, (hidden, plan), plan=plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_wide_gives_the_same_bits_run_to_run(cuda, dtype):
+    """No atomics: the same inputs give the same dgates, dh0 and dc0 bits
+    on every launch, at a ragged B of several tiles."""
+    args = bwd_inputs((2,), 11, 4099, 512, dtype, cuda, 7)
+    outs = [lstm_cuda.lstm_bwd_bidir(args[0].clone(), *args[1:])
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        for got, want in zip(out, outs[0]):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_bwd_wide_refuses_what_it_does_not_take(cuda):
+    """A plan lstm_bwd_wide.cu is not built for raises, and so does a route
+    of another source above H = 256 or of this one below; none runs
+    another way or counts a launch."""
+    counters = (lstm_cuda.launches_bwd_wave, lstm_cuda.launches_bwd_cluster,
+                lstm_cuda.launches_bwd_wide)
+    before = [c.value for c in counters]
+    args = bwd_inputs((2,), 3, 4, 768, "float32", cuda)
+    with pytest.raises(RuntimeError, match="lstm_bwd_wide launch failed"):
+        lstm_cuda.lstm_bwd_bidir(*args, plan=4)       # two columns a lane
+    with pytest.raises(RuntimeError, match="lstm_bwd_wide launch failed"):
+        lstm_cuda.lstm_bwd_bidir(*args, plan=3)
+    for route in ("wave", "cluster"):
+        with pytest.raises(ValueError, match="no route"):
+            lstm_cuda.lstm_bwd_bidir(*args, route=route)
+    args = bwd_inputs((2,), 3, 4, 256, "float32", cuda)
+    with pytest.raises(ValueError, match="no route"):
+        lstm_cuda.lstm_bwd_bidir(*args, route="wide")
+    assert [c.value for c in counters] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [48, 512])
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_wide_and_padded_lstm_function_on_card_matches_cpu(cuda, hidden,
+                                                          bidirectional):
+    """models.lstm's autograd Function at H 512 (K1 on lstm_fwd.cu, K2 on
+    lstm_bwd_wide.cu) and at H 48 (both padded to 64, on the cluster
+    kernels) against the plain versions on the CPU, values and every
+    gradient within 1e-4 of their largest magnitude (at least 1e-4)."""
+    from fnssl_tpu_torch.models.lstm import lstm
+
+    ndir = 2 if bidirectional else 1
+    want_launches = ({"launches_v2": ndir, "launches_bwd_wide": 1}
+                     if hidden == 512 else
+                     {"launches": 1, "launches_bwd_cluster": 1})
+    counters = ("launches", "launches_v2", "launches_bwd_cluster",
+                "launches_bwd_wave", "launches_bwd_wide")
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        params, x, state, wy = lstm_case(device, bidirectional, seed=1,
+                                         h=hidden)
+        before = {c: getattr(lstm_cuda, c).value for c in counters}
+        out, st = lstm(params, x, state, bidirectional)
+        ((out * wy).sum() + st.h.sum() + (st.c * 0.5).sum()).backward()
+        moved = {c: getattr(lstm_cuda, c).value - before[c]
+                 for c in counters}
+        assert {c: n for c, n in moved.items() if n} == (
+            want_launches if device.type == "cuda" else {})
+        results.append([out, st.h, st.c, x.grad, state.h.grad, state.c.grad]
+                       + [p.grad for p in params.values()])
+    for got, want in zip(*results):
+        err = (got.cpu() - want).abs().max().item()
+        assert err <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_train_step_launch_counts_at_hidden_512(cuda):
+    """One train step of FN-SSL at hidden_size 512 (full-band H 256 both
+    directions, narrow-band H 512; nb 1 x 0.4 s): 3 K1 on lstm_cluster.cu
+    and 3 on lstm_fwd.cu, 3 K2 on lstm_bwd_cluster.cu and 3 on
+    lstm_bwd_wide.cu."""
+    from fnssl_tpu_torch.models.fnssl import FNSSL, FNSSLConfig
+    from fnssl_tpu_torch.train import step, tasks
+
+    cfg = FNSSLConfig(hidden_size=512)
+    model = FNSSL(cfg, device=cuda,
+                  generator=torch.Generator().manual_seed(0))
+    tx = step.make_optimizer("adam", 1e-3, 0.8988, 1)
+    state = step.init_train_state(model, tx)
+    train = step.make_train_step(tasks.make_fnssl_task(cfg).loss_fn, tx)
+    batch = tasks.synthetic_fnssl_batch(nb=1, t_s=0.4, seed=1)
+    counters = (lstm_cuda.launches, lstm_cuda.launches_v2,
+                lstm_cuda.launches_bwd_wave, lstm_cuda.launches_bwd_cluster,
+                lstm_cuda.launches_bwd_wide)
+    before = [c.value for c in counters]
+    state, loss = train(state, batch,
+                        torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    assert [c.value - b for c, b in zip(counters, before)] == [3, 3, 0, 3, 3]
+    assert state.step == 1 and torch.isfinite(loss)
