@@ -6,18 +6,18 @@
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device  — the card's name and power limit (nvidia-smi); no CUDA, no run.
   2. build   — nvcc builds every kernel from the sources in the checkout
-               (lstm_cluster.cu, lstm_wave.cu, lstm_fwd.cu,
+               (lstm_cluster.cu, lstm_wave.cu, lstm_wide.cu,
                lstm_bwd_cluster.cu, lstm_bwd_wave.cu, lstm_bwd_wide.cu,
                ssm_scan.cu), one nvcc per source, all started together.
   3. kernels — each kernel against its plain PyTorch version on the card:
                K1 through lstm_fwd (both directions) and lstm_fwd_bidir,
                each call on the kernel lstm_cuda.fwd_route gives its shape
                (lstm_cluster.cu, lstm_wave.cu from the rule's rows at H =
-               256, lstm_fwd.cu above H = 256), with exact launches, at
+               256, lstm_wide.cu above H = 256), with exact launches, at
                the main path's shapes, at the 16-slot tick's (FN-SSL's and
                IPDnet's, phase 24) and at edge cases (B 1/11/13/17, T
                0/1/2/7, H 32/64/128/256), fp32 and bf16, nonzero h0/c0;
-               lstm_fwd.cu at H = 512; an LSTM of H 48, padded to 64
+               lstm_wide.cu at (5, 13, 512); an LSTM of H 48, padded to 64
                (lstm_cluster.cu). lstm_wave.cu also
                at FN-SSL's narrow band in training (298, 4096, 256), in
                the 16-slot tick (12, 4096, 256) and in a DP rank's step
@@ -33,7 +33,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
                are checked.
   5. times   — each kernel at the main path's shapes (CUDA events, warm):
                the kernel the rule gives each shape, and each of
-               lstm_cluster.cu, lstm_wave.cu and lstm_fwd.cu, one direction
+               lstm_cluster.cu and lstm_wave.cu, one direction
                and, at full band, both in one launch; the plain version;
                the bound; and torch.nn.LSTM (cuDNN, one- and
                bidirectional, TF32 off, the port's float32, and on) as the
@@ -41,7 +41,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
                cluster plan (N, Bt, KS) that fits at FN-SSL's and IPDnet's
                serve shapes. Then lstm_wave.cu at FN-SSL's narrow band in
                training and in the 16-slot tick beside lstm_cluster.cu,
-               lstm_fwd.cu, the bound and cuDNN (TF32 off and on), the
+               the bound and cuDNN (TF32 off and on), the
                card's time from a trace (fails unless lstm_wave.cu is the
                faster of the two there; also at a DP rank's narrow band,
                (298, 2048, 256)); and the sweep that sets the
@@ -67,7 +67,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
                largest tile, T 1/2/7, and with every plan at H
                288/512/544/1024 (T 7, B 77); H 48 padded to 64; and K1 at
                the training and rank shapes (FN-SSL's at hidden 512 too),
-               which phase 3 never reaches. Then the refusals: K1 and K2
+               which phase 3 never reaches, with lstm_wide.cu (H above 256)
+               also at H 288/384/512/768/1024 at B 1/11/13/17 and one row
+               past its largest tile, T 0/1/2/7, and with every tile at H
+               288/512/544/1024 (T 7, B 77). Then the refusals: K1 and K2
                at H 1056, K3 and K4 at d_state 72 raise and launch
                nothing.
   7. train parity — one make_train_step step (fp32, dropout off, nb=2 x
@@ -97,10 +100,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
                directions x fp32/bf16 (fails where the rule routes a point
                to lstm_bwd_wave.cu that measured slower). Then K1 and K2 at
                FN-SSL's hidden-512 shapes, (298, 4096, 512) and (256, 4768,
-               256, both), and at lstm_fwd.cu's check case (5, 13, 512),
+               256, both), and at K1's small-B check case (5, 13, 512),
                each on its rule's kernel: the card's time from a trace,
                the bound, the plain version, cuDNN's forward and backward
-               (TF32 off and on) and the port's whole LSTM backward.
+               (fp32 with TF32 off and on, bf16) and the port's whole LSTM
+               backward.
  10. fit     — the user's loop through the CLI (`main()` in this process)
                on cuda:0 at full width: `simulate` 96 train scenes
                (wav+pickle) and 8 dev scenes (compact npz) of 4.79 s;
@@ -115,7 +119,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
                between lstm_cluster.cu and lstm_wave.cu as the rule gives
                the batch's shapes, K2 between lstm_bwd_cluster.cu and
                lstm_bwd_wave.cu as bwd_route gives them; 6 K1 of
-               lstm_cluster.cu a serve chunk step; none of lstm_fwd.cu).
+               lstm_cluster.cu a serve chunk step; none of lstm_wide.cu).
                Printed: the simulate seconds a scene and its engine, train
                seconds, the wait for the first batch and the loader wait
                after it a fit epoch, ms a train step after the warm epoch's
@@ -291,10 +295,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
                published (narrow-band LSTMs of H 512, full-band BiLSTMs of
                H 256): one fp32 train step (nb 1 x 2 s, dropout off) on the
                card against the CPU at phase 7's tolerances (3 K1 of
-               lstm_cluster.cu and 3 of lstm_fwd.cu, 3 K2 of
+               lstm_cluster.cu and 3 of lstm_wide.cu, 3 K2 of
                lstm_bwd_cluster.cu and 3 of lstm_bwd_wide.cu); the cell nb
                16 x 4.79 s, fp32 then bf16, 1 warm + 3 timed steps (ms mean
-               and p90, peak memory, exactly 3 K1 of lstm_fwd.cu and 3 of
+               and p90, peak memory, exactly 3 K1 of lstm_wide.cu and 3 of
                lstm_wave.cu, 3 K2 of lstm_bwd_wide.cu and 3 of
                lstm_bwd_wave.cu a step) and one traced step of each (K1's
                and K2's device ms, busy time, idle share).
@@ -349,7 +353,7 @@ SHAPES = [("serve_fullband", 256, 12, 128, 256, 2),
           ("oneshot_narrowband", 298, 256, 256, 256, 1)]
 # recurrences of each shape in one online chunk step (3 FN blocks): a
 # BiLSTM over frequency (both directions in one launch of the cluster
-# kernel, two of lstm_fwd.cu) and a one-direction LSTM over time
+# kernel) and a one-direction LSTM over time
 PER_CHUNK = {"serve_fullband": 3, "serve_narrowband": 3}
 LAUNCHES_PER_CHUNK = 6
 # launches a serve chunk step by model, in COUNTED's order: K1 for FN-SSL's
@@ -359,7 +363,7 @@ CHUNK_LAUNCHES = {"fnssl": [LAUNCHES_PER_CHUNK, 0, 0, 0, 0, 0, 0, 0],
                   "ipdnet2": [0, 0, 0, 0, 16, 0, 0, 0]}
 SERVE_NCH = {"ipdnet2": 5}              # channels a connection, else 2
 EDGE_B, EDGE_T, EDGE_H = (1, 11, 13, 17), (0, 1, 2, 7), (32, 64, 128, 256)
-V2_CASE = (5, 13, 512)                  # (T, B, H): lstm_fwd.cu serves H > 256
+V2_CASE = (5, 13, 512)                  # (T, B, H): K1 above H = 256, small B
 # training: the JAX package's reference cell (bench.py:96-135), nb scenes
 # of 4.79 s (298 frames, 256 bins); the parity step runs nb=2
 TRAIN_NB, TRAIN_T_S, PARITY_NB, TIMED_STEPS = 16, 4.79, 2, 5
@@ -455,11 +459,7 @@ def k1_checks(name, t, b, h, dtype, device, seed, worst, route=None,
     both = lstm_inputs(t, b, h, getattr(torch, dtype), device, seed, ndir=2)
     errs, kernels = [], []
     for ndir, calls in ((1, (False, True)), (2, (None,))):
-        kernel, counter, per = k1_route(t, b, h, ndir, itemsize)
-        if route is not None:
-            kernel, counter, per = {"wave": ("lstm_wave", L.launches_wave, 1),
-                                    "cluster": ("lstm_cluster", L.launches,
-                                                1)}[route]
+        kernel, counter, per = k1_route(t, b, h, ndir, itemsize, route)
         kernels.append(kernel)
         for reverse in calls:
             if reverse is None:
@@ -484,7 +484,7 @@ def phase_kernels(device, extra=()):
     kernel fwd_route gives it; then lstm_wave.cu (`wave_checks`). Returns
     the worst errors by kernel and dtype."""
     worst = {k: {"float32": 0.0, "bfloat16": 0.0, "bfloat16_ys": 0.0}
-             for k in ("lstm_cluster", "lstm_wave", "lstm_fwd")}
+             for k in ("lstm_cluster", "lstm_wave", "lstm_wide")}
     cases = [(n, t, b, h) for n, t, b, h, _, _ in
              SHAPES + SLOT_SHAPES + list(extra)]
     cases += [("edge", t, b, h) for h in EDGE_H for b in EDGE_B
@@ -895,8 +895,8 @@ def library_lstm(i, h, w_hh_t, bidirectional, device):
 
 def phase_times(device, shapes=SHAPES):
     """K1 at `shapes` (forward only): the kernel fwd_route gives each
-    shape ("ms", what the path runs) and each of lstm_cluster.cu,
-    lstm_wave.cu and lstm_fwd.cu, one direction; a BiLSTM (ndir 2) also
+    shape ("ms", what the path runs) and each of lstm_cluster.cu and
+    lstm_wave.cu, one direction; a BiLSTM (ndir 2) also
     with both directions in one launch; the plain version, the bound and
     cuDNN with TF32 off and on."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
@@ -915,7 +915,7 @@ def phase_times(device, shapes=SHAPES):
             both = lstm_inputs(t, b, h, getattr(torch, dtype), device, 7,
                                ndir=2)
             one = tuple(a[0] for a in both)
-            for route in ("cluster", "wave", "v2"):
+            for route in ("cluster", "wave"):
                 row[f"{route}_ms_{dtype}"] = cuda_ms(
                     lambda: L.lstm_fwd(*one, route=route), 20)
             row[f"ms_{dtype}"] = row[f"{row['route']}_ms_{dtype}"]
@@ -965,9 +965,7 @@ def phase_times(device, shapes=SHAPES):
             f"{row['cluster_ms_float32']:.4f}, bf16 "
             f"{row['cluster_ms_bfloat16']:.4f}; lstm_wave.cu (plan "
             f"{row['wave_plan']}) fp32 {row['wave_ms_float32']:.4f}, bf16 "
-            f"{row['wave_ms_bfloat16']:.4f}; lstm_fwd.cu fp32 "
-            f"{row['v2_ms_float32']:.4f}, bf16 {row['v2_ms_bfloat16']:.4f};"
-            f" bound fp32 {row['bound_ms_float32']:.5f} "
+            f"{row['wave_ms_bfloat16']:.4f}; bound fp32 {row['bound_ms_float32']:.5f} "
             f"({row['bound_by_float32']}); plain {row['plain_ms']:.3f}; "
             f"nn.LSTM (cuDNN, I={i}) TF32 off {row['library_ms']:.4f}, on "
             f"{row['library_ms_tf32']:.4f} ms")
@@ -1105,8 +1103,8 @@ def phase_wave_sweep(device):
 
 
 def phase_wave_times(device):
-    """lstm_wave.cu at WAVE_TARGETS beside lstm_cluster.cu, lstm_fwd.cu,
-    the plain version, the bound and cuDNN (TF32 off and on), the card's
+    """lstm_wave.cu at WAVE_TARGETS beside lstm_cluster.cu, the plain
+    version, the bound and cuDNN (TF32 off and on), the card's
     time of a launch of ndir directions from a device trace (device_ms),
     fp32 and bf16. Fails unless fwd_route gives each target to
     lstm_wave.cu in float32, and lstm_wave.cu is the faster of it and
@@ -1127,7 +1125,7 @@ def phase_wave_times(device):
             args = lstm_inputs(t, b, h, tdt, device, 13, ndir=ndir)
             if ndir == 1:
                 args = tuple(a[0] for a in args)
-            for route in ("cluster", "wave", "v2"):
+            for route in ("cluster", "wave"):
                 row[f"{route}_ms_{dtype}"] = device_ms(
                     lambda: fn(*args, route=route), iters)
             row[f"bound_ms_{dtype}"], row[f"bound_by_{dtype}"] = bound(
@@ -1155,8 +1153,7 @@ def phase_wave_times(device):
             f"fp32 {row['wave_ms_float32']:.4f}, bf16 "
             f"{row['wave_ms_bfloat16']:.4f}; lstm_cluster.cu fp32 "
             f"{row['cluster_ms_float32']:.4f}, bf16 "
-            f"{row['cluster_ms_bfloat16']:.4f}; lstm_fwd.cu fp32 "
-            f"{row['v2_ms_float32']:.4f}, bf16 {row['v2_ms_bfloat16']:.4f}; "
+            f"{row['cluster_ms_bfloat16']:.4f}; "
             f"bound {row['bound_ms_float32']:.4f} "
             f"({row['bound_by_float32']}); plain {row['plain_ms']:.2f}; "
             f"nn.LSTM (cuDNN) TF32 off {row['library_ms']:.4f}, on "
@@ -1338,7 +1335,39 @@ def phase_backward(device, worst, shapes):
                 + "/".join(f"{e['ys']:.2e}" for e in errs)
                 + " hT,cT " + "/".join(f"{max(e['hT'], e['cT']):.2e}"
                                        for e in errs))
+    log(f"  K1 above H = 256: {wide_k1_checks(device, worst, seed)} checks "
+        f"of lstm_wide.cu at H {WIDE_EDGE_H} (B {EDGE_B} and one row past "
+        f"its largest tile, T {EDGE_T}) and every tile at H {WIDE_PLAN_H}; "
+        f"worst {json.dumps(worst['lstm_wide'])}")
     return worst_bwd, checks
+
+
+def wide_k1_checks(device, worst, seed):
+    """lstm_wide.cu against the plain versions beyond the rule's calls at
+    the wide training shapes: WIDE_EDGE_H at B 1/11/13/17 and one row past
+    its largest tile, T 0/1/2/7, through the rule; every tile it takes at
+    WIDE_PLAN_H (T 7, B 77); fp32 and bf16, nonzero h0/c0. Returns the
+    checks."""
+    from fnssl_tpu_torch.kernels import lstm_cuda as L
+
+    checks = 0
+    for h in WIDE_EDGE_H:
+        past = max(r for r in L.WIDE_ROWS if L.wide_fits(h, r)) + 1
+        for b in EDGE_B + (past,):
+            for t in EDGE_T:
+                for dtype in ("float32", "bfloat16"):
+                    seed += 1
+                    k1_checks("wide edge", t, b, h, dtype, device, seed,
+                              worst)
+                    checks += 3
+    for h in WIDE_PLAN_H:
+        for plan in (r for r in L.WIDE_ROWS if L.wide_fits(h, r)):
+            for dtype in ("float32", "bfloat16"):
+                seed += 1
+                k1_checks(f"wide plan {plan}", 7, 77, h, dtype, device, seed,
+                          worst, route="wide", plan=plan)
+                checks += 3
+    return checks
 
 
 def train_setup(seed, device, nb, precision="fp32", hidden=256,
@@ -1361,10 +1390,10 @@ def train_setup(seed, device, nb, precision="fp32", hidden=256,
     return S.init_train_state(model, tx), step, batch
 
 
-COUNTED = ("lstm_cluster", "lstm_fwd", "lstm_bwd_wave", "lstm_bwd_cluster",
+COUNTED = ("lstm_cluster", "lstm_wide", "lstm_bwd_wave", "lstm_bwd_cluster",
            "ssm_scan_fwd", "ssm_scan_bwd", "lstm_wave", "lstm_bwd_wide")
 # their kernels' names in a device trace, in the same order
-TRACED = ("lstm_cluster_kernel", "lstm_fwd_kernel", "lstm_bwd_wave_kernel",
+TRACED = ("lstm_cluster_kernel", "lstm_wide_kernel", "lstm_bwd_wave_kernel",
           "lstm_bwd_cluster_kernel", "selective_fwd_kernel",
           "selective_bwd_kernel", "lstm_wave_kernel", "lstm_bwd_wide_kernel")
 TRACE_GUARD = 2048
@@ -1387,21 +1416,21 @@ def launch_counters():
     from fnssl_tpu_torch.kernels import lstm_cuda as L
     from fnssl_tpu_torch.kernels import ssm_cuda as S
 
-    return (L.launches, L.launches_v2, L.launches_bwd_wave,
+    return (L.launches, L.launches_wide, L.launches_bwd_wave,
             L.launches_bwd_cluster, S.launches_ssm_fwd, S.launches_ssm_bwd,
             L.launches_wave, L.launches_bwd_wide)
 
 
-def k1_route(t_steps, batch, hidden, ndir, itemsize):
+def k1_route(t_steps, batch, hidden, ndir, itemsize, route=None):
     """(name in COUNTED, launch counter, launches a call) of the K1 kernel
     that lstm_cuda.fwd_route gives a call of `ndir` directions at this
-    shape (lstm_fwd.cu takes one launch a direction)."""
+    shape (one launch a call), or of `route`."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
 
-    route = L.fwd_route(t_steps, batch, hidden, ndir, itemsize)
+    route = route or L.fwd_route(t_steps, batch, hidden, ndir, itemsize)
     return {"cluster": ("lstm_cluster", L.launches, 1),
             "wave": ("lstm_wave", L.launches_wave, 1),
-            "v2": ("lstm_fwd", L.launches_v2, ndir)}[route]
+            "wide": ("lstm_wide", L.launches_wide, 1)}[route]
 
 
 def k1_split(recurrences, itemsize=4):
@@ -1662,9 +1691,6 @@ def phase_train_times(device, shapes=TRAIN_SHAPES, k2_turns=True):
             row[f"k1_bound_terms_{dtype}"] = terms
             if dtype == "float32":
                 row["k1_plain_ms"] = cuda_ms(lambda: k1_plain(*args), 1)
-                one = tuple(a[0] for a in args) if bidir else args
-                row["v2_ms"] = ndir * cuda_ms(
-                    lambda: L.lstm_fwd(*one, route="v2"), 3)
             # K2 rewrites g in place: each timed launch starts from the last
             # one's dgates, which costs the same work
             args = bwd_inputs((ndir,), t, b, h, tdt, device, 8)
@@ -1718,8 +1744,7 @@ def phase_train_times(device, shapes=TRAIN_SHAPES, k2_turns=True):
             f"({row['k1_route']}) fp32 {row['k1_ms_float32']:.3f} ms, bf16 "
             f"{row['k1_ms_bfloat16']:.3f} (lstm_cluster.cu "
             f"{row['k1_cluster_ms_float32']:.3f}, lstm_wave.cu "
-            f"{row['k1_wave_ms_float32']:.3f}, lstm_fwd.cu "
-            f"{row['v2_ms']:.3f}; bound "
+            f"{row['k1_wave_ms_float32']:.3f}; bound "
             f"{bound(row['k1_bound_terms_float32'])[0]:.3f}, plain "
             f"{row['k1_plain_ms']:.1f}, cuDNN fwd TF32 off "
             f"{row['library_fwd_ms']:.3f}, on "
@@ -1870,10 +1895,10 @@ def phase_bwd_sweep(device):
 
 
 # FN-SSL at FNSSLConfig(hidden_size=512), every other width published:
-# narrow-band LSTMs of H 512 (K1 on lstm_fwd.cu, K2 on lstm_bwd_wide.cu) and
+# narrow-band LSTMs of H 512 (K1 on lstm_wide.cu, K2 on lstm_bwd_wide.cu) and
 # full-band BiLSTMs of H 256 (T 256). (name, T, B, H, I, ndir) of one train
 # step's recurrences at nb 16 (I: the input width the cuDNN yardstick and
-# the whole LSTM backward are timed with), and lstm_fwd.cu's check case
+# the whole LSTM backward are timed with), and K1's small-B check case
 WIDE_HIDDEN, WIDE_NB, WIDE_STEPS = 512, 16, 3
 WIDE_TRAIN_SHAPES = [
     ("wide_fullband", 256, WIDE_NB * 298, WIDE_HIDDEN // 2, WIDE_HIDDEN, 2),
@@ -1947,13 +1972,45 @@ def refusals(device):
     return [c[0] for c in calls]
 
 
+def library_times(i, h, bidir, x, gy, iters):
+    """nn.LSTM (cuDNN; the yardstick, never called by the port) at input
+    x and output gradient gy: its forward alone under no_grad and its
+    backward (forward+backward less forward), CUDA events, in fp32 with
+    TF32 off ("library_fwd_ms", "library_bwd_ms") and on ("_tf32"), and
+    with bf16 weights and inputs ("_bf16"; None where cuDNN refuses it)."""
+    out = {}
+    ref = torch.nn.LSTM(i, h, batch_first=True,
+                        bidirectional=bidir).to(x.device)
+    for tf32 in LIBRARY_TF32:
+        with library_flags(tf32):
+            with torch.no_grad():
+                out[library_key("library_fwd_ms", tf32)] = cuda_ms(
+                    lambda: ref(x), iters)
+            fwd_grad = cuda_ms(lambda: ref(x), iters)
+            both = cuda_ms(lambda: torch.autograd.backward(ref(x)[0], gy),
+                           iters)
+        out[library_key("library_bwd_ms", tf32)] = both - fwd_grad
+    ref, xb, gb = ref.bfloat16(), x.bfloat16(), gy.bfloat16()
+    try:
+        with torch.no_grad():
+            out["library_fwd_ms_bf16"] = cuda_ms(lambda: ref(xb), iters)
+        fwd_grad = cuda_ms(lambda: ref(xb), iters)
+        both = cuda_ms(lambda: torch.autograd.backward(ref(xb)[0], gb),
+                       iters)
+        out["library_bwd_ms_bf16"] = both - fwd_grad
+    except RuntimeError as e:
+        log(f"  nn.LSTM in bf16 refused: {e}")
+        out["library_fwd_ms_bf16"] = out["library_bwd_ms_bf16"] = None
+    return out
+
+
 def phase_wide_times(device, shapes=WIDE_TIMED_SHAPES):
     """K1 and K2 at `shapes` (FN-SSL's recurrences at hidden_size 512 and
-    lstm_fwd.cu's check case), each on the kernel its rule gives it, fp32
-    and bf16: the card's time of a launch from a trace (device_ms), the
-    bound, the plain version (fp32), cuDNN's forward and backward
-    (forward+backward less forward) with TF32 off and on, and the port's
-    whole LSTM backward."""
+    K1's small-B check case above H = 256), each on the kernel its rule
+    gives it, fp32 and bf16: the card's time of a launch from a trace
+    (device_ms), the bound, the plain version (fp32), cuDNN's forward and
+    backward (`library_times`: fp32 with TF32 off and on, bf16), and the
+    port's whole LSTM backward."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
     from fnssl_tpu_torch.models.lstm import lstm
 
@@ -1995,18 +2052,8 @@ def phase_wide_times(device, shapes=WIDE_TIMED_SHAPES):
         row["port_bwd_ms"] = cuda_ms(lambda: torch.autograd.backward(
             [out], [gy], retain_graph=True), 3)
         del out, params
-        ref = torch.nn.LSTM(i, h, batch_first=True,
-                            bidirectional=bidir).to(device)
-        for tf32 in LIBRARY_TF32:
-            with library_flags(tf32):
-                with torch.no_grad():
-                    row[library_key("library_fwd_ms", tf32)] = cuda_ms(
-                        lambda: ref(x), 3)
-                fwd_grad = cuda_ms(lambda: ref(x), 3)
-                both = cuda_ms(lambda: torch.autograd.backward(ref(x)[0],
-                                                               gy), 3)
-            row[library_key("library_bwd_ms", tf32)] = both - fwd_grad
-        del ref, x, gy
+        row.update(library_times(i, h, bidir, x, gy, 3))
+        del x, gy
         torch.cuda.empty_cache()
         for k in ("k1", "k2"):
             row[f"{k}_bound_ms"], row[f"{k}_bound_by"] = bound(
@@ -2017,13 +2064,15 @@ def phase_wide_times(device, shapes=WIDE_TIMED_SHAPES):
             f" bf16 {row['k1_ms_bfloat16']:.3f} (bound "
             f"{row['k1_bound_ms']:.3f} {row['k1_bound_by']}, plain "
             f"{row['k1_plain_ms']:.1f}, cuDNN fwd TF32 off "
-            f"{row['library_fwd_ms']:.3f}, on {row['library_fwd_ms_tf32']:.3f})"
+            f"{row['library_fwd_ms']:.3f}, on {row['library_fwd_ms_tf32']:.3f}"
+            f", bf16 {row['library_fwd_ms_bf16']})"
             f"; K2 ({row['k2_route_float32']}/{row['k2_route_bfloat16']}) "
             f"fp32 {row['k2_ms_float32']:.3f} ms, bf16 "
             f"{row['k2_ms_bfloat16']:.3f} (bound {row['k2_bound_ms']:.3f} "
             f"{row['k2_bound_by']}, plain {row['k2_plain_ms']:.1f}, cuDNN bwd "
             f"TF32 off {row['library_bwd_ms']:.3f}, on "
-            f"{row['library_bwd_ms_tf32']:.3f}); whole LSTM backward "
+            f"{row['library_bwd_ms_tf32']:.3f}, bf16 "
+            f"{row['library_bwd_ms_bf16']}); whole LSTM backward "
             f"{row['port_bwd_ms']:.3f}")
     return rows
 
@@ -2034,7 +2083,7 @@ def phase_wide_train(seed, device):
     the CPU at phase 7's tolerances, its launches as the rules split them;
     then the cell nb WIDE_NB x 4.79 s, fp32 then bf16, 1 warm +
     WIDE_STEPS timed steps each (ms mean and p90, peak memory, exact
-    launches: 3 K1 on lstm_fwd.cu and 3 on lstm_wave.cu, 3 K2 on
+    launches: 3 K1 on lstm_wide.cu and 3 on lstm_wave.cu, 3 K2 on
     lstm_bwd_wide.cu and 3 on lstm_bwd_wave.cu a step), and one traced
     step of each (K1's and K2's device ms, busy time, idle share)."""
     setup = functools.partial(train_setup, seed, nb=WIDE_PARITY_NB,
@@ -2564,7 +2613,7 @@ def phase_ipdnet_parity(seed, device):
     return out
 
 
-KERNEL_GROUPS = (("K1", ("lstm_cluster", "lstm_wave", "lstm_fwd_kernel")),
+KERNEL_GROUPS = (("K1", ("lstm_cluster", "lstm_wave", "lstm_wide_kernel")),
                  ("K2", ("lstm_bwd_cluster", "lstm_bwd_wave",
                          "lstm_bwd_wide")),
                  ("K3", ("selective_fwd_kernel",)),
@@ -5045,7 +5094,7 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    reports = cuda_build.build(["lstm_cluster", "lstm_wave", "lstm_fwd",
+    reports = cuda_build.build(["lstm_cluster", "lstm_wave", "lstm_wide",
                                 "lstm_bwd_cluster", "lstm_bwd_wave",
                                 "lstm_bwd_wide", "ssm_scan"])
     log(f"[build] {time.perf_counter() - t0:.1f} s")
@@ -5082,8 +5131,7 @@ def main():
         "fp32")
     plans = phase_plans(device, SHAPES[:2] + IPD_FWD_SHAPES[:2])
     log("[wave] lstm_wave.cu at FN-SSL's narrow band beside lstm_cluster.cu, "
-        "lstm_fwd.cu, the bound and cuDNN (TF32 off and on), the card's time "
-        "from a trace")
+        "the bound and cuDNN (TF32 off and on), the card's time from a trace")
     wave_rows = phase_wave_times(device)
     log(f"[wave sweep] lstm_wave.cu against lstm_cluster.cu: B {SWEEP_B} x H "
         f"{SWEEP_H} x 1-2 directions x fp32/bf16 x T {SWEEP_T}")
@@ -5111,8 +5159,9 @@ def main():
         "x fp32/bf16")
     bwd_sweep, bwd_measured = phase_bwd_sweep(device)
     log(f"[wide times] K1 and K2 at FN-SSL's hidden_size {WIDE_HIDDEN} "
-        "shapes and lstm_fwd.cu's check case: the card's time from a trace, "
-        "bound, plain, cuDNN (TF32 off and on)")
+        "shapes and K1's small-B check case above H = 256: the card's time "
+        "from a trace, bound, plain, cuDNN (fp32 with TF32 off and on, and "
+        "bf16)")
     wide_rows = phase_wide_times(device)
 
     # 10. the user's training loop through the CLI
@@ -5253,7 +5302,7 @@ def main():
         "K3/K4 at its scan shapes")
     d32_report, d32_launches = phase_ipdnet2_d32(args.seed, device)
 
-    # lstm_fwd.cu's and lstm_bwd_wide.cu's work in one train step of FN-SSL
+    # lstm_wide.cu's and lstm_bwd_wide.cu's work in one train step of FN-SSL
     # at hidden_size 512, nb 16, fp32: the 3 narrow-band LSTMs (298, 4096,
     # 512) their rules give them
     wide = {r["shape"]: r for r in wide_rows}
@@ -5271,6 +5320,8 @@ def main():
                 "bound_ms": b[0], "bound_by": b[1],
                 "library_ms": 3 * wn[library],
                 "library_tf32_ms": 3 * wn[f"{library}_tf32"],
+                "library_bf16_ms": (None if wn[f"{library}_bf16"] is None
+                                    else 3 * wn[f"{library}_bf16"]),
                 "work": f"the 3 launches of one FN-SSL train step at "
                         f"hidden_size {WIDE_HIDDEN}, nb={WIDE_NB}, fp32, that "
                         f"the rule gives this kernel: 3 x (T={wn['T']}, "
@@ -5279,7 +5330,8 @@ def main():
                         "bf16); library_ms is nn.LSTM (cuDNN) on the same "
                         "shapes with TF32 off (the port's float32; the "
                         "backward: forward+backward less forward), "
-                        "library_tf32_ms with it on"}
+                        "library_tf32_ms with it on, library_bf16_ms in "
+                        "bf16 (null where cuDNN refused it)"}
 
     def wide_case(k, library):
         v = wide["v2_case"]
@@ -5288,7 +5340,8 @@ def main():
                 "plain_ms": v[f"{k}_plain_ms"],
                 "bound_ms": v[f"{k}_bound_ms"],
                 "bound_by": v[f"{k}_bound_by"], "library_ms": v[library],
-                "library_tf32_ms": v[f"{library}_tf32"]}
+                "library_tf32_ms": v[f"{library}_tf32"],
+                "library_bf16_ms": v[f"{library}_bf16"]}
 
     # each kernel's work in one online chunk step, fp32: 3 BiLSTMs over
     # frequency and 3 LSTMs over time
@@ -5439,22 +5492,15 @@ def main():
             for (h, i), n in L.WAVE_MIN_ROWS.items()},
         "sweep": sweep_rows, "sweep_thresholds": sweep_measured,
     }, {
-        "name": "lstm_fwd", "route": "cuda",
-        "source": "fnssl_tpu_torch/kernels/csrc/lstm_fwd.cu",
-        "launches": sum(v["lstm_fwd"] for v in paths.values()),
-        "launches_by_path": {k: v["lstm_fwd"] for k, v in paths.items()},
-        "max_abs_err": worst["lstm_fwd"]["float32"],
+        "name": "lstm_wide", "route": "cuda",
+        "source": "fnssl_tpu_torch/kernels/csrc/lstm_wide.cu",
+        "launches": sum(v["lstm_wide"] for v in paths.values()),
+        "launches_by_path": {k: v["lstm_wide"] for k, v in paths.items()},
+        "max_abs_err": worst["lstm_wide"]["float32"],
         **wide_share("k1", "library_fwd_ms"),
-        "max_abs_err_bf16_ys": worst["lstm_fwd"]["bfloat16_ys"],
+        "max_abs_err_bf16_ys": worst["lstm_wide"]["bfloat16_ys"],
+        "max_abs_err_bf16": worst["lstm_wide"]["bfloat16"],
         "v2_case": wide_case("k1", "library_fwd_ms"),
-        "fnssl_train_step_forced": {
-            "ms": per_train_step(train_rows, "v2_ms"), **k1_common,
-            "note": "FN-SSL's hidden-256 train step's forward work in 9 "
-                    "launches of this kernel, which fwd_route does not give "
-                    "it"},
-        "serve_chunk_step": {
-            "ms": 2 * nf * full["v2_ms_float32"]
-            + nn_ * narrow["v2_ms_float32"], **serve_common},
     }]
     def k2_share(route):
         """A K2 kernel's numbers over the launches of one train step that

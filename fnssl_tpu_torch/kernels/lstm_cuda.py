@@ -26,8 +26,14 @@ K1, the forward, replaces ``fnssl_tpu/kernels/lstm_pallas.py:_lstm_kernel``
   (FN-SSL's full band in training, B = nb x 298 in both directions, from
   14 scenes up in float32 and 7 in bfloat16; VariableIPDnet's narrow
   band; IPDnet's in bfloat16).
-- ``csrc/lstm_fwd.cu`` for H above 256 (up to 1024): one direction a
-  launch, W_hh read through L2 on every step.
+- ``csrc/lstm_wide.cu`` for H above 256 (up to 1024: FN-SSL at
+  hidden_size 512): lstm_wave.cu's one-wave tile widened, a CTA of 256
+  threads walking R rows through all T, each thread one unit a pass of
+  256 units, h double-buffered in shared memory; one launch runs one or
+  both directions. ``wide_plan`` picks R (32, 16, 8 or 4) for the fewest
+  rows on the busiest SM (route ``"wide"``).
+- ``csrc/lstm_fwd.cu`` for H above 256 by name only (``route="v2"``):
+  one direction a launch, 8-row tiles, W_hh read through L2 on every step.
 
 K2, the backward recurrence (H up to 1024), replaces the sequential part
 of ``_lstm_backward``, K1's ``custom_vjp``: the replay of c and the
@@ -88,11 +94,13 @@ from fnssl_tpu_torch.kernels.cuda_build import LaunchCounter, load_library
 
 # launches of each CUDA kernel (the plain version is not counted):
 # ``launches`` for lstm_cluster.cu, ``launches_wave`` for lstm_wave.cu,
-# ``launches_v2`` for lstm_fwd.cu, ``launches_bwd_cluster`` for
+# ``launches_wide`` for lstm_wide.cu, ``launches_v2`` for lstm_fwd.cu,
+# ``launches_bwd_cluster`` for
 # lstm_bwd_cluster.cu, ``launches_bwd_wave`` for lstm_bwd_wave.cu,
 # ``launches_bwd_wide`` for lstm_bwd_wide.cu
 launches = LaunchCounter()
 launches_wave = LaunchCounter()
+launches_wide = LaunchCounter()
 launches_v2 = LaunchCounter()
 launches_bwd_cluster = LaunchCounter()
 launches_bwd_wave = LaunchCounter()
@@ -100,8 +108,8 @@ launches_bwd_wide = LaunchCounter()
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
-CLUSTER_MAX_HIDDEN = 256          # lstm_cluster.cu's H; lstm_fwd.cu above
-MAX_HIDDEN = 1024                 # K1's H (lstm_fwd.cu's)
+CLUSTER_MAX_HIDDEN = 256          # lstm_cluster.cu's H; lstm_wide.cu above
+MAX_HIDDEN = 1024                 # K1's H (lstm_wide.cu's)
 BWD_MAX_HIDDEN = 1024             # K2's H (lstm_bwd_wide.cu's above 256)
 BWD_MAX_THREADS = 512             # threads of a lstm_bwd_cluster.cu CTA
 BWD_UPTS = (2, 1)                 # units a thread sums in its product
@@ -133,6 +141,11 @@ WAVE128_THREADS = 128
 # fp32, 13% in bf16; at H = 128 in fp32, 4768 rows at T = 298: 9%)
 WAVE_MIN_ROWS = {(256, 4): 2048, (256, 2): 2048, (128, 4): 8192,
                  (128, 2): 4096}
+# lstm_wide.cu (H 288 to 1024): a CTA of 256 threads, one unit a thread in
+# each pass of 256 units, owns a tile of R rows; R by its registers and its
+# shared memory, CTAs an SM as the registers are budgeted (1, 2, 3, 3)
+WIDE_THREADS = 256
+WIDE_ROWS = (32, 16, 8, 4)
 BWD_WAVE_THREADS = 256            # threads of a lstm_bwd_wave.cu CTA
 BWD_WAVE_UNITS = 4                # hidden units a thread of it owns
 BWD_WAVE_ROWS = (4, 5)            # rows a thread of it at H 32, 64 and 256
@@ -354,17 +367,61 @@ def wave_plan(hidden: int, itemsize: int, batch: int, ndir: int = 1) -> int:
     return best
 
 
+def wide_smem(hidden: int, rows: int) -> int:
+    """Shared memory (bytes) of one CTA of lstm_wide.cu with a tile of
+    ``rows`` rows: two h buffers (H x (rows + 4)) and c (rows x H),
+    float32; its xg goes straight to registers."""
+    return (2 * hidden * (rows + WAVE_PAD) + rows * hidden) * 4
+
+
+def wide_ctas_per_sm(hidden: int, rows: int) -> int:
+    """CTAs of lstm_wide.cu an SM holds at ``rows`` rows: as its registers
+    are budgeted (``__launch_bounds__`` for the 4 x rows accumulators: 1 at
+    32 rows, 2 at 16, 3 at 8 and 4), or fewer where the shared memory does
+    not take them."""
+    regs = 3 if rows <= 8 else 2 if rows <= 16 else 1
+    return min(regs, _ctas_per_sm(wide_smem(hidden, rows), 0))
+
+
+def wide_fits(hidden: int, rows: int) -> bool:
+    """Whether lstm_wide.cu takes a tile of ``rows`` rows at this H: H a
+    multiple of 32 above 256 up to 1024, rows it is built for, and the
+    CTA's shared memory within 227 KB (32 rows up to H = 544, 16 up to
+    1024)."""
+    return (CLUSTER_MAX_HIDDEN < hidden <= MAX_HIDDEN and hidden % 32 == 0
+            and rows in WIDE_ROWS
+            and wide_smem(hidden, rows) <= SMEM_BYTES)
+
+
+@functools.lru_cache(maxsize=None)
+def wide_plan(hidden: int, batch: int, ndir: int = 1) -> int:
+    """Rows of a lstm_wide.cu tile: of the plans that fit, the one whose
+    grid (ndir x ceil(B / rows) CTAs, ``wide_ctas_per_sm`` an SM) puts the
+    fewest rows on the busiest SM, counting each wave in turn; on a tie
+    the most rows (fewer CTAs, each W_hh value read feeding more rows). At
+    (298, 4096, 512): 32 rows, 128 CTAs in one wave (31.03 rows an SM if
+    spread evenly); at H 768 and 1024, B 4096: 16 rows, 256 CTAs, 32 rows
+    on the busiest SM; at B = 13: 4 rows, 4 CTAs."""
+    plans = [r for r in WIDE_ROWS if wide_fits(hidden, r)]
+    best = _fewest_busiest(plans, batch, ndir, lambda r: r,
+                           lambda r: wide_ctas_per_sm(hidden, r))
+    if best is None:
+        raise ValueError(f"lstm_wide: no plan fits hidden={hidden}")
+    return best
+
+
 def fwd_route(t_steps: int, batch: int, hidden: int, ndir: int,
               itemsize: int) -> str:
-    """K1's kernel for a shape, by shape alone: "v2" (lstm_fwd.cu) above
-    H = 256; "wave" (lstm_wave.cu) from ``WAVE_MIN_ROWS[(H, itemsize)]``
-    rows (B x ndir) up; else "cluster" (lstm_cluster.cu). The thresholds
-    come from chip_smoke.py's sweep over T in {12, 298}, B in {256 ..
-    4768}, H in {128, 256}, both directions and both dtypes; ``t_steps``
-    does not move them (both T of the sweep cross at the same B)."""
+    """K1's kernel for a shape, by shape alone: "wide" (lstm_wide.cu)
+    above H = 256; "wave" (lstm_wave.cu) from ``WAVE_MIN_ROWS[(H,
+    itemsize)]`` rows (B x ndir) up; else "cluster" (lstm_cluster.cu). The
+    thresholds come from chip_smoke.py's sweep over T in {12, 298}, B in
+    {256 .. 4768}, H in {128, 256}, both directions and both dtypes;
+    ``t_steps`` does not move them (both T of the sweep cross at the same
+    B)."""
     del t_steps
     if hidden > CLUSTER_MAX_HIDDEN:
-        return "v2"
+        return "wide"
     least = WAVE_MIN_ROWS.get((hidden, itemsize))
     if least is not None and batch * ndir >= least:
         return "wave"
@@ -673,11 +730,12 @@ def lstm_fwd(xg: torch.Tensor, w_hh_t: torch.Tensor, h0: torch.Tensor,
 
     CPU tensors take the plain version. CUDA tensors launch one kernel,
     chosen by shape (``fwd_route``): lstm_cluster.cu or lstm_wave.cu for
-    H up to 256, lstm_fwd.cu for H above 256 up to 1024. ``route``
-    ("cluster", "wave" or "v2") names the kernel instead, to hold or time
-    one at any shape; ``plan`` overrides the route's plan (``cluster_plan``'s
-    (N, Bt, KS), ``wave_plan``'s rows a thread). Any B; H up to 1024, run
-    padded to a multiple of 32 (``lstm_fwd_padded``) where it is not one.
+    H up to 256, lstm_wide.cu for H above 256 up to 1024. ``route``
+    ("cluster" or "wave" up to H = 256, "wide" or "v2" above) names the
+    kernel instead, to hold or time one at any shape; ``plan`` overrides
+    the route's plan (``cluster_plan``'s (N, Bt, KS), ``wave_plan``'s rows
+    a thread, ``wide_plan``'s rows). Any B; H up to 1024, run padded to a
+    multiple of 32 (``lstm_fwd_padded``) where it is not one.
     """
     dims = _check(xg, w_hh_t, h0, c0)
     if dims is None:
@@ -707,11 +765,11 @@ def lstm_fwd_bidir(xg: torch.Tensor, w_hh_t: torch.Tensor,
     h0, c0 (2, B, H) float32. Returns ys (2, T, B, H) in xg's dtype and
     hT, cT (2, B, H) float32 (contract of ``lstm_fwd_bidir_plain``).
 
-    CPU tensors take the plain version. CUDA tensors with H up to 256 run
-    both directions in one launch of lstm_cluster.cu or lstm_wave.cu (as
-    ``fwd_route`` gives for 2 directions); H above 256 launches lstm_fwd.cu
-    once per direction (a choice by shape). ``route`` and ``plan`` as in
-    ``lstm_fwd``; H not a multiple of 32 runs padded, as there.
+    CPU tensors take the plain version. CUDA tensors run both directions
+    in one launch of lstm_cluster.cu, lstm_wave.cu or lstm_wide.cu (as
+    ``fwd_route`` gives for 2 directions); route "v2" launches lstm_fwd.cu
+    once per direction. ``route`` and ``plan`` as in ``lstm_fwd``; H not a
+    multiple of 32 runs padded, as there.
     """
     dims = _check(xg, w_hh_t, h0, c0, ndir=2)
     if dims is None:
@@ -1043,16 +1101,34 @@ def _launch_wave(xg, w_hh_t, h0, c0, outs, ndir, reverse, plan):
     launches_wave.add()
 
 
-_LAUNCH = {"cluster": _launch_cluster, "wave": _launch_wave}
+def _launch_wide(xg, w_hh_t, h0, c0, outs, ndir, reverse, plan):
+    t_steps, batch, four_h = xg.shape[-3:]
+    hidden = four_h // 4
+    rows = plan or wide_plan(hidden, batch, ndir)
+    lib = _library("lstm_wide")
+    ys, h_t, c_t = outs
+    err = lib.lstm_wide(
+        xg.data_ptr(), w_hh_t.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+        ys.data_ptr(), h_t.data_ptr(), c_t.data_ptr(), t_steps, batch,
+        hidden, ndir, int(reverse), int(xg.dtype == torch.bfloat16), rows,
+        xg.device.index, _stream(xg))
+    if err:
+        raise RuntimeError(f"lstm_wide launch failed (rows={rows}): "
+                           + lib.lstm_wide_error_string(err).decode())
+    launches_wide.add()
+
+
+_LAUNCH = {"cluster": _launch_cluster, "wave": _launch_wave,
+           "wide": _launch_wide}
 
 
 def _route(route, t_steps, batch, hidden, ndir, itemsize):
     """The route asked for, or ``fwd_route``'s; a cluster or wave route
-    above H = 256 is refused."""
+    above H = 256, or a wide or v2 route up to it, is refused."""
     if route is None:
         return fwd_route(t_steps, batch, hidden, ndir, itemsize)
-    if route not in ("cluster", "wave", "v2") or (
-            route != "v2" and hidden > CLUSTER_MAX_HIDDEN):
+    if route not in ("cluster", "wave", "wide", "v2") or (
+            (route in ("wide", "v2")) != (hidden > CLUSTER_MAX_HIDDEN)):
         raise ValueError(f"lstm_fwd: no route {route!r} at hidden={hidden}")
     return route
 
@@ -1079,6 +1155,8 @@ _ARGTYPES = {
     "lstm_cluster": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
     + [ctypes.c_void_p],
     "lstm_wave": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p],
+    "lstm_wide": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
     # g cs w_hh c0 dys dhT dcT dh0 dc0, then the ints, then the stream
     "lstm_bwd_cluster": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11

@@ -808,3 +808,118 @@ def test_train_step_launch_counts_at_hidden_512(cuda):
     torch.cuda.synchronize()
     assert [c.value - b for c, b in zip(counters, before)] == [3, 3, 0, 3, 3]
     assert state.step == 1 and torch.isfinite(loss)
+
+
+# K1 above H = 256: kernels/csrc/lstm_wide.cu, which fwd_route gives every H
+# from 288 to 1024. The same tolerances as the cluster kernel's.
+
+
+def check_wide(args, dtype, reverse=None, plan=None, route=None):
+    """lstm_fwd (one direction, `reverse` given) or lstm_fwd_bidir (args
+    stacked for 2) on lstm_wide.cu: one launch of it, none of another K1
+    kernel, and the plain version's answer; returns the largest |kernel -
+    plain| of ys."""
+    counters = (lstm_cuda.launches, lstm_cuda.launches_wave,
+                lstm_cuda.launches_wide)
+    before = [c.value for c in counters]
+    if reverse is None:
+        got = lstm_cuda.lstm_fwd_bidir(*args, plan=plan, route=route)
+        want = lstm_cuda.lstm_fwd_bidir_plain(*args)
+    else:
+        got = lstm_cuda.lstm_fwd(*args, reverse=reverse, plan=plan,
+                                 route=route)
+        want = lstm_cuda.lstm_fwd_plain(*args, reverse=reverse)
+    assert [c.value - b for c, b in zip(counters, before)] == [0, 0, 1]
+    assert_close(got, want, dtype, ("lstm_wide", reverse, plan))
+    diff = (got[0].float() - want[0].float()).abs()
+    return diff.max().item() if diff.numel() else 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(298, 16 * 256, 512, 1),
+                                   (298, 2048, 512, 2), (124, 256, 512, 1)])
+def test_wide_kernel_at_the_path_shapes(cuda, dtype, shape):
+    """FN-SSL's narrow band at hidden_size 512 in training (298, 4096,
+    512), its parity step's (124, 256, 512) and two directions of 2048
+    rows, on the kernel fwd_route gives them with its rule's plan; both
+    walks one direction a launch."""
+    t_steps, b, h, ndir = shape
+    assert lstm_cuda.fwd_route(t_steps, b, h, ndir, 4) == "wide"
+    args = inputs((2,), t_steps, b, h, dtype, cuda, 11)
+    if ndir == 2:
+        err = check_wide(args, dtype)
+    else:
+        err = max(check_wide(tuple(a[int(r)] for a in args), dtype, r)
+                  for r in (False, True))
+    print(f"lstm_wide {shape} {dtype}: max |kernel - plain| of ys {err:.3g}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden", [288, 512, 800, 1024])
+def test_wide_kernel_edge_cases(cuda, dtype, hidden):
+    """lstm_wide.cu through the rule at ragged B (1, 13, and one row past
+    its largest tile at this width), short T (T = 0 returns h0, c0), both
+    entry points and walks; at 288 and 800 the last pass of 256 units is
+    partly past H."""
+    seed = 300 + hidden
+    past = max(r for r in lstm_cuda.WIDE_ROWS
+               if lstm_cuda.wide_fits(hidden, r)) + 1
+    for b in (1, 13, past):
+        for t_steps in (0, 1, 2, 7):
+            seed += 1
+            args = inputs((2,), t_steps, b, hidden, dtype, cuda, seed)
+            check_wide(args, dtype)
+            for reverse in (False, True):
+                check_wide(tuple(a[1] for a in args), dtype, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden", [288, 512, 800, 1024])
+def test_wide_every_plan_matches_plain(cuda, dtype, hidden):
+    """Every tile lstm_wide.cu takes at this H gives the same answer, at a
+    ragged B of several tiles, both directions in one launch and one."""
+    args = inputs((2,), 9, 77, hidden, dtype, cuda, 5)
+    plans = [r for r in lstm_cuda.WIDE_ROWS if lstm_cuda.wide_fits(hidden, r)]
+    assert plans == ([32, 16, 8, 4] if hidden <= 544 else [16, 8, 4])
+    for plan in plans:
+        check_wide(args, dtype, plan=plan, route="wide")
+        check_wide(tuple(a[1] for a in args), dtype, True, plan=plan,
+                   route="wide")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_gives_the_same_bits_run_to_run(cuda, dtype):
+    """No atomics, no order that changes: the same inputs give the same ys,
+    hT and cT bits on every launch, at a ragged B of several tiles."""
+    args = inputs((2,), 11, 4099, 512, dtype, cuda, 7)
+    outs = [lstm_cuda.lstm_fwd_bidir(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        for got, want in zip(out, outs[0]):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_wide_refuses_what_it_does_not_take(cuda):
+    """A tile lstm_wide.cu is not built for, or whose shared memory does
+    not fit (32 rows at H 1024), raises; so does a route of another
+    source above H = 256 or of this one below; none runs another way or
+    counts a launch."""
+    counters = (lstm_cuda.launches, lstm_cuda.launches_wave,
+                lstm_cuda.launches_wide)
+    before = [c.value for c in counters]
+    args = inputs((2,), 3, 4, 1024, "float32", cuda)
+    for plan in (32, 12):
+        with pytest.raises(RuntimeError, match="lstm_wide launch failed"):
+            lstm_cuda.lstm_fwd_bidir(*args, plan=plan)
+    for route in ("wave", "cluster"):
+        with pytest.raises(ValueError, match="no route"):
+            lstm_cuda.lstm_fwd_bidir(*args, route=route)
+    args = inputs((2,), 3, 4, 256, "float32", cuda)
+    with pytest.raises(ValueError, match="no route"):
+        lstm_cuda.lstm_fwd_bidir(*args, route="wide")
+    assert [c.value for c in counters] == before

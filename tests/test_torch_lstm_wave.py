@@ -1,7 +1,9 @@
-"""K1's routes and lstm_wave.cu's plans, on the CPU (no card, no nvcc).
+"""K1's routes and lstm_wave.cu's and lstm_wide.cu's plans, on the CPU (no
+card, no nvcc).
 
 ``fwd_route`` chooses K1's kernel by shape; ``wave_plan`` sizes
-lstm_wave.cu's tiles. Both are plain arithmetic, checked here at every
+lstm_wave.cu's tiles and ``wide_plan`` lstm_wide.cu's (H above 256). They
+are plain arithmetic, checked here at every
 shape ``chip_smoke.py`` runs K1 at; what the kernel computes is checked on
 the card (tests/test_torch_kernels_cuda.py, chip_smoke.py phases 3 and 5).
 Here ``lstm_fwd_bidir_plain``, which the wrappers run for CPU tensors and
@@ -21,8 +23,9 @@ from fnssl_tpu_torch.kernels import cuda_build
 from fnssl_tpu_torch.kernels import lstm_cuda as L
 
 # (what, T, B, H, ndir, itemsize, route): K1's calls on the paths chip_smoke
-# drives, FNSSLConfig() (full band H 128 both directions, narrow band H 256)
-# and IPDnetConfig() (H 64 and 128)
+# drives, FNSSLConfig() (full band H 128 both directions, narrow band H 256),
+# FNSSLConfig(hidden_size=512) (full band H 256 both directions, narrow band
+# H 512) and IPDnetConfig() (H 64 and 128)
 PATH_SHAPES = [
     ("serve full band", 256, 12, 128, 2, 4, "cluster"),
     ("serve narrow band", 12, 256, 256, 1, 4, "cluster"),
@@ -45,7 +48,11 @@ PATH_SHAPES = [
     ("IPDnet train narrow band bf16", 280, 16 * 256, 128, 1, 2, "wave"),
     ("IPDnet 16-slot narrow band", 12, 16 * 256, 128, 1, 4, "cluster"),
     ("variable IPDnet narrow band", 280, 8 * 6 * 256, 128, 1, 4, "wave"),
-    ("H above 256", 5, 13, 512, 1, 4, "v2"),
+    ("H above 256", 5, 13, 512, 1, 4, "wide"),
+    ("hidden 512 train narrow band", 298, 16 * 256, 512, 1, 4, "wide"),
+    ("hidden 512 train narrow band bf16", 298, 16 * 256, 512, 1, 2, "wide"),
+    ("hidden 512 train full band", 256, 16 * 298, 256, 2, 4, "wave"),
+    ("hidden 512 parity step narrow band", 124, 256, 512, 1, 4, "wide"),
 ]
 
 
@@ -130,10 +137,10 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_route():
     xg = torch.randn(2, t, b, 4 * h, generator=gen)
     w = torch.randn(2, h, 4 * h, generator=gen) / h ** 0.5
     h0, c0 = (torch.randn(2, b, h, generator=gen) * 0.5 for _ in range(2))
-    counters = (L.launches, L.launches_wave, L.launches_v2)
+    counters = (L.launches, L.launches_wave, L.launches_wide)
     before = [c.value for c in counters]
     for route, plan in ((None, None), ("wave", 32), ("wave", None),
-                        ("cluster", None), ("v2", None)):
+                        ("cluster", None), ("wide", 16)):
         got = L.lstm_fwd_bidir(xg, w, h0, c0, route=route, plan=plan)
         for x, y in zip(got, L.lstm_fwd_bidir_plain(xg, w, h0, c0)):
             assert torch.equal(x, y)
@@ -215,3 +222,88 @@ def test_plain_bidir_forward_at_a_ragged_tile_edge_matches_jax(hidden):
                         (got[2][d], c_t)):
             np.testing.assert_allclose(g.numpy(), want, rtol=2e-4,
                                        atol=2e-5)
+
+
+# lstm_wide.cu, K1 above H = 256: every multiple of 32 from 288 to 1024
+WIDE_WIDTHS = list(range(288, 1025, 32))
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("hidden", WIDE_WIDTHS)
+def test_wide_fits_plan_and_occupancy_at_every_width(hidden, itemsize):
+    """At every width above 256 fwd_route gives lstm_wide.cu in both
+    dtypes, at every B; the tiles that fit hold their two h buffers and c
+    within a CTA's shared memory (32 rows up to H = 544, 16 to 1024); the
+    plan is one of them and its CTAs fit an SM's registers and shared
+    memory together."""
+    fits = [r for r in L.WIDE_ROWS if L.wide_fits(hidden, r)]
+    assert fits == ([32, 16, 8, 4] if hidden <= 544 else [16, 8, 4])
+    for r in L.WIDE_ROWS:
+        smem = L.wide_smem(hidden, r)
+        assert smem == (2 * hidden * (r + 4) + r * hidden) * 4
+        assert (r in fits) == (smem <= L.SMEM_BYTES)
+    for r in fits:
+        per_sm = L.wide_ctas_per_sm(hidden, r)
+        assert 1 <= per_sm <= (1 if r == 32 else 2 if r == 16 else 3)
+        assert per_sm * (L.wide_smem(hidden, r) + L.CTA_RESERVED_SMEM) \
+            <= L.SM_SMEM_BYTES
+    for b in (1, 13, 256, 4096):
+        for ndir in (1, 2):
+            assert L.fwd_route(298, b, hidden, ndir, itemsize) == "wide"
+            assert L.wide_plan(hidden, b, ndir) in fits
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_wide_plan_at_the_path_shape_is_one_wave(itemsize):
+    """FN-SSL's narrow band at hidden_size 512 in training (298, 4096,
+    512) takes tiles of 32 rows: 128 CTAs, one an SM, one wave, 32 rows on
+    the busiest SM (31.03 if spread evenly); every other tile ties on
+    rows and would read W_hh for fewer rows a CTA."""
+    assert L.fwd_route(298, 16 * 256, 512, 1, itemsize) == "wide"
+    rows = L.wide_plan(512, 16 * 256, 1)
+    per_sm = L.wide_ctas_per_sm(512, rows)
+    ctas = -(-4096 // rows)
+    assert (rows, ctas, per_sm) == (32, 128, 1) and ctas <= L.SMS
+    assert L._busiest(rows, ctas, per_sm) == 32
+    for r in (16, 8, 4):
+        assert L._busiest(r, -(-4096 // r), L.wide_ctas_per_sm(512, r)) \
+            >= 32
+
+
+@pytest.mark.parametrize("hidden,batch,ndir,rows", [
+    (512, 2048, 1, 16),     # 128 CTAs of 16 rows beat 64 of 32
+    (512, 256, 1, 4),       # the parity step: 64 CTAs of 4 rows
+    (512, 13, 1, 4),        # 4 CTAs of 4 rows
+    (768, 4096, 1, 16),     # 256 CTAs of 16, 2 waves: 32 rows
+    (1024, 4096, 2, 16),    # 512 of 16, 4 waves: 64 rows
+])
+def test_wide_plan_fills_the_sms(hidden, batch, ndir, rows):
+    assert L.wide_plan(hidden, batch, ndir) == rows
+
+
+@pytest.mark.parametrize("hidden,rows", [
+    (256, 32),              # H up to 256: lstm_wave.cu's
+    (1056, 16),             # above 1024
+    (528, 32),              # not a multiple of 32
+    (512, 12),              # rows the source is not built for
+    (576, 32),              # 32 rows' shared memory above H = 544
+])
+def test_wide_fits_refuses(hidden, rows):
+    assert not L.wide_fits(hidden, rows)
+
+
+def test_wide_tiles_fit_the_source():
+    """lstm_wide.cu's sizing as the source builds it: 256 threads, H from
+    288 to 1024, tiles of 32/16/8/4 rows with 1/2/3/3 CTAs an SM by the
+    registers' budget, two h buffers and c in shared memory."""
+    src = (cuda_build.CSRC / "lstm_wide.cu").read_text()
+    assert f"kThreads = {L.WIDE_THREADS};" in src
+    assert f"kPad = {L.WAVE_PAD};" in src
+    assert "kMinHidden = 288;" in src and "kMaxHidden = 1024;" in src
+    assert f"kMaxSmem = {L.SMEM_BYTES};" in src
+    assert "rows <= 8 ? 3 : rows <= 16 ? 2 : 1" in src
+    assert ("(2 * static_cast<size_t>(hidden) * (rows + kPad) +\n"
+            "          static_cast<size_t>(rows) * hidden) * 4") in src
+    for r in L.WIDE_ROWS:
+        assert f"case {r}:" in src or f"launch<T_in, {r}, HC>" in src
+    assert L.MAX_HIDDEN == 1024
