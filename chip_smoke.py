@@ -965,7 +965,8 @@ def phase_times(device, shapes=SHAPES):
             f"{row['cluster_ms_float32']:.4f}, bf16 "
             f"{row['cluster_ms_bfloat16']:.4f}; lstm_wave.cu (plan "
             f"{row['wave_plan']}) fp32 {row['wave_ms_float32']:.4f}, bf16 "
-            f"{row['wave_ms_bfloat16']:.4f}; bound fp32 {row['bound_ms_float32']:.5f} "
+            f"{row['wave_ms_bfloat16']:.4f}; bound fp32 "
+            f"{row['bound_ms_float32']:.5f} "
             f"({row['bound_by_float32']}); plain {row['plain_ms']:.3f}; "
             f"nn.LSTM (cuDNN, I={i}) TF32 off {row['library_ms']:.4f}, on "
             f"{row['library_ms_tf32']:.4f} ms")
@@ -1977,7 +1978,7 @@ def library_times(i, h, bidir, x, gy, iters):
     x and output gradient gy: its forward alone under no_grad and its
     backward (forward+backward less forward), CUDA events, in fp32 with
     TF32 off ("library_fwd_ms", "library_bwd_ms") and on ("_tf32"), and
-    with bf16 weights and inputs ("_bf16"; None where cuDNN refuses it)."""
+    with bf16 weights and inputs ("_bf16")."""
     out = {}
     ref = torch.nn.LSTM(i, h, batch_first=True,
                         bidirectional=bidir).to(x.device)
@@ -1991,16 +1992,12 @@ def library_times(i, h, bidir, x, gy, iters):
                            iters)
         out[library_key("library_bwd_ms", tf32)] = both - fwd_grad
     ref, xb, gb = ref.bfloat16(), x.bfloat16(), gy.bfloat16()
-    try:
-        with torch.no_grad():
-            out["library_fwd_ms_bf16"] = cuda_ms(lambda: ref(xb), iters)
-        fwd_grad = cuda_ms(lambda: ref(xb), iters)
-        both = cuda_ms(lambda: torch.autograd.backward(ref(xb)[0], gb),
-                       iters)
-        out["library_bwd_ms_bf16"] = both - fwd_grad
-    except RuntimeError as e:
-        log(f"  nn.LSTM in bf16 refused: {e}")
-        out["library_fwd_ms_bf16"] = out["library_bwd_ms_bf16"] = None
+    ref.flatten_parameters()      # else cuDNN compacts the weights each call
+    with torch.no_grad():
+        out["library_fwd_ms_bf16"] = cuda_ms(lambda: ref(xb), iters)
+    fwd_grad = cuda_ms(lambda: ref(xb), iters)
+    both = cuda_ms(lambda: torch.autograd.backward(ref(xb)[0], gb), iters)
+    out["library_bwd_ms_bf16"] = both - fwd_grad
     return out
 
 
@@ -2065,14 +2062,14 @@ def phase_wide_times(device, shapes=WIDE_TIMED_SHAPES):
             f"{row['k1_bound_ms']:.3f} {row['k1_bound_by']}, plain "
             f"{row['k1_plain_ms']:.1f}, cuDNN fwd TF32 off "
             f"{row['library_fwd_ms']:.3f}, on {row['library_fwd_ms_tf32']:.3f}"
-            f", bf16 {row['library_fwd_ms_bf16']})"
+            f", bf16 {row['library_fwd_ms_bf16']:.3f})"
             f"; K2 ({row['k2_route_float32']}/{row['k2_route_bfloat16']}) "
             f"fp32 {row['k2_ms_float32']:.3f} ms, bf16 "
             f"{row['k2_ms_bfloat16']:.3f} (bound {row['k2_bound_ms']:.3f} "
             f"{row['k2_bound_by']}, plain {row['k2_plain_ms']:.1f}, cuDNN bwd "
             f"TF32 off {row['library_bwd_ms']:.3f}, on "
             f"{row['library_bwd_ms_tf32']:.3f}, bf16 "
-            f"{row['library_bwd_ms_bf16']}); whole LSTM backward "
+            f"{row['library_bwd_ms_bf16']:.3f}); whole LSTM backward "
             f"{row['port_bwd_ms']:.3f}")
     return rows
 
@@ -5320,8 +5317,7 @@ def main():
                 "bound_ms": b[0], "bound_by": b[1],
                 "library_ms": 3 * wn[library],
                 "library_tf32_ms": 3 * wn[f"{library}_tf32"],
-                "library_bf16_ms": (None if wn[f"{library}_bf16"] is None
-                                    else 3 * wn[f"{library}_bf16"]),
+                "library_bf16_ms": 3 * wn[f"{library}_bf16"],
                 "work": f"the 3 launches of one FN-SSL train step at "
                         f"hidden_size {WIDE_HIDDEN}, nb={WIDE_NB}, fp32, that "
                         f"the rule gives this kernel: 3 x (T={wn['T']}, "
@@ -5331,7 +5327,7 @@ def main():
                         "shapes with TF32 off (the port's float32; the "
                         "backward: forward+backward less forward), "
                         "library_tf32_ms with it on, library_bf16_ms in "
-                        "bf16 (null where cuDNN refused it)"}
+                        "bf16"}
 
     def wide_case(k, library):
         v = wide["v2_case"]

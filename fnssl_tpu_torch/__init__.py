@@ -3,8 +3,8 @@
 It mirrors ``fnssl_tpu``'s layout and names, imports neither JAX nor
 ``fnssl_tpu``, and runs its entry points on the first CUDA device unless
 the caller asks for the CPU. The LSTM recurrence runs in CUDA kernels
-written by hand for Hopper (``kernels/csrc/lstm_cluster.cu`` up to
-H = 256, ``kernels/csrc/lstm_fwd.cu`` above).
+written by hand for Hopper (``kernels/csrc/lstm_cluster.cu`` and
+``lstm_wave.cu`` up to H = 256, ``kernels/csrc/lstm_wide.cu`` above).
 
 float32 matrix products and cuDNN calls run in full float32, never TF32:
 the input projection of every LSTM (``torch.matmul``) is held to the JAX

@@ -2,7 +2,7 @@
 // W_hh held in the shared memory of a thread-block cluster.
 //
 // Replaces fnssl_tpu/kernels/lstm_pallas.py:_lstm_kernel (the TPU kernel
-// launched by _lstm_pallas_fwd) for H a multiple of 32 up to 256; lstm_fwd.cu
+// launched by _lstm_pallas_fwd) for H a multiple of 32 up to 256; lstm_wide.cu
 // serves larger H. Same contract, per direction d of ndir (1 or 2):
 //   xg (ndir, T, B, 4H) float32 or bfloat16, the input gates x @ W_ih^T + b;
 //   w_hh_t (ndir, H, 4H) in the dtype of xg;  h0, c0 (ndir, B, H) float32.
@@ -15,8 +15,8 @@
 //
 // What bounds it on an H100: the function moves few bytes and does few FLOPs
 // (2 B H 4H a step), and its T steps are serial, so the time is T times the
-// latency of one step. lstm_fwd.cu re-reads all of W_hh (256 KB at H = 128 in
-// float32) from L2 in every block on every step, which sets that latency.
+// latency of one step. A block that re-read all of W_hh (256 KB at H = 128 in
+// float32) from L2 on every step would have that re-read set the latency.
 //
 // Design: one cluster of N CTAs per (tile of BT batch rows, direction).
 // CTA r of the cluster owns the U = H/N hidden units [r U, (r+1) U) and their
@@ -26,8 +26,8 @@
 // (ping-pong) of BT x H float32. Each step, thread (ks, j) of KS x U threads:
 //   1. waits until the buffer it reads holds the whole tile's h (below);
 //   2. sums the four gate columns of unit j over k-slice ks (KL = H/KS
-//      values, a compile-time length) for every row of the tile: the k-split
-//      of lstm_fwd.cu, the KS partial sums meeting in shared memory;
+//      values, a compile-time length) for every row of the tile: a k-split,
+//      the KS partial sums meeting in shared memory;
 //   3. finishes rows ks RPT .. ks RPT + RPT - 1 of unit j (the cell update)
 //      with this step's xg, which it loaded during the step before, so that
 //      the load's latency overlaps a whole step;

@@ -24,8 +24,8 @@
 // lstm_cluster.cu keeps W_hh in a cluster's shared memory and walks 8-row
 // tiles for the least step latency; at H = 256 in float32 one CTA fills an
 // SM, so B = 4096 is 512 clusters of 8 CTAs, about 32 waves of serial walks,
-// each step mostly the exchange of h. lstm_fwd.cu re-reads all of W_hh from
-// L2 for each 8-row tile and step and is bound by L2.
+// each step mostly the exchange of h. 8-row tiles that re-read all of W_hh
+// from L2 for each tile and step are bound by L2.
 //
 // Design (the TPU kernel's shape, 512-row programs doing one matrix tile a
 // step, rethought for the card): a CTA of 256 threads owns a tile of BT rows
@@ -38,8 +38,8 @@
 //      k, a block of 4 k's ahead (two register blocks in turns; the last
 //      block of a step loads the next step's first, W_hh being the same every
 //      step), each value used for R rows: at R = 32 the 132 SMs read W_hh
-//      from L2 at about 4.2 TB/s at the FMA rate, a quarter of what
-//      lstm_fwd.cu's 8-row tiles need. h is read from shared memory
+//      from L2 at about 4.2 TB/s at the FMA rate, a quarter of what 8-row
+//      tiles need. h is read from shared memory
 //      ([k][row], 16-byte loads that every thread of a warp shares);
 //   2. the cell update in the thread's own registers, with this step's xg,
 //      which a bulk copy (TMA, one instruction of one thread, completing on an

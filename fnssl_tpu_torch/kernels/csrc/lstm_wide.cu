@@ -5,10 +5,12 @@
 //
 // Replaces fnssl_tpu/kernels/lstm_pallas.py:_lstm_kernel (the TPU kernel
 // launched by _lstm_pallas_fwd) above H = 256: lstm_cuda.fwd_route sends
-// every such H here. Same contract as lstm_wave.cu, per direction d of ndir
-// (1 or 2):
+// every such H here. The contract of lstm_wave.cu, per direction d of ndir
+// (1 or 2), but for W_hh's layout:
 //   xg (ndir, T, B, 4H) float32 or bfloat16, the input gates x @ W_ih^T + b;
-//   w_hh_t (ndir, H, 4H) in the dtype of xg;  h0, c0 (ndir, B, H) float32.
+//   w4 (ndir, H, H, 4) in the dtype of xg: W_hh^T with each unit's four gate
+//   columns side by side, w4[d, k, j, g] = w_hh_t[d, k, g H + j] (the
+//   wrapper interleaves it);  h0, c0 (ndir, B, H) float32.
 //   Per step: gates = xg_t + h @ w_hh_t (float32 accumulation), torch gate
 //   order i, f, g, o; c = sig(f) c + sig(i) tanh(g); h = sig(o) tanh(c).
 //   (h, c) stay float32 for all T. Direction d walks backwards (t = T-1 .. 0,
@@ -33,11 +35,12 @@
 //      4R accumulators (coalesced across the warp: a 32 x 4H xg stage would
 //      not fit shared memory beside h);
 //   2. the product over k = 0 .. H-1: W_hh is read from L2 (read-only path)
-//      straight into registers, 4 values a k, a block of 4 k's ahead (two
-//      register blocks in turns; the last block of a pass loads the next
-//      pass's first, or the next step's), each value used for R rows; h_{t-1}
-//      is read from shared memory ([k][row], 16-byte loads that every thread
-//      of a warp shares);
+//      straight into registers, the unit's 4 gates of a k in one 16-byte
+//      load (w4's layout), a block of 4 k's ahead (two register blocks in
+//      turns; the last block of a pass loads the next pass's first, or the
+//      next step's), each value used for R rows; h_{t-1} is read from
+//      shared memory ([k][row], 16-byte loads that every thread of a warp
+//      shares);
 //   3. the cell update in the thread's own registers; c stays in shared
 //      memory ([row][unit]); h_t goes to the other h buffer (rows padded by 4
 //      floats so that the 16-byte stores of 8 neighbouring units fall in
@@ -49,9 +52,14 @@
 // value loaded feeding 32 FMAs; shared memory 2 x 512 x 36 x 4 + 32 x 512 x 4
 // = 208 KB; B = 4096 is 128 CTAs, one wave, 32 rows on the busiest SM
 // (31.03 if spread evenly); the 128 SMs read W_hh from L2 at 4 MB x 298 x
-// 128 = 156 GB, a quarter of what lstm_fwd.cu's 8-row tiles read. At H = 512
+// 128 = 156 GB, a quarter of what 8-row tiles would read. At H = 512
 // H is a compile-time constant (HC), as lstm_wave.cu's H = 256: the loads'
-// offsets become immediates. R (32, 16, 8 or 4, a compile-time length; 1,
+// offsets become immediates. What W_hh's loads cost, on an H100 80GB HBM3
+// at 700 W (tools/lstm_wide_variants.py; PERF.md): with W_hh^T as given,
+// four 4-byte loads a k from four rows, a launch at (298, 4096, 512) took
+// 79.5 ms in float32 (68.9 in bfloat16), and 56.0 with its W_hh loads cut;
+// with w4's one 16-byte load, 62.1 (65.8): the count of loads, not their
+// bytes, held it. R (32, 16, 8 or 4, a compile-time length; 1,
 // 2, 3 and 3 CTAs an SM by the registers' budget) sets the tile: the wrapper
 // (lstm_cuda.wide_plan) picks it from B, H and the shared memory (2 H (R + 4)
 // 4 + R H 4 bytes within 227 KB: R = 32 up to H = 544, 16 up to 1024) so
@@ -60,9 +68,9 @@
 // masked, never padded by the caller: a masked row is computed on zeros and
 // never stored. All arithmetic is float32 FMAs outside the tensor cores, for
 // both xg dtypes; a bfloat16 W_hh halves the L2 reads and is widened as it
-// is loaded (one shift a value, each value then used for R rows). sigmoid and
-// tanh use the fast exp, as in the sibling kernels (about 1e-7 from the
-// exact functions).
+// is loaded (a shift or a mask a value, each value then used for R rows).
+// sigmoid and tanh use the fast exp, as in the sibling kernels (about 1e-7
+// from the exact functions).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,17 +110,23 @@ __device__ __forceinline__ float tanh_f(float x) {
   return 2.0f * sigmoid_f(2.0f * x) - 1.0f;
 }
 
-// The row of W_hh^T and of h that the product's k-th turn takes: k itself
-// (every CTA walks k in the same order).
-__device__ __forceinline__ int krow(int k, int hidden) { return k; }
-
-// Four gates (i, f, g, o) of unit u at row k of W_hh^T, from L2.
-template <typename T_in>
-__device__ __forceinline__ float4 w_gates(const T_in* w, int k, int u,
+// Four gates (i, f, g, o) of unit u at row k of W_hh^T, from L2: the
+// wrapper stores W_hh^T [k][unit][gate], so that they are one 16-byte load
+// (8 bytes in bfloat16, widened here).
+__device__ __forceinline__ float4 w_gates(const float* w, int k, int u,
                                           int hidden) {
-  const T_in* p = w + static_cast<size_t>(krow(k, hidden)) * 4 * hidden + u;
-  return make_float4(load_f(p), load_f(p + hidden), load_f(p + 2 * hidden),
-                     load_f(p + 3 * hidden));
+  return __ldg(reinterpret_cast<const float4*>(w) +
+               static_cast<size_t>(k) * hidden + u);
+}
+
+__device__ __forceinline__ float4 w_gates(const __nv_bfloat16* w, int k,
+                                          int u, int hidden) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(w) +
+                        static_cast<size_t>(k) * hidden + u);
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
 }
 
 template <typename T_in>
@@ -127,12 +141,11 @@ __device__ __forceinline__ void load_block(float4 (&w)[kBlock],
 template <int R>
 __device__ __forceinline__ void fma_block(float (&acc)[R][4],
                                           const float4 (&w)[kBlock],
-                                          const float* hs, int k0,
-                                          int hidden) {
+                                          const float* hs, int k0) {
   constexpr int pitch = R + kPad;
 #pragma unroll
   for (int e = 0; e < kBlock; ++e) {
-    const float* hk = hs + krow(k0 + e, hidden) * pitch;
+    const float* hk = hs + (k0 + e) * pitch;
 #pragma unroll
     for (int q = 0; q < R / 4; ++q) {
       const float4 h4 = *reinterpret_cast<const float4*>(hk + 4 * q);
@@ -165,7 +178,7 @@ __host__ __device__ constexpr int min_blocks(int rows) {
 // time (512, FN-SSL's width), else 0.
 template <typename T_in, int R, int HC>
 __global__ void __launch_bounds__(kThreads, min_blocks(R))
-lstm_wide_kernel(const T_in* __restrict__ xg, const T_in* __restrict__ w_hh_t,
+lstm_wide_kernel(const T_in* __restrict__ xg, const T_in* __restrict__ w4,
                  const float* __restrict__ h0, const float* __restrict__ c0,
                  T_in* __restrict__ ys, float* __restrict__ h_t,
                  float* __restrict__ c_t, int t_steps, int batch,
@@ -183,7 +196,7 @@ lstm_wide_kernel(const T_in* __restrict__ xg, const T_in* __restrict__ w_hh_t,
   xg += static_cast<size_t>(dir) * t_steps * step_len +
         static_cast<size_t>(b0) * four_h;
   ys += (static_cast<size_t>(dir) * t_steps * batch + b0) * hidden;
-  w_hh_t += static_cast<size_t>(dir) * hidden * four_h;
+  w4 += static_cast<size_t>(dir) * hidden * four_h;
   const size_t state_off = (static_cast<size_t>(dir) * batch + b0) * hidden;
   h0 += state_off;
   c0 += state_off;
@@ -206,7 +219,7 @@ lstm_wide_kernel(const T_in* __restrict__ xg, const T_in* __restrict__ w_hh_t,
   __syncthreads();
 
   float4 w0[kBlock], w1[kBlock];
-  load_block(w0, w_hh_t, 0, tid, hidden);
+  load_block(w0, w4, 0, tid, hidden);
   for (int s = 0; s < t_steps; ++s) {
     const int t = backward ? t_steps - 1 - s : s;
     const T_in* x_t = xg + t * step_len;
@@ -227,12 +240,12 @@ lstm_wide_kernel(const T_in* __restrict__ xg, const T_in* __restrict__ w_hh_t,
               r < valid ? load_f(x_t + r * four_h + g * hidden + u) : 0.0f;
 #pragma unroll 1
       for (int k0 = 0; k0 < hidden; k0 += 2 * kBlock) {
-        load_block(w1, w_hh_t, k0 + kBlock, u, hidden);
-        fma_block<R>(acc, w0, h_in, k0, hidden);
+        load_block(w1, w4, k0 + kBlock, u, hidden);
+        fma_block<R>(acc, w0, h_in, k0);
         const bool last = k0 + 2 * kBlock >= hidden;
-        load_block(w0, w_hh_t, last ? 0 : k0 + 2 * kBlock, last ? next : u,
+        load_block(w0, w4, last ? 0 : k0 + 2 * kBlock, last ? next : u,
                    hidden);
-        fma_block<R>(acc, w1, h_in, k0 + kBlock, hidden);
+        fma_block<R>(acc, w1, h_in, k0 + kBlock);
       }
 
       // the cell update; the new h goes to the other buffer, which no
@@ -274,7 +287,7 @@ lstm_wide_kernel(const T_in* __restrict__ xg, const T_in* __restrict__ w_hh_t,
 
 struct Args {
   const void* xg;
-  const void* w_hh_t;
+  const void* w4;
   const float* h0;
   const float* c0;
   void* ys;
@@ -303,7 +316,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   }
   const dim3 grid((a.batch + R - 1) / R, a.ndir);
   kernel<<<grid, kThreads, smem_bytes(a.hidden, R), stream>>>(
-      static_cast<const T_in*>(a.xg), static_cast<const T_in*>(a.w_hh_t), a.h0,
+      static_cast<const T_in*>(a.xg), static_cast<const T_in*>(a.w4), a.h0,
       a.c0, static_cast<T_in*>(a.ys), a.h_t, a.c_t, a.t_steps, a.batch,
       a.hidden, a.reverse);
   return cudaGetLastError();
@@ -331,9 +344,10 @@ cudaError_t by_width(const Args& a, int rows, cudaStream_t s) {
 // one recurrence in one launch, tiles of `rows` (32, 16, 8 or 4) batch rows,
 // on `stream` of device `device`; does not synchronise, allocates nothing,
 // and returns the cudaError_t of the launch (0 on success). H must be a
-// multiple of 32 from 288 to 1024 and the tile's shared memory within 227 KB;
-// other arguments are refused with an error, never run another way.
-extern "C" int lstm_wide(const void* xg, const void* w_hh_t, const void* h0,
+// multiple of 32 from 288 to 1024, the tile's shared memory within 227 KB
+// and w4 16-byte aligned (its 16-byte loads); other arguments are refused
+// with an error, never run another way.
+extern "C" int lstm_wide(const void* xg, const void* w4, const void* h0,
                          const void* c0, void* ys, void* h_t, void* c_t,
                          int t_steps, int batch, int hidden, int ndir,
                          int reverse, int is_bf16, int rows, int device,
@@ -342,12 +356,14 @@ extern "C" int lstm_wide(const void* xg, const void* w_hh_t, const void* h0,
       batch < 1 || t_steps < 0 || (ndir != 1 && ndir != 2) ||
       (rows != 4 && rows != 8 && rows != 16 && rows != 32))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(w4) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   if (smem_bytes(hidden, rows) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Args a{xg,
-               w_hh_t,
+               w4,
                static_cast<const float*>(h0),
                static_cast<const float*>(c0),
                ys,

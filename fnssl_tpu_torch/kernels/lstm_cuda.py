@@ -29,11 +29,10 @@ K1, the forward, replaces ``fnssl_tpu/kernels/lstm_pallas.py:_lstm_kernel``
 - ``csrc/lstm_wide.cu`` for H above 256 (up to 1024: FN-SSL at
   hidden_size 512): lstm_wave.cu's one-wave tile widened, a CTA of 256
   threads walking R rows through all T, each thread one unit a pass of
-  256 units, h double-buffered in shared memory; one launch runs one or
-  both directions. ``wide_plan`` picks R (32, 16, 8 or 4) for the fewest
-  rows on the busiest SM (route ``"wide"``).
-- ``csrc/lstm_fwd.cu`` for H above 256 by name only (``route="v2"``):
-  one direction a launch, 8-row tiles, W_hh read through L2 on every step.
+  256 units, h double-buffered in shared memory, W_hh^T read with each
+  unit's four gates side by side (``wide_weights``); one launch runs one
+  or both directions. ``wide_plan`` picks R (32, 16, 8 or 4) for the
+  fewest rows on the busiest SM (route ``"wide"``).
 
 K2, the backward recurrence (H up to 1024), replaces the sequential part
 of ``_lstm_backward``, K1's ``custom_vjp``: the replay of c and the
@@ -94,14 +93,12 @@ from fnssl_tpu_torch.kernels.cuda_build import LaunchCounter, load_library
 
 # launches of each CUDA kernel (the plain version is not counted):
 # ``launches`` for lstm_cluster.cu, ``launches_wave`` for lstm_wave.cu,
-# ``launches_wide`` for lstm_wide.cu, ``launches_v2`` for lstm_fwd.cu,
-# ``launches_bwd_cluster`` for
+# ``launches_wide`` for lstm_wide.cu, ``launches_bwd_cluster`` for
 # lstm_bwd_cluster.cu, ``launches_bwd_wave`` for lstm_bwd_wave.cu,
 # ``launches_bwd_wide`` for lstm_bwd_wide.cu
 launches = LaunchCounter()
 launches_wave = LaunchCounter()
 launches_wide = LaunchCounter()
-launches_v2 = LaunchCounter()
 launches_bwd_cluster = LaunchCounter()
 launches_bwd_wave = LaunchCounter()
 launches_bwd_wide = LaunchCounter()
@@ -731,8 +728,8 @@ def lstm_fwd(xg: torch.Tensor, w_hh_t: torch.Tensor, h0: torch.Tensor,
     CPU tensors take the plain version. CUDA tensors launch one kernel,
     chosen by shape (``fwd_route``): lstm_cluster.cu or lstm_wave.cu for
     H up to 256, lstm_wide.cu for H above 256 up to 1024. ``route``
-    ("cluster" or "wave" up to H = 256, "wide" or "v2" above) names the
-    kernel instead, to hold or time one at any shape; ``plan`` overrides
+    ("cluster" or "wave" up to H = 256, "wide" above) names the kernel
+    instead, to hold or time one at any shape; ``plan`` overrides
     the route's plan (``cluster_plan``'s (N, Bt, KS), ``wave_plan``'s rows
     a thread, ``wide_plan``'s rows). Any B; H up to 1024, run padded to a
     multiple of 32 (``lstm_fwd_padded``) where it is not one.
@@ -748,10 +745,7 @@ def lstm_fwd(xg: torch.Tensor, w_hh_t: torch.Tensor, h0: torch.Tensor,
     if batch == 0:
         return outs
     route = _route(route, t_steps, batch, hidden, 1, xg.element_size())
-    if route == "v2":
-        _launch_v2(xg, w_hh_t, h0, c0, outs, reverse)
-    else:
-        _LAUNCH[route](xg, w_hh_t, h0, c0, outs, 1, reverse, plan)
+    _LAUNCH[route](xg, w_hh_t, h0, c0, outs, 1, reverse, plan)
     return outs
 
 
@@ -767,9 +761,8 @@ def lstm_fwd_bidir(xg: torch.Tensor, w_hh_t: torch.Tensor,
 
     CPU tensors take the plain version. CUDA tensors run both directions
     in one launch of lstm_cluster.cu, lstm_wave.cu or lstm_wide.cu (as
-    ``fwd_route`` gives for 2 directions); route "v2" launches lstm_fwd.cu
-    once per direction. ``route`` and ``plan`` as in ``lstm_fwd``; H not a
-    multiple of 32 runs padded, as there.
+    ``fwd_route`` gives for 2 directions). ``route`` and ``plan`` as in
+    ``lstm_fwd``; H not a multiple of 32 runs padded, as there.
     """
     dims = _check(xg, w_hh_t, h0, c0, ndir=2)
     if dims is None:
@@ -782,12 +775,7 @@ def lstm_fwd_bidir(xg: torch.Tensor, w_hh_t: torch.Tensor,
     if batch == 0:
         return outs
     route = _route(route, t_steps, batch, hidden, 2, xg.element_size())
-    if route == "v2":
-        for d in range(2):
-            _launch_v2(xg[d], w_hh_t[d], h0[d], c0[d],
-                       tuple(o[d] for o in outs), bool(d))
-    else:
-        _LAUNCH[route](xg, w_hh_t, h0, c0, outs, 2, False, plan)
+    _LAUNCH[route](xg, w_hh_t, h0, c0, outs, 2, False, plan)
     return outs
 
 
@@ -1101,14 +1089,22 @@ def _launch_wave(xg, w_hh_t, h0, c0, outs, ndir, reverse, plan):
     launches_wave.add()
 
 
+def wide_weights(w_hh_t: torch.Tensor) -> torch.Tensor:
+    """W_hh^T (..., H, 4H) in lstm_wide.cu's layout (..., H, H, 4): the four
+    gate columns of each unit side by side, one 16-byte load a k."""
+    hidden = w_hh_t.shape[-2]
+    return w_hh_t.unflatten(-1, (4, hidden)).transpose(-1, -2).contiguous()
+
+
 def _launch_wide(xg, w_hh_t, h0, c0, outs, ndir, reverse, plan):
     t_steps, batch, four_h = xg.shape[-3:]
     hidden = four_h // 4
     rows = plan or wide_plan(hidden, batch, ndir)
+    w4 = wide_weights(w_hh_t)
     lib = _library("lstm_wide")
     ys, h_t, c_t = outs
     err = lib.lstm_wide(
-        xg.data_ptr(), w_hh_t.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+        xg.data_ptr(), w4.data_ptr(), h0.data_ptr(), c0.data_ptr(),
         ys.data_ptr(), h_t.data_ptr(), c_t.data_ptr(), t_steps, batch,
         hidden, ndir, int(reverse), int(xg.dtype == torch.bfloat16), rows,
         xg.device.index, _stream(xg))
@@ -1124,34 +1120,17 @@ _LAUNCH = {"cluster": _launch_cluster, "wave": _launch_wave,
 
 def _route(route, t_steps, batch, hidden, ndir, itemsize):
     """The route asked for, or ``fwd_route``'s; a cluster or wave route
-    above H = 256, or a wide or v2 route up to it, is refused."""
+    above H = 256, or a wide route up to it, is refused."""
     if route is None:
         return fwd_route(t_steps, batch, hidden, ndir, itemsize)
-    if route not in ("cluster", "wave", "wide", "v2") or (
-            (route in ("wide", "v2")) != (hidden > CLUSTER_MAX_HIDDEN)):
+    if route not in _LAUNCH or (
+            (route == "wide") != (hidden > CLUSTER_MAX_HIDDEN)):
         raise ValueError(f"lstm_fwd: no route {route!r} at hidden={hidden}")
     return route
 
 
-def _launch_v2(xg, w_hh_t, h0, c0, outs, reverse):
-    t_steps, batch, four_h = xg.shape
-    lib = _library("lstm_fwd")
-    ys, h_t, c_t = outs
-    err = lib.lstm_fwd(xg.data_ptr(), w_hh_t.data_ptr(), h0.data_ptr(),
-                       c0.data_ptr(), ys.data_ptr(), h_t.data_ptr(),
-                       c_t.data_ptr(), t_steps, batch, four_h // 4,
-                       int(reverse), int(xg.dtype == torch.bfloat16),
-                       xg.device.index, _stream(xg))
-    if err:
-        raise RuntimeError("lstm_fwd launch failed: "
-                           + lib.lstm_fwd_error_string(err).decode())
-    launches_v2.add()
-
-
 _ARGTYPES = {
     # xg w_hh_t h0 c0 ys hT cT, then the ints, then the stream
-    "lstm_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p],
     "lstm_cluster": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
     + [ctypes.c_void_p],
     "lstm_wave": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8

@@ -10,7 +10,7 @@ through the dispatcher when it is called:
 - the CUDA implementation is the wrapper's launch of the hand-written
   kernel (``lstm_cuda.lstm_fwd``/``lstm_fwd_bidir``: the kernel
   ``lstm_cuda.fwd_route`` gives the shape, ``lstm_cluster.cu``,
-  ``lstm_wave.cu`` or ``lstm_fwd.cu``; ``ssm_cuda.selective_scan_fwd``:
+  ``lstm_wave.cu`` or ``lstm_wide.cu``; ``ssm_cuda.selective_scan_fwd``:
   ``ssm_scan.cu``), launch counters included;
 - the CPU implementation is the same wrapper on CPU tensors, which runs
   the plain version.

@@ -1,6 +1,6 @@
 """The Hopper LSTM kernels (kernels/csrc/lstm_cluster.cu for H up to 256,
 kernels/csrc/lstm_wave.cu for large batches at H 256, kernels/csrc/
-lstm_fwd.cu above H 256, and the backward kernels/csrc/
+lstm_wide.cu above H 256, and the backward kernels/csrc/
 lstm_bwd_cluster.cu, for large batches kernels/csrc/lstm_bwd_wave.cu, and
 above H 256 kernels/csrc/lstm_bwd_wide.cu) against their plain version, on
 the card; widths that are not a multiple of 32, padded; the autograd
@@ -127,16 +127,17 @@ def test_every_plan_matches_plain(cuda, dtype, hidden):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_v2_kernel_above_256(cuda, dtype):
-    """H > 256 runs lstm_fwd.cu, one launch per direction."""
+    """H > 256 at small B (chip_smoke's V2_CASE) runs lstm_wide.cu, one
+    launch for one direction or both."""
     args = inputs((2,), 5, 13, 512, dtype, cuda)
     for reverse in (False, True):
         check_one(tuple(a[0] for a in args), dtype, reverse,
-                  counter=lstm_cuda.launches_v2)
-    before = (lstm_cuda.launches.value, lstm_cuda.launches_v2.value)
+                  counter=lstm_cuda.launches_wide)
+    before = (lstm_cuda.launches.value, lstm_cuda.launches_wide.value)
     got = lstm_cuda.lstm_fwd_bidir(*args)
     assert (lstm_cuda.launches.value,
-            lstm_cuda.launches_v2.value) == (before[0], before[1] + 2)
-    assert_close(got, lstm_cuda.lstm_fwd_bidir_plain(*args), dtype, "v2")
+            lstm_cuda.launches_wide.value) == (before[0], before[1] + 1)
+    assert_close(got, lstm_cuda.lstm_fwd_bidir_plain(*args), dtype, "wide")
 
 
 @pytest.mark.cuda
@@ -154,7 +155,7 @@ def test_unsupported_hidden_raises(cuda):
     check_bwd(lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_plain,
               tuple(a[1] for a in bwd), "H 48 reverse", route=None,
               reverse=True)
-    before = (lstm_cuda.launches.value, lstm_cuda.launches_v2.value)
+    before = (lstm_cuda.launches.value, lstm_cuda.launches_wide.value)
     args = inputs((2,), 3, 4, 1056, "float32", cuda)
     with pytest.raises(ValueError, match="up to 1024"):
         lstm_cuda.lstm_fwd_bidir(*args)
@@ -163,7 +164,7 @@ def test_unsupported_hidden_raises(cuda):
     args = inputs((2,), 3, 4, 256, "float32", cuda)
     with pytest.raises(RuntimeError, match="lstm_cluster launch failed"):
         lstm_cuda.lstm_fwd_bidir(*args, plan=(1, 8, 16))   # 1 MB slice
-    assert (lstm_cuda.launches.value, lstm_cuda.launches_v2.value) == before
+    assert (lstm_cuda.launches.value, lstm_cuda.launches_wide.value) == before
 
 
 @pytest.mark.cuda
@@ -622,7 +623,7 @@ def test_train_step_launch_counts(cuda):
     state = step.init_train_state(model, tx)
     train = step.make_train_step(tasks.make_fnssl_task(cfg).loss_fn, tx)
     batch = tasks.synthetic_fnssl_batch(nb=1, t_s=0.4, seed=1)
-    counters = (lstm_cuda.launches, lstm_cuda.launches_v2,
+    counters = (lstm_cuda.launches, lstm_cuda.launches_wide,
                 lstm_cuda.launches_bwd_wave, lstm_cuda.launches_bwd_cluster)
     before = [c.value for c in counters]
     state, loss = train(state, batch,
@@ -640,7 +641,7 @@ def test_backward_above_256_is_refused(cuda):
     from fnssl_tpu_torch.models.lstm import LSTM
 
     counters = (lstm_cuda.launches_bwd_wave, lstm_cuda.launches_bwd_cluster,
-                lstm_cuda.launches_bwd_wide, lstm_cuda.launches_v2)
+                lstm_cuda.launches_bwd_wide, lstm_cuda.launches_wide)
     before = [c.value for c in counters]
     args = bwd_inputs((2,), 3, 4, 1056, "float32", cuda)
     with pytest.raises(ValueError, match="up to 1024"):
@@ -753,17 +754,17 @@ def test_bwd_wide_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("bidirectional", [False, True])
 def test_wide_and_padded_lstm_function_on_card_matches_cpu(cuda, hidden,
                                                           bidirectional):
-    """models.lstm's autograd Function at H 512 (K1 on lstm_fwd.cu, K2 on
+    """models.lstm's autograd Function at H 512 (K1 on lstm_wide.cu, K2 on
     lstm_bwd_wide.cu) and at H 48 (both padded to 64, on the cluster
     kernels) against the plain versions on the CPU, values and every
     gradient within 1e-4 of their largest magnitude (at least 1e-4)."""
     from fnssl_tpu_torch.models.lstm import lstm
 
     ndir = 2 if bidirectional else 1
-    want_launches = ({"launches_v2": ndir, "launches_bwd_wide": 1}
+    want_launches = ({"launches_wide": 1, "launches_bwd_wide": 1}
                      if hidden == 512 else
                      {"launches": 1, "launches_bwd_cluster": 1})
-    counters = ("launches", "launches_v2", "launches_bwd_cluster",
+    counters = ("launches", "launches_wide", "launches_bwd_cluster",
                 "launches_bwd_wave", "launches_bwd_wide")
     results = []
     for device in (cuda, torch.device("cpu")):
@@ -787,7 +788,7 @@ def test_wide_and_padded_lstm_function_on_card_matches_cpu(cuda, hidden,
 def test_train_step_launch_counts_at_hidden_512(cuda):
     """One train step of FN-SSL at hidden_size 512 (full-band H 256 both
     directions, narrow-band H 512; nb 1 x 0.4 s): 3 K1 on lstm_cluster.cu
-    and 3 on lstm_fwd.cu, 3 K2 on lstm_bwd_cluster.cu and 3 on
+    and 3 on lstm_wide.cu, 3 K2 on lstm_bwd_cluster.cu and 3 on
     lstm_bwd_wide.cu."""
     from fnssl_tpu_torch.models.fnssl import FNSSL, FNSSLConfig
     from fnssl_tpu_torch.train import step, tasks
@@ -799,7 +800,7 @@ def test_train_step_launch_counts_at_hidden_512(cuda):
     state = step.init_train_state(model, tx)
     train = step.make_train_step(tasks.make_fnssl_task(cfg).loss_fn, tx)
     batch = tasks.synthetic_fnssl_batch(nb=1, t_s=0.4, seed=1)
-    counters = (lstm_cuda.launches, lstm_cuda.launches_v2,
+    counters = (lstm_cuda.launches, lstm_cuda.launches_wide,
                 lstm_cuda.launches_bwd_wave, lstm_cuda.launches_bwd_cluster,
                 lstm_cuda.launches_bwd_wide)
     before = [c.value for c in counters]

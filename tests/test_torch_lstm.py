@@ -171,9 +171,9 @@ def test_bidir_plain_is_two_directions(rng, dtype, t_steps):
                          dtype=torch.float32)
     c0 = torch.as_tensor(rng.standard_normal((2, b, h)) * 0.5,
                          dtype=torch.float32)
-    before = (lstm_cuda.launches.value, lstm_cuda.launches_v2.value)
+    before = (lstm_cuda.launches.value, lstm_cuda.launches_wide.value)
     got = lstm_cuda.lstm_fwd_bidir(xg, w, h0, c0)
-    assert (lstm_cuda.launches.value, lstm_cuda.launches_v2.value) == before
+    assert (lstm_cuda.launches.value, lstm_cuda.launches_wide.value) == before
     fwd = lstm_cuda.lstm_fwd_plain(xg[0], w[0], h0[0], c0[0])
     bwd = lstm_cuda.lstm_fwd_plain(xg[1], w[1], h0[1], c0[1], reverse=True)
     assert got[0].shape == (2, t_steps, b, h) and got[0].dtype == tdt

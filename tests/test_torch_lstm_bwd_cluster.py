@@ -126,7 +126,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     w = torch.randn(2, 4 * h, h, generator=gen) / h ** 0.5
     c0, dh_t, dc_t = (torch.randn(2, b, h, generator=gen) for _ in range(3))
     dys = torch.randn(2, t, b, h, generator=gen)
-    counters = (lstm_cuda.launches, lstm_cuda.launches_v2,
+    counters = (lstm_cuda.launches, lstm_cuda.launches_wide,
                 lstm_cuda.launches_bwd_wave, lstm_cuda.launches_bwd_cluster)
     before = [c.value for c in counters]
     got = lstm_cuda.lstm_bwd_bidir(g.clone(), w, c0, dys, dh_t, dc_t,

@@ -150,7 +150,7 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_width(hidden):
     gen = torch.Generator().manual_seed(hidden)
     args = bwd_args(gen, 3, 5, hidden)
     counters = (L.launches_bwd_cluster, L.launches_bwd_wave,
-                L.launches_bwd_wide, L.launches, L.launches_v2)
+                L.launches_bwd_wide, L.launches, L.launches_wide)
     before = [c.value for c in counters]
     want = L.lstm_bwd_bidir_plain(args[0].clone(), *args[1:])
     for route, plan in ((None, None), ("wide", 2), ("wave", None)):

@@ -307,3 +307,16 @@ def test_wide_tiles_fit_the_source():
     for r in L.WIDE_ROWS:
         assert f"case {r}:" in src or f"launch<T_in, {r}, HC>" in src
     assert L.MAX_HIDDEN == 1024
+
+
+@pytest.mark.parametrize("lead", [(), (2,)])
+def test_wide_weights_interleave_each_units_gates(lead):
+    """lstm_wide.cu reads W_hh^T as (..., H, H, 4): w4[k, j, g] is
+    W_hh^T[k, g H + j], each unit's four gate columns side by side."""
+    h = 288
+    w = torch.randn(*lead, h, 4 * h, generator=torch.Generator()
+                    .manual_seed(h))
+    w4 = L.wide_weights(w)
+    assert w4.shape == (*lead, h, h, 4) and w4.is_contiguous()
+    for g in range(4):
+        assert torch.equal(w4[..., g], w[..., g * h:(g + 1) * h])

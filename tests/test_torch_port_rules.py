@@ -126,13 +126,13 @@ def test_cpu_is_taken_only_when_asked(no_cuda):
 def test_kernel_sources_ship_with_the_package():
     from fnssl_tpu_torch.kernels import cuda_build
 
-    src = cuda_build.CSRC / "lstm_fwd.cu"
+    src = cuda_build.CSRC / "lstm_wide.cu"
     assert src.exists()
     text = src.read_text()
-    assert 'extern "C" int lstm_fwd(' in text
+    assert 'extern "C" int lstm_wide(' in text
     assert "lstm_pallas.py:_lstm_kernel" in text
     assert "sm_90a" in " ".join(cuda_build.NVCC_FLAGS)
-    assert cuda_build.library_path("lstm_fwd").parent == cuda_build.BUILD_DIR
+    assert cuda_build.library_path("lstm_wide").parent == cuda_build.BUILD_DIR
 
 
 def test_cluster_kernel_source_ships_with_the_package():

@@ -23,7 +23,7 @@ from fnssl_tpu_torch.models.spatialnet import (SpatialNet, SpatialNetConfig,
 
 KINDS = [("mhsa(251)", False), ("mhsa(251)", "ALiBi"), ("ret(2)", False),
          ("ret(2)", True)]
-COUNTERS = (lstm_cuda.launches, lstm_cuda.launches_v2,
+COUNTERS = (lstm_cuda.launches, lstm_cuda.launches_wide,
             lstm_cuda.launches_bwd_wave, lstm_cuda.launches_bwd_cluster,
             ssm_cuda.launches_ssm_fwd, ssm_cuda.launches_ssm_bwd)
 

@@ -245,7 +245,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     cs.log(smi.stdout.strip())
-    cuda_build.build(["lstm_wave", "lstm_cluster", "lstm_fwd"])
+    cuda_build.build(["lstm_wave", "lstm_cluster"])
     names = [n for n in args.variants.split(",") if n]
     if names:
         variants(names, device)

@@ -42,7 +42,7 @@ ROOT = Path.cwd()
 sys.path.insert(0, str(ROOT))
 
 # (T, B, H): hidden 512's narrow band in training (nb 16) and at 8 scenes,
-# its parity step (nb 1 x 2 s), lstm_fwd.cu's old check case, and H 768 /
+# its parity step (nb 1 x 2 s), chip_smoke's V2_CASE, and H 768 /
 # 1024 (T cut to 64: the rule does not take T)
 SWEEP = [(298, 4096, 512), (298, 2048, 512), (124, 256, 512), (5, 13, 512),
          (64, 4096, 768), (64, 4096, 1024), (5, 13, 1024)]
