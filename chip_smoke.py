@@ -26,7 +26,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
                1/13/300, T 0/1/2/7, H 32-256) and with every plan it is
                built for.
   4. serve   — `cli serve --model fnssl` at full width (fresh weights from
-               --seed) on cuda:0 answers 3 TCP connections of 5 s of 2-channel
+               --seed) on cuda:0 answers 3 TCP connections of 3 s of 2-channel
                16 kHz audio; launch counts (6 of lstm_cluster.cu a chunk
                step, none of the other kernels), eof counts, and
                agreement with the same pipeline on the CPU (plain versions)
@@ -172,7 +172,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
                other builds) and 24 (padded to 32), at layer 0's training
                shape and the edge cases.
  18. ipdnet2 serve — `cli serve --model ipdnet2` (SpatialNetConfig(),
-               weights from --seed) on cuda:0, 3 TCP connections of 5 s of
+               weights from --seed) on cuda:0, 3 TCP connections of 3 s of
                5-channel audio with fixed inter-mic delays: 16 K3 launches
                a chunk step and no K4, outputs within 1e-3 of the CPU,
                equal DOAs per track but at exact ties, eof.
@@ -301,7 +301,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
                and p90, peak memory, exactly 3 K1 of lstm_wide.cu and 3 of
                lstm_wave.cu, 3 K2 of lstm_bwd_wide.cu and 3 of
                lstm_bwd_wave.cu a step) and one traced step of each (K1's
-               and K2's device ms, busy time, idle share).
+               and K2's device ms, lstm_bwd_wide.cu's alone, busy time,
+               idle share).
  32. ipdnet2 mamba(32,4) — SpatialNetConfig(attention="mamba(32,4)"),
                every other width published (the fused scan at d_state 32):
                phase 19's fp32 parity step at its tolerances and gates (16
@@ -343,6 +344,8 @@ FP32_FLOP_S = 67e12
 TOL = {"float32": {"ys": 1e-4, "hT": 1e-4, "cT": 1e-4},
        "bfloat16": {"ys": 2e-2, "hT": 1e-4, "cT": 1e-4}}
 SERVE_AUDIO_S = 5.0
+# a serve connection's audio (phases 4, 13, 18): 15 chunk steps of FN-SSL
+SERVE_CONN_S = 3.0
 FS = 16000
 # (name, T, B, H, I, ndir): the recurrences of one chunk step of the serve
 # path (nb=1, P=1, 12 frames, nf=256) and of a one-shot 4.79 s forward
@@ -734,13 +737,14 @@ def phase_serve(seed, device, model="fnssl"):
         for c in counters:
             c.reset()
         replies = [stream_client("127.0.0.1", server.port,
-                                 make_audio(s, d, nch), block=block)
+                                 make_audio(s, d, nch, SERVE_CONN_S),
+                                 block=block)
                    for s, d in conns]
         launched = [c.value for c in counters]
     finally:
         server.shutdown()
 
-    expected_steps = chunk_steps(model)
+    expected_steps = chunk_steps(model, int(SERVE_CONN_S * FS))
     steps = 0
     for (s, d), msgs, rec in zip(conns, replies, sessions):
         n_steps = len(rec["ms"])
@@ -751,8 +755,8 @@ def phase_serve(seed, device, model="fnssl"):
         if not len(msgs) - 1 == n_steps == expected_steps:
             raise AssertionError(f"connection {s}: {len(msgs) - 1} lines "
                                  f"for {n_steps} chunk steps")
-        outs, doas, ss = reference_stream(seed, make_audio(s, d, nch), block,
-                                          model)
+        outs, doas, ss = reference_stream(
+            seed, make_audio(s, d, nch, SERVE_CONN_S), block, model)
         if len(outs) != n_steps:
             raise AssertionError(f"connection {s}: CPU fired {len(outs)}")
         out_err = max((g - w).abs().max().item()
@@ -1930,7 +1934,7 @@ def bwd_wide_cases():
 
     cases = []
     for h in WIDE_EDGE_H:
-        past = L.bwd_wide_tile(max(L.bwd_wide_plans(h))) + 1
+        past = max(L.bwd_wide_tile(p) for p in L.bwd_wide_plans(h)) + 1
         cases += [("wide edge", t, b, h, None, None)
                   for b in EDGE_B + (past,) for t in BWD_EDGE_T]
     cases += [("padded H 48", t, 13, 48, None, None) for t in BWD_EDGE_T]
@@ -2005,9 +2009,12 @@ def phase_wide_times(device, shapes=WIDE_TIMED_SHAPES):
     """K1 and K2 at `shapes` (FN-SSL's recurrences at hidden_size 512 and
     K1's small-B check case above H = 256), each on the kernel its rule
     gives it, fp32 and bf16: the card's time of a launch from a trace
-    (device_ms), the bound, the plain version (fp32), cuDNN's forward and
-    backward (`library_times`: fp32 with TF32 off and on, bf16), and the
-    port's whole LSTM backward."""
+    (device_ms), the bound and K2's share of it (bound / time), the plain
+    version (fp32), cuDNN's forward and backward (`library_times`: fp32
+    with TF32 off and on, bf16; cuDNN's bf16 LSTM multiplies in bf16 on
+    the tensor cores, not the float32 products the port computes), and
+    the port's whole LSTM backward. Above H = 256, K2's plan (rows a
+    thread of lstm_bwd_wide.cu)."""
     from fnssl_tpu_torch.kernels import lstm_cuda as L
     from fnssl_tpu_torch.models.lstm import lstm
 
@@ -2015,6 +2022,8 @@ def phase_wide_times(device, shapes=WIDE_TIMED_SHAPES):
     for name, t, b, h, i, ndir in shapes:
         bidir = ndir == 2
         row = {"shape": name, "T": t, "B": b, "H": h, "I": i, "ndir": ndir}
+        if h > L.CLUSTER_MAX_HIDDEN:
+            row["k2_plan"] = L.bwd_wide_plan(h, b, ndir)
         for dtype in ("float32", "bfloat16"):
             tdt = getattr(torch, dtype)
             row[f"k1_route_{dtype}"] = L.fwd_route(t, b, h, ndir,
@@ -2041,6 +2050,9 @@ def phase_wide_times(device, shapes=WIDE_TIMED_SHAPES):
             row[f"k2_bound_terms_{dtype}"] = {
                 k: ndir * v for k, v in bwd_bound_terms(t, b, h,
                                                         tdt.itemsize).items()}
+            row[f"k2_bound_share_{dtype}"] = (
+                bound(row[f"k2_bound_terms_{dtype}"])[0]
+                / row[f"k2_ms_{dtype}"])
             if dtype == "float32":
                 row["k2_plain_ms"] = cuda_ms(lambda: k2_plain(*args), 1)
             del args
@@ -2063,9 +2075,13 @@ def phase_wide_times(device, shapes=WIDE_TIMED_SHAPES):
             f"{row['k1_plain_ms']:.1f}, cuDNN fwd TF32 off "
             f"{row['library_fwd_ms']:.3f}, on {row['library_fwd_ms_tf32']:.3f}"
             f", bf16 {row['library_fwd_ms_bf16']:.3f})"
-            f"; K2 ({row['k2_route_float32']}/{row['k2_route_bfloat16']}) "
-            f"fp32 {row['k2_ms_float32']:.3f} ms, bf16 "
-            f"{row['k2_ms_bfloat16']:.3f} (bound {row['k2_bound_ms']:.3f} "
+            f"; K2 ({row['k2_route_float32']}/{row['k2_route_bfloat16']}"
+            + (f", R {row['k2_plan']}" if "k2_plan" in row else "")
+            + f") fp32 {row['k2_ms_float32']:.3f} ms "
+            f"({row['k2_bound_share_float32']:.0%} of the bound), bf16 "
+            f"{row['k2_ms_bfloat16']:.3f} "
+            f"({row['k2_bound_share_bfloat16']:.0%}) (bound "
+            f"{row['k2_bound_ms']:.3f} "
             f"{row['k2_bound_by']}, plain {row['k2_plain_ms']:.1f}, cuDNN bwd "
             f"TF32 off {row['library_bwd_ms']:.3f}, on "
             f"{row['library_bwd_ms_tf32']:.3f}, bf16 "
@@ -2113,15 +2129,21 @@ def phase_wide_train(seed, device):
             f"{row['peak_bytes'] / 2**30:.2f} GiB; losses "
             + ", ".join(f"{v:.6f}" for v in losses))
         launched = [c.value for c in counts]
-        prof = profile_step(lambda: step(state, batch, gen))
+        prof = profile_step(lambda: step(state, batch, gen),
+                            ("lstm_bwd_wide_kernel",))
         if not prof["busy_ms"]:
             raise AssertionError("the profiler saw no kernel on the card")
         row["profile"] = prof
         row["k1_device_ms"] = prof["groups_ms"]["K1"]
         row["k2_device_ms"] = prof["groups_ms"]["K2"]
+        row["k2_wide_device_ms"] = prof["ms_of"]["lstm_bwd_wide_kernel"]
+        if not row["k2_wide_device_ms"] > 0:
+            raise AssertionError(f"hidden {WIDE_HIDDEN} {precision}: the "
+                                 "traced step holds no lstm_bwd_wide_kernel")
         log(f"  traced {precision} step: wall {prof['wall_ms']:.2f} ms, busy "
             f"{prof['busy_ms']:.2f} ms, idle share {prof['idle_share']:.2%}; "
-            f"K1 {row['k1_device_ms']:.2f} ms, K2 {row['k2_device_ms']:.2f}; "
+            f"K1 {row['k1_device_ms']:.2f} ms, K2 {row['k2_device_ms']:.2f} "
+            f"(lstm_bwd_wide.cu {row['k2_wide_device_ms']:.2f}); "
             "busy by group " + ", ".join(
                 f"{g} {v:.2f}" for g, v in prof["groups_ms"].items()))
         per = step_launches(WIDE_NB, 4 if precision == "fp32" else 2,
@@ -2621,11 +2643,12 @@ KERNEL_GROUPS = (("K1", ("lstm_cluster", "lstm_wave", "lstm_wide_kernel")),
                  ("copies", ("copy", "cat", "memcpy", "memset")))
 
 
-def profile_step(step_fn):
+def profile_step(step_fn, sums=()):
     """One call of step_fn under torch.profiler: wall ms, the card's busy
     ms (union of kernel intervals), idle share, busy ms by kernel group
-    (KERNEL_GROUPS, first match by name, else 'the rest') and the top
-    kernels by name."""
+    (KERNEL_GROUPS, first match by name, else 'the rest'), the top
+    kernels by name and, under "ms_of", the ms of every kernel whose name
+    holds each string of `sums`."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2663,6 +2686,8 @@ def profile_step(step_fn):
     return {"wall_ms": wall, "busy_ms": busy, "kernels": len(kernels),
             "idle_share": 1.0 - busy / wall if busy else None,
             "groups_ms": groups,
+            "ms_of": {k: sum(ms for n, ms in by_name.items() if k in n)
+                      for k in sums},
             "top": [{"kernel": n[:100], "ms": ms} for n, ms in top]}
 
 
@@ -5157,8 +5182,9 @@ def main():
     bwd_sweep, bwd_measured = phase_bwd_sweep(device)
     log(f"[wide times] K1 and K2 at FN-SSL's hidden_size {WIDE_HIDDEN} "
         "shapes and K1's small-B check case above H = 256: the card's time "
-        "from a trace, bound, plain, cuDNN (fp32 with TF32 off and on, and "
-        "bf16)")
+        "from a trace, bound and K2's share of it, K2's plan above H = 256, "
+        "plain, cuDNN (fp32 with TF32 off and on, and bf16: cuDNN's bf16 "
+        "recurrence, not the float32 function)")
     wide_rows = phase_wide_times(device)
 
     # 10. the user's training loop through the CLI
@@ -5327,7 +5353,9 @@ def main():
                         "shapes with TF32 off (the port's float32; the "
                         "backward: forward+backward less forward), "
                         "library_tf32_ms with it on, library_bf16_ms in "
-                        "bf16"}
+                        "bf16 (cuDNN's bf16 recurrence on the tensor cores, "
+                        "not the float32 products JAX's _lstm_backward and "
+                        "the port compute)"}
 
     def wide_case(k, library):
         v = wide["v2_case"]
@@ -5703,12 +5731,17 @@ def main():
         "checks": bwd_checks["lstm_bwd_wide"],
         **wide_share("k2", "library_bwd_ms"),
         "lstm_backward_ms": 3 * wn["port_bwd_ms"],
+        "plan": wn["k2_plan"],
+        "bound_share": wn["k2_bound_share_float32"],
+        "bound_share_bf16": wn["k2_bound_share_bfloat16"],
         "v2_case": wide_case("k2", "library_bwd_ms"),
         "per_shape": wide_rows,
         # K2's device ms in one traced step of phase 31's cell (this kernel
         # and lstm_bwd_wave.cu's full band)
         "fnssl_h512_step_k2_traced_ms": {
-            p: wide_report[p]["k2_device_ms"] for p in ("fp32", "bf16")}})
+            p: wide_report[p]["k2_device_ms"] for p in ("fp32", "bf16")},
+        "fnssl_h512_step_lstm_bwd_wide_traced_ms": {
+            p: wide_report[p]["k2_wide_device_ms"] for p in ("fp32", "bf16")}})
     # K1's device ms in one traced step of phase 31's cell (this kernel and
     # lstm_wave.cu's full band)
     kernels[2]["fnssl_h512_step_k1_traced_ms"] = {

@@ -555,9 +555,10 @@ def bwd_wide_tile(plan: int) -> int:
 
 
 def bwd_wide_smem(hidden: int, tile: int) -> int:
-    """Shared memory (bytes) of one CTA of lstm_bwd_wide.cu: dgates alone
-    (tile x (4H + 4) float32); G, c and dy go straight to registers."""
-    return tile * (4 * hidden + BWD_WAVE_PAD) * 4
+    """Shared memory (bytes) of one CTA of lstm_bwd_wide.cu: dgates (tile x
+    (4H + 4) float32) and dc (tile x (H + 4) float32); G, c and dy go
+    straight to registers."""
+    return tile * (4 * hidden + BWD_WAVE_PAD + hidden + BWD_WAVE_PAD) * 4
 
 
 def bwd_wide_fits(hidden: int, plan: int) -> bool:

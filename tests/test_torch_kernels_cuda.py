@@ -715,16 +715,37 @@ def test_bwd_wide_every_plan_matches_plain(cuda, dtype, hidden):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_bwd_wide_gives_the_same_bits_run_to_run(cuda, dtype):
+@pytest.mark.parametrize("hidden", [512, 1024])
+def test_bwd_wide_every_plan_at_the_edges(cuda, dtype, hidden):
+    """Every plan at the edge B (1, 13, one row short of its tile and one
+    past it) and T (1, 2), through both entry points and both walks: the
+    masked rows of the stage and of dc in shared memory."""
+    seed = 300 + hidden
+    for plan in lstm_cuda.bwd_wide_plans(hidden):
+        tile = lstm_cuda.bwd_wide_tile(plan)
+        for b in sorted({1, 13, tile - 1, tile + 1}):
+            for t_steps in (1, 2):
+                seed += 1
+                check_bwd_wide(bwd_inputs((2,), t_steps, b, hidden, dtype,
+                                          cuda, seed),
+                               (hidden, plan, b, t_steps), plan=plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden", [512, 1024])
+def test_bwd_wide_gives_the_same_bits_run_to_run(cuda, dtype, hidden):
     """No atomics: the same inputs give the same dgates, dh0 and dc0 bits
-    on every launch, at a ragged B of several tiles."""
-    args = bwd_inputs((2,), 11, 4099, 512, dtype, cuda, 7)
-    outs = [lstm_cuda.lstm_bwd_bidir(args[0].clone(), *args[1:])
-            for _ in range(3)]
-    torch.cuda.synchronize()
-    for out in outs[1:]:
-        for got, want in zip(out, outs[0]):
-            assert torch.equal(got, want)
+    on every launch, at a ragged B of several tiles, with every plan."""
+    args = bwd_inputs((2,), 11, 4099 if hidden == 512 else 517, hidden,
+                      dtype, cuda, 7)
+    for plan in lstm_cuda.bwd_wide_plans(hidden):
+        outs = [lstm_cuda.lstm_bwd_bidir(args[0].clone(), *args[1:],
+                                         plan=plan) for _ in range(3)]
+        torch.cuda.synchronize()
+        for out in outs[1:]:
+            for got, want in zip(out, outs[0]):
+                assert torch.equal(got, want), plan
 
 
 @pytest.mark.cuda

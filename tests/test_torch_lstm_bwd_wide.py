@@ -53,9 +53,23 @@ def test_bwd_route_at_hidden_512(what, t, b, h, ndir, itemsize, route):
 
 @pytest.mark.parametrize("hidden", range(288, 1025, 32))
 def test_bwd_route_gives_every_width_above_256_to_the_wide_kernel(hidden):
-    for b, ndir in ((1, 1), (4096, 1), (4768, 2)):
-        assert L.bwd_route(298, b, hidden, ndir, 4) == "wide"
-        assert L.bwd_wide_fits(hidden, L.bwd_wide_plan(hidden, b, ndir))
+    """Every B and direction count gets lstm_bwd_wide.cu and a plan that
+    fits: the fewest rows on the busiest SM (one CTA an SM, each wave in
+    turn), on a tie the most rows a thread; 16-row tiles up to H = 512 and
+    8-row ones above at FN-SSL's B = 4096."""
+    plans = L.bwd_wide_plans(hidden)
+    for b in (1, 13, 77, 256, 2048, 4096, 4768):
+        for ndir in (1, 2):
+            assert L.bwd_route(298, b, hidden, ndir, 4) == "wide"
+            plan = L.bwd_wide_plan(hidden, b, ndir)
+            assert plan in plans and L.bwd_wide_fits(hidden, plan)
+            busiest = {p: L._busiest(L.bwd_wide_tile(p), -(
+                -b // L.bwd_wide_tile(p)) * ndir, 1) for p in plans}
+            assert busiest[plan] == min(busiest.values())
+            assert plan == max(p for p in plans
+                               if busiest[p] == busiest[plan])
+    assert L.bwd_wide_tile(L.bwd_wide_plan(hidden, 4096, 1)) == (
+        16 if hidden <= 512 else 8)
 
 
 @pytest.mark.parametrize("batch,ndir,hidden,plan,busiest", [
@@ -74,14 +88,17 @@ def test_bwd_wide_plan_fills_the_sms(batch, ndir, hidden, plan, busiest):
 
 
 def test_bwd_wide_layout_and_smem_arithmetic():
-    """Columns of 32 units a lane, threads a CTA and shared memory (dgates
-    alone: tile x (4H + 4) float32) at the widths the source takes."""
+    """Columns of 32 units a lane, threads a CTA and shared memory (dgates,
+    tile x (4H + 4), and dc, tile x (H + 4), float32) at the widths the
+    source takes."""
     assert [L.bwd_wide_columns(h) for h in (288, 512, 544, 1024)] == \
         [1, 1, 2, 2]
     assert [L.bwd_wide_threads(h) for h in (288, 384, 512, 544, 768, 1024)] \
         == [288, 384, 512, 288, 384, 512]
-    assert L.bwd_wide_smem(512, 16) == 16 * 2052 * 4 == 131_328
-    assert L.bwd_wide_smem(1024, 8) == 8 * 4100 * 4 == 131_200
+    assert L.bwd_wide_smem(512, 16) == 16 * (2052 + 516) * 4 == 164_352
+    assert L.bwd_wide_smem(1024, 8) == 8 * (4100 + 1028) * 4 == 164_096
+    # a 32-row tile's dgates alone would not fit a CTA at H = 512
+    assert 32 * 2052 * 4 > L.SMEM_BYTES
     for h in range(288, 1025, 32):
         plans = L.bwd_wide_plans(h)
         assert plans == ((4, 2, 1) if h <= 512 else (2, 1))
@@ -116,7 +133,10 @@ def test_the_source_sizes_a_cta_as_the_plan_does():
     assert "lstm_pallas.py:" in src and "_lstm_backward" in src
     body = re.search(r"constexpr size_t smem_bytes\((.*?)\n}", src,
                      re.S).group(1)
-    assert "(tile) * (4 * hidden + kPad) * 4" in body
+    assert "(tile) * (4 * hidden + kPad + hidden + kPad) * 4" in body
+    # W_hh register blocks of 8 k's at the 16-row tile, 4 below
+    assert "constexpr int block_k(int r) { return r == 4 ? 8 : 4; }" in src
+    assert "constexpr int KB = block_k(R);" in src
     assert f"kGroups = {L.BWD_WIDE_GROUPS};" in src
     assert f"kPad = {L.BWD_WAVE_PAD};" in src
     assert f"kMaxThreads = {L.BWD_WIDE_MAX_THREADS};" in src
@@ -250,3 +270,67 @@ def test_padded_lstm_at_h48_matches_jax(reverse):
             (dgates.sum(dim=(0, 1)), db),
             (torch.einsum("tbg,tbh->gh", dgates, h_prev), d_whh)):
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("walk", ["forward", "reverse", "both"])
+@pytest.mark.parametrize("hidden", [288, 512, 1024])
+def test_wide_backward_matches_jax(hidden, walk):
+    """K2 at widths lstm_bwd_wide.cu takes (288, FN-SSL's 512, the largest,
+    1024), through the entry points the LSTM layer calls (``lstm_bwd`` for
+    one walk, ``lstm_bwd_bidir`` for both; the plain version on the CPU,
+    which the card's kernel is held against), against JAX's
+    ``_lstm_backward`` on the same numpy-seeded inputs at a B of 13, no
+    multiple of a tile: dh0, dc0, and dgates through dx, db and dW_hh."""
+    rng = np.random.default_rng(hidden + len(walk))
+    b, t, i = 13, 3, 16
+    f32 = np.float32
+    dirs = (False, True) if walk == "both" else (walk == "reverse",)
+    tg, tw, tc0, tdy, tdh, tdc, want = [], [], [], [], [], [], []
+    for reverse in dirs:
+        x = rng.standard_normal((b, t, i)).astype(f32)
+        w_ih = (rng.standard_normal((4 * hidden, i)) * 0.3).astype(f32)
+        w_hh = (rng.standard_normal((4 * hidden, hidden))
+                * hidden ** -0.5).astype(f32)
+        bias = (rng.standard_normal(4 * hidden) * 0.1).astype(f32)
+        h0, c0 = ((rng.standard_normal((b, hidden)) * 0.5).astype(f32)
+                  for _ in range(2))
+        dys = rng.standard_normal((b, t, hidden)).astype(f32)
+        dh_t, dc_t = (rng.standard_normal((b, hidden)).astype(f32)
+                      for _ in range(2))
+        ja = [jnp.asarray(a) for a in (x, w_ih, w_hh, bias, h0, c0)]
+        jys = np.asarray(lstm_fused_scan(*ja, reverse)[0])
+        dx, _, d_whh, db, dh0, dc0 = (np.asarray(a) for a in _lstm_backward(
+            reverse, (*ja, jnp.asarray(jys)),
+            (jnp.asarray(dys), jnp.asarray(dh_t), jnp.asarray(dc_t))))
+        ys_t = torch.as_tensor(jys).transpose(0, 1)             # (T, B, H)
+        h_prev = torch.empty_like(ys_t)
+        if reverse:
+            h_prev[:-1], h_prev[-1] = ys_t[1:], torch.as_tensor(h0)
+        else:
+            h_prev[1:], h_prev[0] = ys_t[:-1], torch.as_tensor(h0)
+        tx, tw_ih, tw_hh = (torch.as_tensor(a) for a in (x, w_ih, w_hh))
+        xg = tx.transpose(0, 1) @ tw_ih.T + torch.as_tensor(bias)
+        tg.append(xg + h_prev @ tw_hh.T)
+        tw.append(tw_hh)
+        tc0.append(torch.as_tensor(c0))
+        tdy.append(torch.as_tensor(dys).transpose(0, 1))
+        tdh.append(torch.as_tensor(dh_t))
+        tdc.append(torch.as_tensor(dc_t))
+        want.append((tw_ih, h_prev, dx, d_whh, db, dh0, dc0))
+    if walk == "both":
+        got = L.lstm_bwd_bidir(*(torch.stack(a).contiguous() for a in (
+            tg, tw, tc0, tdy, tdh, tdc)))
+        got = [tuple(o[d] for o in got) for d in range(2)]
+    else:
+        got = [L.lstm_bwd(*(a[0].contiguous() for a in (
+            tg, tw, tc0, tdy, tdh, tdc)), reverse=dirs[0])]
+    for (dgates, tdh0, tdc0), (tw_ih, h_prev, dx, d_whh, db, dh0, dc0) in \
+            zip(got, want):
+        assert dgates.shape == (t, b, 4 * hidden)
+        for got_, want_ in (
+                (tdh0, dh0), (tdc0, dc0),
+                ((dgates @ tw_ih).transpose(0, 1), dx),
+                (dgates.sum(dim=(0, 1)), db),
+                (torch.einsum("tbg,tbh->gh", dgates, h_prev), d_whh)):
+            np.testing.assert_allclose(got_.numpy(), want_, rtol=RTOL,
+                                       atol=ATOL)
