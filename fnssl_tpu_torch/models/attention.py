@@ -81,6 +81,11 @@ class MHSA(nn.Module):
         self.out_proj = Params(device, weight=(e, e), bias=(e,))
         uniform_(self.in_proj_weight, math.sqrt(6.0 / (4 * e)), generator)
         uniform_(self.out_proj.weight, math.sqrt(3.0 / e), generator)
+        # the streaming step's ALiBi slopes, made once on the host (not in
+        # the state dict)
+        self.register_buffer("alibi", torch.as_tensor(
+            alibi_slopes(cfg.num_heads), dtype=torch.float32,
+            device=device), persistent=False)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 state: "MHSAState | None" = None):
@@ -123,20 +128,29 @@ def mhsa_apply(p: MHSA, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 class MHSAState(NamedTuple):
     tail: torch.Tensor  # (B, attn_scope-1, H) last window of inputs
-    pos: torch.Tensor   # () int32, frames consumed so far
+    pos: torch.Tensor   # () or (B,) int32, frames consumed so far
 
 
-def init_mhsa_state(batch: int, cfg: MHSAConfig, device=None) -> MHSAState:
+def init_mhsa_state(batch: int, cfg: MHSAConfig, device=None,
+                    per_row: bool = False) -> MHSAState:
+    """JAX's state (``pos`` a scalar), or with ``per_row`` one position a
+    row, so that rows at different positions (a slot pool's) share a
+    batch."""
     return MHSAState(
         torch.zeros((batch, max(cfg.attn_scope - 1, 0), cfg.embed_dim),
                     device=device),
-        torch.zeros((), dtype=torch.int32, device=device))
+        torch.zeros((batch,) if per_row else (), dtype=torch.int32,
+                    device=device))
 
 
 def mhsa_apply_streaming(p: MHSA, x: torch.Tensor, state: MHSAState):
     """Chunked streaming attention, equal to the one-shot path: the last
     ``attn_scope - 1`` raw inputs are carried and their K/V recomputed
-    each chunk. Returns (out, new state)."""
+    each chunk. ``state.pos`` is one position for the batch or one a row;
+    either way ``real`` is a (B or 1, 1, 1, w+T) mask, so equal rows give
+    the scalar form's bits. The mask is built on the device from aranges
+    and the ALiBi slopes buffer: no host copy, so the step can be captured
+    in a CUDA graph. Returns (out, new state)."""
     cfg = p.cfg
     t = x.shape[1]
     w = max(cfg.attn_scope - 1, 0)
@@ -145,17 +159,12 @@ def mhsa_apply_streaming(p: MHSA, x: torch.Tensor, state: MHSAState):
     q, k, v = _qkv(p, x, ctx)
     # query i attends ctx j: rel = i + w - j; visible iff 0 <= rel < scope
     # and ctx j is a real frame (its global index pos - w + j >= 0)
-    i = np.arange(t)[:, None]
-    j = np.arange(w + t)[None, :]
-    rel = i + w - j
-    visible = torch.as_tensor((rel >= 0) & (rel < cfg.attn_scope),
-                              device=x.device)
-    real = (state.pos - w + torch.as_tensor(j, device=x.device)) >= 0
+    j = torch.arange(w + t, device=x.device)
+    rel = torch.arange(t, device=x.device)[:, None] + w - j
+    visible = (rel >= 0) & (rel < cfg.attn_scope)
+    real = (state.pos.reshape(-1, 1, 1, 1) - w + j) >= 0   # (B or 1, …)
     if cfg.alibi:
-        m = torch.as_tensor(alibi_slopes(cfg.num_heads).reshape(-1, 1, 1),
-                            dtype=torch.float32, device=x.device)
-        base = m * torch.as_tensor(-np.abs(rel), dtype=torch.float32,
-                                   device=x.device)
+        base = p.alibi[:, None, None] * (-rel.abs()).float()
     else:
         base = torch.zeros(rel.shape, device=x.device)
     mask = torch.where(visible & real, base,

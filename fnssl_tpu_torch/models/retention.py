@@ -103,9 +103,10 @@ def _rotate_every_two(x: torch.Tensor) -> torch.Tensor:
 
 def theta_shift(x: torch.Tensor, sin: torch.Tensor,
                 cos: torch.Tensor) -> torch.Tensor:
-    """xpos rotary. Takes (T, kd) tables (parallel/chunkwise) or (kd,)
-    single-step values (recurrent); the full-vector rotary in every mode,
-    as the JAX package applies it, so that the three modes agree."""
+    """xpos rotary. Takes (T, kd) tables (parallel/chunkwise), (kd,)
+    single-step values (recurrent) or one step's values a row, (B or 1,
+    1, 1, kd); the full-vector rotary in every mode, as the JAX package
+    applies it, so that the three modes agree."""
     if sin.ndim == 1:
         return x * cos + _rotate_every_two(x) * sin
     slen = x.shape[-2]
@@ -153,6 +154,13 @@ class Retention(nn.Module):
             std = gain * math.sqrt(2.0 / (shape[0] + shape[1]))
             uniform_(getattr(self, name).weight, math.sqrt(3.0) * std,
                      generator)
+        # the recurrent step's rotary angles and decays (RetNetRelPos's),
+        # made once on the host (not in the state dict)
+        rel = RetNetRelPos(cfg.embed_dim, cfg.num_heads, 1)
+        for name, table in (("angle", rel.angle),
+                            ("decay", np.exp(rel.decay))):
+            self.register_buffer(name, torch.as_tensor(
+                table, dtype=torch.float32, device=device), persistent=False)
 
 
 def _qkvg(p: Retention, x, sin, cos, rope: bool):
@@ -210,8 +218,8 @@ def retention_parallel(p: Retention, x, rel_pos, rope: bool = True):
 def retention_recurrent_step(p: Retention, x, rel_pos,
                              state: dict | None, rope: bool = True):
     """Single-frame recurrent mode (retention.py:174-192). ``state``:
-    {'prev_key_value': (b, h, kd, hd), 'scale': (h,)} or None. Returns
-    (out, new state)."""
+    {'prev_key_value': (b, h, kd, hd), 'scale': (h,) or one a row (b, h)}
+    or None. Returns (out, new state)."""
     cfg = p.cfg
     (sin, cos), decay = rel_pos
     bsz = x.shape[0]
@@ -223,8 +231,8 @@ def retention_recurrent_step(p: Retention, x, rel_pos,
         prev_kv, prev_scale = state["prev_key_value"], state["scale"]
         scale = prev_scale * decay + 1
         kv = (prev_kv * (torch.sqrt(prev_scale) * decay
-                         / torch.sqrt(scale)).reshape(h, 1, 1)
-              + kv / torch.sqrt(scale).reshape(h, 1, 1))
+                         / torch.sqrt(scale)).reshape(-1, h, 1, 1)
+              + kv / torch.sqrt(scale).reshape(-1, h, 1, 1))
     else:
         scale = torch.ones_like(decay)
     out = (qr.reshape(bsz, h, kd, 1) * kv).sum(dim=2)   # (b, h, hd)

@@ -48,7 +48,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -142,8 +141,8 @@ class SpatialNetConfig(NamedTuple):
 
 class RetentionState(NamedTuple):
     kv: torch.Tensor     # (B·F, heads, key_dim, head_dim) rescaled kv
-    scale: torch.Tensor  # (heads,) running scale
-    pos: torch.Tensor    # () int32 absolute frame index (rotary phase)
+    scale: torch.Tensor  # (heads,) or (B·F, heads) running scale
+    pos: torch.Tensor    # () or (B·F,) int32 absolute frame index (rotary)
 
 
 class SpatialNetState(NamedTuple):
@@ -152,9 +151,16 @@ class SpatialNetState(NamedTuple):
 
 
 def init_spatialnet_state(nb: int, cfg: SpatialNetConfig = SpatialNetConfig(),
-                          device=None) -> SpatialNetState:
+                          device=None, per_row: bool = False
+                          ) -> SpatialNetState:
+    """The streaming state of ``nb`` streams. JAX's leaves by default:
+    MHSA's and retention's positions and retention's running scale are
+    shared by the batch. ``per_row`` gives them one value a row of the
+    B·F time-module batch, so that every leaf grows with nb and streams
+    at different positions can share a batch (the slot pool's)."""
     batch = nb * (cfg.num_freqs // cfg.fre_compression_ratio)
     kind, rc = cfg.time_kind, cfg.ret_cfg
+    rows = (batch,) if per_row else ()
     states = []
     for _ in range(cfg.num_layers):
         if kind == "mamba":
@@ -162,13 +168,13 @@ def init_spatialnet_state(nb: int, cfg: SpatialNetConfig = SpatialNetConfig(),
                            init_mamba_state(batch, cfg.mamba_cfg, device)))
             continue
         if kind == "mhsa":
-            s1 = init_mhsa_state(batch, cfg.mhsa_cfg, device)
+            s1 = init_mhsa_state(batch, cfg.mhsa_cfg, device, per_row)
         else:
             s1 = RetentionState(
                 torch.zeros((batch, rc.num_heads, rc.key_dim, rc.head_dim),
                             device=device),
-                torch.zeros((rc.num_heads,), device=device),
-                torch.zeros((), dtype=torch.int32, device=device))
+                torch.zeros(rows + (rc.num_heads,), device=device),
+                torch.zeros(rows, dtype=torch.int32, device=device))
         states.append((s1, init_tconvffn_state(batch, cfg.tconv_cfg,
                                                device)))
     return SpatialNetState(
@@ -316,20 +322,17 @@ def _retention_stream(p: Retention, y: torch.Tensor, cfg: SpatialNetConfig,
     """Per-frame recurrent retention over a chunk (a loop over its
     frames), numerically the chunkwise/parallel one-shot modes (the
     reference's per-step loop, IPDnet2.py:193-199 + retention.py:174-192).
+    ``state.pos`` is one position for the batch or one a row; the tables
+    are the module's buffers, so no host copy runs here.
     """
-    pos_tab = RetNetRelPos(cfg.dim_hidden, cfg.num_heads,
-                           cfg.recurrent_chunk_size)
-    angle = torch.as_tensor(pos_tab.angle, dtype=torch.float32,
-                            device=y.device)
-    decay = torch.as_tensor(np.exp(pos_tab.decay), dtype=torch.float32,
-                            device=y.device)
     rope = cfg.rope is True
     kv, scale, pos = state
     outs = []
     for t in range(y.shape[1]):
-        ang = angle * pos.float()
+        # (B or 1, 1, 1, kd): one rotary step a row, or one for the batch
+        ang = (p.angle * pos.float().reshape(-1, 1))[:, None, None]
         out, new = retention_recurrent_step(
-            p, y[:, t: t + 1], ((torch.sin(ang), torch.cos(ang)), decay),
+            p, y[:, t: t + 1], ((torch.sin(ang), torch.cos(ang)), p.decay),
             {"prev_key_value": kv, "scale": scale}, rope=rope)
         kv, scale, pos = new["prev_key_value"], new["scale"], pos + 1
         outs.append(out[:, 0])

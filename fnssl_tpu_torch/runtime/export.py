@@ -16,16 +16,20 @@ A trained model serializes to a self-contained directory:
 ``load_artifact()`` returns a callable that needs **no model code**: it
 imports only ``kernels.ops``, which registers the custom ops that the
 programs call for K1 and K3. On the card those ops launch the hand-written
-kernels (``lstm_cluster.cu``, ``ssm_scan.cu``); in a CPU program the same
-ops run their plain versions, the part the JAX package's cross-lowering
-gave to its ``lax.scan`` in place of the Pallas kernel. The program is
-neither compiled by AOTInductor nor by ``torch.compile``: it is run as
-traced, op by op.
+kernels (K1 on ``lstm_cluster.cu``, ``lstm_wave.cu`` or ``lstm_wide.cu``
+as ``lstm_cuda.fwd_route`` gives the shape; K3 on ``ssm_scan.cu``); in a
+CPU program the same ops run their plain versions, the part the JAX
+package's cross-lowering gave to its ``lax.scan`` in place of the Pallas
+kernel. IPDnet2's MHSA and retention time modules are plain matrix
+products in the program and call no custom op. The program is neither
+compiled by AOTInductor nor by ``torch.compile``: it is run as traced,
+op by op.
 
 The stream mode's state is flattened at the artifact's boundary: the
 program takes ``(feats, [leaves])`` and returns ``(pred, [new leaves])``,
 so no state class has to be registered for serialization and a loader
-needs none of them.
+needs none of them. The leaves are the JAX package's (``init_state.pt``
+holds JAX's ``export_model`` initial state leaf for leaf).
 """
 from __future__ import annotations
 
@@ -42,10 +46,15 @@ from torch.utils import _pytree as pytree
 PLATFORMS = ("cpu", "cuda")
 
 
-def _resolve(model: str, module: nn.Module):
+def _resolve(model: str, module: nn.Module, per_row: bool = True):
     """Model name → (apply_fn(module, x, state=None, return_state=False),
     init_state(nb) on the module's device, or None for a forward-only
-    model). The shared head of the slot pool and of export."""
+    model). The shared head of the slot pool and of export.
+
+    ``per_row`` (the pool's) keeps IPDnet2's MHSA and retention positions
+    and running scale one a row, so that every state leaf grows with nb;
+    export asks for JAX's leaves (``per_row=False``), where they are one
+    for the batch. The two give the same outputs."""
     from fnssl_tpu_torch.models.fnssl import init_fnssl_state
     from fnssl_tpu_torch.models.ipdnet import init_ipdnet_state
     from fnssl_tpu_torch.models.spatialnet import init_spatialnet_state
@@ -66,13 +75,8 @@ def _resolve(model: str, module: nn.Module):
         # array's pair means have no causal streaming state: forward-only
         return (lambda m, x, state=None, return_state=False: m(x)), None
     if model == "ipdnet2":
-        if module.cfg.time_kind != "mamba":
-            # the JAX CLI serves and exports the Mamba flagship only
-            raise NotImplementedError(
-                f"serving or exporting a SpatialNet with "
-                f"attention={module.cfg.attention!r}: not ported yet")
         return apply_fn, lambda nb: init_spatialnet_state(
-            nb, module.cfg, module.device)
+            nb, module.cfg, module.device, per_row)
     raise ValueError(f"export: unknown model {model!r}")
 
 
@@ -122,7 +126,7 @@ def export_model(model: str, module: nn.Module, example_feats, out_dir: str,
         raise ValueError(f"export: mode {mode!r}")
     platforms = list(platforms or [module.device.type])
     devices = [_platform_device(p) for p in platforms]
-    apply_fn, init_state = _resolve(model, module)
+    apply_fn, init_state = _resolve(model, module, per_row=False)
     if mode == "stream" and init_state is None:
         raise ValueError(f"{model} has no causal streaming state; export "
                          "with mode='forward'")
@@ -135,7 +139,7 @@ def export_model(model: str, module: nn.Module, example_feats, out_dir: str,
         feats = feats0.to(device)
         spec, args = None, (feats,)
         if mode == "stream":
-            _, init_on = _resolve(model, m)
+            _, init_on = _resolve(model, m, per_row=False)
             # one storage a leaf: the models build several state leaves
             # from one zeros tensor
             leaves, spec = pytree.tree_flatten(init_on(feats.shape[0]))

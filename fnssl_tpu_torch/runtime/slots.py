@@ -25,7 +25,11 @@ The slot axis of every state leaf is found by comparing ``init_state(1)``
 with ``init_state(2)``: each leaf scales at exactly one axis, holding
 slot-major blocks of rows (row-major flattening of (nb, k, …) in every
 model: FN-SSL's (1, nb·nf, H) LSTM states on axis 1, IPDnet's conv tails
-(nb, …) and IPDnet2's (nb·16, …) Mamba states on axis 0).
+(nb, …) and IPDnet2's (nb·16, …) time-module states on axis 0). A leaf
+that does not grow with nb is refused: one value shared by slots at
+different positions cannot be right for all of them (IPDnet2's MHSA and
+retention positions and running scale are kept a row for the pool,
+``init_spatialnet_state(per_row=True)``).
 
 A graph replay calls no wrapper, so the kernels' launch counters move
 only where a wrapper launched (the capture's eager warm-up, the capture
@@ -45,7 +49,8 @@ from torch.utils import _pytree as pytree
 
 def _slot_axes(init_state_fn) -> list[int]:
     """Per-leaf slot-axis indices, from the shape delta between nb=1 and
-    nb=2 states; leaves that do not scale with nb get -1."""
+    nb=2 states; a leaf that does not scale linearly with nb at exactly
+    one axis raises ValueError."""
     s1 = pytree.tree_leaves(init_state_fn(1))
     s2 = pytree.tree_leaves(init_state_fn(2))
 
@@ -53,7 +58,9 @@ def _slot_axes(init_state_fn) -> list[int]:
         diffs = [i for i, (x, y) in enumerate(zip(a.shape, b.shape))
                  if x != y]
         if not diffs:
-            return -1
+            raise ValueError(
+                f"state leaf {tuple(a.shape)} does not scale with nb: one "
+                "value shared by every slot; slot batching unsupported")
         if len(diffs) != 1 or b.shape[diffs[0]] != 2 * a.shape[diffs[0]]:
             raise ValueError(
                 f"state leaf {tuple(a.shape)}→{tuple(b.shape)} does not "
@@ -73,8 +80,6 @@ def _blocks(leaf: torch.Tensor, ax: int, slots: int) -> torch.Tensor:
 def _per_slot_where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                     ax: int, slots: int) -> torch.Tensor:
     """where(mask per slot, a, b) along a leaf's slot axis."""
-    if ax < 0:
-        return a
     av, bv = _blocks(a, ax, slots), _blocks(b, ax, slots)
     m = mask.view((1,) * ax + (slots,) + (1,) * (av.dim() - ax - 1))
     return torch.where(m, av, bv).reshape(a.shape)
@@ -84,8 +89,6 @@ def _gather_slots(leaf: torch.Tensor, ids: torch.Tensor, ax: int,
                   slots: int) -> torch.Tensor:
     """Take ``ids``' slot blocks out of a full-pool leaf along its slot
     axis: (…, S·k, …) → (…, s·k, …)."""
-    if ax < 0:
-        return leaf
     sub = _blocks(leaf, ax, slots).index_select(ax, ids)
     shape = leaf.shape
     return sub.reshape(shape[:ax] + (-1,) + shape[ax + 1:])
@@ -95,8 +98,6 @@ def _scatter_slots(full: torch.Tensor, sub: torch.Tensor, ids: torch.Tensor,
                    ax: int, slots: int) -> None:
     """Write ``sub``'s slot blocks into the full-pool leaf at ``ids``, in
     place (the inverse of ``_gather_slots``); ids must be distinct."""
-    if ax < 0:
-        return
     _blocks(full, ax, slots).index_copy_(
         ax, ids, _blocks(sub, ax, ids.shape[0]))
 
@@ -180,9 +181,8 @@ class SlotBatchedStepper:
         Returns the tier's output (s·rows, …)."""
         S = self.slots
         if s not in self._fresh:
-            self._fresh[s] = [
-                f if ax < 0 else torch.cat([f] * s, dim=ax)
-                for f, ax in zip(self._fresh1, self._axes)]
+            self._fresh[s] = [torch.cat([f] * s, dim=ax)
+                              for f, ax in zip(self._fresh1, self._axes)]
         with torch.no_grad():
             sub = [_gather_slots(leaf, ids, ax, S)
                    for leaf, ax in zip(self._state, self._axes)]

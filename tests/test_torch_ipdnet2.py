@@ -235,6 +235,9 @@ def test_spatialnet_streamed_matches_jax_state(spatialnet):
 
 
 def test_config_properties_match_jax_and_unported_kinds_say_so():
+    """Every time module's config properties equal JAX's, and serving and
+    export take every kind (the name is the old refusal's): ``_resolve``
+    gives an apply function and a per-row init for MHSA and retention."""
     for attention in ("mamba", "mamba(8,3)", "mhsa(20)", "ret(3)"):
         tcfg = ts.SpatialNetConfig(attention=attention, rope="ALiBi")
         jcfg = js.SpatialNetConfig(attention=attention, rope="ALiBi")
@@ -243,10 +246,14 @@ def test_config_properties_match_jax_and_unported_kinds_say_so():
         for prop in ("mamba_cfg", "mhsa_cfg", "ret_cfg", "tconv_cfg"):
             assert tuple(getattr(tcfg, prop)) == tuple(getattr(jcfg, prop))
         if tcfg.time_kind != "mamba":
-            # the model builds; serving and export take Mamba only
+            # the model builds, and serving and export take it: an apply
+            # function and the pool's per-row init, every leaf growing
+            # with nb
             model = ts.SpatialNet(tcfg._replace(**SMALL), device="cpu")
-            with pytest.raises(NotImplementedError, match="not ported yet"):
-                _resolve("ipdnet2", model)
+            apply_fn, init_state = _resolve("ipdnet2", model)
+            assert callable(apply_fn)
+            assert all(a.shape[0] == 2 * b.shape[0] for a, b in zip(
+                init_state(2).time[0][0], init_state(1).time[0][0]))
     assert ts.SpatialNetConfig().ret_cfg.key_dim == 24
 
 

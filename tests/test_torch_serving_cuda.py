@@ -59,11 +59,16 @@ def lstm_inputs(cuda, t, b, h, ndir=None, seed=0):
 @pytest.mark.parametrize("reverse", [False, True])
 def test_lstm_op_matches_wrapper_and_plain(cuda, t, b, h, reverse):
     """ops.lstm_fwd at the narrow-band serve shapes (one stream and the
-    16-slot tier of FN-SSL; IPDnet's one stream)."""
+    16-slot tier of FN-SSL; IPDnet's one stream), one launch on the
+    kernel ``fwd_route`` gives the shape (the 16-slot tier's on
+    lstm_wave.cu)."""
     args = lstm_inputs(cuda, t, b, h, seed=t + b + h)
-    before = lstm_cuda.launches.value
+    counter = {"cluster": lstm_cuda.launches, "wave": lstm_cuda.launches_wave,
+               "wide": lstm_cuda.launches_wide}[
+                   lstm_cuda.fwd_route(t, b, h, 1, 4)]
+    before = counter.value
     got = ops.lstm_fwd(*args, reverse=reverse)
-    assert lstm_cuda.launches.value == before + 1
+    assert counter.value == before + 1
     direct = lstm_cuda.lstm_fwd(*args, reverse=reverse)
     plain = lstm_cuda.lstm_fwd_plain(*args, reverse=reverse)
     for g, d, p in zip(got, direct, plain):

@@ -228,8 +228,9 @@ def test_feat_upload_dtype_follows_params():
 def test_slot_axes_of_each_model():
     """The slot axis of every state leaf: FN-SSL's (1, nb·nf, H) LSTM
     states on axis 1; IPDnet's LSTM states on 1 and its conv tails on 0;
-    IPDnet2's encoder tail (nb·F, …) and Mamba states (nb·F/r, …) on 0;
-    a leaf that does not scale is refused."""
+    IPDnet2's encoder tail (nb·F, …) and Mamba states (nb·F/r, …) on 0,
+    and its MHSA and retention states in the per-row form; a leaf that
+    does not scale is refused."""
     from fnssl_tpu_torch.models.ipdnet import IPDnetConfig, \
         init_ipdnet_state
     from fnssl_tpu_torch.models.spatialnet import SpatialNetConfig, \
@@ -244,6 +245,15 @@ def test_slot_axes_of_each_model():
     scfg = SpatialNetConfig(num_layers=2, dim_hidden=16)
     assert _slot_axes(lambda nb: init_spatialnet_state(nb, scfg, "cpu")) \
         == [0] * 9
+    # MHSA (tail, pos) and retention (kv, scale, pos), each with the
+    # T-ConvFFN tail: the pool's per-row leaves all on axis 0; JAX's
+    # shared positions and scale are refused
+    for attention, n in (("mhsa(6)", 7), ("ret(2)", 9)):
+        tcfg = scfg._replace(attention=attention)
+        assert _slot_axes(lambda nb: init_spatialnet_state(
+            nb, tcfg, "cpu", per_row=True)) == [0] * n
+        with pytest.raises(ValueError, match="does not scale with nb"):
+            _slot_axes(lambda nb: init_spatialnet_state(nb, tcfg, "cpu"))
     with pytest.raises(ValueError, match="does not scale"):
         _slot_axes(lambda nb: torch.zeros(nb, nb))
 

@@ -23,6 +23,7 @@ import fnssl_tpu_torch.models.spatialnet as ts
 from fnssl_tpu.data.arrays import audiowu_high_array_geometry
 from fnssl_tpu.train import tasks as jtasks
 from fnssl_tpu_torch.runtime.export import _resolve
+from fnssl_tpu_torch.runtime.slots import _slot_axes
 from fnssl_tpu_torch.train import tasks as ttasks
 from fnssl_tpu_torch.train.convert import params_to_state_dict
 from tests.test_torch_threads import torch_threads  # noqa: F401
@@ -92,12 +93,37 @@ def test_streaming_matches_jax_streaming(attention, rope, chunkwise):
                                    atol=ATOL)
 
 
-def test_serving_paths_refuse_time_modules_other_than_mamba():
-    """The slot pool and export take the Mamba flagship only, as the JAX
-    CLI serves no other."""
-    _, _, model = pair("mhsa(6)", False, True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _resolve("ipdnet2", model)
+@pytest.mark.parametrize("attention,rope", [("mhsa(6)", False),
+                                            ("ret(2)", True)])
+def test_serving_paths_refuse_time_modules_other_than_mamba(attention,
+                                                            rope):
+    """The slot pool and export take every time module now (the name is
+    the old refusal's): ``_resolve`` gives an apply function and, for the
+    pool, an init whose every leaf grows with nb (the positions and the
+    running scale one a row of the nb·F time-module batch); export's
+    leaves are JAX's. A chunk step from either init gives the same
+    output."""
+    _, _, model = pair(attention, rope, True)
+    apply_fn, init_state = _resolve("ipdnet2", model)
+    f = model.cfg.num_freqs // model.cfg.fre_compression_ratio
+    pooled = leaves(init_state(2))
+    shared = leaves(_resolve("ipdnet2", model, per_row=False)[1](2))
+    assert _slot_axes(init_state) == [0] * len(pooled)
+    per_layer = 3 if attention.startswith("mhsa") else 4
+    assert len(pooled) == len(shared) == 1 + 2 * per_layer
+    for a, b in zip(pooled, shared):
+        assert a.dtype == b.dtype
+        if b.ndim < 2:                 # pos () or scale (heads,)
+            assert a.shape == (2 * f,) + b.shape
+        else:
+            assert a.shape == b.shape
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (2, 6, 32, 5)).astype(np.float32))
+    with torch.no_grad():
+        got, _ = apply_fn(model, x, state=init_state(2), return_state=True)
+        want = model(x, state=ts.init_spatialnet_state(2, model.cfg, "cpu"),
+                     return_state=True)[0]
+    assert torch.equal(got, want)
 
 
 MICS = audiowu_high_array_geometry()[[0, 1, 3]]
